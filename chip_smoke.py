@@ -1,0 +1,403 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each printed as it completes; any failure exits non-zero:
+  1. card name and power limit, torch version, CUDA capability (must be 9.0);
+  2. build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+     nvcc per source, all at once) and its time;
+  3. each kernel against its plain PyTorch version on the card at the
+     serving path's shapes, with kernel, plain and library times (CUDA
+     graphs of many launches over rotating inputs larger than the L2) and
+     the least time the card could take (bytes at 3.35 TB/s or f32 FMAs at
+     67 TFLOP/s, H100 SXM data sheet);
+  4. smollm-135m at full width (random weights from a seeded generator,
+     int8 weights and int8 KV cache): ``ServeEngine.generate`` (8 slots,
+     prompt 128, 64 new tokens) and ``run_restart_batching`` (16 requests,
+     arrival spacing 2), with the kernels' launch counts checked against the
+     path's expected counts and the logits held to the plain versions.
+The line before the last is a JSON summary per kernel; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
+L2_ROTATE_BYTES = 128 << 20
+WQ_RTOL = 2e-5             # |kernel - plain| <= WQ_RTOL * max|plain| (f32 sums, other order)
+ATTN_ATOL = 1e-4           # softmax-weighted means of values within +-16
+LOGIT_ATOL = 2e-2          # logits after 30 layers; int8 KV codes may flip at trunc edges
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(out.returncode == 0, f"nvidia-smi exit {out.returncode}: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def graph_ms(torch, calls, iters):
+    """Device ms per call: ``iters`` calls cycling through ``calls``,
+    captured in one CUDA graph and replayed between CUDA events."""
+    for c in calls[:2]:
+        c()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del g
+    return ms
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_wq_matmul(torch, ref, wq_cuda, gen):
+    """Kernel vs plain at the four projection shapes, M = 8 (decode) and 8*128."""
+    shapes = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/in": (576, 1536),
+              "out": (1536, 576)}
+    calls_per_layer = {"wq/wo": 2, "wk/wv": 2, "gate/in": 2, "out": 1}
+    rows, worst = [], 0.0
+    for m in (8, 8 * 128):
+        for label, (k, n) in shapes.items():
+            copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (k * n))))
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            ws = [torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(copies)]
+            scale = torch.exp2(-torch.randint(5, 10, (n,), generator=gen, device="cuda")
+                               .to(torch.float32))
+            got = wq_cuda(x, ws[0], scale)
+            want = ref.wq_matmul_ref(x, ws[0], scale)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = WQ_RTOL * want.abs().max().item()
+            check(err <= tol, f"wq_matmul M={m} {k}x{n}: max err {err} > {tol}")
+            worst = max(worst, err)
+            deq = [w.to(torch.float32) * scale for w in
+                   ws[:max(1, min(len(ws), math.ceil(L2_ROTATE_BYTES / (4 * k * n))))]]
+            iters = max(len(ws), 64)
+            ms = graph_ms(torch, [lambda w=w: wq_cuda(x, w, scale) for w in ws], iters)
+            plain = graph_ms(torch, [lambda w=w: ref.wq_matmul_ref(x, w, scale) for w in ws],
+                             iters)
+            lib = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in deq], iters)
+            b_ms, b_by = bound(4 * m * k + k * n + 4 * n + 4 * m * n, 2.0 * m * k * n)
+            rows.append(dict(m=m, shape=label, k=k, n=n, err=err, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             per_layer=calls_per_layer[label]))
+            print(f"[kernel] wq_matmul M={m:4d} K={k:4d} N={n:4d} ({label}): "
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us | "
+                  f"plain {plain * 1e3:.2f} us | torch.matmul on dequantized "
+                  f"{lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+            del ws, deq
+    decode = [r for r in rows if r["m"] == 8]
+    agg = {key: sum(r[key] * r["per_layer"] for r in decode)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[kernel] wq_matmul one decode layer (7 calls, M=8): kernel "
+          f"{agg['ms'] * 1e3:.2f} us | plain {agg['plain_ms'] * 1e3:.2f} us | library "
+          f"{agg['library_ms'] * 1e3:.2f} us | bound {agg['bound_ms'] * 1e3:.2f} us",
+          flush=True)
+    return rows, agg, worst
+
+
+def check_qdecode_attn(torch, F, ref, qd_cuda, gen):
+    """Kernel vs plain at B=8, Hq=9, Hkv=3, D=64 over S = 192 (the smoke
+    run's cache), 256 and 2048 with per-row live lengths, and at S = 192
+    with one Python-int length, the form ``Attention.apply`` passes."""
+    b, hq, hkv, d = 8, 9, 3, 64
+    g = hq // hkv
+    rows, worst = [], 0.0
+    for s, lens in ((192, [128 + i for i in range(b)]),
+                    (192, 191),
+                    (256, [256, 1, 100, 255, 17, 64, 200, 129]),
+                    (2048, [2048, 5, 1000, 2047, 333, 1536, 64, 1999])):
+        row_lens = [lens] * b if isinstance(lens, int) else lens
+        kv_len = lens if isinstance(lens, int) else torch.tensor(lens, dtype=torch.int32,
+                                                                 device="cuda")
+        q = torch.randn(b, hq, d, generator=gen, device="cuda")
+        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * b * s * hkv * d)))
+        caches = [tuple(torch.randint(-128, 128, (b, s, hkv, d), generator=gen,
+                                      device="cuda", dtype=torch.int32).to(torch.int8)
+                        for _ in range(2)) for _ in range(copies)]
+        got = qd_cuda(q, caches[0][0], caches[0][1], 3, 3, kv_len)
+        want = ref.qdecode_attn_ref(q, caches[0][0], caches[0][1], 3, 3, kv_len)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= ATTN_ATOL, f"qdecode_attn S={s}: max err {err} > {ATTN_ATOL}")
+        worst = max(worst, err)
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < torch.tensor(row_lens, device="cuda")[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        lib_copies = max(1, min(copies, math.ceil(L2_ROTATE_BYTES / (8 * b * s * hq * d))))
+        deq = [tuple(c.to(torch.float32).mul(0.125).repeat_interleave(g, dim=2)
+                     .permute(0, 2, 1, 3).contiguous() for c in kv)
+               for kv in caches[:lib_copies]]
+        iters = max(copies, 64)
+        ms = graph_ms(torch, [lambda kv=kv: qd_cuda(q, kv[0], kv[1], 3, 3, kv_len)
+                              for kv in caches], iters)
+        plain = graph_ms(torch, [lambda kv=kv: ref.qdecode_attn_ref(q, kv[0], kv[1], 3, 3,
+                                                                    kv_len)
+                                 for kv in caches], iters)
+        lib = graph_ms(torch, [lambda kv=kv: F.scaled_dot_product_attention(
+            qs, kv[0], kv[1], attn_mask=mask) for kv in deq], iters)
+        live = sum(min(n, s) if n > 0 else s for n in row_lens)
+        b_ms, b_by = bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * b,
+                           4.0 * live * hq * d)
+        rows.append(dict(s=s, lens=lens, err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by))
+        form = "int" if isinstance(lens, int) else "(B,) int32"
+        print(f"[kernel] qdecode_attn B={b} Hq={hq} Hkv={hkv} D={d} S={s} kv_len={lens} "
+              f"({form}): "
+              f"max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}) | kernel {ms * 1e3:.2f} us | "
+              f"plain {plain * 1e3:.2f} us | sdpa on dequantized {lib * 1e3:.2f} us | "
+              f"bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+        del caches, deq
+    return rows, worst
+
+
+def profile_decode(torch, engine, prompts, card, steps: int = 8) -> None:
+    """Where a decode step's time goes: wall time per step without the
+    profiler, then device time per step by kernel under ``torch.profiler``
+    and the device's idle share of the unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(cache, tok):
+        for _ in range(steps):
+            logits, cache = engine.decode(tok, cache)
+            tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        return cache, tok
+
+    with torch.inference_mode():
+        logits, cache = engine.prefill(prompts, engine.new_cache())
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        cache, tok = run(cache, tok)            # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, tok = run(cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(cache, tok)
+            torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue    # host-side ops also report their kernels' time
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            rows.append((t / steps, e.count / steps, e.key))
+    if not rows:
+        print(f"[profile] decode step: {wall_ms:.2f} ms wall; device time not measured "
+              "(the profiler recorded no device events)", flush=True)
+        return
+    busy_us = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"[profile] decode step (B={prompts.shape[0]}): {wall_ms:.2f} ms wall without the "
+          f"profiler | device busy {busy_us / 1e3:.3f} ms in {launches:.0f} kernels | device "
+          f"idle {1 - busy_us / 1e3 / wall_ms:.3f} of the wall time | host time per kernel "
+          f"{wall_ms * 1e3 / launches:.1f} us | card {card}", flush=True)
+    for t, n, key in sorted(rows, reverse=True)[:8]:
+        print(f"[profile]   {t:9.1f} us/step  {n:5.0f} launches/step  {key[:90]}", flush=True)
+
+
+def end_to_end(torch, card):
+    """smollm-135m at full width through the port's serving entry points."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_workload, report
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import ServeEngine, run_restart_batching
+
+    cfg = get_config("smollm-135m")
+    model = cfg.build()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    slots, plen, new = 8, 128, 64
+    engine = ServeEngine(model=model, params=params, max_len=plen + new, batch_slots=slots,
+                         weight_quant=True, quantized_kv=True, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (slots, plen), device="cuda", dtype=torch.int32,
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    print(f"[e2e] smollm-135m: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; init + "
+          f"int8 integerize {time.perf_counter() - t0:.2f}s", flush=True)
+    n_layers = cfg.n_layers
+    per_forward = 7 * n_layers
+
+    # -- the main path: generate, counted ------------------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts_gen = ops.launch_counts()
+    want = {"wq_matmul": per_forward * new, "qdecode_attn": n_layers * (new - 1)}
+    check(counts_gen == want, f"generate launch counts {counts_gen} != expected {want}")
+    check(tuple(out.shape) == (slots, new), f"generate output shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "generated ids outside the vocab")
+    print(f"[e2e] generate: launches {counts_gen} == expected (7 x {n_layers} wq_matmul per "
+          f"forward, {n_layers} qdecode_attn per decode step); first call {first_s:.2f}s",
+          flush=True)
+
+    # -- logits against the plain versions on the same card -------------------
+    def first_logits():
+        with torch.inference_mode():
+            l0, cache = engine.prefill(prompts, engine.new_cache())
+            tok = torch.argmax(l0, dim=-1, keepdim=True).to(torch.int32)
+            l1, _ = engine.decode(tok, cache)
+        return l0, l1
+
+    k0, k1 = first_logits()
+    ops.FORCE = "plain"
+    try:
+        p0, p1 = first_logits()
+        plain_out = engine.generate(prompts, new)
+    finally:
+        ops.FORCE = None
+    for name, a, b in (("prefill", k0, p0), ("first decode step", k1, p1)):
+        check(bool(torch.isfinite(a).all()), f"{name} logits not finite")
+        err = (a - b).abs().max().item()
+        check(err <= LOGIT_ATOL, f"{name} logits: max err {err} > {LOGIT_ATOL}")
+        top2 = torch.topk(b, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
+        same = torch.argmax(a, -1) == torch.argmax(b, -1)
+        check(bool(same[clear].all()), f"{name}: greedy token differs on a clear margin")
+        print(f"[e2e] {name} logits {tuple(a.shape)}: max_abs_err vs plain {err:.3e} "
+              f"(tol {LOGIT_ATOL}); greedy tokens equal on {int(clear.sum())}/{len(clear)} "
+              f"rows with a clear top-2 margin", flush=True)
+    agree = (out == plain_out).float().mean().item()
+
+    t0 = time.perf_counter()
+    engine.generate(prompts, new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[e2e] generate {slots}x{new} tokens: steady {slots * new / dt:.1f} tok/s "
+          f"({dt * 1e3 / new:.2f} ms per step, prefill included); token agreement with "
+          f"the plain versions {agree:.4f}; card {card}", flush=True)
+
+    profile_decode(torch, engine, prompts, card)
+
+    # -- the restart-the-batch policy, counted ---------------------------------
+    args = SimpleNamespace(requests=16, arrival_spacing=2, prompt_len=plen, max_new=new,
+                           max_new_min=32, seed=0)
+    reqs = build_workload(args, cfg.vocab)
+    ops.reset_launch_counts()
+    results, stats = run_restart_batching(engine, reqs, seed=0)
+    counts_rr = ops.launch_counts()
+    horizons = {r.admitted_at: r.finished_at - r.admitted_at for r in results.values()}
+    steps = sum(horizons.values())
+    warm = max(r.max_new for r in reqs)
+    want = {"wq_matmul": per_forward * (steps + warm),
+            "qdecode_attn": n_layers * (steps - len(horizons) + warm - 1)}
+    check(counts_rr == want, f"restart launch counts {counts_rr} != expected {want}")
+    check(len(results) == len(reqs), "restart lost requests")
+    for r, req in ((results[q.rid], q) for q in reqs):
+        check(len(r.tokens) == req.max_new and all(0 <= t < cfg.vocab for t in r.tokens),
+              f"request {r.rid}: bad tokens")
+    report("restart", stats)
+    print(f"[e2e] restart: {len(results)} requests in {len(horizons)} batches; launches "
+          f"{counts_rr} == expected; card {card}", flush=True)
+    return {k: counts_gen[k] + counts_rr[k] for k in counts_gen}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device is visible: this script measures the port on the GPU")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import _build, ref
+        from repro_torch.kernels.qdecode_attn import qdecode_attn_cuda
+        from repro_torch.kernels.wq_matmul import wq_matmul_cuda
+    except ImportError as e:
+        fail(f"the port is not importable next to this script ({e})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    cap = torch.cuda.get_device_capability(0)
+    print(f"[card] {card} | torch {torch.__version__} (CUDA {torch.version.cuda}) | "
+          f"capability {cap}", flush=True)
+    check(cap == (9, 0), f"capability {cap}: the kernels are built for sm_90a")
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    print(f"[build] {', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}; all "
+          f"{time.perf_counter() - t0:.1f}s (nvcc in parallel)", flush=True)
+    for name in _build.KERNELS:
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        for line in log.splitlines():
+            if "registers" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wq_rows, wq_agg, wq_err = check_wq_matmul(torch, ref, wq_matmul_cuda, gen)
+    qd_rows, qd_err = check_qdecode_attn(torch, F, ref, qdecode_attn_cuda, gen)
+    launches = end_to_end(torch, card)
+
+    qd_main = qd_rows[-1]
+    kernels = [
+        {"name": "wq_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/wq_matmul.cu",
+         "replaces": "src/repro/kernels/wq_matmul.py:51",
+         "launches": launches["wq_matmul"], "max_abs_err": wq_err,
+         "ms": wq_agg["ms"], "plain_ms": wq_agg["plain_ms"],
+         "bound_ms": wq_agg["bound_ms"], "bound_by": "bytes",
+         "library_ms": wq_agg["library_ms"],
+         "shape": "one decode layer: 7 calls at M=8 (576x576 x2, 576x192 x2, "
+                  "576x1536 x2, 1536x576)"},
+        {"name": "qdecode_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qdecode_attn.cu",
+         "replaces": "src/repro/kernels/qdecode_attn.py:65",
+         "launches": launches["qdecode_attn"], "max_abs_err": qd_err,
+         "ms": qd_main["ms"], "plain_ms": qd_main["plain_ms"],
+         "bound_ms": qd_main["bound_ms"], "bound_by": qd_main["bound_by"],
+         "library_ms": qd_main["library_ms"],
+         "shape": f"B=8 Hq=9 Hkv=3 D=64 S={qd_main['s']} kv_len={qd_main['lens']}"},
+    ]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,127 @@
+"""Serving entry point of the port (``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --policy restart --wq --qkv [--device cpu]
+
+--wq   int8 weight-only storage (the ``wq_matmul`` kernel)
+--qkv  int8 KV cache on the paper's Qm.n grid (the ``qdecode_attn`` kernel)
+
+Policies ported so far:
+  restart    restart-the-batch: lockstep generate() per gathered batch,
+             everyone waits for the longest request
+  lockstep   one generate() over --slots prompts (--requests clamped)
+The continuous-batching policies (chunked, ragged, scheduler) are the next
+slice of the port.  Runs on the GPU unless --device says otherwise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models.registry import get_config
+from repro_torch.nn.module import resolve_device
+from repro_torch.serve import Request, ServeEngine, run_restart_batching
+
+_NEXT_SLICE = ("chunked", "ragged", "scheduler")
+
+
+def build_workload(args, vocab: int):
+    """Request i arrives at tick i*spacing with a --prompt-len prompt and a
+    max_new alternating across [--max-new-min, --max-new]."""
+    rng = np.random.default_rng(args.seed + 1)
+    lo = args.max_new_min or args.max_new
+    reqs = []
+    for i in range(args.requests):
+        max_new = lo if (lo == args.max_new or i % 2 == 0) else args.max_new
+        reqs.append(Request(rid=i, prompt=rng.integers(0, vocab, size=args.prompt_len,
+                                                       dtype=np.int32),
+                            max_new=int(max_new), arrival=i * args.arrival_spacing))
+    return reqs
+
+
+def report(name: str, stats) -> None:
+    s = stats.summary()
+    print(f"[{name}] warmup(compile) {s['compile_s']:.2f}s | "
+          f"steady {s['steady_tok_s']:.1f} tok/s over {s['steady_s']:.3f}s | "
+          f"occupancy {s['occupancy']:.2f} | "
+          f"latency p50/p99 {s['p50_latency_steps']:.0f}/"
+          f"{s['p99_latency_steps']:.0f} steps | "
+          f"cache {s['peak_cache_bytes']/1024:.0f} KiB")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--slots", "--batch", type=int, default=4, dest="slots")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--max-new-min", type=int, default=0,
+                    help="alternate request horizons in [min, max] (0 = uniform --max-new)")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--arrival-spacing", type=int, default=2,
+                    help="decode-step ticks between request arrivals")
+    ap.add_argument("--policy", default="restart",
+                    choices=["chunked", "ragged", "scheduler", "restart", "lockstep"])
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="stop a request when this token is sampled (-1 = off)")
+    ap.add_argument("--wq", nargs="?", const="int8", default=False, choices=["int8"],
+                    help="int8 weight-only storage (packed int4/int2 come later)")
+    ap.add_argument("--qkv", action="store_true", help="int8 KV cache")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the plain kernels)")
+    args = ap.parse_args(argv)
+    if args.policy in _NEXT_SLICE:
+        raise SystemExit(f"--policy {args.policy}: continuous batching is the next "
+                         "slice of the port; use --policy restart or lockstep")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    model = cfg.build()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init(gen, device)
+    engine = ServeEngine(model=model, params=params,
+                         max_len=args.prompt_len + args.max_new,
+                         batch_slots=args.slots, quantized_kv=args.qkv,
+                         weight_quant=args.wq, temperature=args.temperature,
+                         device=device)
+
+    if args.policy == "lockstep":
+        n = min(args.requests, args.slots)
+        pgen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        prompts = torch.randint(0, cfg.vocab, (args.slots, args.prompt_len),
+                                generator=pgen, device=device, dtype=torch.int32)
+        t0 = time.perf_counter()
+        engine.generate(prompts, args.max_new, seed=args.seed)
+        _sync(device)
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, args.max_new, seed=args.seed)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        print(f"[lockstep] warmup(compile) {warm:.2f}s | "
+              f"steady {n * args.max_new / dt:.1f} tok/s over {dt:.3f}s")
+        print(out[:n, :16].cpu())
+        return out
+
+    reqs = build_workload(args, cfg.vocab)
+    results, stats = run_restart_batching(engine, reqs, seed=args.seed,
+                                          eos_id=None if args.eos_id < 0 else args.eos_id)
+    report("restart", stats)
+    first = results[min(results)]
+    print(f"request {first.rid}: {len(first.tokens)} tokens "
+          f"({first.status}), first-10 {first.tokens[:10]}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,63 @@
+"""Decoder-only ``CausalLM`` (``repro/models/lm.py``).
+
+The vocabulary is padded (``vocab_padded``) as in the reference; serving
+masks the padded tail before sampling.  The LM head is tied to the
+embedding.  Untied heads and ``EncDecLM`` wait for the archs that need them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.nn.layers import Embedding, RMSNorm
+from repro_torch.nn.module import Context, Params
+from repro_torch.nn.transformer import Stack
+
+
+@dataclasses.dataclass(frozen=True)
+class CausalLM:
+    vocab: int                    # true vocabulary size
+    vocab_padded: int
+    d_model: int
+    stack: Stack
+    name: str = "lm"
+
+    def _embed(self) -> Embedding:
+        return Embedding(self.vocab_padded, self.d_model, name="embed")
+
+    def _final_norm(self) -> RMSNorm:
+        return RMSNorm(self.d_model, name="final_norm")
+
+    def init(self, gen: torch.Generator, device) -> Params:
+        """Random parameters drawn from ``gen`` (a generator on ``device``)."""
+        return {"embed": self._embed().init(gen, device),
+                "stack": self.stack.init(gen, device),
+                "final_norm": self._final_norm().init(gen, device)}
+
+    def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool = False,
+                   device) -> Dict[str, Any]:
+        return self.stack.init_cache(batch, max_len, quantized_kv=quantized_kv, device=device)
+
+    def apply(self, params: Params, tokens: torch.Tensor, ctx: Context, *,
+              cache: Optional[Dict[str, Any]] = None,
+              decode: bool = False,
+              logit_pos: Optional[int] = None,
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+        """Returns (logits (B, S, vocab_padded) f32, new_cache).
+
+        ``logit_pos``: logits at that one position only ((B, 1, V)); the
+        hidden states are sliced before the LM head, which dominates a
+        small-batch forward.
+        """
+        ctx = ctx.scope(self.name)
+        x = self._embed().apply(params["embed"], tokens, ctx)
+        x, new_cache = self.stack.apply(params["stack"], x, ctx, cache=cache,
+                                        decode=decode)
+        if logit_pos is not None:
+            pos = logit_pos % x.shape[1]
+            x = x[:, pos:pos + 1]
+        x = self._final_norm().apply(params["final_norm"], x, ctx)
+        logits = self._embed().attend(params["embed"], x, ctx)     # tied head
+        return logits.to(torch.float32), new_cache

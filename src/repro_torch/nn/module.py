@@ -1,0 +1,85 @@
+"""Minimal module substrate (``repro/nn/module.py``) plus device selection.
+
+Parameters are nested dicts/lists of tensors (or :class:`QTensor` leaves
+once a model is integerized), laid out exactly as the JAX package lays them
+out, so converted JAX parameters drive the port unchanged.  Stacked layers
+keep their leading layer axis; :func:`tree_layer` takes one layer's views.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.qformat import QTensor
+
+Params = Dict[str, Any]
+
+
+def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another.  Without a card and without an explicit choice this
+    raises; nothing falls back to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible: the port runs on the GPU by "
+                "default; pass device='cpu' (--device cpu) to run on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} asked for, but no CUDA device is visible")
+    return dev
+
+
+@dataclasses.dataclass
+class Context:
+    """Per-call state threaded through every module: the quantization
+    policy and the scope path (names line up with the reference's)."""
+
+    policy: QuantPolicy = dataclasses.field(default_factory=QuantPolicy.float32)
+    path: str = ""
+
+    def scope(self, name: str) -> "Context":
+        """Child context with ``name`` appended to the naming path."""
+        return dataclasses.replace(self, path=f"{self.path}/{name}" if self.path else name)
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """Apply ``fn`` to every leaf (tensors and QTensors) of a dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a dict/list tree in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views into the stacked storage)."""
+    def take(leaf):
+        if isinstance(leaf, QTensor):
+            return leaf.layer(i)
+        if isinstance(leaf, torch.Tensor):
+            return leaf[i]
+        return leaf
+    return tree_map(take, tree)
+
+
+def tree_to(tree, device):
+    """Move every tensor leaf to ``device`` (no copy where already there)."""
+    def move(leaf):
+        if isinstance(leaf, (torch.Tensor, QTensor)):
+            return leaf.to(device)
+        return leaf
+    return tree_map(move, tree)

@@ -1,0 +1,133 @@
+"""Transformer block and layer stack (``repro/nn/transformer.py``).
+
+The slice's :class:`Block` is the pre-norm "a" layout: RMSNorm -> attention
+-> residual, RMSNorm -> gated FFN -> residual.  :class:`Stack` keeps the
+reference's stacked parameter layout (one leading layer axis per body
+position when ``n_periods > 1``) and loops over the layer axis where the
+reference runs ``lax.scan``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.nn.attention import Attention, init_kv_cache
+from repro_torch.nn.layers import RMSNorm
+from repro_torch.nn.mlp import GatedMLP
+from repro_torch.nn.module import Context, Params, tree_layer
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """One residual layer: norm + attention + norm + gated FFN."""
+
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    causal: bool = True
+    activation: str = "silu"
+    name: str = "block"
+
+    def _mixer(self) -> Attention:
+        return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
+                         use_qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+                         use_rope=self.use_rope, causal=self.causal, name="attn")
+
+    def _ffn(self) -> GatedMLP:
+        return GatedMLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
+
+    def init(self, gen: torch.Generator, device) -> Params:
+        return {"norm1": RMSNorm(self.d_model, name="norm1").init(gen, device),
+                "mixer": self._mixer().init(gen, device),
+                "norm2": RMSNorm(self.d_model, name="norm2").init(gen, device),
+                "ffn": self._ffn().init(gen, device)}
+
+    def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool, device,
+                   layers: Optional[int] = None) -> Dict[str, Any]:
+        return {"kv": init_kv_cache(batch, max_len, self.n_kv_heads, self.head_dim,
+                                    quantized=quantized_kv, device=device, layers=layers)}
+
+    def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
+              cache: Optional[Dict[str, Any]] = None,
+              decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+        ctx = ctx.scope(self.name)
+        h = RMSNorm(self.d_model, name="norm1").apply(params["norm1"], x, ctx)
+        mix, kv = self._mixer().apply(params["mixer"], h, ctx,
+                                      cache=None if cache is None else cache["kv"],
+                                      decode=decode)
+        x = x + mix
+        h2 = RMSNorm(self.d_model, name="norm2").apply(params["norm2"], x, ctx)
+        x = x + self._ffn().apply(params["ffn"], h2, ctx)
+        return x, (None if kv is None else {"kv": kv})
+
+
+@dataclasses.dataclass(frozen=True)
+class Stack:
+    """``body`` (a period of blocks) repeated ``n_periods`` times."""
+
+    body: Tuple[Block, ...]
+    n_periods: int
+    name: str = "stack"
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.body) * self.n_periods
+
+    @property
+    def stacked(self) -> bool:
+        """Whether params and caches carry a leading layer axis."""
+        return self.n_periods > 1
+
+    def init(self, gen: torch.Generator, device) -> Params:
+        if not self.stacked:
+            return {"body": [blk.init(gen, device) for blk in self.body]}
+        body = []
+        for blk in self.body:
+            layers = [blk.init(gen, device) for _ in range(self.n_periods)]
+            body.append(_stack_trees(layers))
+        return {"body": body}
+
+    def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool,
+                   device) -> Dict[str, Any]:
+        layers = self.n_periods if self.stacked else None
+        return {"body": [blk.init_cache(batch, max_len, quantized_kv=quantized_kv,
+                                        device=device, layers=layers)
+                         for blk in self.body]}
+
+    def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
+              cache: Optional[Dict[str, Any]] = None,
+              decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+        ctx = ctx.scope(self.name)
+        lens = {}
+        for period in range(self.n_periods):
+            for pos, blk in enumerate(self.body):
+                p, c = params["body"][pos], None if cache is None else cache["body"][pos]
+                if self.stacked:
+                    p = tree_layer(p, period)
+                    if c is not None:
+                        c = {"kv": dict(c["kv"], k=c["kv"]["k"][period],
+                                        v=c["kv"]["v"][period])}
+                bctx = ctx.scope(f"p{pos}" if self.stacked else f"l{pos}")
+                x, nc = blk.apply(p, x, bctx, cache=c, decode=decode)
+                if nc is not None:
+                    lens[pos] = nc["kv"]["len"]
+        if cache is None:
+            return x, None
+        # every layer wrote its k/v rows in place; only the length advances
+        return x, {"body": [{"kv": dict(c["kv"], len=lens[pos])}
+                            for pos, c in enumerate(cache["body"])]}
+
+
+def _stack_trees(trees):
+    """Stack a list of identically-shaped param trees along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
