@@ -10,12 +10,16 @@ Phases, each printed as it completes; any failure exits non-zero:
      serving path's shapes, with kernel, plain and library times (CUDA
      graphs of many launches over rotating inputs larger than the L2) and
      the least time the card could take (bytes at 3.35 TB/s or f32 FMAs at
-     67 TFLOP/s, H100 SXM data sheet);
+     67 TFLOP/s, H100 SXM data sheet); ``qchunk_attn`` also has the cache
+     rows it writes held bit for bit, and every other row held unchanged;
   4. smollm-135m at full width (random weights from a seeded generator,
      int8 weights and int8 KV cache): ``ServeEngine.generate`` (8 slots,
-     prompt 128, 64 new tokens) and ``run_restart_batching`` (16 requests,
-     arrival spacing 2), with the kernels' launch counts checked against the
-     path's expected counts and the logits held to the plain versions.
+     prompt 128, 32 new tokens), ``run_restart_batching``, and the
+     continuous-batching ``Scheduler`` with one-shot and chunked (C = 32)
+     admission (the same 16 requests: prompt 128, 32/64 new tokens, arrival
+     spacing 2), each with the kernels' launch counts checked against the
+     path's expected counts; the logits of a prefill, a decode step and a
+     mixed step are held to the plain versions.
 The line before the last is a JSON summary per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -184,29 +188,140 @@ def check_qdecode_attn(torch, F, ref, qd_cuda, gen):
     return rows, worst
 
 
-def profile_decode(torch, engine, prompts, card, steps: int = 8) -> None:
-    """Where a decode step's time goes: wall time per step without the
-    profiler, then device time per step by kernel under ``torch.profiler``
-    and the device's idle share of the unprofiled wall time."""
+def check_qchunk_attn(torch, F, ref, qc_cuda, qd_cuda, gen):
+    """Kernel vs plain at B=8, Hq=9, Hkv=3, D=64: C=32 at S=192 (the serving
+    path's chunks; start 160 puts the chunk's end on S) and at S=2048 behind
+    a 1984-row prefix, C=16 at an untiled start, and C=1, which is also held
+    to ``qdecode_attn`` over the written cache.  Each launch targets another
+    slot of another cache copy, so the prefix comes from device memory.
+
+    Prefix codes and chunk values have the spread of post-norm K/V on the
+    Q4.3 grid (|x| mostly below 2), as the CPU tests draw them, with a few
+    past the grid's range so that codes saturate.  Uniform random codes
+    (|x| up to 16) give scores of +-40, where any other summation order
+    moves the output by about 1e-4."""
+    from repro_torch.core import qformat
+
+    def codes(shape):
+        x = torch.randn(shape, generator=gen, device="cuda").mul(8).round()
+        x.view(-1)[::97] = 127
+        return x.clamp(-128, 127).to(torch.int8)
+
+    b, hq, hkv, d = 8, 9, 3, 64
+    g = hq // hkv
+    rows, worst = [], 0.0
+    for c, s, start in ((32, 192, 0), (32, 192, 96), (32, 192, 160), (32, 2048, 1984),
+                        (16, 192, 100), (1, 192, 150)):
+        slot = 5
+        q = torch.randn(c, hq, d, generator=gen, device="cuda")
+        kc, vc = (1.5 * torch.randn(c, hkv, d, generator=gen, device="cuda")
+                  for _ in range(2))
+        kc.view(-1)[::31] = 20.0
+        vc.view(-1)[::37] = -20.0
+        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * b * s * hkv * d)))
+        caches = [(codes((b, s, hkv, d)), codes((b, s, hkv, d))) for _ in range(copies)]
+        k0, v0 = caches[0][0].clone(), caches[0][1].clone()
+        kk, vk, kp, vp = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+        got = qc_cuda(q, kc, vc, kk, vk, 3, 3, slot, start)
+        want = ref.qchunk_attn_ref(q, kc, vc, kp, vp, 3, 3, slot, start)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= ATTN_ATOL, f"qchunk_attn C={c} S={s} start={start}: max err {err} > "
+                                f"{ATTN_ATOL}")
+        check(torch.equal(kk, kp) and torch.equal(vk, vp),
+              f"qchunk_attn C={c} S={s} start={start}: caches differ from the plain version's")
+        check(torch.equal(kk[slot, start:start + c], qformat.quantize(kc, 3, 8))
+              and torch.equal(vk[slot, start:start + c], qformat.quantize(vc, 3, 8)),
+              f"qchunk_attn C={c} S={s} start={start}: written rows are not the chunk's codes")
+        keep = torch.ones(b, s, dtype=torch.bool, device="cuda")
+        keep[slot, start:start + c] = False
+        check(torch.equal(kk[keep], k0[keep]) and torch.equal(vk[keep], v0[keep]),
+              f"qchunk_attn C={c} S={s} start={start}: a row outside the chunk changed")
+        note = ""
+        if c == 1:
+            qd = torch.zeros(b, hq, d, device="cuda")
+            qd[slot] = q[0]
+            lens = torch.full((b,), start + 1, dtype=torch.int32, device="cuda")
+            dec = qd_cuda(qd, kk, vk, 3, 3, lens)[slot]
+            torch.cuda.synchronize()
+            derr = (dec - got[0]).abs().max().item()
+            check(derr <= ATTN_ATOL, f"qchunk_attn C=1 vs qdecode_attn: max err {derr}")
+            note = f" | vs qdecode_attn at kv_len {start + 1}: max_abs_err {derr:.3e}"
+        worst = max(worst, err)
+        # library: the chunk's quantize-and-copy, then SDPA over the slot's
+        # dequantized, head-expanded rows with the causal offset mask
+        end = start + c
+        mask = torch.arange(end, device="cuda")[None, :] <= \
+            start + torch.arange(c, device="cuda")[:, None]
+        qs = q.permute(1, 0, 2)[None]
+        lib_copies = max(1, min(copies, math.ceil(L2_ROTATE_BYTES / (8 * end * hq * d))))
+        deq = [tuple(qformat.dequantize(x[slot, :end], 3).repeat_interleave(g, dim=1)
+                     .permute(1, 0, 2)[None].contiguous() for x in (kp, vp))
+               for _ in range(lib_copies)]
+
+        def lib(kv, kq=kk, vq=vk):
+            kq[slot, start:end] = qformat.quantize(kc, 3, 8)
+            vq[slot, start:end] = qformat.quantize(vc, 3, 8)
+            return F.scaled_dot_product_attention(qs, kv[0], kv[1], attn_mask=mask)
+
+        calls = [(kv, j) for kv in caches for j in range(b)]
+        iters = max(len(calls), 64)
+        ms = graph_ms(torch, [lambda kv=kv, j=j: qc_cuda(q, kc, vc, kv[0], kv[1], 3, 3, j, start)
+                              for kv, j in calls], iters)
+        plain = graph_ms(torch, [lambda kv=kv, j=j: ref.qchunk_attn_ref(q, kc, vc, kv[0], kv[1],
+                                                                        3, 3, j, start)
+                                 for kv, j in calls], iters)
+        lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in deq], iters)
+        pairs = c * start + c * (c + 1) // 2           # visible (query row, position) pairs
+        b_ms, b_by = bound(2 * start * hkv * d + 2 * c * hkv * d
+                           + 4 * (2 * c * hq * d + 2 * c * hkv * d), 4.0 * pairs * hq * d)
+        rows.append(dict(c=c, s=s, start=start, err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"[kernel] qchunk_attn B={b} Hq={hq} Hkv={hkv} D={d} C={c} S={s} start={start}: "
+              f"max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}), written rows bit-identical, other "
+              f"rows unchanged | kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us | "
+              f"quantize-copy + sdpa {lib_ms * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us "
+              f"({b_by}){note}", flush=True)
+        del caches, deq
+    return rows, worst
+
+
+def profile_steps(torch, label, step, state, card, steps: int = 8) -> None:
+    """Where a step's time goes: the host-device synchronizations one step
+    makes (``torch.cuda.set_sync_debug_mode``), wall time per step without
+    the profiler, then device time per step by kernel under
+    ``torch.profiler`` and the device's idle share of the unprofiled wall
+    time.  ``step(state)`` returns the next state."""
+    import warnings
+
     from torch.profiler import ProfilerActivity, profile
 
-    def run(cache, tok):
-        for _ in range(steps):
-            logits, cache = engine.decode(tok, cache)
-            tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
-        return cache, tok
+    def run(st, n=steps):
+        for _ in range(n):
+            st = step(st)
+        return st
 
     with torch.inference_mode():
-        logits, cache = engine.prefill(prompts, engine.new_cache())
-        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
-        cache, tok = run(cache, tok)            # warm
+        state = run(state)                      # warm
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state = run(state, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        print(f"[profile] {label}: {len(syncs)} host-device synchronizations in one step"
+              + (f" (first: {syncs[0][:120]})" if syncs else ""), flush=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache, tok = run(cache, tok)
+        state = run(state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(cache, tok)
+            run(state)
             torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -218,14 +333,14 @@ def profile_decode(torch, engine, prompts, card, steps: int = 8) -> None:
         if t > 0:
             rows.append((t / steps, e.count / steps, e.key))
     if not rows:
-        print(f"[profile] decode step: {wall_ms:.2f} ms wall; device time not measured "
+        print(f"[profile] {label}: {wall_ms:.2f} ms wall; device time not measured "
               "(the profiler recorded no device events)", flush=True)
         return
     busy_us = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    print(f"[profile] decode step (B={prompts.shape[0]}): {wall_ms:.2f} ms wall without the "
-          f"profiler | device busy {busy_us / 1e3:.3f} ms in {launches:.0f} kernels | device "
-          f"idle {1 - busy_us / 1e3 / wall_ms:.3f} of the wall time | host time per kernel "
+    print(f"[profile] {label}: {wall_ms:.2f} ms wall without the profiler | device busy "
+          f"{busy_us / 1e3:.3f} ms in {launches:.0f} kernels | device idle "
+          f"{1 - busy_us / 1e3 / wall_ms:.3f} of the wall time | host time per kernel "
           f"{wall_ms * 1e3 / launches:.1f} us | card {card}", flush=True)
     for t, n, key in sorted(rows, reverse=True)[:8]:
         print(f"[profile]   {t:9.1f} us/step  {n:5.0f} launches/step  {key[:90]}", flush=True)
@@ -233,17 +348,21 @@ def profile_decode(torch, engine, prompts, card, steps: int = 8) -> None:
 
 def end_to_end(torch, card):
     """smollm-135m at full width through the port's serving entry points."""
+    import numpy as np
+
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_workload, report
     from repro_torch.models.registry import get_config
     from repro_torch.serve import ServeEngine, run_restart_batching
+    from repro_torch.serve.engine import make_decode_step, make_mixed_step
 
     cfg = get_config("smollm-135m")
     model = cfg.build()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    slots, plen, new = 8, 128, 64
-    engine = ServeEngine(model=model, params=params, max_len=plen + new, batch_slots=slots,
+    slots, plen, max_new = 8, 128, 64   # the served requests' horizons are 32 and 64
+    new = 32                              # the lockstep generate horizon
+    engine = ServeEngine(model=model, params=params, max_len=plen + max_new, batch_slots=slots,
                          weight_quant=True, quantized_kv=True, device="cuda")
     prompts = torch.randint(0, cfg.vocab, (slots, plen), device="cuda", dtype=torch.int32,
                             generator=torch.Generator(device="cuda").manual_seed(1))
@@ -261,7 +380,8 @@ def end_to_end(torch, card):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts_gen = ops.launch_counts()
-    want = {"wq_matmul": per_forward * new, "qdecode_attn": n_layers * (new - 1)}
+    want = {"wq_matmul": per_forward * new, "qdecode_attn": n_layers * (new - 1),
+            "qchunk_attn": 0}
     check(counts_gen == want, f"generate launch counts {counts_gen} != expected {want}")
     check(tuple(out.shape) == (slots, new), f"generate output shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab)).all()), "generated ids outside the vocab")
@@ -305,10 +425,18 @@ def end_to_end(torch, card):
           f"({dt * 1e3 / new:.2f} ms per step, prefill included); token agreement with "
           f"the plain versions {agree:.4f}; card {card}", flush=True)
 
-    profile_decode(torch, engine, prompts, card)
+    def decode_step(st):
+        cache, tok = st
+        logits, cache = engine.decode(tok, cache)
+        return cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+
+    with torch.inference_mode():
+        logits, cache = engine.prefill(prompts, engine.new_cache())
+    profile_steps(torch, f"decode step (B={slots})", decode_step,
+                  (cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)), card)
 
     # -- the restart-the-batch policy, counted ---------------------------------
-    args = SimpleNamespace(requests=16, arrival_spacing=2, prompt_len=plen, max_new=new,
+    args = SimpleNamespace(requests=16, arrival_spacing=2, prompt_len=plen, max_new=max_new,
                            max_new_min=32, seed=0)
     reqs = build_workload(args, cfg.vocab)
     ops.reset_launch_counts()
@@ -318,7 +446,7 @@ def end_to_end(torch, card):
     steps = sum(horizons.values())
     warm = max(r.max_new for r in reqs)
     want = {"wq_matmul": per_forward * (steps + warm),
-            "qdecode_attn": n_layers * (steps - len(horizons) + warm - 1)}
+            "qdecode_attn": n_layers * (steps - len(horizons) + warm - 1), "qchunk_attn": 0}
     check(counts_rr == want, f"restart launch counts {counts_rr} != expected {want}")
     check(len(results) == len(reqs), "restart lost requests")
     for r, req in ((results[q.rid], q) for q in reqs):
@@ -327,7 +455,129 @@ def end_to_end(torch, card):
     report("restart", stats)
     print(f"[e2e] restart: {len(results)} requests in {len(horizons)} batches; launches "
           f"{counts_rr} == expected; card {card}", flush=True)
-    return {k: counts_gen[k] + counts_rr[k] for k in counts_gen}
+    summaries = {"restart": dict(stats.summary(), **{
+        f"p{q}_ttft_steps": float(np.percentile([r.admitted_at - r.arrival
+                                                  for r in results.values()], q))
+        for q in (50, 99)})}
+    launches = {k: counts_gen[k] + counts_rr[k] for k in counts_gen}
+
+    # -- continuous batching, one-shot and chunked admission, counted ----------
+    chunk = 32
+    outs = {}
+    for label, kw in (("one-shot", {}), ("chunked", {"chunk_size": chunk})):
+        sched = engine.scheduler(**kw)
+        ops.reset_launch_counts()
+        results, stats = sched.run(reqs, seed=0)
+        counts = ops.launch_counts()
+        ticks, chunks = stats.decode_steps, stats.prefill_chunks
+        if label == "one-shot":
+            # warm-up: one prefill (one prompt length) and one decode step
+            want = {"wq_matmul": per_forward * (ticks + len(reqs) + 2),
+                    "qdecode_attn": n_layers * (ticks + 1), "qchunk_attn": 0}
+        else:
+            # warm-up: one mixed step (decode half + chunk half) and one decode step
+            check(chunks == len(reqs) * -(-plen // chunk), f"chunked: {chunks} chunks")
+            want = {"wq_matmul": per_forward * (ticks + chunks + 3),
+                    "qdecode_attn": n_layers * (ticks + 2),
+                    "qchunk_attn": n_layers * (chunks + 1)}
+        check(counts == want, f"{label} launch counts {counts} != expected {want}")
+        check(sorted(results) == sorted(r.rid for r in reqs), f"{label} lost requests")
+        for req in reqs:
+            r = results[req.rid]
+            check(r.status == "ok" and len(r.tokens) == req.max_new
+                  and all(0 <= t < cfg.vocab for t in r.tokens),
+                  f"{label}: request {req.rid} ended {r.status} with {len(r.tokens)} tokens")
+        report(label, stats)
+        print(f"[e2e] {label}: {len(results)} requests ok, {ticks} ticks, {chunks} chunks; "
+              f"launches {counts} == expected; card {card}", flush=True)
+        outs[label] = results
+        summaries[label] = stats.summary()
+        launches = {k: launches.get(k, 0) + counts[k] for k in counts}
+    ops.FORCE = "plain"
+    try:
+        plain_res, _ = engine.scheduler(chunk_size=chunk).run(reqs, seed=0, warmup=False)
+    finally:
+        ops.FORCE = None
+
+    def agreement(a, b):
+        pairs = [(x, y) for rid in a for x, y in zip(a[rid].tokens, b[rid].tokens)]
+        return sum(x == y for x, y in pairs) / len(pairs)
+
+    print(f"[e2e] chunked tokens: agreement with the plain versions' chunked run "
+          f"{agreement(outs['chunked'], plain_res):.4f}, with the one-shot run "
+          f"{agreement(outs['chunked'], outs['one-shot']):.4f}", flush=True)
+    for label in ("one-shot", "chunked", "restart"):
+        m = summaries[label]
+        print(f"[e2e] {label}: steady {m['steady_tok_s']:.1f} tok/s | occupancy "
+              f"{m['occupancy']:.3f} | latency p50/p99 {m['p50_latency_steps']:.0f}/"
+              f"{m['p99_latency_steps']:.0f} steps | ttft p50/p99 "
+              f"{m['p50_ttft_steps']:.0f}/{m['p99_ttft_steps']:.0f} steps | "
+              f"admission stalls {m['admission_stalls']} | stalled chunks "
+              f"{m['stalled_chunks']} | card {card}", flush=True)
+
+    # -- one mixed step's logits against the plain versions ---------------------
+    from repro_torch.nn.attention import KVChunk
+    from repro_torch.nn.module import Context
+
+    def mixed_logits(cache, tok, ctok):
+        with torch.inference_mode():
+            ld, cache = engine.model.apply(engine.params, tok, Context(), cache=cache,
+                                           decode=True)
+            lc, cache = engine.model.apply(engine.params, ctok, Context(), cache=cache,
+                                           decode=True, chunk=KVChunk(3, 96, chunk),
+                                           logit_pos=chunk - 1)
+        return ld[:, -1], lc[:, 0]
+
+    g2 = torch.Generator(device="cuda").manual_seed(2)
+    cache = engine.new_cache(per_slot=True)
+    with torch.inference_mode():
+        for j in range(slots):                  # 96-token prefixes, chunk by chunk
+            toks = torch.randint(0, cfg.vocab, (1, 96), generator=g2, device="cuda",
+                                 dtype=torch.int32)
+            for c0 in range(0, 96, chunk):
+                _, cache = engine.model.apply(engine.params, toks[:, c0:c0 + chunk], Context(),
+                                              cache=cache, decode=True,
+                                              chunk=KVChunk(j, c0, chunk), logit_pos=chunk - 1)
+    tok = torch.randint(0, cfg.vocab, (slots, 1), generator=g2, device="cuda", dtype=torch.int32)
+    ctok = torch.randint(0, cfg.vocab, (1, chunk), generator=g2, device="cuda", dtype=torch.int32)
+
+    def copy(c):
+        return {"body": [{"kv": dict(n["kv"], k=n["kv"]["k"].clone(), v=n["kv"]["v"].clone(),
+                                     len=n["kv"]["len"].clone())} for n in c["body"]]}
+
+    base = copy(cache)
+    kd, kc_ = mixed_logits(copy(base), tok, ctok)
+    ops.FORCE = "plain"
+    try:
+        pd, pc = mixed_logits(copy(base), tok, ctok)
+    finally:
+        ops.FORCE = None
+    for name, a, b in (("mixed step, decode half", kd, pd), ("mixed step, chunk half", kc_, pc)):
+        check(bool(torch.isfinite(a).all()), f"{name} logits not finite")
+        err = (a - b).abs().max().item()
+        check(err <= LOGIT_ATOL, f"{name} logits: max err {err} > {LOGIT_ATOL}")
+        print(f"[e2e] {name} logits {tuple(a.shape)}: max_abs_err vs plain {err:.3e} "
+              f"(tol {LOGIT_ATOL})", flush=True)
+
+    decode = make_decode_step(engine.model)
+
+    def decode_tick(st):
+        cache, tok = st
+        nxt, cache = decode(engine.params, tok, cache, None)
+        return cache, nxt
+
+    profile_steps(torch, f"per-slot decode tick (B={slots})", decode_tick, (copy(base), tok),
+                  card)
+    mixed = make_mixed_step(engine.model)
+
+    def mixed_tick(st):
+        cache, tok = st
+        nxt, _, cache = mixed(engine.params, tok, cache, None, ctok, 3, 96, chunk)
+        return cache, nxt
+
+    profile_steps(torch, f"mixed tick (B={slots}, C={chunk}, start 96)", mixed_tick,
+                  (copy(base), tok), card)
+    return launches
 
 
 def main() -> int:
@@ -342,6 +592,7 @@ def main() -> int:
         import torch.nn.functional as F
 
         from repro_torch.kernels import _build, ref
+        from repro_torch.kernels.qchunk_attn import qchunk_attn_cuda
         from repro_torch.kernels.qdecode_attn import qdecode_attn_cuda
         from repro_torch.kernels.wq_matmul import wq_matmul_cuda
     except ImportError as e:
@@ -366,11 +617,17 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t1 = time.perf_counter()
     wq_rows, wq_agg, wq_err = check_wq_matmul(torch, ref, wq_matmul_cuda, gen)
     qd_rows, qd_err = check_qdecode_attn(torch, F, ref, qdecode_attn_cuda, gen)
+    qc_rows, qc_err = check_qchunk_attn(torch, F, ref, qchunk_attn_cuda, qdecode_attn_cuda, gen)
+    t2 = time.perf_counter()
     launches = end_to_end(torch, card)
+    print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
+          f"{time.perf_counter() - t2:.1f}s", flush=True)
 
     qd_main = qd_rows[-1]
+    qc_main = qc_rows[1]
     kernels = [
         {"name": "wq_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wq_matmul.cu",
@@ -389,6 +646,15 @@ def main() -> int:
          "bound_ms": qd_main["bound_ms"], "bound_by": qd_main["bound_by"],
          "library_ms": qd_main["library_ms"],
          "shape": f"B=8 Hq=9 Hkv=3 D=64 S={qd_main['s']} kv_len={qd_main['lens']}"},
+        {"name": "qchunk_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qchunk_attn.cu",
+         "replaces": "src/repro/kernels/qchunk_attn.py:107",
+         "launches": launches["qchunk_attn"], "max_abs_err": qc_err,
+         "ms": qc_main["ms"], "plain_ms": qc_main["plain_ms"],
+         "bound_ms": qc_main["bound_ms"], "bound_by": qc_main["bound_by"],
+         "library_ms": qc_main["library_ms"],
+         "shape": f"B=8 Hq=9 Hkv=3 D=64 C={qc_main['c']} S={qc_main['s']} "
+                  f"start={qc_main['start']} (the serving path's last chunk)"},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

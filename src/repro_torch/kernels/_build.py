@@ -15,11 +15,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple, Union
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("wq_matmul", "qdecode_attn")
+KERNELS = ("wq_matmul", "qdecode_attn", "qchunk_attn")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,3 +86,13 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def int_arg(v: Union[int, torch.Tensor], device, what: str) -> Tuple[Optional[int], int]:
+    """(pointer, value) of an int32 scalar a kernel reads from device memory
+    (a one-element int32 tensor on ``device``) or takes by value (an int)."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != 1 or v.dtype != torch.int32 or v.device != device:
+            raise ValueError(f"{what} must be one int32 on {device}")
+        return v.data_ptr(), 0
+    return None, int(v)

@@ -3,9 +3,9 @@
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel, and a kernel that fails to build or launch
-raises — nothing falls back.  ``FORCE`` overrides that in-process:
-``"plain"`` runs the plain version on any device (how ``chip_smoke.py`` and
-the tests compare on the card), ``"kernel"`` refuses CPU tensors.
+raises — nothing falls back.  ``FORCE = "plain"`` runs the plain version
+on any device, in-process (how ``chip_smoke.py`` and the tests compare on
+the card).
 """
 from __future__ import annotations
 
@@ -14,26 +14,22 @@ from typing import Dict, Optional, Union
 import torch
 
 from repro_torch.core.qformat import Exponent, QTensor
+from repro_torch.kernels import qchunk_attn as _qchunk_attn
 from repro_torch.kernels import qdecode_attn as _qdecode_attn
 from repro_torch.kernels import ref
 from repro_torch.kernels import wq_matmul as _wq_matmul
 
-# None | "kernel" | "plain"
+# None | "plain"
 FORCE: Optional[str] = None
 
-_WRAPPERS = {"wq_matmul": _wq_matmul, "qdecode_attn": _qdecode_attn}
+_WRAPPERS = {"wq_matmul": _wq_matmul, "qdecode_attn": _qdecode_attn,
+             "qchunk_attn": _qchunk_attn}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
-    if FORCE not in (None, "kernel", "plain"):
-        raise ValueError(f"ops.FORCE={FORCE!r}: expected None, 'kernel' or 'plain'")
-    if FORCE == "plain":
-        return False
-    if t.is_cuda:
-        return True
-    if FORCE == "kernel":
-        raise RuntimeError("ops.FORCE='kernel' needs CUDA tensors")
-    return False
+    if FORCE not in (None, "plain"):
+        raise ValueError(f"ops.FORCE={FORCE!r}: expected None or 'plain'")
+    return FORCE is None and t.is_cuda
 
 
 def launch_counts() -> Dict[str, int]:
@@ -78,3 +74,20 @@ def qdecode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         return _qdecode_attn.qdecode_attn_cuda(q.contiguous(), k_cache, v_cache,
                                                k_n, v_n, kv_len)
     return ref.qdecode_attn_ref(q, k_cache, v_cache, k_n, v_n, kv_len)
+
+
+def qchunk_attn(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor, k_n: Exponent, v_n: Exponent,
+                slot: int, start: int) -> torch.Tensor:
+    """Chunked prefill into one slot of a dense int8 KV cache.
+
+    q (C, Hq, D), k/v chunk (C, Hkv, D) f32; caches (B, S, Hkv, D) int8, whose
+    rows [start, start+C) of ``slot`` receive the quantized chunk in place;
+    query c attends positions <= start + c.  ``slot``/``start`` are Python
+    ints and must keep the chunk inside the cache.  Returns (C, Hq, D).
+    """
+    if _use_kernel(q):
+        return _qchunk_attn.qchunk_attn_cuda(q.contiguous(), k_chunk.contiguous(),
+                                             v_chunk.contiguous(), k_cache, v_cache,
+                                             k_n, v_n, slot, start)
+    return ref.qchunk_attn_ref(q, k_chunk, v_chunk, k_cache, v_cache, k_n, v_n, slot, start)

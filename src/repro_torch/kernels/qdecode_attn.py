@@ -30,15 +30,6 @@ def _kernel():
     return _fn
 
 
-def _scalar_arg(v: Union[int, torch.Tensor], device, name: str):
-    """(pointer, value) for an int32 scalar held on the device or by value."""
-    if isinstance(v, torch.Tensor):
-        if v.numel() != 1 or v.dtype != torch.int32 or v.device != device:
-            raise ValueError(f"qdecode_attn: {name} must be one int32 on {device}")
-        return v.data_ptr(), 0
-    return None, int(v)
-
-
 def qdecode_attn_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                       k_n: Union[int, torch.Tensor], v_n: Union[int, torch.Tensor],
                       kv_len: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -63,8 +54,8 @@ def qdecode_attn_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
             raise ValueError(f"qdecode_attn: {nm} must be on {q.device} (CUDA)")
         if t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 4:
             raise ValueError(f"qdecode_attn: {nm} must be contiguous, aligned {dt}")
-    k_ptr, k_val = _scalar_arg(k_n, q.device, "k_n")
-    v_ptr, v_val = _scalar_arg(v_n, q.device, "v_n")
+    k_ptr, k_val = _build.int_arg(k_n, q.device, "qdecode_attn: k_n")
+    v_ptr, v_val = _build.int_arg(v_n, q.device, "qdecode_attn: v_n")
     if isinstance(kv_len, torch.Tensor):
         if kv_len.dtype != torch.int32 or kv_len.device != q.device \
                 or kv_len.numel() not in (1, b) or not kv_len.is_contiguous():

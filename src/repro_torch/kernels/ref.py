@@ -47,3 +47,43 @@ def qdecode_attn_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def check_chunk_target(c: int, b: int, s: int, slot: int, start: int,
+                       what: str = "qchunk_attn") -> None:
+    """Raise unless rows [start, start+C) of batch row ``slot`` lie inside a
+    (B, S) cache.  The reference's ``dynamic_update_slice`` would silently
+    shift such a write; the scheduler's chunk-padded extent check keeps
+    every real chunk inside."""
+    if not (0 <= slot < b and 0 <= start and start + c <= s):
+        raise ValueError(f"{what}: chunk of {c} rows at slot {slot}, start {start} "
+                         f"does not fit a cache of {b} slots x {s} rows")
+
+
+def qchunk_attn_ref(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tensor,
+                    k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_n: qformat.Exponent, v_n: qformat.Exponent,
+                    slot: int, start: int) -> torch.Tensor:
+    """Chunked-prefill attention into one slot of a dense int8 cache.
+
+    Quantizes the chunk's K/V onto the pow2 grid, writes them **in place**
+    into rows [start, start+C) of ``slot`` of the (B, S, Hkv, D) int8 caches,
+    then attends query c over positions <= start + c of that slot.  q
+    (C, Hq, D), k/v chunk (C, Hkv, D) f32; ``slot``/``start`` Python ints.
+    Returns out (C, Hq, D).
+    """
+    c, hq, d = q.shape
+    b, s, hkv = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    check_chunk_target(c, b, s, slot, start)
+    k_cache[slot, start:start + c] = qformat.quantize(k_chunk, k_n, 8)
+    v_cache[slot, start:start + c] = qformat.quantize(v_chunk, v_n, 8)
+    k = qformat.dequantize(k_cache[slot], k_n)
+    v = qformat.dequantize(v_cache[slot], v_n)
+    qg = q.reshape(c, hkv, g, d).to(torch.float32)
+    scores = torch.einsum("chgd,shd->hgcs", qg, k) / math.sqrt(d)
+    pos = torch.arange(s, device=q.device)
+    visible = pos[None, :] <= start + torch.arange(c, device=q.device)[:, None]
+    p = torch.softmax(torch.where(visible, scores, torch.full_like(scores, NEG_INF)), dim=-1)
+    out = torch.einsum("hgcs,shd->chgd", p, v)
+    return out.reshape(c, hq, d).to(q.dtype)

@@ -1,17 +1,25 @@
 """Serving entry point of the port (``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
-        --policy restart --wq --qkv [--device cpu]
+        --policy chunked --chunk-size 32 --wq --qkv [--device cpu]
 
 --wq   int8 weight-only storage (the ``wq_matmul`` kernel)
---qkv  int8 KV cache on the paper's Qm.n grid (the ``qdecode_attn`` kernel)
+--qkv  int8 KV cache on the paper's Qm.n grid (the ``qdecode_attn`` and
+       ``qchunk_attn`` kernels)
 
 Policies ported so far:
+  scheduler  continuous batching with one-shot admission: a freed slot is
+             refilled by a batch-1 prefill copied into it (every live slot
+             stalls for the whole prompt); --prompt-bucket pads prompts
+  chunked    continuous batching with chunked admission: every tick is one
+             mixed step = all live decode slots + one --chunk-size prompt
+             chunk written in place into its slot; --token-budget caps the
+             tick's tokens (live slots + chunk; decode always runs)
   restart    restart-the-batch: lockstep generate() per gathered batch,
              everyone waits for the longest request
   lockstep   one generate() over --slots prompts (--requests clamped)
-The continuous-batching policies (chunked, ragged, scheduler) are the next
-slice of the port.  Runs on the GPU unless --device says otherwise.
+--policy ragged and --paged wait for later slices of the port (ROADMAP.md).
+Runs on the GPU unless --device says otherwise.
 """
 from __future__ import annotations
 
@@ -24,8 +32,6 @@ import torch
 from repro_torch.models.registry import get_config
 from repro_torch.nn.module import resolve_device
 from repro_torch.serve import Request, ServeEngine, run_restart_batching
-
-_NEXT_SLICE = ("chunked", "ragged", "scheduler")
 
 
 def build_workload(args, vocab: int):
@@ -44,12 +50,25 @@ def build_workload(args, vocab: int):
 
 def report(name: str, stats) -> None:
     s = stats.summary()
+    extra = ""
+    if s.get("p99_latency_ms"):
+        extra += (f" | latency p50/p99 {s['p50_latency_ms']:.1f}/"
+                  f"{s['p99_latency_ms']:.1f} ms")
+    if s.get("prefill_chunks"):
+        extra += f" | chunks {s['prefill_chunks']} (stalled {s['stalled_chunks']})"
+    if s.get("admission_stalls"):
+        extra += f" | admission stalls {s['admission_stalls']}"
+    if s.get("p99_ttft_steps"):
+        extra += (f" | ttft p50/p99 {s['p50_ttft_steps']:.0f}/"
+                  f"{s['p99_ttft_steps']:.0f} steps")
+    if s.get("peak_live_slots"):
+        extra += f" | peak live {s['peak_live_slots']}"
     print(f"[{name}] warmup(compile) {s['compile_s']:.2f}s | "
           f"steady {s['steady_tok_s']:.1f} tok/s over {s['steady_s']:.3f}s | "
           f"occupancy {s['occupancy']:.2f} | "
           f"latency p50/p99 {s['p50_latency_steps']:.0f}/"
           f"{s['p99_latency_steps']:.0f} steps | "
-          f"cache {s['peak_cache_bytes']/1024:.0f} KiB")
+          f"cache {s['peak_cache_bytes']/1024:.0f} KiB{extra}")
 
 
 def _sync(device: torch.device) -> None:
@@ -68,8 +87,22 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--arrival-spacing", type=int, default=2,
                     help="decode-step ticks between request arrivals")
-    ap.add_argument("--policy", default="restart",
+    ap.add_argument("--policy", default="scheduler",
                     choices=["chunked", "ragged", "scheduler", "restart", "lockstep"])
+    ap.add_argument("--chunk-size", type=int, default=16,
+                    help="prefill chunk tokens per mixed step (chunked policy; the last "
+                         "chunk's padded rows must fit max_len)")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="per-tick token cap for chunked admission (0 = unbounded; "
+                         "must fit one chunk)")
+    ap.add_argument("--prompt-bucket", type=int, default=0,
+                    help="round prompt lengths up to this multiple (0 = exact; "
+                         "scheduler policy only)")
+    ap.add_argument("--time-ticks", action="store_true",
+                    help="wait for every tick and report wall-clock p50/p99 request "
+                         "latency (ms)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache (waits for ROADMAP slice 3 of the port)")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop a request when this token is sampled (-1 = off)")
     ap.add_argument("--wq", nargs="?", const="int8", default=False, choices=["int8"],
@@ -80,9 +113,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain kernels)")
     args = ap.parse_args(argv)
-    if args.policy in _NEXT_SLICE:
-        raise SystemExit(f"--policy {args.policy}: continuous batching is the next "
-                         "slice of the port; use --policy restart or lockstep")
+    if args.policy == "ragged":
+        raise SystemExit("--policy ragged: the ragged tick waits for ROADMAP slice 4 of "
+                         "the port; use --policy chunked, scheduler, restart or lockstep")
+    if args.paged:
+        raise SystemExit("--paged: the paged KV cache waits for ROADMAP slice 3 of the port")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -114,9 +149,16 @@ def main(argv=None):
         return out
 
     reqs = build_workload(args, cfg.vocab)
-    results, stats = run_restart_batching(engine, reqs, seed=args.seed,
-                                          eos_id=None if args.eos_id < 0 else args.eos_id)
-    report("restart", stats)
+    eos_id = None if args.eos_id < 0 else args.eos_id
+    if args.policy == "restart":
+        results, stats = run_restart_batching(engine, reqs, seed=args.seed, eos_id=eos_id)
+    else:
+        chunked = args.policy == "chunked"
+        sched = engine.scheduler(eos_id=eos_id, prompt_bucket=args.prompt_bucket or None,
+                                 chunk_size=args.chunk_size if chunked else None,
+                                 token_budget=(args.token_budget or None) if chunked else None)
+        results, stats = sched.run(reqs, seed=args.seed, time_ticks=args.time_ticks)
+    report(args.policy, stats)
     first = results[min(results)]
     print(f"request {first.rid}: {len(first.tokens)} tokens "
           f"({first.status}), first-10 {first.tokens[:10]}")

@@ -11,6 +11,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.nn.attention import KVChunk
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.module import Context, Params
 from repro_torch.nn.transformer import Stack
@@ -37,16 +38,20 @@ class CausalLM:
                 "final_norm": self._final_norm().init(gen, device)}
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool = False,
-                   device) -> Dict[str, Any]:
-        return self.stack.init_cache(batch, max_len, quantized_kv=quantized_kv, device=device)
+                   device, per_slot_len: bool = False) -> Dict[str, Any]:
+        return self.stack.init_cache(batch, max_len, quantized_kv=quantized_kv, device=device,
+                                     per_slot_len=per_slot_len)
 
     def apply(self, params: Params, tokens: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
               decode: bool = False,
+              chunk: Optional[KVChunk] = None,
               logit_pos: Optional[int] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         """Returns (logits (B, S, vocab_padded) f32, new_cache).
 
+        ``chunk``: route this (1, C) forward as a chunked prefill into one
+        slot of a per-slot cache (``serve.engine.make_mixed_step``).
         ``logit_pos``: logits at that one position only ((B, 1, V)); the
         hidden states are sliced before the LM head, which dominates a
         small-batch forward.
@@ -54,7 +59,7 @@ class CausalLM:
         ctx = ctx.scope(self.name)
         x = self._embed().apply(params["embed"], tokens, ctx)
         x, new_cache = self.stack.apply(params["stack"], x, ctx, cache=cache,
-                                        decode=decode)
+                                        decode=decode, chunk=chunk)
         if logit_pos is not None:
             pos = logit_pos % x.shape[1]
             x = x[:, pos:pos + 1]

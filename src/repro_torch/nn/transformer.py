@@ -13,7 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.nn.attention import Attention, init_kv_cache
+from repro_torch.nn.attention import Attention, KVChunk, init_kv_cache
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import Context, Params, tree_layer
@@ -50,18 +50,22 @@ class Block:
                 "ffn": self._ffn().init(gen, device)}
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool, device,
-                   layers: Optional[int] = None) -> Dict[str, Any]:
+                   layers: Optional[int] = None,
+                   per_slot_len: bool = False) -> Dict[str, Any]:
         return {"kv": init_kv_cache(batch, max_len, self.n_kv_heads, self.head_dim,
-                                    quantized=quantized_kv, device=device, layers=layers)}
+                                    quantized=quantized_kv, device=device, layers=layers,
+                                    per_slot_len=per_slot_len)}
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
-              decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+              decode: bool = False,
+              chunk: Optional[KVChunk] = None,
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         ctx = ctx.scope(self.name)
         h = RMSNorm(self.d_model, name="norm1").apply(params["norm1"], x, ctx)
         mix, kv = self._mixer().apply(params["mixer"], h, ctx,
                                       cache=None if cache is None else cache["kv"],
-                                      decode=decode)
+                                      decode=decode, chunk=chunk)
         x = x + mix
         h2 = RMSNorm(self.d_model, name="norm2").apply(params["norm2"], x, ctx)
         x = x + self._ffn().apply(params["ffn"], h2, ctx)
@@ -95,15 +99,18 @@ class Stack:
         return {"body": body}
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool,
-                   device) -> Dict[str, Any]:
+                   device, per_slot_len: bool = False) -> Dict[str, Any]:
         layers = self.n_periods if self.stacked else None
         return {"body": [blk.init_cache(batch, max_len, quantized_kv=quantized_kv,
-                                        device=device, layers=layers)
+                                        device=device, layers=layers,
+                                        per_slot_len=per_slot_len)
                          for blk in self.body]}
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
-              decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+              decode: bool = False,
+              chunk: Optional[KVChunk] = None,
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         ctx = ctx.scope(self.name)
         lens = {}
         for period in range(self.n_periods):
@@ -115,12 +122,14 @@ class Stack:
                         c = {"kv": dict(c["kv"], k=c["kv"]["k"][period],
                                         v=c["kv"]["v"][period])}
                 bctx = ctx.scope(f"p{pos}" if self.stacked else f"l{pos}")
-                x, nc = blk.apply(p, x, bctx, cache=c, decode=decode)
+                x, nc = blk.apply(p, x, bctx, cache=c, decode=decode, chunk=chunk)
                 if nc is not None:
                     lens[pos] = nc["kv"]["len"]
         if cache is None:
             return x, None
         # every layer wrote its k/v rows in place; only the length advances
+        # (each layer of a period got the same ``len`` and computed the same
+        # new one)
         return x, {"body": [{"kv": dict(c["kv"], len=lens[pos])}
                             for pos, c in enumerate(cache["body"])]}
 

@@ -1,20 +1,22 @@
-"""Batched lockstep serving engine (``repro/serve/engine.py``).
+"""Batched serving engine and its step builders (``repro/serve/engine.py``).
 
 ``weight_quant`` stores every GEMM and embedding weight as an int8
 :class:`QTensor` (the ``wq_matmul`` kernel path); ``quantized_kv`` keeps the
-KV cache as int8 on the paper's Qm.n grid (the ``qdecode_attn`` kernel
-path).  PyTorch runs eagerly, so the reference's jitted steps are plain
-methods here; the cache is updated in place.
+KV cache as int8 on the paper's Qm.n grid (the ``qdecode_attn`` and
+``qchunk_attn`` kernel paths).  PyTorch runs eagerly, so the reference's
+jitted steps are plain functions over the engine's params here; the cache
+is updated in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.integerize import integerize_weights_only
+from repro_torch.nn.attention import KVChunk
 from repro_torch.nn.module import Context, resolve_device, tree_leaves, tree_to
 
 
@@ -40,6 +42,57 @@ def sample_tokens(logits: torch.Tensor, gen: Optional[torch.Generator], vocab: i
     else:
         nxt = torch.argmax(logits, dim=-1)
     return nxt[..., None].to(torch.int32)
+
+
+def make_prefill_step(model) -> Callable:
+    """(params, tokens (B, P), cache, logit_pos=None) -> (logits, cache').
+
+    Last-position logits (B, V) by default; ``logit_pos`` returns (B, 1, V)
+    at that position, slicing the hidden states before the LM head (a
+    slot-targeted prefill over a padded prompt bucket passes its true last
+    position).
+    """
+    def prefill(params, tokens, cache, logit_pos: Optional[int] = None):
+        logits, cache = model.apply(params, tokens, Context(), cache=cache, decode=True,
+                                    logit_pos=logit_pos)
+        return (logits if logit_pos is not None else logits[:, -1]), cache
+
+    return prefill
+
+
+def make_decode_step(model, *, temperature: float = 0.0) -> Callable:
+    """(params, token (B, 1), cache, gen) -> (next (B, 1) int32, cache')."""
+    def decode(params, token, cache, gen):
+        logits, cache = model.apply(params, token, Context(), cache=cache, decode=True)
+        return sample_tokens(logits[:, -1], gen, model.vocab, temperature), cache
+
+    return decode
+
+
+def make_mixed_step(model, *, temperature: float = 0.0) -> Callable:
+    """The chunked-prefill tick: every slot decodes one token, then one
+    C-token prompt chunk is written in place into its slot's KV rows.
+
+    (params, tok (B, 1), cache, gen, chunk_tok (1, C), slot, start, length)
+      -> (next (B, 1), first (1, 1), cache')
+
+    ``length`` is the chunk's valid token count (< C only on the last,
+    padded chunk); ``first`` samples the logits at position length-1 and
+    means something only on that last chunk.  The decode half runs first,
+    so its append for the still-prefilling slot lands on the row the chunk
+    then overwrites (junk stays at rows >= ``len``).
+    """
+    decode = make_decode_step(model, temperature=temperature)
+
+    def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int):
+        nxt, cache = decode(params, tok, cache, gen)
+        logits, cache = model.apply(params, chunk_tok, Context(), cache=cache, decode=True,
+                                    chunk=KVChunk(slot=slot, start=start, length=length),
+                                    logit_pos=length - 1)
+        first = sample_tokens(logits[:, 0], gen, model.vocab, temperature)
+        return nxt, first, cache
+
+    return mixed
 
 
 @dataclasses.dataclass
@@ -75,20 +128,34 @@ class ServeEngine:
         """True vocab size for tail masking."""
         return self.model.vocab
 
-    def new_cache(self, *, batch: Optional[int] = None):
-        """A fresh lockstep cache for this engine's geometry."""
-        return self.model.init_cache(batch or self.batch_slots, self.max_len,
-                                     quantized_kv=self.quantized_kv, device=self.device)
+    def new_cache(self, *, per_slot: bool = False, batch: Optional[int] = None):
+        """A fresh serving cache for this engine's geometry.
 
-    def cache_bytes(self) -> int:
+        ``per_slot=True`` is the scheduler's cache (a (B,) ``len``); the
+        default is the lockstep ``generate()`` cache.  ``batch`` overrides
+        ``batch_slots`` (slot-targeted prefills).
+        """
+        return self.model.init_cache(batch or self.batch_slots, self.max_len,
+                                     quantized_kv=self.quantized_kv, device=self.device,
+                                     per_slot_len=per_slot)
+
+    def cache_bytes(self, *, per_slot: bool = False) -> int:
         """Bytes of one serving cache, counted as the reference stores it:
-        the K/V slabs plus an int32 per layer for each exponent and length."""
+        the K/V slabs plus, per layer, an int32 for each exponent and the
+        length (one per slot for the scheduler's ``per_slot`` cache)."""
         shapes = self.model.init_cache(self.batch_slots, self.max_len,
                                        quantized_kv=self.quantized_kv, device="meta")
         slab = sum(t.numel() * t.element_size()
                    for t in tree_leaves(shapes) if isinstance(t, torch.Tensor))
-        per_layer_scalars = 3 if self.quantized_kv else 1
+        per_layer_scalars = (2 if self.quantized_kv else 0) \
+            + (self.batch_slots if per_slot else 1)
         return slab + 4 * per_layer_scalars * self.model.stack.n_layers
+
+    def scheduler(self, **kwargs):
+        """A continuous-batching :class:`Scheduler` over this engine."""
+        from repro_torch.serve.scheduler import Scheduler
+
+        return Scheduler(self, **kwargs)
 
     def prefill(self, prompts: torch.Tensor, cache):
         """Prompt (B, P) into ``cache`` -> (last-position logits (B, V), cache)."""

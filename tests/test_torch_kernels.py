@@ -105,7 +105,10 @@ def test_ops_dispatch_cpu_tensors_to_plain_without_counting():
         rtol=0, atol=0)
     q, k, v = _qd_inputs(2, 4, 2, 16, 9, seed=2)
     ops.qdecode_attn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 3, 3, 5)
-    assert ops.launch_counts() == {"wq_matmul": 0, "qdecode_attn": 0}
+    ops.qchunk_attn(torch.from_numpy(q[0, None]), torch.from_numpy(k[0, :1]),
+                    torch.from_numpy(v[0, :1]), torch.from_numpy(k), torch.from_numpy(v),
+                    3, 3, 1, 4)
+    assert ops.launch_counts() == {"wq_matmul": 0, "qdecode_attn": 0, "qchunk_attn": 0}
 
 
 def test_ops_transpose_path_is_dequantize_then_matmul():
@@ -130,16 +133,18 @@ def test_ops_wq_matmul_refuses_multi_axis_exponent_grid():
 
 
 def test_force_kernel_refuses_cpu_tensors(monkeypatch):
-    monkeypatch.setattr(ops, "FORCE", "kernel")
+    """``FORCE`` is None or "plain": "kernel" (dropped, it had no caller) is
+    refused with the same ValueError as any other setting, e.g. "pallas"."""
     q, k, v = _qd_inputs(1, 2, 1, 8, 4, seed=3)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ops.qdecode_attn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 3, 3, 2)
-    monkeypatch.setattr(ops, "FORCE", "pallas")
-    with pytest.raises(ValueError, match="FORCE"):
-        ops.qdecode_attn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 3, 3, 2)
+    for setting in ("kernel", "pallas"):
+        monkeypatch.setattr(ops, "FORCE", setting)
+        with pytest.raises(ValueError, match="expected None or 'plain'"):
+            ops.qdecode_attn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                             3, 3, 2)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.qchunk_attn import qchunk_attn_cuda
     from repro_torch.kernels.qdecode_attn import qdecode_attn_cuda
     from repro_torch.kernels.wq_matmul import wq_matmul_cuda
 
@@ -148,6 +153,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         qdecode_attn_cuda(torch.zeros(1, 2, 16), torch.zeros(1, 4, 1, 16, dtype=torch.int8),
                           torch.zeros(1, 4, 1, 16, dtype=torch.int8), 3, 3, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        qchunk_attn_cuda(torch.zeros(2, 2, 16), torch.zeros(2, 1, 16), torch.zeros(2, 1, 16),
+                         torch.zeros(1, 4, 1, 16, dtype=torch.int8),
+                         torch.zeros(1, 4, 1, 16, dtype=torch.int8), 3, 3, 0, 1)
 
 
 def test_importing_kernels_builds_nothing():

@@ -152,8 +152,13 @@ def test_launch_serve_runs_on_cpu(policy, capsys):
 
 
 def test_launch_serve_names_the_next_slice_for_other_policies():
-    with pytest.raises(SystemExit, match="next slice"):
-        t_launch.main(["--arch", "smollm-135m-smoke", "--policy", "chunked",
+    """The ragged tick and the paged cache name the ROADMAP slices they
+    wait for (the scheduler and chunked policies are ported)."""
+    with pytest.raises(SystemExit, match="slice 4"):
+        t_launch.main(["--arch", "smollm-135m-smoke", "--policy", "ragged",
+                       "--device", "cpu"])
+    with pytest.raises(SystemExit, match="slice 3"):
+        t_launch.main(["--arch", "smollm-135m-smoke", "--policy", "chunked", "--paged",
                        "--device", "cpu"])
 
 
