@@ -10,8 +10,11 @@ Phases, each printed as it completes; any failure exits non-zero:
      serving path's shapes, with kernel, plain and library times (CUDA
      graphs of many launches over rotating inputs larger than the L2) and
      the least time the card could take (bytes at 3.35 TB/s or f32 FMAs at
-     67 TFLOP/s, H100 SXM data sheet); ``qchunk_attn`` also has the cache
-     rows it writes held bit for bit, and every other row held unchanged;
+     67 TFLOP/s, H100 SXM data sheet); the chunk kernels also have the
+     cache rows they write held bit for bit, and every other row held
+     unchanged; the paged kernels run over fragmented, out-of-order page
+     tables with pages shared between slots, beside the dense kernels on
+     the same contents, and ``qpaged_decode_attn`` over a page-size sweep;
   4. smollm-135m at full width (random weights from a seeded generator,
      int8 weights and int8 KV cache): ``ServeEngine.generate`` (8 slots,
      prompt 128, 32 new tokens), ``run_restart_batching``, and the
@@ -19,7 +22,13 @@ Phases, each printed as it completes; any failure exits non-zero:
      admission (the same 16 requests: prompt 128, 32/64 new tokens, arrival
      spacing 2), each with the kernels' launch counts checked against the
      path's expected counts; the logits of a prefill, a decode step and a
-     mixed step are held to the plain versions.
+     mixed step are held to the plain versions;
+  5. the paged engine (``--paged``, the engine's CUDA page size, a pool at
+     dense parity) on the same 16 requests, 8 requests sharing a 96-token
+     opening, and the 16 requests oversubscribed at half the pool under
+     recompute and under swap preemption, with launch counts checked; a
+     paged mixed step's logits against the plain versions; a paged decode
+     tick and mixed tick profiled, syncs counted.
 The line before the last is a JSON summary per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -39,6 +48,7 @@ L2_ROTATE_BYTES = 128 << 20
 WQ_RTOL = 2e-5             # |kernel - plain| <= WQ_RTOL * max|plain| (f32 sums, other order)
 ATTN_ATOL = 1e-4           # softmax-weighted means of values within +-16
 LOGIT_ATOL = 2e-2          # logits after 30 layers; int8 KV codes may flip at trunc edges
+NO_PAGED = {"qpaged_decode_attn": 0, "qpaged_chunk_attn": 0}   # the dense paths' counts
 
 
 def fail(msg: str) -> None:
@@ -286,6 +296,211 @@ def check_qchunk_attn(torch, F, ref, qc_cuda, qd_cuda, gen):
     return rows, worst
 
 
+def paged_layout(torch, gen, b, s, ps, extra_pages=3):
+    """A fragmented page table for ``b`` slots of ``s`` logical rows over a
+    pool of b * ceil(s / ps) + ``extra_pages`` pages: each slot's pages are
+    drawn out of order from a random permutation, and slot 1 maps slot 0's
+    first two pages (a shared prefix)."""
+    mp = -(-s // ps)
+    n_pool = b * mp + extra_pages
+    perm = torch.randperm(n_pool, generator=gen, device="cuda").to(torch.int32)
+    table = perm[:b * mp].reshape(b, mp).clone()
+    table[1, :2] = table[0, :2]
+    return table, n_pool, mp
+
+
+def pool_codes(torch, gen, shape):
+    """int8 codes with the spread of post-norm K/V on the Q4.3 grid (|x|
+    mostly below 2) and a few saturated ones."""
+    x = torch.randn(shape, generator=gen, device="cuda").mul(8).round()
+    x.view(-1)[::97] = 127
+    return x.clamp(-128, 127).to(torch.int8)
+
+
+def check_qpaged_decode_attn(torch, F, ref, qpd_cuda, qd_cuda, gen, page_size):
+    """Kernel vs plain at B=8, Hq=9, Hkv=3, D=64 over fragmented, out-of-order
+    tables with pages shared between two slots' rows, at S = 192 and 2048.
+    Live lengths cover 1, a page boundary, a partial last page, the table's
+    end, a length past the table (an inactive slot ticking on), and an
+    evicted slot (row all -1, length > 0).  Each case is also run through
+    ``qdecode_attn`` on the same logical contents laid out densely.  Then the
+    page-size sweep: B=8, S=2048 for ps in 16, 32, 64, 128."""
+    b, hq, hkv, d = 8, 9, 3, 64
+    g = hq // hkv
+    rows, swept, worst = [], [], 0.0
+    cases = [(s, page_size) for s in (192, 2048)] + [(2048, ps) for ps in (16, 32, 64, 128)]
+    for s, ps in cases:
+        table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
+        lens = [1, ps, s // 2 + ps // 2 + 1, mp * ps, s - 3, 50, mp * ps + 40, 2 * ps + 1]
+        table[5] = -1                                   # evicted, len 50 keeps ticking
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(b, hq, d, generator=gen, device="cuda")
+        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * n_pool * ps * hkv * d)))
+        pools = [(pool_codes(torch, gen, (n_pool, ps, hkv, d)),
+                  pool_codes(torch, gen, (n_pool, ps, hkv, d))) for _ in range(copies)]
+        kp, vp = pools[0]
+        got = qpd_cuda(q, kp, vp, 3, 3, table, kv_len)
+        want = ref.qpaged_decode_attn_ref(q, kp, vp, 3, 3, table, kv_len)
+        # the same logical contents laid out densely, one copy per pool copy
+        dense_pools = [tuple(ref.gather_pages_ref(x, table).contiguous() for x in kv)
+                       for kv in pools]
+        kd, vd = dense_pools[0]
+        dense = qd_cuda(q, kd, vd, 3, 3, kv_len)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        derr = (got - dense).abs().max().item()
+        check(err <= ATTN_ATOL, f"qpaged_decode_attn S={s} ps={ps}: max err {err} > {ATTN_ATOL}")
+        check(derr <= ATTN_ATOL, f"qpaged_decode_attn S={s} ps={ps}: differs from qdecode_attn "
+                                 f"on the dense layout by {derr}")
+        worst = max(worst, err)
+        iters = max(copies, 64)
+        ms = graph_ms(torch, [lambda kv=kv: qpd_cuda(q, kv[0], kv[1], 3, 3, table, kv_len)
+                              for kv in pools], iters)
+        dense_ms = graph_ms(torch, [lambda kv=kv: qd_cuda(q, kv[0], kv[1], 3, 3, kv_len)
+                                    for kv in dense_pools], iters)
+        del dense_pools
+        if len(rows) == 2 or ps != page_size:      # the page-size sweep
+            swept.append(dict(s=s, ps=ps, ms=ms, dense_ms=dense_ms, err=err))
+            print(f"[kernel] qpaged_decode_attn page-size sweep B={b} S={s} ps={ps}: "
+                  f"kernel {ms * 1e3:.2f} us | qdecode_attn on the dense layout "
+                  f"{dense_ms * 1e3:.2f} us | max_abs_err {err:.3e}", flush=True)
+            del pools
+            continue
+        plain = graph_ms(torch, [lambda kv=kv: ref.qpaged_decode_attn_ref(
+            q, kv[0], kv[1], 3, 3, table, kv_len) for kv in pools], iters)
+        # library: gather the pages (index_select), dequantize, expand the
+        # heads, and SDPA with the live-length mask
+        idx = table.clamp(min=0).reshape(-1).to(torch.int64)
+        mask = (torch.arange(mp * ps, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+
+        def lib(kv):
+            kk, vv = (x.index_select(0, idx).reshape(b, mp * ps, hkv, d).to(torch.float32)
+                      .mul(0.125).repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
+            return F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask)
+
+        lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in pools], iters)
+        live = sum(min(n, mp * ps) if n > 0 else ps for n in lens)
+        pages = sum(-(-min(n, mp * ps) // ps) if n > 0 else 1 for n in lens)
+        b_ms, b_by = bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * pages + 4 * b,
+                           4.0 * live * hq * d)
+        rows.append(dict(s=s, ps=ps, lens=lens, err=err, dense_err=derr, ms=ms, plain_ms=plain,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, dense_ms=dense_ms))
+        print(f"[kernel] qpaged_decode_attn B={b} Hq={hq} Hkv={hkv} D={d} S={s} ps={ps} "
+              f"kv_len={lens} (slot 5 evicted): max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}) | "
+              f"kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us | index_select + sdpa "
+              f"{lib_ms * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by}) | qdecode_attn on "
+              f"the dense layout {dense_ms * 1e3:.2f} us, max diff {derr:.3e}", flush=True)
+        del pools
+    return rows, swept, worst
+
+
+def check_qpaged_chunk_attn(torch, F, ref, qpc_cuda, qc_cuda, gen, page_size):
+    """Kernel vs plain at Hq=9, Hkv=3, D=64, C=32 into one slot of a
+    fragmented, out-of-order 8-slot table: slot 1, whose first two pages are
+    slot 0's (a shared prefix the chunk reads), or slot 3 when the chunk
+    starts inside them.  Start 0, 96, 160 at S=192, 1984 at S=2048, and start
+    176 at S=192, whose padded tail runs past the table (rows 192.. are
+    dropped).  The pool bytes must
+    equal the plain version's, hold the chunk's codes in the written rows,
+    and hold every other byte unchanged.  Each case is also run through
+    ``qchunk_attn`` on the slot's contents laid out densely."""
+    from repro_torch.core import qformat
+
+    b, hq, hkv, d, c = 8, 9, 3, 64, 32
+    g = hq // hkv
+    rows, worst = [], 0.0
+    for s, start in ((192, 0), (192, 96), (192, 160), (2048, 1984), (192, 176)):
+        ps = page_size
+        table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
+        slot = 1 if start >= 2 * ps else 3
+        prow = table[slot].contiguous()
+        q = torch.randn(c, hq, d, generator=gen, device="cuda")
+        kc, vc = (1.5 * torch.randn(c, hkv, d, generator=gen, device="cuda") for _ in range(2))
+        kc.view(-1)[::31] = 20.0
+        vc.view(-1)[::37] = -20.0
+        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * n_pool * ps * hkv * d)))
+        pools = [(pool_codes(torch, gen, (n_pool, ps, hkv, d)),
+                  pool_codes(torch, gen, (n_pool, ps, hkv, d))) for _ in range(copies)]
+        k0, v0 = pools[0][0].clone(), pools[0][1].clone()
+        kk, vk, kp, vp = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+        got = qpc_cuda(q, kc, vc, kk, vk, 3, 3, prow, start)
+        want = ref.qpaged_chunk_attn_ref(q, kc, vc, kp, vp, 3, 3, prow, start)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        label = f"qpaged_chunk_attn C={c} S={s} ps={ps} start={start}"
+        check(err <= ATTN_ATOL, f"{label}: max err {err} > {ATTN_ATOL}")
+        check(torch.equal(kk, kp) and torch.equal(vk, vp),
+              f"{label}: pools differ from the plain version's")
+        n_kept = max(0, min(c, mp * ps - start))
+        pos = start + torch.arange(n_kept, device="cuda")
+        flat = (prow[pos // ps].to(torch.int64) * ps + pos % ps)
+        check(torch.equal(kk.view(-1, hkv, d)[flat], qformat.quantize(kc[:n_kept], 3, 8))
+              and torch.equal(vk.view(-1, hkv, d)[flat], qformat.quantize(vc[:n_kept], 3, 8)),
+              f"{label}: written rows are not the chunk's codes")
+        keep = torch.ones(n_pool * ps, dtype=torch.bool, device="cuda")
+        keep[flat] = False
+        check(torch.equal(kk.view(-1, hkv, d)[keep], k0.view(-1, hkv, d)[keep])
+              and torch.equal(vk.view(-1, hkv, d)[keep], v0.view(-1, hkv, d)[keep]),
+              f"{label}: a pool row outside the chunk's changed")
+        worst = max(worst, err)
+        note = ""
+        if start + c <= mp * ps:
+            kd, vd = (ref.gather_pages_ref(x, prow[None]).contiguous() for x in (k0, v0))
+            dense = qc_cuda(q, kc, vc, kd, vd, 3, 3, 0, start)
+            torch.cuda.synchronize()
+            derr = (got - dense).abs().max().item()
+            check(derr <= ATTN_ATOL, f"{label}: differs from qchunk_attn on the dense layout "
+                                     f"by {derr}")
+            # timed over every slot's dense copy of every pool copy, as the
+            # paged kernel is timed over the pool copies
+            dense_caches = [tuple(ref.gather_pages_ref(x, table).contiguous() for x in kv)
+                            for kv in pools]
+            dense_ms = graph_ms(torch, [lambda kv=kv: qc_cuda(q, kc, vc, kv[0], kv[1], 3, 3,
+                                                              slot, start)
+                                        for kv in dense_caches], max(copies, 64))
+            del dense_caches
+            note = (f" | qchunk_attn on the dense layout {dense_ms * 1e3:.2f} us, max diff "
+                    f"{derr:.3e}")
+        # library: the chunk's quantize-and-copy into its pool rows, then the
+        # slot's pages gathered (index_select), dequantized, head-expanded,
+        # and SDPA with the causal offset mask
+        end = min(start + c, mp * ps)
+        idx = prow.clamp(min=0).to(torch.int64)
+        mask = torch.arange(mp * ps, device="cuda")[None, :] <= \
+            start + torch.arange(c, device="cuda")[:, None]
+        qs = q.permute(1, 0, 2)[None]
+
+        def lib(kv):
+            kv[0].view(-1, hkv, d)[flat] = qformat.quantize(kc[:n_kept], 3, 8)
+            kv[1].view(-1, hkv, d)[flat] = qformat.quantize(vc[:n_kept], 3, 8)
+            kk_, vv_ = (x.index_select(0, idx).reshape(mp * ps, hkv, d).to(torch.float32)
+                        .mul(0.125).repeat_interleave(g, dim=1).permute(1, 0, 2)[None]
+                        for x in kv)
+            return F.scaled_dot_product_attention(qs, kk_, vv_, attn_mask=mask)
+
+        iters = max(copies, 64)
+        ms = graph_ms(torch, [lambda kv=kv: qpc_cuda(q, kc, vc, kv[0], kv[1], 3, 3, prow, start)
+                              for kv in pools], iters)
+        plain = graph_ms(torch, [lambda kv=kv: ref.qpaged_chunk_attn_ref(
+            q, kc, vc, kv[0], kv[1], 3, 3, prow, start) for kv in pools[:4]], iters)
+        lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in pools], iters)
+        pairs = sum(min(start + i + 1, mp * ps) for i in range(c))   # visible (row, position)
+        prefix = min(start, mp * ps)
+        b_ms, b_by = bound(2 * prefix * hkv * d + 2 * n_kept * hkv * d
+                           + 4 * (2 * c * hq * d + 2 * c * hkv * d) + 4 * mp,
+                           4.0 * pairs * hq * d)
+        rows.append(dict(c=c, s=s, ps=ps, start=start, end=end, err=err, ms=ms,
+                         plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"[kernel] {label} (slot {slot}, {n_kept} rows kept): max_abs_err {err:.3e} "
+              f"(tol {ATTN_ATOL:.0e}), pools equal to the plain version's, written rows the "
+              f"chunk's codes, other rows unchanged | kernel {ms * 1e3:.2f} us | plain "
+              f"{plain * 1e3:.2f} us | quantize-copy + index_select + sdpa {lib_ms * 1e3:.2f} us "
+              f"| bound {b_ms * 1e3:.2f} us ({b_by}){note}", flush=True)
+        del pools
+    return rows, worst
+
+
 def profile_steps(torch, label, step, state, card, steps: int = 8) -> None:
     """Where a step's time goes: the host-device synchronizations one step
     makes (``torch.cuda.set_sync_debug_mode``), wall time per step without
@@ -344,6 +559,13 @@ def profile_steps(torch, label, step, state, card, steps: int = 8) -> None:
           f"{wall_ms * 1e3 / launches:.1f} us | card {card}", flush=True)
     for t, n, key in sorted(rows, reverse=True)[:8]:
         print(f"[profile]   {t:9.1f} us/step  {n:5.0f} launches/step  {key[:90]}", flush=True)
+    host = sorted(((e.self_cpu_time_total / steps, e.count / steps, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU),
+                  reverse=True)
+    print(f"[profile] {label}: host self time by op under the profiler (top 6)", flush=True)
+    for t, n, key in host[:6]:
+        print(f"[profile]   host {t:9.1f} us/step  {n:5.0f} calls/step  {key[:70]}", flush=True)
 
 
 def end_to_end(torch, card):
@@ -381,7 +603,7 @@ def end_to_end(torch, card):
     first_s = time.perf_counter() - t0
     counts_gen = ops.launch_counts()
     want = {"wq_matmul": per_forward * new, "qdecode_attn": n_layers * (new - 1),
-            "qchunk_attn": 0}
+            "qchunk_attn": 0, **NO_PAGED}
     check(counts_gen == want, f"generate launch counts {counts_gen} != expected {want}")
     check(tuple(out.shape) == (slots, new), f"generate output shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab)).all()), "generated ids outside the vocab")
@@ -446,7 +668,8 @@ def end_to_end(torch, card):
     steps = sum(horizons.values())
     warm = max(r.max_new for r in reqs)
     want = {"wq_matmul": per_forward * (steps + warm),
-            "qdecode_attn": n_layers * (steps - len(horizons) + warm - 1), "qchunk_attn": 0}
+            "qdecode_attn": n_layers * (steps - len(horizons) + warm - 1), "qchunk_attn": 0,
+            **NO_PAGED}
     check(counts_rr == want, f"restart launch counts {counts_rr} != expected {want}")
     check(len(results) == len(reqs), "restart lost requests")
     for r, req in ((results[q.rid], q) for q in reqs):
@@ -473,13 +696,13 @@ def end_to_end(torch, card):
         if label == "one-shot":
             # warm-up: one prefill (one prompt length) and one decode step
             want = {"wq_matmul": per_forward * (ticks + len(reqs) + 2),
-                    "qdecode_attn": n_layers * (ticks + 1), "qchunk_attn": 0}
+                    "qdecode_attn": n_layers * (ticks + 1), "qchunk_attn": 0, **NO_PAGED}
         else:
             # warm-up: one mixed step (decode half + chunk half) and one decode step
             check(chunks == len(reqs) * -(-plen // chunk), f"chunked: {chunks} chunks")
             want = {"wq_matmul": per_forward * (ticks + chunks + 3),
                     "qdecode_attn": n_layers * (ticks + 2),
-                    "qchunk_attn": n_layers * (chunks + 1)}
+                    "qchunk_attn": n_layers * (chunks + 1), **NO_PAGED}
         check(counts == want, f"{label} launch counts {counts} != expected {want}")
         check(sorted(results) == sorted(r.rid for r in reqs), f"{label} lost requests")
         for req in reqs:
@@ -577,6 +800,176 @@ def end_to_end(torch, card):
 
     profile_steps(torch, f"mixed tick (B={slots}, C={chunk}, start 96)", mixed_tick,
                   (copy(base), tok), card)
+    paged_launches = paged_end_to_end(torch, card, SimpleNamespace(
+        model=model, params=params, cfg=cfg, reqs=reqs, dense=outs["chunked"], slots=slots,
+        max_len=plen + max_new, chunk=chunk, n_layers=n_layers, agreement=agreement))
+    return {k: launches.get(k, 0) + paged_launches[k] for k in paged_launches}
+
+
+def paged_end_to_end(torch, card, env):
+    """``--paged``: the chunked policy over a page pool at full width, with
+    prefix sharing and with oversubscription under both preemption
+    policies, each run's launch counts checked; a paged mixed step's logits
+    against the plain versions; a paged decode tick and mixed tick
+    profiled."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.nn.module import Context
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.engine import make_decode_step, make_mixed_step
+
+    slots, chunk, n_layers, cfg = env.slots, env.chunk, env.n_layers, env.cfg
+    per_forward = 7 * n_layers
+
+    def paged_engine(pool=None):
+        return ServeEngine(model=env.model, params=env.params, max_len=env.max_len,
+                           batch_slots=slots, weight_quant=True, quantized_kv=True,
+                           device="cuda", paged_kv=True, kv_pool_pages=pool)
+
+    def counted_run(label, engine, reqs, **kw):
+        """One scheduler run from zeroed counts; the counts must be the
+        chunked path's with the paged kernels in place of the dense ones
+        (warm-up: one mixed step and one decode step)."""
+        ops.reset_launch_counts()
+        results, stats = engine.scheduler(chunk_size=chunk, **kw).run(reqs, seed=0)
+        counts = ops.launch_counts()
+        ticks, chunks = stats.decode_steps, stats.prefill_chunks
+        want = {"wq_matmul": per_forward * (ticks + chunks + 3), "qdecode_attn": 0,
+                "qchunk_attn": 0, "qpaged_decode_attn": n_layers * (ticks + 2),
+                "qpaged_chunk_attn": n_layers * (chunks + 1)}
+        check(counts == want, f"{label} launch counts {counts} != expected {want}")
+        check(sorted(results) == sorted(r.rid for r in reqs), f"{label} lost requests")
+        for req in reqs:
+            r = results[req.rid]
+            check(r.status == "ok" and len(r.tokens) == req.max_new
+                  and all(0 <= t < cfg.vocab for t in r.tokens),
+                  f"{label}: request {req.rid} ended {r.status} with {len(r.tokens)} tokens")
+        report(label, stats)
+        print(f"[e2e] {label}: {len(results)} requests ok, {ticks} ticks, {chunks} chunks; "
+              f"launches {counts} == expected; card {card}", flush=True)
+        return results, stats, counts
+
+    paged = paged_engine()
+    ps, parity = paged.page_size, paged.kv_num_pages
+    print(f"[e2e] paged KV: page size {ps} (the engine's CUDA default), table "
+          f"{paged.kv_max_pages} pages per slot, pool {parity} pages (dense parity)",
+          flush=True)
+    launches = {}
+    summaries = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # -- the main path: paged chunked serving of the 16 requests -----------------
+    res, stats, counts = counted_run("paged", paged, env.reqs)
+    add(counts)
+    summaries["paged"] = stats.summary()
+    print(f"[e2e] paged tokens: agreement with the dense chunked run "
+          f"{env.agreement(res, env.dense):.4f}", flush=True)
+
+    # -- prefix sharing: 8 prompts with one 96-token opening ----------------------
+    g = np.random.default_rng(3)
+    opening = g.integers(0, cfg.vocab, size=96).astype(np.int32)
+    shared_reqs = [Request(rid=i, prompt=np.concatenate(
+        [opening, g.integers(0, cfg.vocab, size=32).astype(np.int32)]), max_new=16,
+        arrival=2 * i) for i in range(8)]
+    _, stats, counts = counted_run("paged, shared prefix", paged, shared_reqs)
+    add(counts)
+    check(stats.shared_pages_mapped > 0, "prefix sharing mapped no shared page")
+    summaries["shared"] = stats.summary()
+
+    # -- oversubscription: half the pool, both preemption policies, 8 requests ----
+    half = paged_engine(parity // 2)
+    for policy in ("recompute", "swap"):
+        label = f"paged, oversubscribed ({parity // 2} pages), {policy}"
+        got, stats, counts = counted_run(label, half, env.reqs[:8], oversubscribe=True,
+                                         preempt_policy=policy)
+        add(counts)
+        check(stats.grown_pages > 0 and stats.preemptions > 0,
+              f"{label}: grown {stats.grown_pages}, preemptions {stats.preemptions}")
+        print(f"[e2e] {label}: greedy tokens agree with the unpressured paged run on "
+              f"{env.agreement(got, res):.4f}", flush=True)
+        summaries[policy] = stats.summary()
+    del half
+    for label, m in summaries.items():
+        print(f"[e2e] paged {label}: steady {m['steady_tok_s']:.1f} tok/s | latency p50/p99 "
+              f"{m['p50_latency_steps']:.0f}/{m['p99_latency_steps']:.0f} ticks | ttft "
+              f"p50/p99 {m['p50_ttft_steps']:.0f}/{m['p99_ttft_steps']:.0f} ticks | pages peak "
+              f"{m['peak_pages_in_use']}, stalls {m['page_stalls']}, fill "
+              f"{m['page_occupancy']:.3f} | shared {m['shared_pages_mapped']} | grown "
+              f"{m['grown_pages']}, preempted {m['preemptions']}, resumed {m['resumes']}, "
+              f"swapped {m['swapped_pages']} pages ({m['swap_peak_bytes']} B peak) | card "
+              f"{card}", flush=True)
+
+    # -- a paged mixed step's logits against the plain versions -------------------
+    from repro_torch.nn.attention import KVChunk
+    from repro_torch.serve.slot_state import set_cache_page_row
+
+    g2 = torch.Generator(device="cuda").manual_seed(4)
+    cache = paged.new_cache(per_slot=True)
+    perm = torch.randperm(parity, generator=g2, device="cuda").reshape(slots, -1).cpu().numpy()
+    with torch.inference_mode():
+        for j in range(slots):                 # fragmented rows, 96-token prefixes
+            cache = set_cache_page_row(cache, j, perm[j])
+            toks = torch.randint(0, cfg.vocab, (1, 96), generator=g2, device="cuda",
+                                 dtype=torch.int32)
+            for c0 in range(0, 96, chunk):
+                _, cache = env.model.apply(paged.params, toks[:, c0:c0 + chunk], Context(),
+                                           cache=cache, decode=True,
+                                           chunk=KVChunk(j, c0, chunk), logit_pos=chunk - 1)
+    tok = torch.randint(0, cfg.vocab, (slots, 1), generator=g2, device="cuda", dtype=torch.int32)
+    ctok = torch.randint(0, cfg.vocab, (1, chunk), generator=g2, device="cuda",
+                         dtype=torch.int32)
+
+    def copy(c):
+        """A paged cache with the same contents (the pools keep their spare row)."""
+        new = paged.new_cache(per_slot=True)
+        for dst, src in zip(new["body"], c["body"]):
+            for name in ("k", "v", "page_table", "len"):
+                dst["kv"][name].copy_(src["kv"][name])
+        return new
+
+    def mixed_logits(c):
+        with torch.inference_mode():
+            ld, c = env.model.apply(paged.params, tok, Context(), cache=c, decode=True)
+            lc, c = env.model.apply(paged.params, ctok, Context(), cache=c, decode=True,
+                                    chunk=KVChunk(3, 96, chunk), logit_pos=chunk - 1)
+        return ld[:, -1], lc[:, 0]
+
+    kd, kc = mixed_logits(copy(cache))
+    ops.FORCE = "plain"
+    try:
+        pd, pc = mixed_logits(copy(cache))
+    finally:
+        ops.FORCE = None
+    for name, a, b in (("paged mixed step, decode half", kd, pd),
+                       ("paged mixed step, chunk half", kc, pc)):
+        check(bool(torch.isfinite(a).all()), f"{name} logits not finite")
+        err = (a - b).abs().max().item()
+        check(err <= LOGIT_ATOL, f"{name} logits: max err {err} > {LOGIT_ATOL}")
+        print(f"[e2e] {name} logits {tuple(a.shape)}: max_abs_err vs plain {err:.3e} "
+              f"(tol {LOGIT_ATOL})", flush=True)
+
+    decode = make_decode_step(env.model)
+    mixed = make_mixed_step(env.model)
+
+    def decode_tick(st):
+        c, t = st
+        nxt, c = decode(paged.params, t, c, None)
+        return c, nxt
+
+    def mixed_tick(st):
+        c, t = st
+        nxt, _, c = mixed(paged.params, t, c, None, ctok, 3, 96, chunk)
+        return c, nxt
+
+    profile_steps(torch, f"paged decode tick (B={slots}, ps={ps})", decode_tick,
+                  (copy(cache), tok), card)
+    profile_steps(torch, f"paged mixed tick (B={slots}, C={chunk}, start 96, ps={ps})",
+                  mixed_tick, (copy(cache), tok), card)
     return launches
 
 
@@ -594,7 +987,10 @@ def main() -> int:
         from repro_torch.kernels import _build, ref
         from repro_torch.kernels.qchunk_attn import qchunk_attn_cuda
         from repro_torch.kernels.qdecode_attn import qdecode_attn_cuda
+        from repro_torch.kernels.qpaged_attn import (qpaged_chunk_attn_cuda,
+                                                     qpaged_decode_attn_cuda)
         from repro_torch.kernels.wq_matmul import wq_matmul_cuda
+        from repro_torch.serve.engine import CUDA_PAGE_SIZE
     except ImportError as e:
         fail(f"the port is not importable next to this script ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -621,6 +1017,10 @@ def main() -> int:
     wq_rows, wq_agg, wq_err = check_wq_matmul(torch, ref, wq_matmul_cuda, gen)
     qd_rows, qd_err = check_qdecode_attn(torch, F, ref, qdecode_attn_cuda, gen)
     qc_rows, qc_err = check_qchunk_attn(torch, F, ref, qchunk_attn_cuda, qdecode_attn_cuda, gen)
+    pd_rows, _, pd_err = check_qpaged_decode_attn(torch, F, ref, qpaged_decode_attn_cuda,
+                                                  qdecode_attn_cuda, gen, CUDA_PAGE_SIZE)
+    pc_rows, pc_err = check_qpaged_chunk_attn(torch, F, ref, qpaged_chunk_attn_cuda,
+                                              qchunk_attn_cuda, gen, CUDA_PAGE_SIZE)
     t2 = time.perf_counter()
     launches = end_to_end(torch, card)
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
@@ -655,6 +1055,27 @@ def main() -> int:
          "library_ms": qc_main["library_ms"],
          "shape": f"B=8 Hq=9 Hkv=3 D=64 C={qc_main['c']} S={qc_main['s']} "
                   f"start={qc_main['start']} (the serving path's last chunk)"},
+    ]
+    pd_main, pc_main = pd_rows[0], pc_rows[1]
+    kernels += [
+        {"name": "qpaged_decode_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qpaged_attn.cu",
+         "replaces": "src/repro/kernels/qpaged_attn.py:102",
+         "launches": launches["qpaged_decode_attn"], "max_abs_err": pd_err,
+         "ms": pd_main["ms"], "plain_ms": pd_main["plain_ms"],
+         "bound_ms": pd_main["bound_ms"], "bound_by": pd_main["bound_by"],
+         "library_ms": pd_main["library_ms"],
+         "shape": f"B=8 Hq=9 Hkv=3 D=64 S={pd_main['s']} ps={pd_main['ps']} "
+                  f"kv_len={pd_main['lens']} (slot 5 evicted)"},
+        {"name": "qpaged_chunk_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qpaged_attn.cu",
+         "replaces": "src/repro/kernels/qpaged_attn.py:247",
+         "launches": launches["qpaged_chunk_attn"], "max_abs_err": pc_err,
+         "ms": pc_main["ms"], "plain_ms": pc_main["plain_ms"],
+         "bound_ms": pc_main["bound_ms"], "bound_by": pc_main["bound_by"],
+         "library_ms": pc_main["library_ms"],
+         "shape": f"Hq=9 Hkv=3 D=64 C={pc_main['c']} S={pc_main['s']} ps={pc_main['ps']} "
+                  f"start={pc_main['start']} (the serving path's last chunk)"},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,14 +16,19 @@ import torch
 from repro_torch.core.qformat import Exponent, QTensor
 from repro_torch.kernels import qchunk_attn as _qchunk_attn
 from repro_torch.kernels import qdecode_attn as _qdecode_attn
+from repro_torch.kernels import qpaged_attn as _qpaged_attn
 from repro_torch.kernels import ref
 from repro_torch.kernels import wq_matmul as _wq_matmul
 
 # None | "plain"
 FORCE: Optional[str] = None
 
-_WRAPPERS = {"wq_matmul": _wq_matmul, "qdecode_attn": _qdecode_attn,
-             "qchunk_attn": _qchunk_attn}
+# kernel name -> (wrapper module, its launch counter)
+_COUNTERS = {"wq_matmul": (_wq_matmul, "launches"),
+             "qdecode_attn": (_qdecode_attn, "launches"),
+             "qchunk_attn": (_qchunk_attn, "launches"),
+             "qpaged_decode_attn": (_qpaged_attn, "decode_launches"),
+             "qpaged_chunk_attn": (_qpaged_attn, "chunk_launches")}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -34,12 +39,12 @@ def _use_kernel(t: torch.Tensor) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in _WRAPPERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _WRAPPERS.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def wq_matmul(x: torch.Tensor, w: QTensor, *, transpose: bool = False) -> torch.Tensor:
@@ -91,3 +96,37 @@ def qchunk_attn(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tensor,
                                              v_chunk.contiguous(), k_cache, v_cache,
                                              k_n, v_n, slot, start)
     return ref.qchunk_attn_ref(q, k_chunk, v_chunk, k_cache, v_cache, k_n, v_n, slot, start)
+
+
+def qpaged_decode_attn(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       k_n: Exponent, v_n: Exponent, page_table: torch.Tensor,
+                       kv_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Decode attention through a page table over int8 pools.
+
+    q (B, Hq, D) f32; pools (P, ps, Hkv, D) int8; k_n/v_n scalar pow2
+    exponents; page_table (B, max_pages) int32, -1 unmapped; kv_len (B,)
+    live lengths.  Returns (B, Hq, D).
+    """
+    if _use_kernel(q):
+        return _qpaged_attn.qpaged_decode_attn_cuda(q.contiguous(), k_pool, v_pool, k_n, v_n,
+                                                    page_table, kv_len)
+    return ref.qpaged_decode_attn_ref(q, k_pool, v_pool, k_n, v_n, page_table, kv_len)
+
+
+def qpaged_chunk_attn(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tensor,
+                      k_pool: torch.Tensor, v_pool: torch.Tensor, k_n: Exponent,
+                      v_n: Exponent, page_row: torch.Tensor, start: int) -> torch.Tensor:
+    """Chunked prefill into a slot of a paged int8 cache.
+
+    q (C, Hq, D), k/v chunk (C, Hkv, D) f32; pools (P, ps, Hkv, D) int8,
+    whose pool rows under logical rows [start, start+C) of the slot's
+    ``page_row`` (max_pages,) receive the quantized chunk in place; rows on
+    unmapped entries or past the table are dropped.  Query c attends
+    positions <= start + c.  Returns (C, Hq, D).
+    """
+    if _use_kernel(q):
+        return _qpaged_attn.qpaged_chunk_attn_cuda(q.contiguous(), k_chunk.contiguous(),
+                                                   v_chunk.contiguous(), k_pool, v_pool,
+                                                   k_n, v_n, page_row, start)
+    return ref.qpaged_chunk_attn_ref(q, k_chunk, v_chunk, k_pool, v_pool, k_n, v_n, page_row,
+                                     start)

@@ -87,3 +87,65 @@ def qchunk_attn_ref(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tenso
     p = torch.softmax(torch.where(visible, scores, torch.full_like(scores, NEG_INF)), dim=-1)
     out = torch.einsum("hgcs,shd->chgd", p, v)
     return out.reshape(c, hq, d).to(q.dtype)
+
+
+def gather_pages_ref(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Densify a paged pool: (P, ps, H, D) + (B, max_pages) -> (B, max_pages*ps, H, D).
+
+    Unmapped (-1) entries read pool page 0, whose rows every consumer masks
+    through the live length.
+    """
+    b, mp = page_table.shape
+    pages = pool[torch.clamp(page_table, min=0).to(torch.int64)]
+    return pages.reshape(b, mp * pool.shape[1], *pool.shape[2:])
+
+
+def qpaged_decode_attn_ref(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           k_n: qformat.Exponent, v_n: qformat.Exponent,
+                           page_table: torch.Tensor,
+                           kv_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Paged decode attention: gather each slot's pages into a dense
+    (B, max_pages*ps, Hkv, D) view through the table, then the dense
+    dequantize-everything decode.  q (B, Hq, D) f32; pools (P, ps, Hkv, D)
+    int8; table (B, max_pages) int32, -1 unmapped; kv_len int or (B,).
+    """
+    k = gather_pages_ref(k_pool, page_table)
+    v = gather_pages_ref(v_pool, page_table)
+    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device).reshape(-1)
+    return qdecode_attn_ref(q, k, v, k_n, v_n, lens.expand(q.shape[0]))
+
+
+def qpaged_chunk_attn_ref(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tensor,
+                          k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          k_n: qformat.Exponent, v_n: qformat.Exponent,
+                          page_row: torch.Tensor, start: int) -> torch.Tensor:
+    """Paged chunked prefill: quantize the chunk onto the pow2 grid, write its
+    rows **in place** into the pool pages the slot's ``page_row``
+    (max_pages,) names, then attend chunk query c over logical positions
+    <= start + c through the row.  Rows on -1 entries or past the table are
+    dropped.  q (C, Hq, D), k/v chunk (C, Hkv, D) f32; pools (P, ps, Hkv, D)
+    int8.  Returns out (C, Hq, D).
+    """
+    c, hq, d = q.shape
+    n_pages, ps, hkv, _ = k_pool.shape
+    g = hq // hkv
+    mp = page_row.shape[0]
+    pos = start + torch.arange(c, device=q.device)
+    page = page_row[torch.clamp(pos // ps, max=mp - 1)]
+    valid = (pos // ps < mp) & (page >= 0)
+    # dropped rows go to a sentinel row past the pool: no mask of data-dependent
+    # shape, so the function runs without a host sync (and in a CUDA graph)
+    rows = n_pages * ps
+    flat = torch.where(valid, page * ps + pos % ps, rows).to(torch.int64)
+    for pool, x, n in ((k_pool, k_chunk, k_n), (v_pool, v_chunk, v_n)):
+        ext = torch.cat([pool.reshape(rows, hkv, d), pool.new_zeros(1, hkv, d)])
+        ext[flat] = qformat.quantize(x, n, 8)
+        pool.copy_(ext[:rows].view(pool.shape))
+    kf = qformat.dequantize(gather_pages_ref(k_pool, page_row[None])[0], k_n)
+    vf = qformat.dequantize(gather_pages_ref(v_pool, page_row[None])[0], v_n)
+    qg = q.reshape(c, hkv, g, d).to(torch.float32)
+    scores = torch.einsum("chgd,shd->hgcs", qg, kf) / math.sqrt(d)
+    visible = torch.arange(kf.shape[0], device=q.device)[None, :] <= pos[:, None]
+    p = torch.softmax(torch.where(visible, scores, torch.full_like(scores, NEG_INF)), dim=-1)
+    out = torch.einsum("hgcs,shd->chgd", p, vf)
+    return out.reshape(c, hq, d).to(q.dtype)

@@ -18,8 +18,17 @@ Policies ported so far:
   restart    restart-the-batch: lockstep generate() per gathered batch,
              everyone waits for the longest request
   lockstep   one generate() over --slots prompts (--requests clamped)
---policy ragged and --paged wait for later slices of the port (ROADMAP.md).
-Runs on the GPU unless --device says otherwise.
+--paged (chunked policy) serves from a page pool shared by all slots (the
+``qpaged_decode_attn`` and ``qpaged_chunk_attn`` kernels) with prefix
+sharing (--no-prefix-sharing turns it off) and, with --oversubscribe, lazy
+decode pages and --preempt-policy recompute|swap when the pool runs dry:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --policy chunked --paged --page-size 16 --pool-pages 48 \
+        --oversubscribe --preempt-policy swap --wq --qkv
+
+--policy ragged waits for a later slice of the port (ROADMAP.md).  Runs on
+the GPU unless --device says otherwise.
 """
 from __future__ import annotations
 
@@ -58,6 +67,17 @@ def report(name: str, stats) -> None:
         extra += f" | chunks {s['prefill_chunks']} (stalled {s['stalled_chunks']})"
     if s.get("admission_stalls"):
         extra += f" | admission stalls {s['admission_stalls']}"
+    if s.get("peak_pages_in_use"):
+        extra += (f" | pages peak {s['peak_pages_in_use']} (stalls {s['page_stalls']}, "
+                  f"fill {s['page_occupancy']:.2f})")
+    if s.get("prefix_hits"):
+        extra += (f" | prefix hits {s['prefix_hits']} (shared {s['shared_pages_mapped']} "
+                  f"pages, cow {s['cow_copies']})")
+    if s.get("grown_pages"):
+        extra += (f" | grown {s['grown_pages']} pages (preempt {s['preemptions']}, resume "
+                  f"{s['resumes']}, swapped {s['swapped_pages']})")
+    if s.get("failed"):
+        extra += f" | failed {s['failed']}"
     if s.get("p99_ttft_steps"):
         extra += (f" | ttft p50/p99 {s['p50_ttft_steps']:.0f}/"
                   f"{s['p99_ttft_steps']:.0f} steps")
@@ -102,7 +122,23 @@ def main(argv=None):
                     help="wait for every tick and report wall-clock p50/p99 request "
                          "latency (ms)")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache (waits for ROADMAP slice 3 of the port)")
+                    help="paged KV cache: a page pool shared by all slots plus per-slot "
+                         "page tables, pages allocated per request (chunked policy only)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="rows per KV page (paged; 0 = the engine's default)")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="KV pool pages shared by all slots (paged; 0 = dense parity: "
+                         "slots * ceil(max_len / page_size))")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="paged: do not map resident prompt-prefix pages into new slots")
+    ap.add_argument("--oversubscribe", action="store_true",
+                    help="paged: admission reserves only the prompt's pages, decode grows "
+                         "one page per crossed boundary and preempts a victim when the "
+                         "pool runs dry (see --preempt-policy)")
+    ap.add_argument("--preempt-policy", default="recompute", choices=["recompute", "swap"],
+                    help="with --oversubscribe: 'recompute' re-queues the victim as a "
+                         "continuation prompt; 'swap' parks its private pages in host "
+                         "memory and restores them bit for bit")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop a request when this token is sampled (-1 = off)")
     ap.add_argument("--wq", nargs="?", const="int8", default=False, choices=["int8"],
@@ -116,8 +152,9 @@ def main(argv=None):
     if args.policy == "ragged":
         raise SystemExit("--policy ragged: the ragged tick waits for ROADMAP slice 4 of "
                          "the port; use --policy chunked, scheduler, restart or lockstep")
-    if args.paged:
-        raise SystemExit("--paged: the paged KV cache waits for ROADMAP slice 3 of the port")
+    if args.paged and args.policy != "chunked":
+        raise SystemExit("--paged requires --policy chunked (pages are allocated per "
+                         "request and written through the mixed step's chunks)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -128,7 +165,9 @@ def main(argv=None):
                          max_len=args.prompt_len + args.max_new,
                          batch_slots=args.slots, quantized_kv=args.qkv,
                          weight_quant=args.wq, temperature=args.temperature,
-                         device=device)
+                         device=device, paged_kv=args.paged,
+                         page_size=args.page_size or None,
+                         kv_pool_pages=args.pool_pages or None)
 
     if args.policy == "lockstep":
         n = min(args.requests, args.slots)
@@ -156,7 +195,10 @@ def main(argv=None):
         chunked = args.policy == "chunked"
         sched = engine.scheduler(eos_id=eos_id, prompt_bucket=args.prompt_bucket or None,
                                  chunk_size=args.chunk_size if chunked else None,
-                                 token_budget=(args.token_budget or None) if chunked else None)
+                                 token_budget=(args.token_budget or None) if chunked else None,
+                                 prefix_sharing=not args.no_prefix_sharing,
+                                 oversubscribe=args.oversubscribe,
+                                 preempt_policy=args.preempt_policy)
         results, stats = sched.run(reqs, seed=args.seed, time_ticks=args.time_ticks)
     report(args.policy, stats)
     first = results[min(results)]

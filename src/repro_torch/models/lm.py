@@ -38,9 +38,12 @@ class CausalLM:
                 "final_norm": self._final_norm().init(gen, device)}
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool = False,
-                   device, per_slot_len: bool = False) -> Dict[str, Any]:
+                   device, per_slot_len: bool = False, page_size: Optional[int] = None,
+                   num_pages: Optional[int] = None) -> Dict[str, Any]:
+        """Serving cache: dense, or paged with ``page_size`` (serve.engine)."""
         return self.stack.init_cache(batch, max_len, quantized_kv=quantized_kv, device=device,
-                                     per_slot_len=per_slot_len)
+                                     per_slot_len=per_slot_len, page_size=page_size,
+                                     num_pages=num_pages)
 
     def apply(self, params: Params, tokens: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,

@@ -1,18 +1,31 @@
-"""Grouped-query attention with RoPE over a dense (optionally int8) KV cache
-(``repro/nn/attention.py``: the lockstep and per-slot serving paths).
+"""Grouped-query attention with RoPE over a dense or paged (optionally
+int8) KV cache (``repro/nn/attention.py``: the lockstep and per-slot serving
+paths).
 
 Cache contract, one dict per layer (stacked layers add a leading layer axis
-to ``k``/``v``): ``{"k", "v": (B, S, Hkv, D), "len"}`` plus, for an int8
-cache on the paper's Qm.n grid, the exponents ``"k_n"``/``"v_n"`` (ints).
-``len`` is an int (lockstep) or, for the continuous-batching scheduler, a
-(B,) int32 tensor on the cache's device (``per_slot_len``): every slot
-writes, masks and ropes at its own offset.  One (B,) ``len`` serves every
+to ``k``/``v``), in one of two geometries:
+
+* dense: ``{"k", "v": (B, S, Hkv, D), "len"}``;
+* paged: ``{"k", "v": (P, ps, Hkv, D), "page_table": (B, max_pages), "len"}``
+  — one pool of P pages of ps rows shared by every slot, and per slot a
+  row of pool page indices (-1 unmapped): logical row p of slot b lives at
+  row p % ps of pool page ``page_table[b, p // ps]``.
+
+An int8 cache on the paper's Qm.n grid adds the exponents ``"k_n"`` /
+``"v_n"`` (ints).  ``len`` is an int (lockstep) or, for the
+continuous-batching scheduler, a (B,) int32 tensor on the cache's device
+(``per_slot_len``; always for paged caches): every slot writes, masks and
+ropes at its own offset.  One (B,) ``len`` and one page table serve every
 layer of a stack, where the reference keeps an equal copy per layer.
 
 Unlike the reference, the cache functions write K/V rows in place: the
-returned dict shares the cache's ``k``/``v`` tensors, and only ``len`` is
-replaced by a new value.  Paged pools and the ragged tick belong to later
-slices.
+returned dict shares the cache's ``k``/``v`` tensors, and only ``len`` and
+``page_table`` are replaced by new values.  A paged pool is a view of the
+first P * ps rows of a storage with one more row: the reference's scatters
+drop rows at the out-of-range sentinel index P * ps, and here that index is
+a real row that nothing reads, so a dropped write needs neither a
+synchronizing mask nor a clamp onto a live row.  The ragged tick belongs to
+a later slice.
 """
 from __future__ import annotations
 
@@ -123,6 +136,172 @@ def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int, *,
     return cache
 
 
+def host_ints(values, device, dtype=torch.int32) -> torch.Tensor:
+    """Host integers as a tensor on ``device``.  A CUDA copy goes through
+    pinned memory without blocking the host: ``t[i] = python_int`` or a
+    pageable copy would synchronize with the device."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def host_tensor(array, device) -> torch.Tensor:
+    """A host (numpy) array on ``device``, through pinned memory on CUDA."""
+    t = torch.from_numpy(array)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def init_paged_kv_cache(slots: int, max_pages: int, page_size: int, num_pages: int,
+                        n_kv_heads: int, head_dim: int, *, quantized: bool, device,
+                        cache_n: int = 3, layers: Optional[int] = None) -> Dict[str, Any]:
+    """A zeroed paged cache: ``num_pages`` pool pages of ``page_size`` rows
+    shared by ``slots`` slots, each with a ``max_pages``-entry table row
+    (all -1, unmapped) and a (slots,) int32 ``len``.
+
+    ``layers`` adds a leading stacked-layer axis to the pools; the table and
+    ``len`` are shared by every layer.  Each pool is a view of the first
+    ``num_pages * page_size`` rows of a storage with one spare row per
+    layer, the target of dropped writes (:func:`paged_flat_index`).
+    """
+    dtype = torch.int8 if quantized else torch.float32
+    lead = (layers,) if layers else ()
+    rows = num_pages * page_size
+
+    def pool():
+        storage = torch.zeros(lead + (rows + 1, n_kv_heads, head_dim), dtype=dtype,
+                              device=device)
+        return storage.narrow(len(lead), 0, rows).unflatten(len(lead), (num_pages, page_size))
+
+    cache: Dict[str, Any] = {
+        "k": pool(), "v": pool(),
+        "page_table": torch.full((slots, max_pages), -1, dtype=torch.int32, device=device),
+        "len": torch.zeros(slots, dtype=torch.int32, device=device)}
+    if quantized:
+        cache["k_n"] = cache_n
+        cache["v_n"] = cache_n
+    return cache
+
+
+def is_paged_cache(cache: Dict[str, Any]) -> bool:
+    """True when ``cache`` is a paged pool dict (has a ``page_table``)."""
+    return "page_table" in cache
+
+
+def _pool_rows(pool: torch.Tensor) -> torch.Tensor:
+    """The (P * ps + 1, Hkv, D) rows of one layer's (P, ps, Hkv, D) pool: its
+    own rows, then the spare row that dropped writes land on."""
+    n, ps, h, d = pool.shape
+    end = (pool.storage_offset() + (n * ps + 1) * h * d) * pool.element_size()
+    if not pool.is_contiguous() or pool.untyped_storage().nbytes() < end:
+        raise ValueError("a paged pool needs its spare row: build it with init_paged_kv_cache")
+    return pool.as_strided((n * ps + 1, h, d), (h * d, d, 1))
+
+
+def paged_flat_index(row: torch.Tensor, pos: torch.Tensor, page_size: int,
+                     num_pages: int) -> torch.Tensor:
+    """Flat pool rows (int64) of logical positions ``pos`` of one slot.
+
+    ``row``: (max_pages,) int32 table row; position p maps to
+    ``row[p // page_size] * page_size + p % page_size``.  Positions past the
+    table or on unmapped (-1) entries map to the sentinel
+    ``num_pages * page_size``, the pool's spare row, which nothing reads.
+    """
+    mp = row.shape[-1]
+    lp = pos // page_size
+    page = row[torch.clamp(lp, max=mp - 1)]
+    valid = (lp < mp) & (page >= 0)
+    return torch.where(valid, page * page_size + pos % page_size,
+                       num_pages * page_size).to(torch.int64)
+
+
+def gather_kv_pages(cache: Dict[str, Any], slot: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Densify one slot of a (one-layer) paged cache: its pages in logical
+    order, (max_pages * page_size, Hkv, D).  Unmapped entries read pool page
+    0, past the slot's live length, which every consumer masks."""
+    idx = torch.clamp(cache["page_table"][slot], min=0).to(torch.int64)
+    ps = cache["k"].shape[1]
+    sh = (idx.shape[0] * ps,) + tuple(cache["k"].shape[2:])
+    return cache["k"][idx].reshape(sh), cache["v"][idx].reshape(sh)
+
+
+def paged_decode_attention(q: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
+    """Single-token decode over a paged cache; q (B, 1, Hq, D).
+
+    int8 pools go to the ``qpaged_decode_attn`` kernel (plain version on
+    CPU), which reads through the table; float pools are densified through
+    the table and take the einsum path.
+    """
+    table, ln = cache["page_table"], cache["len"]
+    if cache["k"].dtype == torch.int8:
+        from repro_torch.kernels import ops
+
+        out = ops.qpaged_decode_attn(q[:, 0].to(torch.float32), cache["k"], cache["v"],
+                                     cache["k_n"], cache["v_n"], table, ln)
+        return out[:, None]
+    b, mp, ps = q.shape[0], table.shape[1], cache["k"].shape[1]
+    idx = torch.clamp(table, min=0).to(torch.int64)
+    sh = (b, mp * ps) + tuple(cache["k"].shape[2:])
+    return decode_attention(q, cache["k"][idx].reshape(sh), cache["v"][idx].reshape(sh), ln)
+
+
+def _pages_axis(cache: Dict[str, Any]) -> int:
+    """The pool axis of ``k``/``v``: 1 for stacked (L, P, ps, Hkv, D) pools."""
+    return cache["k"].ndim - 4
+
+
+def copy_kv_page(cache: Dict[str, Any], src: int, dst: int) -> Dict[str, Any]:
+    """Copy pool page ``src`` onto pool page ``dst`` (K and V, every layer of
+    a stacked pool), in place: the copy-on-write of prefix sharing, before
+    the row that points at ``dst`` is installed."""
+    ax = _pages_axis(cache)
+    for name in ("k", "v"):
+        cache[name].select(ax, dst).copy_(cache[name].select(ax, src))
+    return cache
+
+
+def set_page_row(cache: Dict[str, Any], slot: int, row) -> Dict[str, Any]:
+    """Install a slot's table row (admission, resume): ``row`` (max_pages,)
+    host ints, -1 past the allocated pages.  Returns the cache with a new
+    table; one table serves every layer."""
+    table = cache["page_table"].clone()
+    table[slot].copy_(host_ints(row, table.device), non_blocking=True)
+    return dict(cache, page_table=table)
+
+
+def set_page_entry(cache: Dict[str, Any], slot: int, idx: int, page: int) -> Dict[str, Any]:
+    """``page_table[slot, idx] = page`` — the lazy decode-growth append.
+    ``fill_`` takes the value as a kernel argument, with no host sync."""
+    table = cache["page_table"].clone()
+    table[slot, idx:idx + 1].fill_(page)
+    return dict(cache, page_table=table)
+
+
+def gather_pool_pages(cache: Dict[str, Any], pages) -> Dict[str, torch.Tensor]:
+    """Whole pool pages read out of the K/V pools (the swap-out gather):
+    ``{"k", "v": (n, ps, Hkv, D)}``, a leading layer axis for stacked pools.
+    Raw pool dtype, so int8 pages round-trip bit for bit."""
+    ax = _pages_axis(cache)
+    idx = host_ints(pages, cache["k"].device, torch.int64)
+    return {name: cache[name].index_select(ax, idx) for name in ("k", "v")}
+
+
+def scatter_pool_pages(cache: Dict[str, Any], pages, data) -> Dict[str, Any]:
+    """Write :func:`gather_pool_pages` data (tensors, or host numpy arrays)
+    back into pool pages ``pages``, in place (the swap-in restore).
+    Duplicate indices carry the same rows, as the scheduler pads them."""
+    ax = _pages_axis(cache)
+    dev = cache["k"].device
+    idx = host_ints(pages, dev, torch.int64)
+    for name in ("k", "v"):
+        src = data[name]
+        src = src.to(dev) if isinstance(src, torch.Tensor) else host_tensor(src, dev)
+        cache[name].index_copy_(ax, idx, src.to(cache[name].dtype))
+    return cache
+
+
 def _quantized_rows(cache: Dict[str, Any], k_new: torch.Tensor, v_new: torch.Tensor):
     """New K/V rows in the cache's storage: int8 codes on its grid, or f32."""
     if cache["k"].dtype == torch.int8:
@@ -139,11 +318,27 @@ def update_kv_cache(cache: Dict[str, Any], k_new: torch.Tensor,
     A (B,) ``len`` writes each slot at its own offset.  As in the reference,
     a write that would run past ``max_len`` starts early enough to fit (a
     single row clamps to row S-1): only free slots, whose ``len`` keeps
-    ticking under the scheduler's decode mask, ever get there.
+    ticking under the scheduler's decode mask, ever get there.  A paged
+    cache takes one row per slot through its table; a slot whose row maps
+    to an unmapped page or past the table (an evicted slot still ticking)
+    writes the pool's spare row, never another slot's page.
     """
     idx = cache["len"]
     k_new, v_new = _quantized_rows(cache, k_new, v_new)
     b, s_new, s_max = k_new.shape[0], k_new.shape[1], cache["k"].shape[1]
+    if is_paged_cache(cache):
+        if s_new != 1:
+            raise NotImplementedError("multi-token insert into a paged cache: admission goes "
+                                      "through the chunked path (append_kv_chunk)")
+        table = cache["page_table"]
+        n_pool, ps, mp = cache["k"].shape[0], cache["k"].shape[1], table.shape[1]
+        lp = (idx // ps).to(torch.int64)
+        page = table.gather(1, torch.clamp(lp, max=mp - 1)[:, None])[:, 0]
+        flat = torch.where((lp < mp) & (page >= 0), page * ps + idx % ps,
+                           n_pool * ps).to(torch.int64)
+        _pool_rows(cache["k"])[flat] = k_new[:, 0]
+        _pool_rows(cache["v"])[flat] = v_new[:, 0]
+        return dict(cache, len=idx + 1)
     if isinstance(idx, int):
         start = min(max(idx, 0), s_max - s_new)
         cache["k"][:, start:start + s_new] = k_new
@@ -161,9 +356,16 @@ def reset_kv_slot(cache: Dict[str, Any], slot: int) -> Dict[str, Any]:
     """Free one slot of a per-slot cache: ``len[slot] = 0``.
 
     The stale K/V rows stay: every consumer masks positions ``>= len`` and
-    the next admission overwrites them, so eviction is O(1).
+    the next admission overwrites them, so eviction is O(1).  A paged cache
+    also unmaps the slot's table row (all -1): its pool pages go back to the
+    host-side allocator, and the slot's later decode writes are dropped.
     """
-    return dict(cache, len=set_kv_slot_len(cache["len"], slot, 0))
+    out = dict(cache, len=set_kv_slot_len(cache["len"], slot, 0))
+    if is_paged_cache(cache):
+        table = cache["page_table"].clone()
+        table[slot].fill_(-1)
+        out["page_table"] = table
+    return out
 
 
 def set_kv_slot_len(ln: torch.Tensor, slot: int, new_len: int) -> torch.Tensor:
@@ -215,14 +417,24 @@ def append_kv_chunk(cache: Dict[str, Any], k_new: torch.Tensor, v_new: torch.Ten
     The plain sibling of the write inside ``ops.qchunk_attn`` (int8 caches
     quantize on write).  The length is set absolutely, so the junk rows the
     decode half appended for this still-prefilling slot are overwritten.
-    A chunk that does not fit raises, where the reference would shift it.
+    A dense chunk that does not fit raises, where the reference would shift
+    it.  A paged chunk goes through the slot's table row; rows on unmapped
+    entries or past the table (the padded tail of a last chunk) are dropped.
+    The scheduler makes sure no row goes through a shared page.
     """
     k_new, v_new = _quantized_rows(cache, k_new, v_new)
     c, slot, start = k_new.shape[1], chunk.slot, chunk.start
-    check_chunk_target(c, cache["k"].shape[0], cache["k"].shape[1], slot, start,
-                       "append_kv_chunk")
-    cache["k"][slot, start:start + c] = k_new[0]
-    cache["v"][slot, start:start + c] = v_new[0]
+    if is_paged_cache(cache):
+        n_pool, ps = cache["k"].shape[0], cache["k"].shape[1]
+        flat = paged_flat_index(cache["page_table"][slot],
+                                start + torch.arange(c, device=k_new.device), ps, n_pool)
+        _pool_rows(cache["k"])[flat] = k_new[0]
+        _pool_rows(cache["v"])[flat] = v_new[0]
+    else:
+        check_chunk_target(c, cache["k"].shape[0], cache["k"].shape[1], slot, start,
+                           "append_kv_chunk")
+        cache["k"][slot, start:start + c] = k_new[0]
+        cache["v"][slot, start:start + c] = v_new[0]
     return dict(cache, len=set_kv_slot_len(cache["len"], slot, start + chunk.length))
 
 
@@ -233,15 +445,19 @@ def chunk_attention(q: torch.Tensor, cache: Dict[str, Any], slot: int,
     (``append_kv_chunk``): query c attends positions <= start + c.
 
     Only rows before ``start + C`` are read, as the reference's blocked loop
-    visits them.  int8 caches go through ``ops.qchunk_attn`` instead.
+    visits them; a paged cache is densified through the slot's table row
+    first.  int8 caches go through ``ops.qchunk_attn`` / ``ops.
+    qpaged_chunk_attn`` instead.
     """
     if cache["k"].dtype == torch.int8:
         raise ValueError("chunk_attention takes float caches; int8 caches go "
-                         "through kernels.ops.qchunk_attn")
+                         "through kernels.ops.qchunk_attn or qpaged_chunk_attn")
     _, c, hq, d = q.shape
-    end = min(start + c, cache["k"].shape[1])
-    k = cache["k"][slot, :end].to(torch.float32)
-    v = cache["v"][slot, :end].to(torch.float32)
+    kc, vc = gather_kv_pages(cache, slot) if is_paged_cache(cache) \
+        else (cache["k"][slot], cache["v"][slot])
+    end = min(start + c, kc.shape[0])
+    k = kc[:end].to(torch.float32)
+    v = vc[:end].to(torch.float32)
     hkv = k.shape[1]
     qg = q[0].reshape(c, hkv, hq // hkv, d).to(torch.float32) * (1.0 / math.sqrt(d))
     scores = torch.einsum("chgd,shd->hgcs", qg, k)
@@ -257,7 +473,7 @@ def chunk_attention(q: torch.Tensor, cache: Dict[str, Any], slot: int,
 
 @dataclasses.dataclass(frozen=True)
 class Attention:
-    """Multi-head attention: GQA and RoPE, with the dense serving cache paths."""
+    """Multi-head attention: GQA and RoPE, with the dense and paged serving cache paths."""
 
     d_model: int
     n_heads: int
@@ -323,9 +539,15 @@ class Attention:
             if cache["k"].dtype == torch.int8:
                 from repro_torch.kernels import ops
 
-                out = ops.qchunk_attn(q[0], k[0], v[0], cache["k"], cache["v"],
-                                      cache["k_n"], cache["v_n"], chunk.slot,
-                                      chunk.start)[None]
+                if is_paged_cache(cache):
+                    out = ops.qpaged_chunk_attn(q[0], k[0], v[0], cache["k"], cache["v"],
+                                                cache["k_n"], cache["v_n"],
+                                                cache["page_table"][chunk.slot],
+                                                chunk.start)[None]
+                else:
+                    out = ops.qchunk_attn(q[0], k[0], v[0], cache["k"], cache["v"],
+                                          cache["k_n"], cache["v_n"], chunk.slot,
+                                          chunk.start)[None]
                 new_cache = dict(cache, len=set_kv_slot_len(cache["len"], chunk.slot,
                                                             chunk.start + chunk.length))
             else:
@@ -333,8 +555,11 @@ class Attention:
                 out = chunk_attention(q, new_cache, chunk.slot, chunk.start)
         elif decode and s == 1:
             new_cache = update_kv_cache(cache, k, v)
-            out = decode_attention(q, new_cache["k"], new_cache["v"], new_cache["len"],
-                                   k_n=new_cache.get("k_n"), v_n=new_cache.get("v_n"))
+            if is_paged_cache(cache):
+                out = paged_decode_attention(q, new_cache)
+            else:
+                out = decode_attention(q, new_cache["k"], new_cache["v"], new_cache["len"],
+                                       k_n=new_cache.get("k_n"), v_n=new_cache.get("v_n"))
         elif per_slot:
             raise NotImplementedError("multi-token prefill into a per-slot cache: use the "
                                       "chunked path (chunk=KVChunk(...)) or a batch-1 "

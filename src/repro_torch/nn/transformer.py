@@ -13,7 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.nn.attention import Attention, KVChunk, init_kv_cache
+from repro_torch.nn.attention import Attention, KVChunk, init_kv_cache, init_paged_kv_cache
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import Context, Params, tree_layer
@@ -50,11 +50,23 @@ class Block:
                 "ffn": self._ffn().init(gen, device)}
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool, device,
-                   layers: Optional[int] = None,
-                   per_slot_len: bool = False) -> Dict[str, Any]:
-        return {"kv": init_kv_cache(batch, max_len, self.n_kv_heads, self.head_dim,
-                                    quantized=quantized_kv, device=device, layers=layers,
-                                    per_slot_len=per_slot_len)}
+                   layers: Optional[int] = None, per_slot_len: bool = False,
+                   page_size: Optional[int] = None,
+                   num_pages: Optional[int] = None) -> Dict[str, Any]:
+        """A dense KV slab, or with ``page_size`` a paged pool of
+        ``num_pages`` pages (default: dense parity, batch * max_pages)."""
+        if page_size is None:
+            return {"kv": init_kv_cache(batch, max_len, self.n_kv_heads, self.head_dim,
+                                        quantized=quantized_kv, device=device, layers=layers,
+                                        per_slot_len=per_slot_len)}
+        if not per_slot_len:
+            raise ValueError("paged KV caches are per-slot by construction: pass "
+                             "per_slot_len=True alongside page_size/num_pages")
+        max_pages = -(-max_len // page_size)
+        return {"kv": init_paged_kv_cache(
+            batch, max_pages, page_size, num_pages if num_pages is not None else batch * max_pages,
+            self.n_kv_heads, self.head_dim, quantized=quantized_kv, device=device,
+            layers=layers)}
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
@@ -99,11 +111,13 @@ class Stack:
         return {"body": body}
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool,
-                   device, per_slot_len: bool = False) -> Dict[str, Any]:
+                   device, per_slot_len: bool = False, page_size: Optional[int] = None,
+                   num_pages: Optional[int] = None) -> Dict[str, Any]:
         layers = self.n_periods if self.stacked else None
         return {"body": [blk.init_cache(batch, max_len, quantized_kv=quantized_kv,
                                         device=device, layers=layers,
-                                        per_slot_len=per_slot_len)
+                                        per_slot_len=per_slot_len, page_size=page_size,
+                                        num_pages=num_pages)
                          for blk in self.body]}
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
@@ -129,7 +143,8 @@ class Stack:
             return x, None
         # every layer wrote its k/v rows in place; only the length advances
         # (each layer of a period got the same ``len`` and computed the same
-        # new one)
+        # new one).  A paged cache's per-layer pools are views of the
+        # stacked (L, P, ps, Hkv, D) pools; its one table serves every layer.
         return x, {"body": [{"kv": dict(c["kv"], len=lens[pos])}
                             for pos, c in enumerate(cache["body"])]}
 

@@ -3,9 +3,10 @@
 ``weight_quant`` stores every GEMM and embedding weight as an int8
 :class:`QTensor` (the ``wq_matmul`` kernel path); ``quantized_kv`` keeps the
 KV cache as int8 on the paper's Qm.n grid (the ``qdecode_attn`` and
-``qchunk_attn`` kernel paths).  PyTorch runs eagerly, so the reference's
-jitted steps are plain functions over the engine's params here; the cache
-is updated in place.
+``qchunk_attn`` kernel paths, or with ``paged_kv`` the
+``qpaged_decode_attn`` and ``qpaged_chunk_attn`` ones).  PyTorch runs
+eagerly, so the reference's jitted steps are plain functions over the
+engine's params here; the cache is updated in place.
 """
 from __future__ import annotations
 
@@ -18,6 +19,15 @@ import torch
 from repro_torch.core.integerize import integerize_weights_only
 from repro_torch.nn.attention import KVChunk
 from repro_torch.nn.module import Context, resolve_device, tree_leaves, tree_to
+
+# Default page size of a paged cache on the card.  qpaged_decode_attn walks
+# positions, not pages, so the page size barely moves it: chip_smoke.py's
+# sweep at B=8, S=2048 measured 129.27 / 125.88 / 125.73 / 125.98 us for
+# ps 16 / 32 / 64 / 128 (NVIDIA H100 80GB HBM3, 700 W).  The smallest of
+# them keeps prefix sharing fine-grained and the last page's waste small.
+CUDA_PAGE_SIZE = 16
+# Off the card, the reference's default outside compiled TPU dispatch.
+CPU_PAGE_SIZE = 16
 
 
 def mask_vocab_tail(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -101,6 +111,13 @@ class ServeEngine:
 
     ``device`` defaults to ``cuda`` (see ``resolve_device``); the params are
     moved there and, with ``weight_quant``, integerized there.
+
+    ``paged_kv`` makes the scheduler's cache (``new_cache(per_slot=True)``)
+    a pool of ``kv_pool_pages`` pages of ``page_size`` rows shared by every
+    slot plus a per-slot page table, instead of (slots, max_len) slabs;
+    lockstep ``generate()`` stays dense.  ``kv_pool_pages=None`` is dense
+    parity (slots * ceil(max_len / page_size)); ``page_size=None`` resolves
+    to ``CUDA_PAGE_SIZE`` on the card and ``CPU_PAGE_SIZE`` elsewhere.
     """
 
     model: Any
@@ -111,9 +128,18 @@ class ServeEngine:
     weight_quant: Union[bool, str] = False
     temperature: float = 0.0
     device: Any = None
+    paged_kv: bool = False
+    page_size: Optional[int] = None
+    kv_pool_pages: Optional[int] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.page_size is None:
+            self.page_size = CUDA_PAGE_SIZE if self.device.type == "cuda" else CPU_PAGE_SIZE
+        elif self.paged_kv and self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.paged_kv and self.kv_pool_pages is not None and self.kv_pool_pages < 1:
+            raise ValueError(f"kv_pool_pages must be >= 1, got {self.kv_pool_pages}")
         self.params = tree_to(self.params, self.device)
         if self.weight_quant:
             if self.weight_quant not in (True, "int8"):
@@ -128,28 +154,49 @@ class ServeEngine:
         """True vocab size for tail masking."""
         return self.model.vocab
 
+    @property
+    def kv_max_pages(self) -> int:
+        """Page-table width: the per-slot logical length ceiling in pages."""
+        return -(-self.max_len // self.page_size)
+
+    @property
+    def kv_num_pages(self) -> int:
+        """Pool pages allocated (``kv_pool_pages`` or dense parity)."""
+        if self.kv_pool_pages is not None:
+            return self.kv_pool_pages
+        return self.batch_slots * self.kv_max_pages
+
+    def _paged_kw(self, per_slot: bool) -> dict:
+        if self.paged_kv and per_slot:
+            return {"page_size": self.page_size, "num_pages": self.kv_num_pages}
+        return {}
+
     def new_cache(self, *, per_slot: bool = False, batch: Optional[int] = None):
         """A fresh serving cache for this engine's geometry.
 
-        ``per_slot=True`` is the scheduler's cache (a (B,) ``len``); the
-        default is the lockstep ``generate()`` cache.  ``batch`` overrides
-        ``batch_slots`` (slot-targeted prefills).
+        ``per_slot=True`` is the scheduler's cache (a (B,) ``len``; paged when
+        ``paged_kv``); the default is the lockstep ``generate()`` cache.
+        ``batch`` overrides ``batch_slots`` (slot-targeted prefills).
         """
         return self.model.init_cache(batch or self.batch_slots, self.max_len,
                                      quantized_kv=self.quantized_kv, device=self.device,
-                                     per_slot_len=per_slot)
+                                     per_slot_len=per_slot, **self._paged_kw(per_slot))
 
     def cache_bytes(self, *, per_slot: bool = False) -> int:
         """Bytes of one serving cache, counted as the reference stores it:
-        the K/V slabs plus, per layer, an int32 for each exponent and the
-        length (one per slot for the scheduler's ``per_slot`` cache)."""
+        the K/V slabs or pools (without the pools' spare rows) plus, per
+        layer, an int32 for each exponent, the length (one per slot for the
+        scheduler's ``per_slot`` cache) and, paged, the page table."""
         shapes = self.model.init_cache(self.batch_slots, self.max_len,
-                                       quantized_kv=self.quantized_kv, device="meta")
-        slab = sum(t.numel() * t.element_size()
-                   for t in tree_leaves(shapes) if isinstance(t, torch.Tensor))
-        per_layer_scalars = (2 if self.quantized_kv else 0) \
+                                       quantized_kv=self.quantized_kv, device="meta",
+                                       per_slot_len=per_slot, **self._paged_kw(per_slot))
+        kv = sum(t.numel() * t.element_size() for t in tree_leaves(shapes)
+                 if isinstance(t, torch.Tensor) and t.ndim >= 4)
+        per_layer_ints = (2 if self.quantized_kv else 0) \
             + (self.batch_slots if per_slot else 1)
-        return slab + 4 * per_layer_scalars * self.model.stack.n_layers
+        if self._paged_kw(per_slot):
+            per_layer_ints += self.batch_slots * self.kv_max_pages
+        return kv + 4 * per_layer_ints * self.model.stack.n_layers
 
     def scheduler(self, **kwargs):
         """A continuous-batching :class:`Scheduler` over this engine."""

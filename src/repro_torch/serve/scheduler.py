@@ -1,9 +1,9 @@
-"""Continuous batching over dense per-slot KV caches, and the
+"""Continuous batching over per-slot KV caches, dense or paged, and the
 restart-the-batch baseline (``repro/serve/scheduler.py``).
 
-:class:`Scheduler` admits queued requests into free slots of one
-``(slots, max_len)`` cache with a (B,) ``len`` vector and evicts them on EOS
-or length, under one of two admission policies:
+:class:`Scheduler` admits queued requests into free slots of one per-slot
+cache with a (B,) ``len`` vector and evicts them on EOS or length, under
+one of two admission policies:
 
 * *one-shot* (``chunk_size=None``): a freed slot is refilled by a batch-1
   prefill into a scratch cache, copied into the slot (``write_kv_slot``).
@@ -11,16 +11,35 @@ or length, under one of two admission policies:
 * *chunked* (``chunk_size=C``): each tick is one mixed step
   (``engine.make_mixed_step``): every live slot decodes a token and one
   C-token chunk of the oldest queued prompt is written in place into its
-  slot (``ops.qchunk_attn`` for int8 caches).  ``token_budget`` caps the
-  tick's tokens (live slots + C): when decode alone would exceed it, the
-  chunk waits and decode runs.
+  slot (``ops.qchunk_attn`` / ``ops.qpaged_chunk_attn`` for int8 caches).
+  ``token_budget`` caps the tick's tokens (live slots + C): when decode
+  alone would exceed it, the chunk waits and decode runs.
+
+With a paged engine (``ServeEngine(paged_kv=True)``, chunked admission
+only) the cache is a page pool shared by all slots plus a page table, and
+the scheduler runs a host-side allocator (``serve/paging.py``):
+
+* admission allocates the request's pages all or nothing and installs its
+  table row; a pool that cannot serve them defers the request in the queue
+  (``page_stalls``); eviction unmaps the row, then frees the pages;
+* prefix sharing (default on): a prompt whose full leading pages are
+  resident maps them (refcounted), prefills from the divergence point, and
+  copies a shared page it must write first (copy-on-write);
+* oversubscription (``oversubscribe=True``): admission reserves only the
+  prompt's pages; decode grows each slot a page at a time, and a dry pool
+  preempts a victim (least progress first, with an aging bound) under
+  ``preempt_policy``: ``"recompute"`` re-queues it as a continuation prompt,
+  ``"swap"`` parks its private pages on the host (``SwapArea``) and restores
+  them when a slot and pages free up.  Greedy tokens stay those of the
+  unpreempted run.
 
 Without an ``eos_id`` no token value is needed mid-run, so the loop reads
 nothing back from the device and harvests every token at the end; with one,
-each tick reads its (B, 1) tokens back.  The reference's paged pools,
-prefix sharing, oversubscription, ragged tick, recurrent and cross-attention
-state, fault injection, audit, deadlines and bounded queues wait for later
-slices of the port (ROADMAP.md) and raise ``NotImplementedError``.
+each tick reads its (B, 1) tokens back.  A swap-out copies the victim's
+pages to the host, the one other read-back, as in the reference.  The
+reference's ragged tick, recurrent and cross-attention state, fault
+injection, audit, deadlines and bounded queues wait for later slices of the
+port (ROADMAP.md) and raise ``NotImplementedError``.
 
 One deliberate difference: when a one-shot admission finishes at once
 (first token EOS, or ``max_new == 1``), the freed slot is refilled in the
@@ -38,10 +57,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.serve.admission import PrefillLane
+from repro_torch.serve.admission import (AdmissionPlanner, Preempted, PrefillLane,
+                                         pick_preemption_victim)
 from repro_torch.serve.engine import (make_decode_step, make_mixed_step, make_prefill_step,
                                       sample_tokens)
-from repro_torch.serve.slot_state import admit_cache_slot, evict_cache_slot, state_kinds
+from repro_torch.serve.paging import PageAllocator, PrefixIndex, SwapArea, _tree_bytes
+from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, evict_cache_slot,
+                                          gather_cache_pages, scatter_cache_pages,
+                                          set_cache_page_entry, set_cache_page_row,
+                                          set_cache_slot_len, state_kinds)
 
 
 @dataclasses.dataclass
@@ -60,13 +84,15 @@ class Request:
 
 @dataclasses.dataclass
 class RequestResult:
-    """The generated ids and the (arrival, admitted, finished) tick timeline."""
+    """The generated ids, the (arrival, admitted, finished) tick timeline and
+    how the request ended (``"ok"``, or ``"failed"`` when a dry pool could
+    never serve it)."""
 
     rid: int
     tokens: List[int]
     prompt_len: int
     arrival: int
-    admitted_at: int
+    admitted_at: int            # first admission tick; -1 if never admitted
     finished_at: int
     eos: bool
     status: str = "ok"
@@ -94,10 +120,30 @@ class ServeStats:
     #                             under token_budget
     admission_stalls: int = 0   # one-shot admission: prefills run while >= 1
     #                             other slot was live
+    page_stalls: int = 0        # paged: ticks the head request waited for pages
+    prefix_hits: int = 0        # paged: admissions that mapped >= 1 resident page
+    shared_pages_mapped: int = 0  # paged: page mappings served by the prefix index
+    cow_copies: int = 0         # paged: shared pages privatized before a write
+    peak_pages_in_use: int = 0  # paged: allocator high-water mark
     peak_live_slots: int = 0    # max live decode slots + mid-prefill lanes
+    page_util_sum: float = 0.0  # paged: per-tick live rows / resident pool rows
+    page_util_ticks: int = 0
+    grown_pages: int = 0        # oversubscription: decode pages allocated lazily
+    preemptions: int = 0        # oversubscription: slots evicted mid-decode
+    resumes: int = 0            # swap policy: parked requests restored
+    swapped_pages: int = 0      # swap policy: private pages copied to the host
+    swap_peak_bytes: int = 0    # swap policy: SwapArea high-water mark
+    resume_stalls: int = 0      # swap policy: ticks the oldest parked request
+    #                             waited for a slot and pages
+    swap_refusals: int = 0      # swap parks refused by swap_bytes -> recompute
+    truncations: int = 0        # oversize="truncate": requests whose max_new was clamped
+    preempted_rids: Dict[int, int] = dataclasses.field(default_factory=dict)
+    truncated_rids: Dict[int, int] = dataclasses.field(default_factory=dict)
     ttft_steps: List[int] = dataclasses.field(default_factory=list)
-    #                             per request: admission tick - arrival
-    completed: int = 0
+    #                             per request: first admission tick - arrival
+    completed: int = 0          # requests that ended "ok"
+    failed: int = 0             # requests that ended "failed"
+    deadlock_failures: int = 0  # nothing live, and the pool could never serve them
 
     @property
     def steady_tok_s(self) -> float:
@@ -108,6 +154,13 @@ class ServeStats:
     def occupancy(self) -> float:
         """Mean fraction of batch slots live per decode step."""
         return self.occupancy_sum / max(self.decode_steps, 1)
+
+    @property
+    def page_occupancy(self) -> float:
+        """Paged: mean live-row fill of the pages requests hold (a page
+        mapped by several slots counts once, at its deepest live row);
+        0.0 for a dense run."""
+        return self.page_util_sum / max(self.page_util_ticks, 1)
 
     def summary(self) -> Dict[str, Any]:
         lat = np.asarray(self.latencies_steps or [0])
@@ -128,10 +181,26 @@ class ServeStats:
             "prefill_chunks": self.prefill_chunks,
             "stalled_chunks": self.stalled_chunks,
             "admission_stalls": self.admission_stalls,
+            "page_stalls": self.page_stalls,
+            "peak_pages_in_use": self.peak_pages_in_use,
             "peak_live_slots": self.peak_live_slots,
+            "page_occupancy": round(self.page_occupancy, 4),
+            "prefix_hits": self.prefix_hits,
+            "shared_pages_mapped": self.shared_pages_mapped,
+            "cow_copies": self.cow_copies,
+            "grown_pages": self.grown_pages,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "swapped_pages": self.swapped_pages,
+            "swap_peak_bytes": self.swap_peak_bytes,
+            "resume_stalls": self.resume_stalls,
+            "swap_refusals": self.swap_refusals,
+            "truncations": self.truncations,
             "p50_ttft_steps": float(np.percentile(ttft, 50)),
             "p99_ttft_steps": float(np.percentile(ttft, 99)),
             "completed": self.completed,
+            "failed": self.failed,
+            "deadlock_failures": self.deadlock_failures,
         }
 
 
@@ -139,22 +208,19 @@ class ServeStats:
 class _Slot:
     req: Request
     admitted_at: int
+    plen: int = 0                # this leg's prompt length (a recompute
+    #                              continuation's includes carried tokens)
     emitted: int = 0
     tokens: List[int] = dataclasses.field(default_factory=list)  # EOS mode
     first: Any = None            # (1, 1) device first token
     cols: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
-    #                              no-EOS mode: (slot row, step column) per decode token
+    #                              no-EOS mode: (slot row, step column) per decode
+    #                              token; the row moves when a swap resumes elsewhere
 
 
 # Scheduler options of the reference that wait for a later slice of the
 # port: name -> (the reference's default, which is accepted, the slice).
 _LATER = {
-    "prefix_sharing": (True, "ROADMAP slice 3 (paged KV)"),
-    "oversubscribe": (False, "ROADMAP slice 3 (paged KV)"),
-    "preempt_policy": ("recompute", "ROADMAP slice 3 (paged KV)"),
-    "preempt_aging": (2, "ROADMAP slice 3 (paged KV)"),
-    "oversize": ("reject", "ROADMAP slice 3 (paged KV)"),
-    "swap_bytes": (None, "ROADMAP slice 3 (paged KV)"),
     "ragged": (False, "ROADMAP slice 4 (the ragged tick)"),
     "prefill_lanes": (1, "ROADMAP slice 4 (the ragged tick)"),
     "max_queue": (None, "ROADMAP slice 6 (hardened serving)"),
@@ -178,11 +244,25 @@ class Scheduler:
     token.  ``chunk_size``: chunked admission (the mixed step); the chunk
     grid subsumes bucketing, so ``prompt_bucket`` is then ignored.
     ``token_budget`` (chunked only): per-tick token cap, at least one chunk.
+
+    Paged engines require chunked admission.  ``prefix_sharing`` (paged,
+    default on) maps resident prompt-prefix pages; ``oversubscribe`` (paged)
+    reserves only the prompt's pages and preempts under ``preempt_policy``
+    (``"recompute"`` or ``"swap"``) when decode growth finds the pool dry;
+    ``preempt_aging`` bounds how often one request is chosen before it is
+    spared; ``swap_bytes`` caps the host swap area (a victim that does not
+    fit is recomputed).  ``oversize`` decides what happens to a request
+    whose prompt + max_new exceeds the table (paged) or ``max_len``:
+    ``"reject"`` raises at ``run()``, ``"truncate"`` clamps its ``max_new``
+    and records it in ``ServeStats.truncated_rids``.
     """
 
     def __init__(self, engine, *, eos_id: Optional[int] = None, pad_id: int = 0,
                  prompt_bucket: Optional[int] = None, chunk_size: Optional[int] = None,
-                 token_budget: Optional[int] = None, **later):
+                 token_budget: Optional[int] = None, prefix_sharing: bool = True,
+                 oversubscribe: bool = False, preempt_policy: str = "recompute",
+                 preempt_aging: int = 2, oversize: str = "reject",
+                 swap_bytes: Optional[int] = None, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"Scheduler got an unexpected keyword argument {name!r}")
@@ -190,8 +270,26 @@ class Scheduler:
             if value != default:
                 raise _later(f"Scheduler({name}={value!r})", where)
         state_kinds(engine.model)       # raises for recurrent / cross-attention models
+        self.paged = bool(getattr(engine, "paged_kv", False))
         if chunk_size is not None and chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
+        if swap_bytes is not None and swap_bytes < 0:
+            raise ValueError(f"swap_bytes must be >= 0, got {swap_bytes}")
+        if oversubscribe and not self.paged:
+            raise ValueError("oversubscribe=True requires a paged engine "
+                             "(ServeEngine(paged_kv=True)): lazy decode pages grow a page "
+                             "table, dense slabs have nothing to grow")
+        if preempt_policy not in ("recompute", "swap"):
+            raise ValueError(f"preempt_policy must be 'recompute' or 'swap', "
+                             f"got {preempt_policy!r}")
+        if preempt_aging < 1:
+            raise ValueError(f"preempt_aging must be >= 1, got {preempt_aging}")
+        if oversize not in ("reject", "truncate"):
+            raise ValueError(f"oversize must be 'reject' or 'truncate', got {oversize!r}")
+        if self.paged and chunk_size is None:
+            raise ValueError("paged KV (engine.paged_kv) requires chunked admission: pass "
+                             "chunk_size=... (one-shot admission block-copies a dense "
+                             "scratch cache, which has no paged analog)")
         if token_budget is not None:
             if chunk_size is None:
                 raise ValueError("token_budget requires chunked admission (chunk_size=...)")
@@ -204,6 +302,15 @@ class Scheduler:
         self.prompt_bucket = prompt_bucket
         self.chunk_size = chunk_size
         self.token_budget = token_budget
+        self.prefix_sharing = bool(prefix_sharing) and self.paged
+        self.oversubscribe = bool(oversubscribe)
+        self.preempt_policy = preempt_policy
+        self.preempt_aging = int(preempt_aging)
+        self.oversize = oversize
+        self.swap_bytes = swap_bytes
+        self._admission = AdmissionPlanner(
+            page_size=engine.page_size, max_pages=engine.kv_max_pages, chunk_size=chunk_size,
+            oversubscribe=self.oversubscribe) if self.paged else None
         model = engine.model
         self._decode = make_decode_step(model, temperature=engine.temperature)
         self._mixed = make_mixed_step(model, temperature=engine.temperature)
@@ -261,8 +368,9 @@ class Scheduler:
         measured loop is steady state.  Returns the seconds it took.
 
         One-shot admission prefills once per distinct (bucketed) prompt
-        length; chunked admission runs one mixed step.  Both then run one
-        decode step and evict slot 0.
+        length; chunked admission runs one mixed step (paged: after a
+        throwaway page assignment for slot 0 and its table events).  Both
+        then run one decode step and evict slot 0.
         """
         eng = self.engine
         t0 = time.perf_counter()
@@ -273,6 +381,14 @@ class Scheduler:
         active = torch.ones(eng.batch_slots, dtype=torch.bool, device=eng.device)
         with torch.inference_mode():
             if self.chunk_size is not None:
+                if self.paged:
+                    n = min(self._admission.pages_needed(self.chunk_size, 1), eng.kv_num_pages)
+                    cache = set_cache_page_row(cache, 0,
+                                               self._admission.page_row(list(range(n))))
+                    cache = set_cache_page_entry(cache, 0, n - 1, n - 1)
+                    cache = set_cache_slot_len(cache, 0, 0)
+                    if self.prefix_sharing:
+                        cache = copy_cache_page(cache, 0, n - 1)
                 ctok = torch.full((1, self.chunk_size), self.pad_id, dtype=torch.int32,
                                   device=eng.device)
                 tok, first, cache = self._masked_mixed(tok, cache, gen, active, ctok, 0, 0,
@@ -294,13 +410,14 @@ class Scheduler:
     def run(self, requests: Sequence[Request], *, seed: int = 0, warmup: bool = True,
             time_ticks: bool = False, cancels=None, preempts=None, fault_plan=None,
             on_tick=None) -> Tuple[Dict[int, RequestResult], ServeStats]:
-        """Serve every request to completion; ({rid: result}, stats).
+        """Serve every request to a terminal status; ({rid: result}, stats).
 
         Time is discrete: one tick per batched step.  Queued requests become
         visible at their ``arrival`` tick and are admitted into the
-        lowest-numbered free slot in (arrival, rid) order.
-        ``time_ticks=True`` waits for each tick's tokens and records each
-        request's wall-clock latency (summary p50/p99_latency_ms).
+        lowest-numbered free slot in (arrival, rid) order.  A request that a
+        dry pool can never serve, with nothing live to free pages, ends
+        ``"failed"``.  ``time_ticks=True`` waits for each tick's tokens and
+        records each request's wall-clock latency (summary p50/p99_latency_ms).
         """
         for name, value in (("cancels", cancels), ("preempts", preempts),
                             ("on_tick", on_tick)):
@@ -311,9 +428,12 @@ class Scheduler:
         with torch.inference_mode():
             return self._run(requests, seed=seed, warmup=warmup, time_ticks=time_ticks)
 
-    def _validate(self, requests: Sequence[Request]) -> Dict[int, int]:
+    def _validate(self, requests: Sequence[Request], stats: ServeStats):
+        """The requests as served (``oversize="truncate"`` may shorten one)
+        and their prompt lengths; raises for a request that cannot be."""
         eng, C = self.engine, self.chunk_size
         plen_of: Dict[int, int] = {}
+        checked: List[Request] = []
         for r in requests:
             plen = int(np.asarray(r.prompt).reshape(-1).shape[0])
             if r.max_new < 1:
@@ -328,22 +448,42 @@ class Scheduler:
                              "ROADMAP slice 9 (other architectures)")
             if C is not None:
                 rows = -(-plen // C) * C   # the last (padded) chunk's extent
-                if max(rows, plen + r.max_new) > eng.max_len:
+                # a paged slot is bounded by its table (max_len rounded up to pages)
+                cap = eng.kv_max_pages * eng.page_size if self.paged else eng.max_len
+                if plen + r.max_new > cap and self.oversize == "truncate" \
+                        and max(rows, plen + 1) <= cap:
+                    granted = cap - plen
+                    print(f"serve: request {r.rid}: truncating max_new {r.max_new} -> "
+                          f"{granted} (prompt {plen} + horizon exceeds table capacity {cap})")
+                    stats.truncations += 1
+                    stats.truncated_rids[r.rid] = granted
+                    r = dataclasses.replace(r, max_new=granted)
+                if max(rows, plen + r.max_new) > cap:
                     raise ValueError(
                         f"request {r.rid}: prompt {plen} (chunk-padded to {rows}) + max_new "
-                        f"{r.max_new} exceeds cache capacity {eng.max_len} (max_len "
-                        f"{eng.max_len}); shrink the request or raise max_len")
+                        f"{r.max_new} exceeds cache capacity {cap} (max_len {eng.max_len}); "
+                        f"its KV rows past the table edge would be dropped and it would "
+                        f"decode garbage — shrink the request, raise max_len, or use "
+                        f"oversize='truncate'")
             elif self._bucket(plen) + r.max_new > eng.max_len:
                 raise ValueError(f"request {r.rid}: prompt {plen} (+bucket) + max_new "
                                  f"{r.max_new} exceeds cache max_len {eng.max_len}")
+            if self.paged:
+                need = self._admission.pages_needed(plen, r.max_new)
+                if need > eng.kv_num_pages:
+                    raise ValueError(f"request {r.rid}: needs {need} pages but the pool holds "
+                                     f"{eng.kv_num_pages} — it could never be admitted (raise "
+                                     f"kv_pool_pages or shrink the request)")
             plen_of[r.rid] = plen
-        return plen_of
+            checked.append(r)
+        return checked, plen_of
 
     def _run(self, requests, *, seed, warmup, time_ticks):
         eng = self.engine
-        nslots, C, dev = eng.batch_slots, self.chunk_size, eng.device
+        nslots, C, dev, ps = eng.batch_slots, self.chunk_size, eng.device, eng.page_size
         stats = ServeStats()
-        plen_of = self._validate(requests)
+        requests, plen_of = self._validate(requests, stats)
+        orig_plen = dict(plen_of)   # recompute preemption moves plen_of
         if warmup:
             stats.compile_s = self.warmup([plen_of[r.rid] for r in requests], seed=seed)
 
@@ -352,7 +492,8 @@ class Scheduler:
         queue: deque = deque()
         slots: List[Optional[_Slot]] = [None] * nslots
         lanes: List[PrefillLane] = []       # the mixed step drives one lane
-        finished: List[Tuple[_Slot, int, bool]] = []   # (slot, finish tick, eos)
+        results: Dict[int, RequestResult] = {}
+        finished: List[Tuple[_Slot, int, bool, str]] = []  # (slot, tick, eos, status)
         step_cols: List[torch.Tensor] = []  # no-EOS mode: each tick's (B, 1) tokens
         arrival_wall: Dict[int, float] = {}
         cache = eng.new_cache(per_slot=True)
@@ -360,24 +501,63 @@ class Scheduler:
         tok = torch.full((nslots, 1), self.pad_id, dtype=torch.int32, device=dev)
         gen = self._generator(seed)
         active_host, active_dev = None, None
+        alloc = PageAllocator(eng.kv_num_pages) if self.paged else None
+        index = PrefixIndex(ps) if self.prefix_sharing else None
+        planner = self._admission
+        slot_pages: Dict[int, List[int]] = {}
+        prompt_keys: Dict[int, List[bytes]] = {}   # rid -> cached prompt digests
+        carry: Dict[int, List[int]] = {}     # recompute: earlier legs' tokens
+        first_admit: Dict[int, int] = {}     # rid -> first admission tick
+        preempted: List[Preempted] = []      # swap policy: parked requests
+        swap = SwapArea(capacity_bytes=self.swap_bytes) \
+            if self.oversubscribe and self.preempt_policy == "swap" else None
         t = 0
+
+        def digests_of(r: Request) -> Optional[List[bytes]]:
+            """Prompt page digests, hashed once per request."""
+            if index is None:
+                return None
+            if r.rid not in prompt_keys:
+                prompt_keys[r.rid] = index.digests(r.prompt)
+            return prompt_keys[r.rid]
+
+        def bump(status: str) -> None:
+            if status == "ok":
+                stats.completed += 1
+            else:
+                stats.failed += 1
+
+        def release(pages: List[int]) -> None:
+            """Drop a reference to each page; retire released pages from the index."""
+            released = alloc.free(pages)
+            if index is not None:
+                index.drop_pages(released)
 
         def finish(j: int, slot: _Slot, eos: bool) -> None:
             nonlocal cache
-            finished.append((slot, t, eos))
+            finished.append((slot, t, eos, "ok"))
             stats.latencies_steps.append(t - slot.req.arrival)
-            if time_ticks:
+            if time_ticks and slot.req.rid in arrival_wall:
                 stats.latencies_s.append(time.perf_counter() - arrival_wall[slot.req.rid])
-            stats.completed += 1
+            bump("ok")
+            # the row is unmapped (in stream order) before its pages re-enter
+            # the free list: the next admission may be handed them at once
             cache = evict_cache_slot(cache, j)
+            if alloc is not None and j in slot_pages:
+                release(slot_pages.pop(j))
             slots[j] = None
 
         def admit_live(j: int, r: Request, first) -> None:
             """Slot j goes live holding its freshly sampled first token."""
-            slot = _Slot(req=r, admitted_at=t, emitted=1, first=first)
+            slot = _Slot(req=r, admitted_at=t, plen=plen_of[r.rid], emitted=1, first=first)
             slots[j] = slot
             stats.tokens_out += 1
-            stats.ttft_steps.append(t - r.arrival)
+            if r.rid not in first_admit:
+                first_admit[r.rid] = t
+                stats.ttft_steps.append(t - r.arrival)
+            if index is not None and j in slot_pages:
+                # prefill complete: the full prompt pages become donor candidates
+                index.insert_keys(digests_of(r), slot_pages[j][:plen_of[r.rid] // ps])
             if use_eos:
                 first_id = int(first.reshape(-1)[0])
                 slot.tokens.append(first_id)
@@ -386,13 +566,192 @@ class Scheduler:
             elif r.max_new == 1:
                 finish(j, slot, False)
 
+        def requeue(r: Request) -> None:
+            """A preemption continuation back into the queue, in (arrival, rid) order."""
+            items = sorted(list(queue) + [r], key=lambda q: (q.arrival, q.rid))
+            queue.clear()
+            queue.extend(items)
+
+        def fail_queued(r: Request) -> None:
+            results[r.rid] = RequestResult(
+                rid=r.rid, tokens=carry.pop(r.rid, []), prompt_len=orig_plen[r.rid],
+                arrival=r.arrival, admitted_at=first_admit.get(r.rid, -1), finished_at=t,
+                eos=False, status="failed")
+            bump("failed")
+
+        def fail_parked(p: Preempted) -> None:
+            preempted.remove(p)
+            finished.append((p.slot, t, False, "failed"))
+            bump("failed")
+            release(p.kept)
+            swap.pop(p.slot.req.rid)
+
+        def harvest_slot_tokens(slot: _Slot) -> List[int]:
+            """Tokens this leg emitted so far (one device read in no-EOS mode)."""
+            if use_eos:
+                return list(slot.tokens)
+            vals = [slot.first.reshape(-1)[0]] + [step_cols[c][row, 0] for row, c in slot.cols]
+            return [int(x) for x in torch.stack(vals).cpu()]
+
+        def preempt(j: int) -> None:
+            """Evict live slot j mid-decode to hand its pages to someone else:
+            ``recompute`` re-queues it as prompt + tokens so far; ``swap``
+            parks its private pages on the host (shared prefix pages stay
+            resident under the refcount it keeps)."""
+            nonlocal cache
+            slot = slots[j]
+            rid = slot.req.rid
+            stats.preemptions += 1
+            stats.preempted_rids[rid] = stats.preempted_rids.get(rid, 0) + 1
+            pages = slot_pages.pop(j)
+            park = swap is not None
+            if park:
+                # admission keeps shared mappings a leading run of the row
+                m = 0
+                while m < len(pages) and alloc.refcount(pages[m]) > 1:
+                    m += 1
+                kept, priv = pages[:m], pages[m:]
+                data, pad = None, 0
+                if priv:
+                    # padded to a power of two of pages, as the reference pads
+                    # its compiled gathers: swap_peak_bytes and swap_bytes
+                    # refusals count the same bytes
+                    pad = 1
+                    while pad < len(priv):
+                        pad *= 2
+                    idx = priv + [priv[0]] * (pad - len(priv))
+                    # the host copy completes before the pages re-enter the free list
+                    data = [{k: x.cpu().numpy() for k, x in node.items()}
+                            for node in gather_cache_pages(cache, idx)]
+                if not swap.fits(_tree_bytes(data)):
+                    stats.swap_refusals += 1
+                    park = False
+            if park:
+                stats.swapped_pages += len(priv)
+                swap.put(rid, data)
+                stats.swap_peak_bytes = swap.peak_bytes
+                preempted.append(Preempted(slot=slot, kept=kept, n_priv=len(priv), data=data,
+                                           pad=pad, live_len=slot.plen + slot.emitted - 1,
+                                           last_tok=tok[j:j + 1]))
+                cache = evict_cache_slot(cache, j)
+                release(priv)                  # kept pages: references retained
+            else:
+                toks = harvest_slot_tokens(slot)
+                carry[rid] = carry.get(rid, []) + toks
+                cont_prompt = np.concatenate([np.asarray(slot.req.prompt, np.int32).reshape(-1),
+                                              np.asarray(toks, np.int32)])
+                plen_of[rid] = int(cont_prompt.shape[0])
+                prompt_keys.pop(rid, None)     # the digests are stale now
+                cache = evict_cache_slot(cache, j)
+                release(pages)
+                requeue(dataclasses.replace(slot.req, prompt=cont_prompt,
+                                            max_new=slot.req.max_new - slot.emitted))
+            slots[j] = None
+
+        def try_resume() -> None:
+            """Restore parked (swap-policy) requests, oldest first, while room lasts."""
+            nonlocal cache, tok
+            while preempted:
+                p = preempted[0]
+                free = [j for j in range(nslots)
+                        if slots[j] is None and all(ln.slot != j for ln in lanes)]
+                got = alloc.alloc(p.n_priv) if free else None
+                if got is None:
+                    stats.resume_stalls += 1
+                    return
+                j, rid = free[0], p.slot.req.rid
+                data = swap.pop(rid)
+                if p.n_priv:
+                    # the duplicate pad indices rewrite one page with its own rows
+                    cache = scatter_cache_pages(cache, got + [got[0]] * (p.pad - p.n_priv), data)
+                row = p.kept + got
+                slot_pages[j] = row
+                cache = set_cache_page_row(cache, j, planner.page_row(row))
+                cache = set_cache_slot_len(cache, j, p.live_len)
+                tok = self._set_tok(tok, p.last_tok, j)
+                if index is not None and rid in prompt_keys:
+                    index.insert_keys(prompt_keys[rid], row[:p.slot.plen // ps])
+                slots[j] = p.slot
+                preempted.pop(0)
+                stats.resumes += 1
+                stats.peak_pages_in_use = alloc.peak_in_use
+
+        def ensure_growth() -> None:
+            """Lazy decode growth: give each live slot about to cross a page
+            boundary its next page; preempt a victim when the pool is dry."""
+            nonlocal cache
+            for j in range(nslots):
+                slot = slots[j]
+                if slot is None:
+                    continue
+                need_rows = slot.plen + slot.emitted   # next write position + 1
+                while slots[j] is not None and need_rows > len(slot_pages[j]) * ps:
+                    if len(slot_pages[j]) >= eng.kv_max_pages:
+                        raise RuntimeError(f"slot {j} (rid {slot.req.rid}) needs row "
+                                           f"{need_rows} past its page table "
+                                           f"({eng.kv_max_pages} pages)")
+                    got = alloc.alloc(1)
+                    if got is not None:
+                        cache = set_cache_page_entry(cache, j, len(slot_pages[j]), got[0])
+                        slot_pages[j].append(got[0])
+                        stats.grown_pages += 1
+                        stats.peak_pages_in_use = alloc.peak_in_use
+                        continue
+                    cands = [(i, s.req.rid, s.emitted, s.admitted_at)
+                             for i, s in enumerate(slots) if s is not None]
+                    preempt(pick_preemption_victim(cands, stats.preempted_rids,
+                                                   self.preempt_aging))
+
+        def admit_lane() -> None:
+            """Reserve a free slot (and, paged, the request's pages) for the
+            oldest arrival; its chunks ride the mixed step."""
+            nonlocal cache
+            free = [j for j in range(nslots) if slots[j] is None]
+            if not free:
+                return
+            r = queue[0]
+            start0 = 0
+            if alloc is not None:
+                plan = planner.plan(r, plen_of[r.rid], alloc, index, keys=digests_of(r))
+                if plan is None:
+                    # head-of-queue blocking: skipping ahead would starve a
+                    # large request behind a stream of small ones
+                    stats.page_stalls += 1
+                    return
+                row_pages, copies, n_share, start0 = plan
+                slot_pages[free[0]] = list(row_pages)
+                if n_share or copies:
+                    stats.prefix_hits += 1
+                    stats.shared_pages_mapped += n_share
+                    stats.cow_copies += len(copies)
+                # privatize the divergence pages before the row that points
+                # at the copies; park len at the shared-prefix boundary so
+                # the decode half's junk append lands in a private page
+                for src, dst in copies:
+                    cache = copy_cache_page(cache, src, dst)
+                cache = set_cache_page_row(cache, free[0], planner.page_row(row_pages))
+                if start0:
+                    cache = set_cache_slot_len(cache, free[0], start0)
+                stats.peak_pages_in_use = alloc.peak_in_use
+            queue.popleft()
+            lanes.append(PrefillLane(req=r, slot=free[0],
+                                     prompt=np.asarray(r.prompt, np.int32).reshape(-1),
+                                     next_start=start0))
+
         t0 = time.perf_counter()
-        while pending or queue or lanes or any(s is not None for s in slots):
+        while pending or queue or lanes or preempted or any(s is not None for s in slots):
             while pending and pending[0].arrival <= t:
                 r = pending.popleft()
                 if time_ticks:
-                    arrival_wall[r.rid] = time.perf_counter()
+                    arrival_wall.setdefault(r.rid, time.perf_counter())
                 queue.append(r)
+
+            # parked requests get the first claim on freed pages, then live
+            # slots grow into what remains, before a new admission
+            if self.oversubscribe:
+                if preempted:
+                    try_resume()
+                ensure_growth()
 
             chunk_job: Optional[PrefillLane] = None
             if C is None:
@@ -411,15 +770,8 @@ class Scheduler:
                     tok = self._set_tok(tok, first, j)
                     admit_live(j, r, first)
             else:
-                # chunked admission: reserve a free slot for the oldest arrival;
-                # its chunks ride the mixed step
                 if not lanes and queue:
-                    free = [j for j in range(nslots) if slots[j] is None]
-                    if free:
-                        r = queue.popleft()
-                        lanes.append(PrefillLane(
-                            req=r, slot=free[0],
-                            prompt=np.asarray(r.prompt, np.int32).reshape(-1)))
+                    admit_lane()
                 if lanes:
                     n_live = sum(s is not None for s in slots)
                     if self.token_budget is not None and n_live + C > self.token_budget:
@@ -428,11 +780,28 @@ class Scheduler:
                         chunk_job = lanes[0]
 
             if not any(s is not None for s in slots) and chunk_job is None:
-                if queue or lanes:
-                    raise RuntimeError("scheduler: nothing live with a free slot and a "
-                                       "waiting request")
-                if pending:                 # idle gap: jump to the next arrival
-                    t = max(t + 1, pending[0].arrival)
+                if not lanes:
+                    # nothing live will ever free a page again: a blocked
+                    # resume or a page-stalled head request fails, one at a time
+                    if preempted:
+                        stats.deadlock_failures += 1
+                        print(f"serve: unservable deadlock — parked request "
+                              f"{preempted[0].slot.req.rid} cannot resume (pool pages pinned "
+                              f"by parked shared prefixes, nothing live to free any); failing "
+                              f"it to unblock (raise kv_pool_pages to avoid this)")
+                        fail_parked(preempted[0])
+                        continue
+                    if queue:
+                        r = queue.popleft()
+                        stats.deadlock_failures += 1
+                        print(f"serve: request {r.rid} can never be admitted — nothing is "
+                              f"live yet its admission plan still cannot be served from the "
+                              f"pool ({eng.kv_num_pages} pages); failing it (raise "
+                              f"kv_pool_pages or shrink the request)")
+                        fail_queued(r)
+                        continue
+                    if pending:                 # idle gap: jump to the next arrival
+                        t = max(t + 1, pending[0].arrival)
                 continue
 
             # -- one batched step; free slots emit masked pads --------------------
@@ -448,6 +817,10 @@ class Scheduler:
                 clen = min(C, plen - start)
                 ctok = np.full((1, C), self.pad_id, np.int32)
                 ctok[0, :clen] = chunk_job.prompt[start:start + clen]
+                if alloc is not None:
+                    # the chunk writes C (padded) rows: none through a shared page
+                    planner.assert_private_write(slot_pages[chunk_job.slot], start, start + C,
+                                                 alloc)
                 tok, first, cache = self._masked_mixed(
                     tok, cache, gen, active_dev, torch.from_numpy(ctok).to(dev),
                     chunk_job.slot, start, clen)
@@ -464,6 +837,26 @@ class Scheduler:
             t += 1
             stats.decode_steps += 1
             stats.occupancy_sum += sum(active) / nslots
+            if alloc is not None and alloc.pages_in_use:
+                # live rows per resident pool row; a page several slots map
+                # counts once, at the deepest live row any of them reaches
+                fill: Dict[int, int] = {}
+
+                def _acc(pages: List[int], live: int) -> None:
+                    for i, pg in enumerate(pages):
+                        rows = min(max(live - i * ps, 0), ps)
+                        if rows > fill.get(pg, 0):
+                            fill[pg] = rows
+
+                for s_j, s_ in enumerate(slots):
+                    if s_ is not None:
+                        _acc(slot_pages[s_j], s_.plen + s_.emitted)
+                for p_ in lanes:
+                    _acc(slot_pages.get(p_.slot, []), p_.next_start)
+                for p_ in preempted:       # parked shared prefixes stay live
+                    _acc(p_.kept, len(p_.kept) * ps)
+                stats.page_util_sum += sum(fill.values()) / (alloc.pages_in_use * ps)
+                stats.page_util_ticks += 1
             tok_host = tok.cpu().numpy() if use_eos else None
             if not use_eos:
                 step_cols.append(tok)
@@ -489,15 +882,18 @@ class Scheduler:
 
         # -- harvest: one device-to-host copy for the whole run (no-EOS mode) --
         mat = torch.cat(step_cols, dim=1).cpu().numpy() if step_cols else None
-        results: Dict[int, RequestResult] = {}
-        for slot, t_fin, eos in finished:
+        for slot, t_fin, eos, status in finished:
             r = slot.req
             if not use_eos:
                 slot.tokens = [int(slot.first.reshape(-1)[0])] \
                     + [int(mat[row, c]) for row, c in slot.cols]
+            # a recompute continuation's earlier legs come first; the result
+            # keeps the original prompt length and first admission tick
             results[r.rid] = RequestResult(
-                rid=r.rid, tokens=slot.tokens, prompt_len=plen_of[r.rid], arrival=r.arrival,
-                admitted_at=slot.admitted_at, finished_at=t_fin, eos=eos)
+                rid=r.rid, tokens=carry.pop(r.rid, []) + slot.tokens,
+                prompt_len=orig_plen[r.rid], arrival=r.arrival,
+                admitted_at=first_admit.get(r.rid, slot.admitted_at), finished_at=t_fin,
+                eos=eos, status=status)
         return results, stats
 
 

@@ -108,7 +108,14 @@ def test_ops_dispatch_cpu_tensors_to_plain_without_counting():
     ops.qchunk_attn(torch.from_numpy(q[0, None]), torch.from_numpy(k[0, :1]),
                     torch.from_numpy(v[0, :1]), torch.from_numpy(k), torch.from_numpy(v),
                     3, 3, 1, 4)
-    assert ops.launch_counts() == {"wq_matmul": 0, "qdecode_attn": 0, "qchunk_attn": 0}
+    pool = torch.from_numpy(k).reshape(6, 3, 2, 16)      # 6 pages of 3 rows
+    table = torch.tensor([[4, 0, -1], [2, 5, 1]], dtype=torch.int32)
+    ops.qpaged_decode_attn(torch.from_numpy(q), pool, pool, 3, 3, table,
+                           torch.tensor([5, 8], dtype=torch.int32))
+    ops.qpaged_chunk_attn(torch.from_numpy(q[0, None]), torch.from_numpy(k[0, :1]),
+                          torch.from_numpy(v[0, :1]), pool, pool, 3, 3, table[1], 4)
+    assert ops.launch_counts() == {"wq_matmul": 0, "qdecode_attn": 0, "qchunk_attn": 0,
+                                   "qpaged_decode_attn": 0, "qpaged_chunk_attn": 0}
 
 
 def test_ops_transpose_path_is_dequantize_then_matmul():

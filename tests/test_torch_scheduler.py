@@ -264,7 +264,7 @@ def test_max_new_one_finishes_at_admission_and_frees_the_slot(engines, j_run, ch
 
 @pytest.mark.parametrize("kw,where", [
     ({"ragged": True}, "slice 4"), ({"prefill_lanes": 2}, "slice 4"),
-    ({"oversubscribe": True}, "slice 3"), ({"prefix_sharing": False}, "slice 3"),
+    ({"reject_policy": "shed"}, "slice 6"), ({"prefill_lanes": 3}, "slice 4"),
     ({"max_queue": 4}, "slice 6"), ({"audit": True}, "slice 6")])
 def test_scheduler_options_of_later_slices_raise(engines, kw, where):
     _, te = engines()
@@ -326,8 +326,7 @@ def test_state_kinds_and_adapters_name_their_slices(smoke):
     tm = smoke[2]
     assert slot_state.state_kinds(tm) == ("kv",)
     assert [a.kind for a in slot_state.adapters_for(tm)] == ["kv"]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        slot_state.adapters_for(tm, paged=True)
+    assert [a.kind for a in slot_state.adapters_for(tm, paged=True)] == ["kv-paged"]
 
     class EncDec:
         stack = tm.stack
@@ -339,8 +338,8 @@ def test_state_kinds_and_adapters_name_their_slices(smoke):
         slot_state.state_kinds(EncDec())
     with pytest.raises(NotImplementedError, match="slice 9"):
         slot_state.evict_cache_slot({"body": [{"ssm": {"h": torch.zeros(1), "conv": None}}]}, 0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        slot_state.evict_cache_slot({"k": 0, "len": 0, "page_table": 0}, 0)
+    with pytest.raises(ValueError, match="dense KV cache"):
+        slot_state.set_cache_page_row({"k": 0, "len": 0}, 0, [0])
 
 
 # --------------------------------------------------------------------------

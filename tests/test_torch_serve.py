@@ -152,13 +152,13 @@ def test_launch_serve_runs_on_cpu(policy, capsys):
 
 
 def test_launch_serve_names_the_next_slice_for_other_policies():
-    """The ragged tick and the paged cache name the ROADMAP slices they
-    wait for (the scheduler and chunked policies are ported)."""
+    """The ragged tick names the ROADMAP slice it waits for; the paged
+    cache, ported, takes the chunked policy only, as in the reference."""
     with pytest.raises(SystemExit, match="slice 4"):
         t_launch.main(["--arch", "smollm-135m-smoke", "--policy", "ragged",
                        "--device", "cpu"])
-    with pytest.raises(SystemExit, match="slice 3"):
-        t_launch.main(["--arch", "smollm-135m-smoke", "--policy", "chunked", "--paged",
+    with pytest.raises(SystemExit, match="requires --policy chunked"):
+        t_launch.main(["--arch", "smollm-135m-smoke", "--policy", "restart", "--paged",
                        "--device", "cpu"])
 
 
