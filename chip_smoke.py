@@ -15,6 +15,11 @@ Phases, each printed as it completes; any failure exits non-zero:
      unchanged; the paged kernels run over fragmented, out-of-order page
      tables with pages shared between slots, beside the dense kernels on
      the same contents, and ``qpaged_decode_attn`` over a page-size sweep;
+     ``qragged_attn`` on the ragged tick (8 decode rows, 2 lanes x 32 chunk
+     rows) over the dense identity layout and fragmented tables (page sizes
+     16, 1, 5), with edge and all-inert ticks and cross-checks against the
+     decode and chunk kernels; ``wq_matmul`` also at M = 72 and 144, the
+     ragged ticks' GEMM rows;
   4. smollm-135m at full width (random weights from a seeded generator,
      int8 weights and int8 KV cache): ``ServeEngine.generate`` (8 slots,
      prompt 128, 32 new tokens), ``run_restart_batching``, and the
@@ -28,7 +33,14 @@ Phases, each printed as it completes; any failure exits non-zero:
      opening, and the 16 requests oversubscribed at half the pool under
      recompute and under swap preemption, with launch counts checked; a
      paged mixed step's logits against the plain versions; a paged decode
-     tick and mixed tick profiled, syncs counted.
+     tick and mixed tick profiled, syncs counted;
+  6. ``Scheduler(chunk_size=32, ragged=True, prefill_lanes=2)`` on the 16
+     requests, dense and paged, on the shared prefix and at half the pool
+     under recompute and swap, and ``bench_burst``'s full burst (16 x 192
+     tokens at tick 0, 16 slots, 4 lanes, budget 160) beside the paged
+     mixed step, with TTFT in ticks and ms: launch counts exact, greedy
+     tokens held to the chunked runs; a ragged tick's logits against the
+     plain versions; a dense and a paged ragged tick profiled.
 The line before the last is a JSON summary per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -48,7 +60,8 @@ L2_ROTATE_BYTES = 128 << 20
 WQ_RTOL = 2e-5             # |kernel - plain| <= WQ_RTOL * max|plain| (f32 sums, other order)
 ATTN_ATOL = 1e-4           # softmax-weighted means of values within +-16
 LOGIT_ATOL = 2e-2          # logits after 30 layers; int8 KV codes may flip at trunc edges
-NO_PAGED = {"qpaged_decode_attn": 0, "qpaged_chunk_attn": 0}   # the dense paths' counts
+NO_PAGED = {"qpaged_decode_attn": 0, "qpaged_chunk_attn": 0,   # the dense paths' counts
+            "qragged_attn": 0}
 
 
 def fail(msg: str) -> None:
@@ -97,12 +110,14 @@ def bound(nbytes: float, flops: float):
 
 
 def check_wq_matmul(torch, ref, wq_cuda, gen):
-    """Kernel vs plain at the four projection shapes, M = 8 (decode) and 8*128."""
+    """Kernel vs plain at the four projection shapes, M = 8 (decode), 72 and
+    144 (the ragged tick's T at B=8, L=2, C=32 and at B=16, L=4, C=32) and
+    8*128."""
     shapes = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/in": (576, 1536),
               "out": (1536, 576)}
     calls_per_layer = {"wq/wo": 2, "wk/wv": 2, "gate/in": 2, "out": 1}
     rows, worst = [], 0.0
-    for m in (8, 8 * 128):
+    for m in (8, 72, 144, 8 * 128):
         for label, (k, n) in shapes.items():
             copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (k * n))))
             x = torch.randn(m, k, generator=gen, device="cuda")
@@ -140,6 +155,13 @@ def check_wq_matmul(torch, ref, wq_cuda, gen):
           f"{agg['ms'] * 1e3:.2f} us | plain {agg['plain_ms'] * 1e3:.2f} us | library "
           f"{agg['library_ms'] * 1e3:.2f} us | bound {agg['bound_ms'] * 1e3:.2f} us",
           flush=True)
+    for m in (72, 144):
+        layer = {key: sum(r[key] * r["per_layer"] for r in rows if r["m"] == m)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"[kernel] wq_matmul one ragged-tick layer (7 calls, M=T={m}): kernel "
+              f"{layer['ms'] * 1e3:.2f} us | plain {layer['plain_ms'] * 1e3:.2f} us | library "
+              f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us",
+              flush=True)
     return rows, agg, worst
 
 
@@ -501,12 +523,231 @@ def check_qpaged_chunk_attn(torch, F, ref, qpc_cuda, qc_cuda, gen, page_size):
     return rows, worst
 
 
-def profile_steps(torch, label, step, state, card, steps: int = 8) -> None:
+def ragged_tick_bound(table, ps, slots, pos, hq, hkv, d):
+    """(bound ms, by) of one ragged launch from this case's inputs: q, k/v
+    new, out, the (T,) slot ids and positions, the table entries walked, the
+    written rows, and every pool row some token sees that the tick does not
+    write, each once; 4 f32 operations per (visible position, query head,
+    dim)."""
+    mp = len(table[0])
+    t = len(pos)
+    written, ends = set(), {}
+    pairs = 0
+    for sl, p in zip(slots, pos):
+        if p < 0:
+            continue
+        end = min(p + 1, mp * ps)
+        ends[sl] = max(ends.get(sl, 0), end)
+        pairs += sum(1 for x in range(end) if table[sl][x // ps] >= 0)
+        if p // ps < mp and table[sl][p // ps] >= 0:
+            written.add(table[sl][p // ps] * ps + p % ps)
+    seen, entries = set(), 0
+    for sl, end in ends.items():
+        entries += -(-end // ps)
+        for x in range(end):
+            page = table[sl][x // ps]
+            if page >= 0:
+                seen.add(page * ps + x % ps)
+    nbytes = (4 * 2 * t * hq * d + 4 * 2 * t * hkv * d + 8 * t + 4 * entries
+              + 2 * hkv * d * (len(written) + len(seen - written)))
+    return bound(nbytes, 4.0 * pairs * hq * d)
+
+
+def check_qragged_attn(torch, F, ref, kern, gen, page_size):
+    """Kernel vs plain at B=8, Hq=9, Hkv=3, D=64 on the serving tick of
+    ``--policy ragged`` (B=8, L=2, C=32): 8 decode rows, of which the two
+    lane slots' are inert, and 2 lanes x 32 chunk rows at start 96, T = 72.
+    Layouts: the dense identity layout (a (B, S, Hkv, D) slab under the
+    table arange(B)[:, None]) and a fragmented, out-of-order table at page
+    size 16 where slot 1 maps slot 0's first two pages (no row of the tick
+    writes them), at S = 192 and 2048; page sizes 1 and 5 at S = 192.  Each
+    layout also runs an edge tick (a slot with a decode row and chunk rows,
+    a position past the table, -1 entries past a slot's last page, an inert
+    decode row) and an all-inert tick.  Pools must equal the plain
+    version's byte for byte, valid rows be within ATTN_ATOL and inert rows
+    exactly 0.  Cross-checks on the same contents: a decode-only tick
+    against ``qdecode_attn`` / ``qpaged_decode_attn`` and a one-lane tick
+    against ``qchunk_attn`` / ``qpaged_chunk_attn``.  The serving ticks are
+    timed: kernel, plain, library (quantize and ``index_put_`` the rows,
+    then a per-token gather and SDPA on dequantized, head-expanded K/V with
+    a per-token mask) and bound."""
+    from repro_torch.core import qformat
+
+    b, hq, hkv, d, c = 8, 9, 3, 64, 32
+    g = hq // hkv
+    lane_slots, start = (2, 6), 96
+    i32 = dict(dtype=torch.int32, device="cuda")
+    rows, worst = [], 0.0
+
+    def layout(s, ps):
+        """(table, n_pool, ps, mp); ps None is the dense identity layout."""
+        if ps is None:
+            return torch.arange(b, **i32)[:, None].contiguous(), b, s, 1
+        table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
+        return table, n_pool, ps, mp
+
+    def inputs(t):
+        q = torch.randn(t, hq, d, generator=gen, device="cuda")
+        kn, vn = (1.5 * torch.randn(t, hkv, d, generator=gen, device="cuda") for _ in range(2))
+        kn.view(-1)[::31] = 20.0
+        vn.view(-1)[::37] = -20.0
+        return q, kn, vn
+
+    def run(label, table, kp, vp, q, kn, vn, slots, pos):
+        """Kernel vs plain on copies of the pools; returns (err, kernel pools, out)."""
+        sl, po = torch.tensor(slots, **i32), torch.tensor(pos, **i32)
+        kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        got = kern.qragged(q, kn, vn, kk, vk, 3, 3, table, sl, po)
+        want = ref.qragged_attn_ref(q, kn, vn, kr, vr, 3, 3, table, sl, po)
+        torch.cuda.synchronize()
+        valid = po >= 0
+        err = (got - want)[valid].abs().max().item() if bool(valid.any()) else 0.0
+        check(err <= ATTN_ATOL, f"qragged_attn {label}: max err {err} > {ATTN_ATOL}")
+        check(torch.equal(kk, kr) and torch.equal(vk, vr),
+              f"qragged_attn {label}: pools differ from the plain version's")
+        check(not bool(got[~valid].any()), f"qragged_attn {label}: an inert row is not 0")
+        return err, kk, vk, got
+
+    decode_pos = {192: [190, 120, 150, 99, 160, 175, 130, 140],
+                  2048: [2047, 40, 999, 2046, 332, 1535, 63, 1998]}
+    cases = [(192, None), (192, page_size), (2048, None), (2048, page_size), (192, 1), (192, 5)]
+    for s, ps_req in cases:
+        table, n_pool, ps, mp = layout(s, ps_req)
+        lay = "dense identity" if ps_req is None else f"ps={ps}"
+        label = f"S={s} {lay}"
+        slots = list(range(b)) + [lane_slots[0]] * c + [lane_slots[1]] * c
+        pos = list(decode_pos[s]) + list(range(start, start + c)) * 2
+        for j in lane_slots:
+            pos[j] = -1
+        t = len(pos)
+        q, kn, vn = inputs(t)
+        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * n_pool * ps * hkv * d)))
+        pools = [(pool_codes(torch, gen, (n_pool, ps, hkv, d)),
+                  pool_codes(torch, gen, (n_pool, ps, hkv, d))) for _ in range(copies)]
+        kp, vp = pools[0]
+        err, _, _, _ = run(f"{label} serving tick", table, kp, vp, q, kn, vn, slots, pos)
+        worst = max(worst, err)
+
+        # edge tick: lane 0's slot also decodes (row 95, then its chunk at
+        # 96..127), slot 7 writes past the table, slot 5's entries past its
+        # last page are -1, slot 4's decode row is inert
+        etable = table.clone()
+        epos = list(pos)
+        epos[lane_slots[0]], epos[7], epos[4] = start - 1, mp * ps + 5, -1
+        if ps_req is not None:
+            etable[5, epos[5] // ps + 1:] = -1
+        eerr, _, _, _ = run(f"{label} edge tick", etable, kp, vp, q, kn, vn, slots, epos)
+        _, ki, vi, out = run(f"{label} all-inert tick", table, kp, vp, q, kn, vn, slots,
+                             [-1] * t)
+        check(torch.equal(ki, kp) and torch.equal(vi, vp) and not bool(out.any()),
+              f"qragged_attn {label}: the all-inert tick wrote or output something")
+        worst = max(worst, eerr)
+
+        # decode-only tick against the decode kernels on the written contents
+        dpos = list(decode_pos[s]) + [-1] * (2 * c)
+        _, kd, vd, dout = run(f"{label} decode-only tick", table, kp, vp, q, kn, vn, slots, dpos)
+        lens = torch.tensor([p + 1 for p in decode_pos[s]], **i32)
+        if ps_req is None:
+            dec = kern.qdecode(q[:b].contiguous(), kd, vd, 3, 3, lens)
+        else:
+            dec = kern.qpaged_decode(q[:b].contiguous(), kd, vd, 3, 3, table, lens)
+        # one-lane tick against the chunk kernels on the same contents
+        lpos = [-1] * b + list(range(start, start + c)) + [-1] * c
+        _, kl, vl, lout = run(f"{label} one-lane tick", table, kp, vp, q, kn, vn, slots, lpos)
+        kc_, vc_ = kp.clone(), vp.clone()
+        qs, ks, vs = (x[b:b + c].contiguous() for x in (q, kn, vn))
+        if ps_req is None:
+            chunk = kern.qchunk(qs, ks, vs, kc_, vc_, 3, 3, lane_slots[0], start)
+        else:
+            chunk = kern.qpaged_chunk(qs, ks, vs, kc_, vc_, 3, 3,
+                                      table[lane_slots[0]].contiguous(), start)
+        torch.cuda.synchronize()
+        derr = (dout[:b] - dec).abs().max().item()
+        cerr = (lout[b:b + c] - chunk).abs().max().item()
+        which = ("qdecode_attn", "qchunk_attn") if ps_req is None \
+            else ("qpaged_decode_attn", "qpaged_chunk_attn")
+        check(derr <= ATTN_ATOL, f"qragged_attn {label}: decode-only tick differs from "
+                                 f"{which[0]} by {derr}")
+        check(cerr <= ATTN_ATOL and torch.equal(kl, kc_) and torch.equal(vl, vc_),
+              f"qragged_attn {label}: one-lane tick differs from {which[1]} by {cerr} "
+              f"(or in the pools)")
+
+        # timing: the serving tick over pool copies rotated past the L2
+        sl, po = torch.tensor(slots, **i32), torch.tensor(pos, **i32)
+        iters = max(copies, 64)
+        ms = graph_ms(torch, [lambda kv=kv: kern.qragged(q, kn, vn, kv[0], kv[1], 3, 3, table,
+                                                         sl, po) for kv in pools], iters)
+        # the plain and library calls hold (T, S, Hkv, D) f32 copies of every
+        # token's slot (GBs at S=2048): fewer of them in one graph
+        few = iters if s <= 192 else 16
+        plain = graph_ms(torch, [lambda kv=kv: ref.qragged_attn_ref(
+            q, kn, vn, kv[0], kv[1], 3, 3, table, sl, po) for kv in pools[:4]], few)
+        # library: quantize and index_put_ the written rows, then each token's
+        # slot gathered, dequantized, head-expanded, and SDPA with its mask
+        tab = table.cpu().tolist()
+        wrote = [(u, tab[sl_][p // ps] * ps + p % ps) for u, (sl_, p) in enumerate(zip(slots, pos))
+                 if p >= 0 and p // ps < mp and tab[sl_][p // ps] >= 0]
+        w_tok = torch.tensor([u for u, _ in wrote], dtype=torch.int64, device="cuda")
+        w_row = torch.tensor([r for _, r in wrote], dtype=torch.int64, device="cuda")
+        idx = table[sl.to(torch.int64)].clamp(min=0).to(torch.int64)       # (T, mp)
+        mapped = torch.repeat_interleave(table[sl.to(torch.int64)] >= 0, ps, dim=1)
+        vis = (torch.arange(mp * ps, device="cuda")[None, :] <= po[:, None]) & mapped
+        vis[:, 0] |= ~vis.any(dim=1)     # inert rows attend row 0: their output is unused
+        mask = vis[:, None, None, :]
+        qq = q[:, :, None, :]
+        kq, vq = qformat.quantize(kn[w_tok], 3, 8), qformat.quantize(vn[w_tok], 3, 8)
+
+        def lib(kv):
+            kv[0].view(-1, hkv, d)[w_row] = kq
+            kv[1].view(-1, hkv, d)[w_row] = vq
+            kk_, vv_ = (x[idx].reshape(t, mp * ps, hkv, d).to(torch.float32).mul(0.125)
+                        .repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
+            return F.scaled_dot_product_attention(qq, kk_, vv_, attn_mask=mask)
+
+        lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in pools[:4]], few)
+        b_ms, b_by = ragged_tick_bound(tab, ps, slots, pos, hq, hkv, d)
+        rows.append(dict(s=s, ps=ps, layout=lay, t=t, err=err, edge_err=eerr,
+                         decode_err=derr, chunk_err=cerr, ms=ms, plain_ms=plain,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"[kernel] qragged_attn B={b} Hq={hq} Hkv={hkv} D={d} T={t} (8 decode rows, 2 "
+              f"inert; 2 lanes x {c} at start {start}) S={s} {lay}: max_abs_err {err:.3e}, edge "
+              f"tick {eerr:.3e} (tol {ATTN_ATOL:.0e}), pools equal to the plain version's, "
+              f"inert rows 0, all-inert tick writes nothing | vs {which[0]} {derr:.3e}, vs "
+              f"{which[1]} {cerr:.3e} | kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us "
+              f"| index_put_ + gather + sdpa {lib_ms * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us "
+              f"({b_by})", flush=True)
+        del pools
+    return rows, worst
+
+
+def check_served(label, results, reqs, vocab) -> None:
+    """Every request served ``ok`` with its ``max_new`` tokens, all in the vocab."""
+    check(sorted(results) == sorted(r.rid for r in reqs), f"{label} lost requests")
+    for req in reqs:
+        r = results[req.rid]
+        check(r.status == "ok" and len(r.tokens) == req.max_new
+              and all(0 <= t < vocab for t in r.tokens),
+              f"{label}: request {req.rid} ended {r.status} with {len(r.tokens)} tokens")
+
+
+def paged_engine(env, pool=None):
+    """The paged engine of the serving phases (page size ``CUDA_PAGE_SIZE``;
+    ``pool`` pages, dense parity by default)."""
+    from repro_torch.serve import ServeEngine
+
+    return ServeEngine(model=env.model, params=env.params, max_len=env.max_len,
+                       batch_slots=env.slots, weight_quant=True, quantized_kv=True,
+                       device="cuda", paged_kv=True, kv_pool_pages=pool)
+
+
+def profile_steps(torch, label, step, state, card, steps: int = 8):
     """Where a step's time goes: the host-device synchronizations one step
     makes (``torch.cuda.set_sync_debug_mode``), wall time per step without
     the profiler, then device time per step by kernel under
     ``torch.profiler`` and the device's idle share of the unprofiled wall
-    time.  ``step(state)`` returns the next state."""
+    time.  ``step(state)`` returns the next state.  Returns the wall and
+    device busy ms per step and the per-kernel rows, or None when the
+    profiler recorded no device time."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -550,7 +791,7 @@ def profile_steps(torch, label, step, state, card, steps: int = 8) -> None:
     if not rows:
         print(f"[profile] {label}: {wall_ms:.2f} ms wall; device time not measured "
               "(the profiler recorded no device events)", flush=True)
-        return
+        return None
     busy_us = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     print(f"[profile] {label}: {wall_ms:.2f} ms wall without the profiler | device busy "
@@ -566,6 +807,7 @@ def profile_steps(torch, label, step, state, card, steps: int = 8) -> None:
     print(f"[profile] {label}: host self time by op under the profiler (top 6)", flush=True)
     for t, n, key in host[:6]:
         print(f"[profile]   host {t:9.1f} us/step  {n:5.0f} calls/step  {key[:70]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3, "rows": rows}
 
 
 def end_to_end(torch, card):
@@ -704,12 +946,7 @@ def end_to_end(torch, card):
                     "qdecode_attn": n_layers * (ticks + 2),
                     "qchunk_attn": n_layers * (chunks + 1), **NO_PAGED}
         check(counts == want, f"{label} launch counts {counts} != expected {want}")
-        check(sorted(results) == sorted(r.rid for r in reqs), f"{label} lost requests")
-        for req in reqs:
-            r = results[req.rid]
-            check(r.status == "ok" and len(r.tokens) == req.max_new
-                  and all(0 <= t < cfg.vocab for t in r.tokens),
-                  f"{label}: request {req.rid} ended {r.status} with {len(r.tokens)} tokens")
+        check_served(label, results, reqs, cfg.vocab)
         report(label, stats)
         print(f"[e2e] {label}: {len(results)} requests ok, {ticks} ticks, {chunks} chunks; "
               f"launches {counts} == expected; card {card}", flush=True)
@@ -800,10 +1037,14 @@ def end_to_end(torch, card):
 
     profile_steps(torch, f"mixed tick (B={slots}, C={chunk}, start 96)", mixed_tick,
                   (copy(base), tok), card)
-    paged_launches = paged_end_to_end(torch, card, SimpleNamespace(
-        model=model, params=params, cfg=cfg, reqs=reqs, dense=outs["chunked"], slots=slots,
-        max_len=plen + max_new, chunk=chunk, n_layers=n_layers, agreement=agreement))
-    return {k: launches.get(k, 0) + paged_launches[k] for k in paged_launches}
+    env = SimpleNamespace(model=model, params=params, cfg=cfg, reqs=reqs, dense=outs["chunked"],
+                          slots=slots, max_len=plen + max_new, chunk=chunk, n_layers=n_layers,
+                          agreement=agreement, engine=engine)
+    paged_launches, env.chunked, env.shared_reqs = paged_end_to_end(torch, card, env)
+    env.chunked["dense"] = outs["chunked"]
+    ragged_launches = ragged_end_to_end(torch, card, env)
+    return {k: launches.get(k, 0) + paged_launches.get(k, 0) + ragged_launches.get(k, 0)
+            for k in ragged_launches}
 
 
 def paged_end_to_end(torch, card, env):
@@ -811,22 +1052,18 @@ def paged_end_to_end(torch, card, env):
     prefix sharing and with oversubscription under both preemption
     policies, each run's launch counts checked; a paged mixed step's logits
     against the plain versions; a paged decode tick and mixed tick
-    profiled."""
+    profiled.  Returns the launches, each run's results by name (the ragged
+    phase's yardstick) and the shared-prefix requests."""
     import numpy as np
 
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report
     from repro_torch.nn.module import Context
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Request
     from repro_torch.serve.engine import make_decode_step, make_mixed_step
 
     slots, chunk, n_layers, cfg = env.slots, env.chunk, env.n_layers, env.cfg
     per_forward = 7 * n_layers
-
-    def paged_engine(pool=None):
-        return ServeEngine(model=env.model, params=env.params, max_len=env.max_len,
-                           batch_slots=slots, weight_quant=True, quantized_kv=True,
-                           device="cuda", paged_kv=True, kv_pool_pages=pool)
 
     def counted_run(label, engine, reqs, **kw):
         """One scheduler run from zeroed counts; the counts must be the
@@ -838,26 +1075,22 @@ def paged_end_to_end(torch, card, env):
         ticks, chunks = stats.decode_steps, stats.prefill_chunks
         want = {"wq_matmul": per_forward * (ticks + chunks + 3), "qdecode_attn": 0,
                 "qchunk_attn": 0, "qpaged_decode_attn": n_layers * (ticks + 2),
-                "qpaged_chunk_attn": n_layers * (chunks + 1)}
+                "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0}
         check(counts == want, f"{label} launch counts {counts} != expected {want}")
-        check(sorted(results) == sorted(r.rid for r in reqs), f"{label} lost requests")
-        for req in reqs:
-            r = results[req.rid]
-            check(r.status == "ok" and len(r.tokens) == req.max_new
-                  and all(0 <= t < cfg.vocab for t in r.tokens),
-                  f"{label}: request {req.rid} ended {r.status} with {len(r.tokens)} tokens")
+        check_served(label, results, reqs, cfg.vocab)
         report(label, stats)
         print(f"[e2e] {label}: {len(results)} requests ok, {ticks} ticks, {chunks} chunks; "
               f"launches {counts} == expected; card {card}", flush=True)
         return results, stats, counts
 
-    paged = paged_engine()
+    paged = paged_engine(env)
     ps, parity = paged.page_size, paged.kv_num_pages
     print(f"[e2e] paged KV: page size {ps} (the engine's CUDA default), table "
           f"{paged.kv_max_pages} pages per slot, pool {parity} pages (dense parity)",
           flush=True)
     launches = {}
     summaries = {}
+    results = {}
 
     def add(counts):
         for k, v in counts.items():
@@ -865,6 +1098,7 @@ def paged_end_to_end(torch, card, env):
 
     # -- the main path: paged chunked serving of the 16 requests -----------------
     res, stats, counts = counted_run("paged", paged, env.reqs)
+    results["paged"] = res
     add(counts)
     summaries["paged"] = stats.summary()
     print(f"[e2e] paged tokens: agreement with the dense chunked run "
@@ -876,13 +1110,13 @@ def paged_end_to_end(torch, card, env):
     shared_reqs = [Request(rid=i, prompt=np.concatenate(
         [opening, g.integers(0, cfg.vocab, size=32).astype(np.int32)]), max_new=16,
         arrival=2 * i) for i in range(8)]
-    _, stats, counts = counted_run("paged, shared prefix", paged, shared_reqs)
+    results["shared"], stats, counts = counted_run("paged, shared prefix", paged, shared_reqs)
     add(counts)
     check(stats.shared_pages_mapped > 0, "prefix sharing mapped no shared page")
     summaries["shared"] = stats.summary()
 
     # -- oversubscription: half the pool, both preemption policies, 8 requests ----
-    half = paged_engine(parity // 2)
+    half = paged_engine(env, parity // 2)
     for policy in ("recompute", "swap"):
         label = f"paged, oversubscribed ({parity // 2} pages), {policy}"
         got, stats, counts = counted_run(label, half, env.reqs[:8], oversubscribe=True,
@@ -893,6 +1127,7 @@ def paged_end_to_end(torch, card, env):
         print(f"[e2e] {label}: greedy tokens agree with the unpressured paged run on "
               f"{env.agreement(got, res):.4f}", flush=True)
         summaries[policy] = stats.summary()
+        results[policy] = got
     del half
     for label, m in summaries.items():
         print(f"[e2e] paged {label}: steady {m['steady_tok_s']:.1f} tok/s | latency p50/p99 "
@@ -970,6 +1205,250 @@ def paged_end_to_end(torch, card, env):
                   (copy(cache), tok), card)
     profile_steps(torch, f"paged mixed tick (B={slots}, C={chunk}, start 96, ps={ps})",
                   mixed_tick, (copy(cache), tok), card)
+    return launches, results, shared_reqs
+
+
+def ragged_end_to_end(torch, card, env):
+    """``--policy ragged``: one ragged forward per tick (B=8, 2 lanes of C=32,
+    T = 72) at full width on the dense cache and the paged pool, with prefix
+    sharing, at half the pool under recompute and swap, and on the burst of
+    ``benchmarks/serve_bench.py::bench_burst`` (16 x 192 tokens at tick 0,
+    16 slots, 4 lanes, budget 160, page 16) beside the single-lane paged
+    mixed step.  Every run's launch counts are exact, every request ``ok``,
+    and its greedy tokens are those of the chunked run of the same workload
+    wherever the top-2 margin exceeds LOGIT_ATOL.  A ragged tick's logits
+    are held to the plain versions, and a dense and a paged ragged tick are
+    profiled."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.nn.attention import KVChunk, RaggedBatch
+    from repro_torch.nn.module import Context
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.lanes import RaggedTick
+
+    slots, chunk, n_layers, cfg = env.slots, env.chunk, env.n_layers, env.cfg
+    per_forward = 7 * n_layers
+    lanes = 2
+    others = {"qdecode_attn": 0, "qchunk_attn": 0, "qpaged_decode_attn": 0,
+              "qpaged_chunk_attn": 0}
+    launches, summaries = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def counted_run(label, engine, reqs, n_lanes=lanes, time_ticks=False, **kw):
+        """One ragged run from zeroed counts: every tick, the warm-up's
+        included, is one forward of 7 x 30 wq_matmul and 30 qragged_attn.
+        ``time_ticks`` (the burst) syncs every tick for wall-clock TTFT; the
+        other runs do not, as the chunked runs they are compared with."""
+        ops.reset_launch_counts()
+        results, stats = engine.scheduler(chunk_size=chunk, ragged=True, prefill_lanes=n_lanes,
+                                          **kw).run(reqs, seed=0, time_ticks=time_ticks)
+        counts = ops.launch_counts()
+        ticks = stats.decode_steps
+        want = {"wq_matmul": per_forward * (ticks + 1), "qragged_attn": n_layers * (ticks + 1),
+                **others}
+        check(counts == want, f"{label} launch counts {counts} != expected {want}")
+        check_served(label, results, reqs, cfg.vocab)
+        report(label, stats)
+        print(f"[e2e] {label}: {len(results)} requests ok, {ticks} ticks, "
+              f"{stats.prefill_chunks} chunks; launches {counts} == expected; card {card}",
+              flush=True)
+        add(counts)
+        summaries[label] = stats.summary()
+        return results, stats
+
+    def greedy_check(label, got, want, reqs, engine):
+        """Tokens equal to ``want``'s; where a stream diverges, the prompt and
+        ``want``'s tokens before the divergence are prefilled (plain lockstep
+        path) and the top-2 margin there must be within LOGIT_ATOL."""
+        by_rid = {r.rid: r for r in reqs}
+        same = total = 0
+        flips = []
+        for rid in want:
+            a, w = got[rid].tokens, want[rid].tokens
+            total += len(w)
+            i = next((k for k, (x, y) in enumerate(zip(a, w)) if x != y), None)
+            same += len(w) if i is None else i
+            if i is None:
+                continue
+            seq = np.concatenate([np.asarray(by_rid[rid].prompt, np.int32).reshape(-1),
+                                  np.asarray(w[:i], np.int32)])[None]
+            with torch.inference_mode():
+                logits, _ = engine.prefill(torch.from_numpy(seq).cuda(),
+                                           engine.new_cache(batch=1))
+            top2 = torch.topk(logits[0, :cfg.vocab], 2).values
+            margin = (top2[0] - top2[1]).item()
+            check(margin <= LOGIT_ATOL, f"{label}: request {rid} diverges at token {i} where "
+                                        f"the top-2 margin is {margin:.3e} > {LOGIT_ATOL}")
+            flips.append((rid, i, round(margin, 6)))
+        print(f"[e2e] {label}: greedy tokens agree with the chunked run on {same}/{total} "
+              f"before any divergence; divergences (rid, token, top-2 margin) {flips}",
+              flush=True)
+
+    dense, paged = env.engine, paged_engine(env)
+    parity = paged.kv_num_pages
+    # -- the main path: ragged serving of the 16 requests, dense and paged -------
+    res, _ = counted_run("ragged", dense, env.reqs)
+    greedy_check("ragged", res, env.chunked["dense"], env.reqs, dense)
+    res, _ = counted_run("ragged, paged", paged, env.reqs)
+    greedy_check("ragged, paged", res, env.chunked["paged"], env.reqs, dense)
+    res, stats = counted_run("ragged, paged, shared prefix", paged, env.shared_reqs)
+    check(stats.shared_pages_mapped > 0, "ragged prefix sharing mapped no shared page")
+    greedy_check("ragged, paged, shared prefix", res, env.chunked["shared"], env.shared_reqs,
+                 dense)
+    half = paged_engine(env, parity // 2)
+    for policy in ("recompute", "swap"):
+        label = f"ragged, paged, oversubscribed ({parity // 2} pages), {policy}"
+        res, stats = counted_run(label, half, env.reqs[:8], oversubscribe=True,
+                                 preempt_policy=policy)
+        check(stats.grown_pages > 0 and stats.preemptions > 0,
+              f"{label}: grown {stats.grown_pages}, preemptions {stats.preemptions}")
+        greedy_check(label, res, env.chunked[policy], env.reqs[:8], dense)
+    del half
+
+    # -- the burst: bench_burst's full setting, ragged and paged mixed -----------
+    wl = dict(n_requests=16, plen=192, max_new=16, slots=16, chunk=32, lanes=4, budget=160,
+              page=16)
+    rng = np.random.default_rng(0)
+    burst_reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=wl["plen"],
+                                                     dtype=np.int32),
+                          max_new=wl["max_new"], arrival=0) for i in range(wl["n_requests"])]
+    burst = ServeEngine(model=env.model, params=env.params, max_len=wl["plen"] + wl["max_new"],
+                        batch_slots=wl["slots"], weight_quant=True, quantized_kv=True,
+                        device="cuda", paged_kv=True, page_size=wl["page"])
+    ops.reset_launch_counts()
+    m_res, m_st = burst.scheduler(chunk_size=wl["chunk"], token_budget=wl["budget"]).run(
+        burst_reqs, seed=0, time_ticks=True)
+    counts = ops.launch_counts()
+    ticks, chunks = m_st.decode_steps, m_st.prefill_chunks
+    want = {"wq_matmul": per_forward * (ticks + chunks + 3), "qdecode_attn": 0,
+            "qchunk_attn": 0, "qpaged_decode_attn": n_layers * (ticks + 2),
+            "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0}
+    check(counts == want, f"burst, paged mixed launch counts {counts} != expected {want}")
+    check_served("burst, paged mixed", m_res, burst_reqs, cfg.vocab)
+    report("burst, paged mixed", m_st)
+    add(counts)
+    summaries["burst, paged mixed"] = m_st.summary()
+    r_res, r_st = counted_run(f"burst, ragged ({wl['lanes']} lanes, budget {wl['budget']})",
+                              burst, burst_reqs, n_lanes=wl["lanes"], time_ticks=True,
+                              token_budget=wl["budget"])
+    greedy_check("burst, ragged", r_res, m_res, burst_reqs, burst)
+    msum, rsum = m_st.summary(), r_st.summary()
+    print(f"[e2e] burst (16 x 192 tokens at tick 0, 16 slots, chunk 32, budget 160, page 16): "
+          f"TTFT p50/p99 paged mixed {msum['p50_ttft_steps']:.0f}/{msum['p99_ttft_steps']:.0f} "
+          f"ticks, {msum['p50_ttft_ms']:.1f}/{msum['p99_ttft_ms']:.1f} ms -> ragged "
+          f"{rsum['p50_ttft_steps']:.0f}/{rsum['p99_ttft_steps']:.0f} ticks, "
+          f"{rsum['p50_ttft_ms']:.1f}/{rsum['p99_ttft_ms']:.1f} ms | ticks {m_st.decode_steps} "
+          f"-> {r_st.decode_steps} | steady {m_st.steady_tok_s:.1f} -> {r_st.steady_tok_s:.1f} "
+          f"tok/s | card {card}", flush=True)
+    del burst
+    for label, m in summaries.items():
+        timed = (f", {m['p50_latency_ms']:.1f}/{m['p99_latency_ms']:.1f} ms",
+                 f", {m['p50_ttft_ms']:.1f}/{m['p99_ttft_ms']:.1f} ms") \
+            if m["p99_ttft_ms"] > 0 else ("", "")
+        print(f"[e2e] {label}: steady {m['steady_tok_s']:.1f} tok/s | latency p50/p99 "
+              f"{m['p50_latency_steps']:.0f}/{m['p99_latency_steps']:.0f} ticks{timed[0]} | "
+              f"ttft p50/p99 {m['p50_ttft_steps']:.0f}/{m['p99_ttft_steps']:.0f} "
+              f"ticks{timed[1]} | chunks {m['prefill_chunks']} "
+              f"(stalled {m['stalled_chunks']}) | pages peak {m['peak_pages_in_use']}, stalls "
+              f"{m['page_stalls']} | shared {m['shared_pages_mapped']} | grown "
+              f"{m['grown_pages']}, preempted {m['preemptions']}, resumed {m['resumes']}, "
+              f"swapped {m['swapped_pages']} | card {card}", flush=True)
+
+    # -- one ragged tick's logits against the plain versions, dense and paged ----
+    g2 = torch.Generator(device="cuda").manual_seed(5)
+    lane_slots, start = (2, 6), 96
+    live = [j for j in range(slots) if j not in lane_slots]
+    meta = RaggedTick(
+        sids=np.asarray(list(range(slots)) + [lane_slots[0]] * chunk + [lane_slots[1]] * chunk,
+                        np.int32),
+        poss=np.asarray([start if j in live else -1 for j in range(slots)]
+                        + list(range(start, start + chunk)) * 2, np.int32),
+        ctok=torch.randint(0, cfg.vocab, (lanes, chunk), generator=g2, device="cuda",
+                           dtype=torch.int32).cpu().numpy(),
+        lrows=np.asarray(list(range(slots)) + [slots + chunk - 1, slots + 2 * chunk - 1],
+                         np.int32), ran=[], stalled=0)
+    tok = torch.randint(0, cfg.vocab, (slots, 1), generator=g2, device="cuda", dtype=torch.int32)
+
+    def prefixed(engine):
+        """A per-slot cache whose 8 slots hold 96-token prefixes (chunked
+        prefill), on fragmented pages when paged."""
+        cache = engine.new_cache(per_slot=True)
+        if engine.paged_kv:
+            from repro_torch.serve.slot_state import set_cache_page_row
+
+            perm = torch.randperm(engine.kv_num_pages, generator=g2, device="cuda")
+            perm = perm.reshape(slots, -1).cpu().numpy()
+            for j in range(slots):
+                cache = set_cache_page_row(cache, j, perm[j])
+        with torch.inference_mode():
+            for j in range(slots):
+                toks = torch.randint(0, cfg.vocab, (1, start), generator=g2, device="cuda",
+                                     dtype=torch.int32)
+                for c0 in range(0, start, chunk):
+                    _, cache = env.model.apply(engine.params, toks[:, c0:c0 + chunk], Context(),
+                                               cache=cache, decode=True,
+                                               chunk=KVChunk(j, c0, chunk), logit_pos=chunk - 1)
+        return cache
+
+    def clone(engine, c):
+        new = engine.new_cache(per_slot=True)
+        for dst, src in zip(new["body"], c["body"]):
+            for name in [n for n in ("k", "v", "page_table", "len") if n in src["kv"]]:
+                dst["kv"][name].copy_(src["kv"][name])
+        return new
+
+    def tick_logits(engine, c):
+        dev = {k: torch.from_numpy(getattr(meta, k)).cuda() for k in ("sids", "poss", "ctok",
+                                                                        "lrows")}
+        flat = torch.cat([tok[:, 0], dev["ctok"].reshape(-1)])[None]
+        with torch.inference_mode():
+            logits, _ = env.model.apply(engine.params, flat, Context(), cache=c, decode=True,
+                                        ragged=RaggedBatch(dev["sids"], dev["poss"]),
+                                        logit_rows=dev["lrows"])
+        return logits[0]
+
+    active = torch.tensor([j in live for j in range(slots)], device="cuda")
+    for name, engine in (("dense", dense), ("paged", paged)):
+        cache = prefixed(engine)
+        k_l = tick_logits(engine, clone(engine, cache))
+        ops.FORCE = "plain"
+        try:
+            p_l = tick_logits(engine, clone(engine, cache))
+        finally:
+            ops.FORCE = None
+        check(bool(torch.isfinite(k_l).all()), f"{name} ragged tick logits not finite")
+        err = (k_l - p_l).abs().max().item()
+        check(err <= LOGIT_ATOL, f"{name} ragged tick logits: max err {err} > {LOGIT_ATOL}")
+        top2 = torch.topk(p_l[:, :cfg.vocab], 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
+        same = torch.argmax(k_l, -1) == torch.argmax(p_l, -1)
+        check(bool(same[clear].all()), f"{name} ragged tick: greedy token differs on a clear "
+                                       f"margin")
+        print(f"[e2e] {name} ragged tick logits {tuple(k_l.shape)} (6 decode rows at 96, 2 lanes "
+              f"x {chunk} at 96): max_abs_err vs plain {err:.3e} (tol {LOGIT_ATOL}); greedy "
+              f"tokens equal on {int(clear.sum())}/{len(clear)} rows with a clear top-2 margin",
+              flush=True)
+        sched = engine.scheduler(chunk_size=chunk, ragged=True, prefill_lanes=lanes)
+
+        def ragged_tick(st, sched=sched):
+            c, t = st
+            nxt, _, c = sched._masked_ragged(t, c, None, active, meta)
+            return c, nxt
+
+        prof = profile_steps(torch, f"{name} ragged tick (B={slots}, L={lanes}, C={chunk}, "
+                                    f"start 96, T={slots + lanes * chunk})", ragged_tick,
+                             (clone(engine, cache), tok), card)
+        if prof is not None:
+            wq = [(t, n) for t, n, key in prof["rows"] if "wq_matmul" in key]
+            print(f"[profile] {name} ragged tick: wq_matmul at M=T={slots + lanes * chunk} "
+                  f"{sum(t for t, _ in wq):.1f} us/tick of device time in "
+                  f"{sum(n for _, n in wq):.0f} launches ({sum(t for t, _ in wq) / 1e3 / prof['busy_ms']:.3f} "
+                  f"of the device busy time)", flush=True)
     return launches
 
 
@@ -989,6 +1468,7 @@ def main() -> int:
         from repro_torch.kernels.qdecode_attn import qdecode_attn_cuda
         from repro_torch.kernels.qpaged_attn import (qpaged_chunk_attn_cuda,
                                                      qpaged_decode_attn_cuda)
+        from repro_torch.kernels.qragged_attn import qragged_attn_cuda
         from repro_torch.kernels.wq_matmul import wq_matmul_cuda
         from repro_torch.serve.engine import CUDA_PAGE_SIZE
     except ImportError as e:
@@ -1021,6 +1501,10 @@ def main() -> int:
                                                   qdecode_attn_cuda, gen, CUDA_PAGE_SIZE)
     pc_rows, pc_err = check_qpaged_chunk_attn(torch, F, ref, qpaged_chunk_attn_cuda,
                                               qchunk_attn_cuda, gen, CUDA_PAGE_SIZE)
+    qr_rows, qr_err = check_qragged_attn(torch, F, ref, SimpleNamespace(
+        qragged=qragged_attn_cuda, qdecode=qdecode_attn_cuda, qchunk=qchunk_attn_cuda,
+        qpaged_decode=qpaged_decode_attn_cuda, qpaged_chunk=qpaged_chunk_attn_cuda),
+        gen, CUDA_PAGE_SIZE)
     t2 = time.perf_counter()
     launches = end_to_end(torch, card)
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
@@ -1077,6 +1561,18 @@ def main() -> int:
          "shape": f"Hq=9 Hkv=3 D=64 C={pc_main['c']} S={pc_main['s']} ps={pc_main['ps']} "
                   f"start={pc_main['start']} (the serving path's last chunk)"},
     ]
+    qr_main = qr_rows[0]
+    kernels.append(
+        {"name": "qragged_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qragged_attn.cu",
+         "replaces": "src/repro/kernels/qragged_attn.py:123",
+         "launches": launches["qragged_attn"], "max_abs_err": qr_err,
+         "ms": qr_main["ms"], "plain_ms": qr_main["plain_ms"],
+         "bound_ms": qr_main["bound_ms"], "bound_by": qr_main["bound_by"],
+         "library_ms": qr_main["library_ms"],
+         "shape": f"B=8 Hq=9 Hkv=3 D=64 T={qr_main['t']} (8 decode rows, 2 inert; 2 lanes x 32 "
+                  f"at start 96) S={qr_main['s']} {qr_main['layout']} (the ragged serving "
+                  f"tick)"})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,6 +17,7 @@ from repro_torch.core.qformat import Exponent, QTensor
 from repro_torch.kernels import qchunk_attn as _qchunk_attn
 from repro_torch.kernels import qdecode_attn as _qdecode_attn
 from repro_torch.kernels import qpaged_attn as _qpaged_attn
+from repro_torch.kernels import qragged_attn as _qragged_attn
 from repro_torch.kernels import ref
 from repro_torch.kernels import wq_matmul as _wq_matmul
 
@@ -28,7 +29,8 @@ _COUNTERS = {"wq_matmul": (_wq_matmul, "launches"),
              "qdecode_attn": (_qdecode_attn, "launches"),
              "qchunk_attn": (_qchunk_attn, "launches"),
              "qpaged_decode_attn": (_qpaged_attn, "decode_launches"),
-             "qpaged_chunk_attn": (_qpaged_attn, "chunk_launches")}
+             "qpaged_chunk_attn": (_qpaged_attn, "chunk_launches"),
+             "qragged_attn": (_qragged_attn, "launches")}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -130,3 +132,27 @@ def qpaged_chunk_attn(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Ten
                                                    k_n, v_n, page_row, start)
     return ref.qpaged_chunk_attn_ref(q, k_chunk, v_chunk, k_pool, v_pool, k_n, v_n, page_row,
                                      start)
+
+
+def qragged_attn(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 k_pool: torch.Tensor, v_pool: torch.Tensor, k_n: Exponent, v_n: Exponent,
+                 table: torch.Tensor, slot_ids: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Ragged token-batch attention into an int8 pool: one launch per layer
+    of a ragged tick.
+
+    q (T, Hq, D), k/v new (T, Hkv, D) f32; pools (P, ps, Hkv, D) int8, into
+    which token t's quantized K/V row is written in place at logical row
+    ``positions[t]`` of slot ``slot_ids[t]`` through ``table`` (slots,
+    max_pages) int32 (rows at position -1, past the table or on -1 entries
+    are dropped); token t attends that slot's mapped positions <=
+    ``positions[t]``, and inert rows give zeros.  A dense (B, S, Hkv, D)
+    cache passes itself as the pool under the identity table (B, 1).
+    Returns out (T, Hq, D).
+    """
+    if _use_kernel(q):
+        return _qragged_attn.qragged_attn_cuda(q.contiguous(), k_new.contiguous(),
+                                               v_new.contiguous(), k_pool, v_pool, k_n, v_n,
+                                               table, slot_ids, positions)
+    return ref.qragged_attn_ref(q, k_new, v_new, k_pool, v_pool, k_n, v_n, table, slot_ids,
+                                positions)

@@ -149,3 +149,51 @@ def qpaged_chunk_attn_ref(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch
     p = torch.softmax(torch.where(visible, scores, torch.full_like(scores, NEG_INF)), dim=-1)
     out = torch.einsum("hgcs,shd->chgd", p, vf)
     return out.reshape(c, hq, d).to(q.dtype)
+
+
+def qragged_attn_ref(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                     k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     k_n: qformat.Exponent, v_n: qformat.Exponent, table: torch.Tensor,
+                     slot_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Ragged token-batch attention: per-token scatter, then per-token attention.
+
+    Token t is logical row ``positions[t]`` of slot ``slot_ids[t]``: its K/V
+    row is quantized onto the pow2 grid and written **in place** into the
+    pool through the (slots, max_pages) ``table`` (rows with position < 0,
+    past the table or on a -1 entry are dropped), then its query attends
+    that slot's mapped positions ``<= positions[t]``.  Rows that see nothing
+    (inert rows, position < 0) give exact zeros.  q (T, Hq, D), k/v new
+    (T, Hkv, D) f32; pools (P, ps, Hkv, D) int8; slot_ids/positions (T,)
+    int32.  Returns out (T, Hq, D).
+    """
+    t, hq, d = q.shape
+    n_pages, ps, hkv, _ = k_pool.shape
+    g = hq // hkv
+    mp = table.shape[1]
+    slots = slot_ids.to(torch.int64)
+    pos = positions.to(torch.int64)
+    lpage = torch.clamp(pos, min=0) // ps
+    page = table[slots, torch.clamp(lpage, max=mp - 1)].to(torch.int64)
+    valid = (pos >= 0) & (lpage < mp) & (page >= 0)
+    # dropped rows go to a sentinel row past the pool (see qpaged_chunk_attn_ref)
+    rows = n_pages * ps
+    flat = torch.where(valid, page * ps + torch.clamp(pos, min=0) % ps, rows)
+    for pool, x, n in ((k_pool, k_new, k_n), (v_pool, v_new, v_n)):
+        ext = torch.cat([pool.reshape(rows, hkv, d), pool.new_zeros(1, hkv, d)])
+        ext[flat] = qformat.quantize(x, n, 8)
+        pool.copy_(ext[:rows].view(pool.shape))
+    # densify each token's slot through the table, then mask to <= positions
+    rows_t = table[slots]                                        # (T, max_pages)
+    kf = qformat.dequantize(gather_pages_ref(k_pool, rows_t), k_n)   # (T, S', Hkv, D)
+    vf = qformat.dequantize(gather_pages_ref(v_pool, rows_t), v_n)
+    s = kf.shape[1]
+    qg = q.reshape(t, hkv, g, d).to(torch.float32)
+    scores = torch.einsum("thgd,tshd->thgs", qg, kf) / math.sqrt(d)
+    mapped = torch.repeat_interleave(rows_t >= 0, ps, dim=1)    # (T, S')
+    vis = (torch.arange(s, device=q.device)[None, :] <= pos[:, None]) & mapped
+    p = torch.softmax(torch.where(vis[:, None, None, :], scores,
+                                  torch.full_like(scores, NEG_INF)), dim=-1)
+    # a row that sees nothing gives zeros, not a fully-masked softmax's mean
+    p = torch.where(vis.any(dim=-1)[:, None, None, None], p, torch.zeros_like(p))
+    out = torch.einsum("thgs,tshd->thgd", p, vf)
+    return out.reshape(t, hq, d).to(q.dtype)

@@ -4,8 +4,8 @@
         --policy chunked --chunk-size 32 --wq --qkv [--device cpu]
 
 --wq   int8 weight-only storage (the ``wq_matmul`` kernel)
---qkv  int8 KV cache on the paper's Qm.n grid (the ``qdecode_attn`` and
-       ``qchunk_attn`` kernels)
+--qkv  int8 KV cache on the paper's Qm.n grid (the ``qdecode_attn``,
+       ``qchunk_attn`` and ``qragged_attn`` kernels)
 
 Policies ported so far:
   scheduler  continuous batching with one-shot admission: a freed slot is
@@ -15,11 +15,17 @@ Policies ported so far:
              mixed step = all live decode slots + one --chunk-size prompt
              chunk written in place into its slot; --token-budget caps the
              tick's tokens (live slots + chunk; decode always runs)
+  ragged     chunked, but every tick is ONE ragged forward over a flat token
+             batch: all live decode tokens plus up to --prefill-lanes prompt
+             chunks (the ``qragged_attn`` kernel; the same shapes every
+             tick); --token-budget is split over the lanes in admission
+             order
   restart    restart-the-batch: lockstep generate() per gathered batch,
              everyone waits for the longest request
   lockstep   one generate() over --slots prompts (--requests clamped)
---paged (chunked policy) serves from a page pool shared by all slots (the
-``qpaged_decode_attn`` and ``qpaged_chunk_attn`` kernels) with prefix
+--paged (chunked or ragged policy) serves from a page pool shared by all
+slots (the ``qpaged_decode_attn`` and ``qpaged_chunk_attn`` kernels, or
+``qragged_attn`` through the table) with prefix
 sharing (--no-prefix-sharing turns it off) and, with --oversubscribe, lazy
 decode pages and --preempt-policy recompute|swap when the pool runs dry:
 
@@ -27,8 +33,7 @@ decode pages and --preempt-policy recompute|swap when the pool runs dry:
         --policy chunked --paged --page-size 16 --pool-pages 48 \
         --oversubscribe --preempt-policy swap --wq --qkv
 
---policy ragged waits for a later slice of the port (ROADMAP.md).  Runs on
-the GPU unless --device says otherwise.
+Runs on the GPU unless --device says otherwise.
 """
 from __future__ import annotations
 
@@ -109,12 +114,15 @@ def main(argv=None):
                     help="decode-step ticks between request arrivals")
     ap.add_argument("--policy", default="scheduler",
                     choices=["chunked", "ragged", "scheduler", "restart", "lockstep"])
+    ap.add_argument("--prefill-lanes", type=int, default=2,
+                    help="concurrent prompt-chunk lanes per ragged tick (ragged policy; "
+                         "1 keeps chunked admission's order with the ragged kernel)")
     ap.add_argument("--chunk-size", type=int, default=16,
-                    help="prefill chunk tokens per mixed step (chunked policy; the last "
-                         "chunk's padded rows must fit max_len)")
+                    help="prefill chunk tokens per mixed or ragged step (chunked and "
+                         "ragged policies; the last chunk's padded rows must fit max_len)")
     ap.add_argument("--token-budget", type=int, default=0,
-                    help="per-tick token cap for chunked admission (0 = unbounded; "
-                         "must fit one chunk)")
+                    help="per-tick token cap for chunked and ragged admission (0 = "
+                         "unbounded; must fit one chunk)")
     ap.add_argument("--prompt-bucket", type=int, default=0,
                     help="round prompt lengths up to this multiple (0 = exact; "
                          "scheduler policy only)")
@@ -123,7 +131,8 @@ def main(argv=None):
                          "latency (ms)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: a page pool shared by all slots plus per-slot "
-                         "page tables, pages allocated per request (chunked policy only)")
+                         "page tables, pages allocated per request (chunked or ragged "
+                         "policy)")
     ap.add_argument("--page-size", type=int, default=0,
                     help="rows per KV page (paged; 0 = the engine's default)")
     ap.add_argument("--pool-pages", type=int, default=0,
@@ -149,12 +158,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain kernels)")
     args = ap.parse_args(argv)
-    if args.policy == "ragged":
-        raise SystemExit("--policy ragged: the ragged tick waits for ROADMAP slice 4 of "
-                         "the port; use --policy chunked, scheduler, restart or lockstep")
-    if args.paged and args.policy != "chunked":
-        raise SystemExit("--paged requires --policy chunked (pages are allocated per "
-                         "request and written through the mixed step's chunks)")
+    if args.paged and args.policy not in ("chunked", "ragged"):
+        raise SystemExit("--paged requires --policy chunked or ragged (pages are allocated "
+                         "per request and written through the fused step's chunks)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -192,10 +198,13 @@ def main(argv=None):
     if args.policy == "restart":
         results, stats = run_restart_batching(engine, reqs, seed=args.seed, eos_id=eos_id)
     else:
-        chunked = args.policy == "chunked"
+        chunked = args.policy in ("chunked", "ragged")
+        ragged = args.policy == "ragged"
         sched = engine.scheduler(eos_id=eos_id, prompt_bucket=args.prompt_bucket or None,
                                  chunk_size=args.chunk_size if chunked else None,
                                  token_budget=(args.token_budget or None) if chunked else None,
+                                 ragged=ragged,
+                                 prefill_lanes=args.prefill_lanes if ragged else 1,
                                  prefix_sharing=not args.no_prefix_sharing,
                                  oversubscribe=args.oversubscribe,
                                  preempt_policy=args.preempt_policy)

@@ -11,7 +11,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.nn.attention import KVChunk
+from repro_torch.nn.attention import KVChunk, RaggedBatch
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.module import Context, Params
 from repro_torch.nn.transformer import Stack
@@ -49,20 +49,27 @@ class CausalLM:
               cache: Optional[Dict[str, Any]] = None,
               decode: bool = False,
               chunk: Optional[KVChunk] = None,
+              ragged: Optional[RaggedBatch] = None,
               logit_pos: Optional[int] = None,
+              logit_rows: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         """Returns (logits (B, S, vocab_padded) f32, new_cache).
 
         ``chunk``: route this (1, C) forward as a chunked prefill into one
         slot of a per-slot cache (``serve.engine.make_mixed_step``).
-        ``logit_pos``: logits at that one position only ((B, 1, V)); the
-        hidden states are sliced before the LM head, which dominates a
-        small-batch forward.
+        ``ragged``: route this (1, T) forward as one ragged tick over a
+        per-slot cache (``serve.engine.make_ragged_step``).
+        ``logit_pos``: logits at that one position only ((B, 1, V));
+        ``logit_rows``: at those (R,) token rows only ((B, R, V)).  Both slice
+        the hidden states before the LM head, which dominates a small-batch
+        forward.
         """
         ctx = ctx.scope(self.name)
         x = self._embed().apply(params["embed"], tokens, ctx)
         x, new_cache = self.stack.apply(params["stack"], x, ctx, cache=cache,
-                                        decode=decode, chunk=chunk)
+                                        decode=decode, chunk=chunk, ragged=ragged)
+        if logit_rows is not None:
+            x = x.index_select(1, logit_rows)
         if logit_pos is not None:
             pos = logit_pos % x.shape[1]
             x = x[:, pos:pos + 1]

@@ -24,8 +24,14 @@ returned dict shares the cache's ``k``/``v`` tensors, and only ``len`` and
 first P * ps rows of a storage with one more row: the reference's scatters
 drop rows at the out-of-range sentinel index P * ps, and here that index is
 a real row that nothing reads, so a dropped write needs neither a
-synchronizing mask nor a clamp onto a live row.  The ragged tick belongs to
-a later slice.
+synchronizing mask nor a clamp onto a live row.
+
+The ragged tick (:class:`RaggedBatch`) runs one forward over a flat (1, T)
+token batch, each token with its own slot and logical row: int8 caches go
+through ``ops.qragged_attn`` (a dense slab as a pool of B pages under the
+identity table), float caches through :func:`append_kv_ragged` and
+:func:`ragged_attention`.  Its layers leave ``len`` as it was;
+``Stack.apply`` raises it once per tick (:func:`ragged_len`).
 """
 from __future__ import annotations
 
@@ -409,6 +415,130 @@ class KVChunk:
     length: int
 
 
+@dataclasses.dataclass(frozen=True)
+class RaggedBatch:
+    """Per-token addressing of a ragged tick's (1, T) token batch: every live
+    slot's decode token and the prompt-chunk tokens of several admission
+    lanes.  Token t is logical row ``positions[t]`` of batch slot
+    ``slots[t]`` ((T,) int32 tensors on the cache's device); position -1
+    marks an inert pad row, which writes nothing, leaves ``len`` as it is and
+    outputs a row that no caller samples."""
+
+    slots: torch.Tensor
+    positions: torch.Tensor
+
+
+def _ragged_flat_rows(table: torch.Tensor, slots: torch.Tensor, pos: torch.Tensor,
+                      ps: int, n_pool: int) -> torch.Tensor:
+    """:func:`paged_flat_index` over a ragged batch: token t's pool row
+    ``table[slots[t], pos[t] // ps] * ps + pos[t] % ps`` (int64); inert rows,
+    positions past the table and unmapped entries map to the sentinel
+    ``n_pool * ps``."""
+    mp = table.shape[1]
+    pos = pos.to(torch.int64)
+    lp = torch.clamp(pos, min=0) // ps
+    page = table[slots.to(torch.int64), torch.clamp(lp, max=mp - 1)].to(torch.int64)
+    valid = (pos >= 0) & (lp < mp) & (page >= 0)
+    return torch.where(valid, page * ps + torch.clamp(pos, min=0) % ps, n_pool * ps)
+
+
+def ragged_len(ln: torch.Tensor, ragged: RaggedBatch) -> torch.Tensor:
+    """A copy of the (B,) lengths with ``len[slot] = max(len[slot],
+    positions + 1)`` over each slot's tokens; pad rows (slot 0, position -1)
+    leave it as it is."""
+    return ln.clone().scatter_reduce_(0, ragged.slots.to(torch.int64),
+                                      (ragged.positions + 1).to(ln.dtype), "amax")
+
+
+def _scatter_kv_ragged(cache: Dict[str, Any], k_new: torch.Tensor, v_new: torch.Tensor,
+                       ragged: RaggedBatch) -> None:
+    """Write a (1, T, Hkv, D) ragged batch's rows in place (int8 caches
+    quantize on write); inert rows and rows past the slab or the table are
+    dropped."""
+    k_new, v_new = _quantized_rows(cache, k_new, v_new)
+    pos = ragged.positions
+    if is_paged_cache(cache):
+        n_pool, ps = cache["k"].shape[0], cache["k"].shape[1]
+        flat = _ragged_flat_rows(cache["page_table"], ragged.slots, pos, ps, n_pool)
+        _pool_rows(cache["k"])[flat] = k_new[0]
+        _pool_rows(cache["v"])[flat] = v_new[0]
+        return
+    b, s, hkv, d = cache["k"].shape
+    flat = torch.where((pos >= 0) & (pos < s),
+                       ragged.slots.to(torch.int64) * s + torch.clamp(pos, min=0), b * s)
+    # a dense slab has no spare row: scatter into a copy with one
+    for name, x in (("k", k_new), ("v", v_new)):
+        ext = torch.cat([cache[name].reshape(b * s, hkv, d), x.new_zeros(1, hkv, d)])
+        ext[flat.to(torch.int64)] = x[0]
+        cache[name].copy_(ext[:b * s].view(cache[name].shape))
+
+
+def append_kv_ragged(cache: Dict[str, Any], k_new: torch.Tensor, v_new: torch.Tensor,
+                     ragged: RaggedBatch) -> Dict[str, Any]:
+    """Scatter a (1, T, Hkv, D) ragged batch into a per-slot cache (in
+    place) and raise each slot's ``len`` to cover its tokens
+    (:func:`ragged_len`).
+
+    Token t's K/V row lands at logical row ``positions[t]`` of slot
+    ``slots[t]``, through the table for a paged cache; int8 caches quantize
+    on write.  The plain sibling of the write inside ``ops.qragged_attn``.
+    """
+    _scatter_kv_ragged(cache, k_new, v_new, ragged)
+    return dict(cache, len=ragged_len(cache["len"], ragged))
+
+
+def ragged_attention(q: torch.Tensor, cache: Dict[str, Any],
+                     ragged: RaggedBatch) -> torch.Tensor:
+    """Ragged queries (1, T, Hq, D) over a per-slot cache whose rows already
+    hold the batch (:func:`append_kv_ragged`): token t attends the mapped
+    positions ``<= positions[t]`` of slot ``slots[t]``, densified per token
+    (through the table for a paged cache).  int8 caches are dequantized on
+    their pow2 grid.  A row that sees nothing (inert) gives exact zeros.
+    """
+    _, t, hq, d = q.shape
+    hkv = cache["k"].shape[2]
+    g = hq // hkv
+    slots = ragged.slots.to(torch.int64)
+    pos = ragged.positions.to(torch.int64)
+    if is_paged_cache(cache):
+        table = cache["page_table"][slots]                       # (T, max_pages)
+        mp, ps = table.shape[1], cache["k"].shape[1]
+        idx = torch.clamp(table, min=0).to(torch.int64)
+        sh = (t, mp * ps) + tuple(cache["k"].shape[2:])
+        kt, vt = cache["k"][idx].reshape(sh), cache["v"][idx].reshape(sh)
+        mapped = torch.repeat_interleave(table >= 0, ps, dim=1)
+    else:
+        kt, vt = cache["k"][slots], cache["v"][slots]           # (T, S, Hkv, D)
+        mapped = torch.ones(kt.shape[:2], dtype=torch.bool, device=q.device)
+    if kt.dtype == torch.int8:
+        kt = qformat.dequantize(kt, cache["k_n"])
+        vt = qformat.dequantize(vt, cache["v_n"])
+    else:
+        kt, vt = kt.to(torch.float32), vt.to(torch.float32)
+    s = kt.shape[1]
+    qg = q[0].reshape(t, hkv, g, d).to(torch.float32) / math.sqrt(d)
+    scores = torch.einsum("thgd,tshd->thgs", qg, kt)
+    vis = (torch.arange(s, device=q.device)[None, :] <= pos[:, None]) & mapped
+    p = torch.softmax(torch.where(vis[:, None, None, :], scores,
+                                  torch.full_like(scores, NEG_INF)), dim=-1)
+    p = torch.where(vis.any(dim=-1)[:, None, None, None], p, torch.zeros_like(p))
+    out = torch.einsum("thgs,tshd->thgd", p, vt)
+    return out.reshape(1, t, hq, d).to(q.dtype)
+
+
+_IDENTITY_TABLES: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def identity_table(batch: int, device) -> torch.Tensor:
+    """The (B, 1) int32 table ``arange(B)[:, None]`` under which a dense
+    (B, S, Hkv, D) slab is a pool of B pages of S rows; made once per
+    (B, device) and shared, so a ragged layer launches nothing for it."""
+    key = (batch, str(torch.device(device)))
+    if key not in _IDENTITY_TABLES:
+        _IDENTITY_TABLES[key] = torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+    return _IDENTITY_TABLES[key]
+
+
 def append_kv_chunk(cache: Dict[str, Any], k_new: torch.Tensor, v_new: torch.Tensor,
                     chunk: KVChunk) -> Dict[str, Any]:
     """Write a (1, C, Hkv, D) chunk in place into rows [start, start+C) of
@@ -502,14 +632,18 @@ class Attention:
               cache: Optional[Dict[str, Any]] = None,
               decode: bool = False,
               chunk: Optional[KVChunk] = None,
+              ragged: Optional[RaggedBatch] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         """Attend over ``x`` (B, S, d_model).
 
-        With ``cache``: ``chunk`` writes one prompt chunk (B = 1) into its
-        slot of a per-slot cache and attends over that slot; one token with
-        ``decode`` runs the decode step (each slot at its own ``len`` for a
-        per-slot cache); otherwise the prompt is written into a lockstep
-        cache and attends over it, causal from the length before the write.
+        With ``cache``: ``ragged`` runs a ragged tick's (1, T) batch, each
+        token writing its own row of its own slot and attending that slot
+        (``len`` is left as it was: the stack raises it once per tick);
+        ``chunk`` writes one prompt chunk (B = 1) into its slot of a per-slot
+        cache and attends over that slot; one token with ``decode`` runs the
+        decode step (each slot at its own ``len`` for a per-slot cache);
+        otherwise the prompt is written into a lockstep cache and attends
+        over it, causal from the length before the write.
         """
         ctx = ctx.scope(self.name)
         projs = self._projs()
@@ -518,7 +652,9 @@ class Attention:
         k = projs["wk"].apply(params["wk"], x, ctx).reshape(b, s, self.n_kv_heads, self.head_dim)
         v = projs["wv"].apply(params["wv"], x, ctx).reshape(b, s, self.n_kv_heads, self.head_dim)
         per_slot = cache is not None and isinstance(cache["len"], torch.Tensor)
-        if chunk is not None:
+        if ragged is not None:          # per-token rows; pad rows rope at 0
+            positions = torch.clamp(ragged.positions, min=0)[None, :]
+        elif chunk is not None:
             positions = chunk.start + torch.arange(s, device=x.device)
         elif cache is not None and decode and per_slot:
             positions = cache["len"][:, None] + torch.arange(s, device=x.device)[None, :]
@@ -532,6 +668,24 @@ class Attention:
         new_cache = None
         if cache is None:
             out = flash_attention(q, k, v, 0, s, self.causal)
+        elif ragged is not None:
+            if not per_slot or b != 1:
+                raise NotImplementedError("the ragged tick runs one (1, T) batch over a "
+                                          "per-slot cache (init_cache(per_slot_len=True))")
+            if cache["k"].dtype == torch.int8:
+                from repro_torch.kernels import ops
+
+                if is_paged_cache(cache):
+                    table = cache["page_table"]
+                else:
+                    table = identity_table(cache["k"].shape[0], cache["k"].device)
+                out = ops.qragged_attn(q[0], k[0], v[0], cache["k"], cache["v"],
+                                       cache["k_n"], cache["v_n"], table, ragged.slots,
+                                       ragged.positions)[None]
+            else:
+                _scatter_kv_ragged(cache, k, v, ragged)
+                out = ragged_attention(q, cache, ragged)
+            new_cache = dict(cache)
         elif chunk is not None:
             if not per_slot or b != 1:
                 raise NotImplementedError("chunked prefill targets one slot of a per-slot "

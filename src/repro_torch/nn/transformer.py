@@ -13,7 +13,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.nn.attention import Attention, KVChunk, init_kv_cache, init_paged_kv_cache
+from repro_torch.nn.attention import (Attention, KVChunk, RaggedBatch, init_kv_cache,
+                                      init_paged_kv_cache, ragged_len)
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import Context, Params, tree_layer
@@ -72,12 +73,16 @@ class Block:
               cache: Optional[Dict[str, Any]] = None,
               decode: bool = False,
               chunk: Optional[KVChunk] = None,
+              ragged: Optional[RaggedBatch] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+        """The block's mixer is attention, so it takes ``ragged`` as it
+        comes; the reference's recurrent mixers, which refuse it, wait for
+        the port's other-architectures slice."""
         ctx = ctx.scope(self.name)
         h = RMSNorm(self.d_model, name="norm1").apply(params["norm1"], x, ctx)
         mix, kv = self._mixer().apply(params["mixer"], h, ctx,
                                       cache=None if cache is None else cache["kv"],
-                                      decode=decode, chunk=chunk)
+                                      decode=decode, chunk=chunk, ragged=ragged)
         x = x + mix
         h2 = RMSNorm(self.d_model, name="norm2").apply(params["norm2"], x, ctx)
         x = x + self._ffn().apply(params["ffn"], h2, ctx)
@@ -124,6 +129,7 @@ class Stack:
               cache: Optional[Dict[str, Any]] = None,
               decode: bool = False,
               chunk: Optional[KVChunk] = None,
+              ragged: Optional[RaggedBatch] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         ctx = ctx.scope(self.name)
         lens = {}
@@ -136,11 +142,15 @@ class Stack:
                         c = {"kv": dict(c["kv"], k=c["kv"]["k"][period],
                                         v=c["kv"]["v"][period])}
                 bctx = ctx.scope(f"p{pos}" if self.stacked else f"l{pos}")
-                x, nc = blk.apply(p, x, bctx, cache=c, decode=decode, chunk=chunk)
+                x, nc = blk.apply(p, x, bctx, cache=c, decode=decode, chunk=chunk,
+                                  ragged=ragged)
                 if nc is not None:
                     lens[pos] = nc["kv"]["len"]
         if cache is None:
             return x, None
+        if ragged is not None:
+            # the ragged layers leave ``len`` alone; it rises once per tick
+            lens = {pos: ragged_len(ln, ragged) for pos, ln in lens.items()}
         # every layer wrote its k/v rows in place; only the length advances
         # (each layer of a period got the same ``len`` and computed the same
         # new one).  A paged cache's per-layer pools are views of the

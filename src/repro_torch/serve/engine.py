@@ -4,7 +4,8 @@
 :class:`QTensor` (the ``wq_matmul`` kernel path); ``quantized_kv`` keeps the
 KV cache as int8 on the paper's Qm.n grid (the ``qdecode_attn`` and
 ``qchunk_attn`` kernel paths, or with ``paged_kv`` the
-``qpaged_decode_attn`` and ``qpaged_chunk_attn`` ones).  PyTorch runs
+``qpaged_decode_attn`` and ``qpaged_chunk_attn`` ones; the ragged tick
+takes ``qragged_attn`` over either).  PyTorch runs
 eagerly, so the reference's jitted steps are plain functions over the
 engine's params here; the cache is updated in place.
 """
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.integerize import integerize_weights_only
-from repro_torch.nn.attention import KVChunk
+from repro_torch.nn.attention import KVChunk, RaggedBatch
 from repro_torch.nn.module import Context, resolve_device, tree_leaves, tree_to
 
 # Default page size of a paged cache on the card.  qpaged_decode_attn walks
@@ -103,6 +104,32 @@ def make_mixed_step(model, *, temperature: float = 0.0) -> Callable:
         return nxt, first, cache
 
     return mixed
+
+
+def make_ragged_step(model, *, temperature: float = 0.0) -> Callable:
+    """One ragged forward per tick: the decode tokens of every slot and the
+    prompt-chunk tokens of up to L admission lanes flatten into one (1, T)
+    token batch, T = B + L*C, so each layer runs one GEMM per projection and
+    one attention launch per tick, however many lanes are active.
+
+    (params, tok (B, 1), cache, gen, chunk_tok (L, C), slot_ids (T,),
+     positions (T,), logit_rows (R,)) -> (next (R, 1), cache')
+
+    Token t is logical row ``positions[t]`` of slot ``slot_ids[t]``;
+    position -1 marks an inert pad row (an idle slot, a lane's tail).
+    ``logit_rows`` ((R,) int32, R = B + L) picks the rows that sample: row
+    r < B is slot r's decode token, row B + l lane l's last valid chunk
+    token (meaningful on its last chunk only); the LM head runs over R rows.
+    Every shape depends on (B, L, C) alone.
+    """
+    def ragged_step(params, tok, cache, gen, chunk_tok, slot_ids, positions, logit_rows):
+        flat = torch.cat([tok[:, 0], chunk_tok.reshape(-1)])[None, :]
+        logits, cache = model.apply(params, flat, Context(), cache=cache, decode=True,
+                                    ragged=RaggedBatch(slots=slot_ids, positions=positions),
+                                    logit_rows=logit_rows)
+        return sample_tokens(logits[0], gen, model.vocab, temperature), cache
+
+    return ragged_step
 
 
 @dataclasses.dataclass

@@ -13,10 +13,18 @@ one of two admission policies:
   C-token chunk of the oldest queued prompt is written in place into its
   slot (``ops.qchunk_attn`` / ``ops.qpaged_chunk_attn`` for int8 caches).
   ``token_budget`` caps the tick's tokens (live slots + C): when decode
-  alone would exceed it, the chunk waits and decode runs.
+  alone would exceed it, the chunk waits and decode runs;
+* *ragged* (``chunk_size=C, ragged=True, prefill_lanes=L``): each tick is
+  one ragged forward (``engine.make_ragged_step``) over a flat batch of
+  T = B + L*C tokens, every live slot's decode token and one chunk from each
+  of up to L admission lanes (``ops.qragged_attn`` for int8 caches, dense
+  or paged).  Idle slots and lane tails are inert rows, so every tick, pure
+  decode included, has the same shapes.  ``token_budget`` less the live
+  slots is split over the lanes in admission order; a lane left without
+  room waits (``stalled_chunks``).
 
-With a paged engine (``ServeEngine(paged_kv=True)``, chunked admission
-only) the cache is a page pool shared by all slots plus a page table, and
+With a paged engine (``ServeEngine(paged_kv=True)``, chunked or ragged
+admission) the cache is a page pool shared by all slots plus a page table, and
 the scheduler runs a host-side allocator (``serve/paging.py``):
 
 * admission allocates the request's pages all or nothing and installs its
@@ -37,9 +45,9 @@ Without an ``eos_id`` no token value is needed mid-run, so the loop reads
 nothing back from the device and harvests every token at the end; with one,
 each tick reads its (B, 1) tokens back.  A swap-out copies the victim's
 pages to the host, the one other read-back, as in the reference.  The
-reference's ragged tick, recurrent and cross-attention state, fault
-injection, audit, deadlines and bounded queues wait for later slices of the
-port (ROADMAP.md) and raise ``NotImplementedError``.
+reference's recurrent and cross-attention state, fault injection, audit,
+deadlines and bounded queues wait for later slices of the port (ROADMAP.md)
+and raise ``NotImplementedError``.
 
 One deliberate difference: when a one-shot admission finishes at once
 (first token EOS, or ``max_new == 1``), the freed slot is refilled in the
@@ -59,8 +67,10 @@ import torch
 
 from repro_torch.serve.admission import (AdmissionPlanner, Preempted, PrefillLane,
                                          pick_preemption_victim)
+from repro_torch.nn.attention import host_tensor
 from repro_torch.serve.engine import (make_decode_step, make_mixed_step, make_prefill_step,
-                                      sample_tokens)
+                                      make_ragged_step, sample_tokens)
+from repro_torch.serve.lanes import RaggedTick, assemble_ragged_tick
 from repro_torch.serve.paging import PageAllocator, PrefixIndex, SwapArea, _tree_bytes
 from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, evict_cache_slot,
                                           gather_cache_pages, scatter_cache_pages,
@@ -141,6 +151,10 @@ class ServeStats:
     truncated_rids: Dict[int, int] = dataclasses.field(default_factory=dict)
     ttft_steps: List[int] = dataclasses.field(default_factory=list)
     #                             per request: first admission tick - arrival
+    ttft_s: List[float] = dataclasses.field(default_factory=list)
+    #                             time_ticks runs with chunked or ragged
+    #                             admission: wall seconds from arrival to the
+    #                             synced first token (not in the reference)
     completed: int = 0          # requests that ended "ok"
     failed: int = 0             # requests that ended "failed"
     deadlock_failures: int = 0  # nothing live, and the pool could never serve them
@@ -166,6 +180,7 @@ class ServeStats:
         lat = np.asarray(self.latencies_steps or [0])
         lat_ms = np.asarray(self.latencies_s or [0.0]) * 1e3
         ttft = np.asarray(self.ttft_steps or [0])
+        ttft_ms = np.asarray(self.ttft_s or [0.0]) * 1e3
         return {
             "steady_tok_s": round(self.steady_tok_s, 2),
             "compile_s": round(self.compile_s, 3),
@@ -198,6 +213,8 @@ class ServeStats:
             "truncations": self.truncations,
             "p50_ttft_steps": float(np.percentile(ttft, 50)),
             "p99_ttft_steps": float(np.percentile(ttft, 99)),
+            "p50_ttft_ms": round(float(np.percentile(ttft_ms, 50)), 3),
+            "p99_ttft_ms": round(float(np.percentile(ttft_ms, 99)), 3),
             "completed": self.completed,
             "failed": self.failed,
             "deadlock_failures": self.deadlock_failures,
@@ -221,8 +238,6 @@ class _Slot:
 # Scheduler options of the reference that wait for a later slice of the
 # port: name -> (the reference's default, which is accepted, the slice).
 _LATER = {
-    "ragged": (False, "ROADMAP slice 4 (the ragged tick)"),
-    "prefill_lanes": (1, "ROADMAP slice 4 (the ragged tick)"),
     "max_queue": (None, "ROADMAP slice 6 (hardened serving)"),
     "reject_policy": ("reject", "ROADMAP slice 6 (hardened serving)"),
     "audit": (False, "ROADMAP slice 6 (hardened serving)"),
@@ -244,6 +259,9 @@ class Scheduler:
     token.  ``chunk_size``: chunked admission (the mixed step); the chunk
     grid subsumes bucketing, so ``prompt_bucket`` is then ignored.
     ``token_budget`` (chunked only): per-tick token cap, at least one chunk.
+    ``ragged`` (chunked only): every tick is one ragged forward over the
+    live slots' decode tokens and one chunk from each of up to
+    ``prefill_lanes`` admission lanes (more than one lane needs ``ragged``).
 
     Paged engines require chunked admission.  ``prefix_sharing`` (paged,
     default on) maps resident prompt-prefix pages; ``oversubscribe`` (paged)
@@ -262,6 +280,7 @@ class Scheduler:
                  token_budget: Optional[int] = None, prefix_sharing: bool = True,
                  oversubscribe: bool = False, preempt_policy: str = "recompute",
                  preempt_aging: int = 2, oversize: str = "reject",
+                 ragged: bool = False, prefill_lanes: int = 1,
                  swap_bytes: Optional[int] = None, **later):
         for name, value in later.items():
             if name not in _LATER:
@@ -296,6 +315,15 @@ class Scheduler:
             if token_budget < chunk_size:
                 raise ValueError(f"token_budget {token_budget} < chunk_size {chunk_size}: "
                                  f"an idle batch could never admit a chunk")
+        if ragged and chunk_size is None:
+            raise ValueError("ragged=True requires chunked admission (chunk_size=...): the "
+                             "ragged step's prefill lanes carry fixed-size chunks")
+        if prefill_lanes < 1:
+            raise ValueError(f"prefill_lanes must be >= 1, got {prefill_lanes}")
+        if prefill_lanes > 1 and not ragged:
+            raise ValueError(f"prefill_lanes={prefill_lanes} requires ragged=True: the mixed "
+                             f"step carries exactly one chunk per tick — only the ragged "
+                             f"forward flattens several lanes into one batch")
         self.engine = engine
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
@@ -308,12 +336,15 @@ class Scheduler:
         self.preempt_aging = int(preempt_aging)
         self.oversize = oversize
         self.swap_bytes = swap_bytes
+        self.ragged = bool(ragged)
+        self.prefill_lanes = int(prefill_lanes)
         self._admission = AdmissionPlanner(
             page_size=engine.page_size, max_pages=engine.kv_max_pages, chunk_size=chunk_size,
             oversubscribe=self.oversubscribe) if self.paged else None
         model = engine.model
         self._decode = make_decode_step(model, temperature=engine.temperature)
         self._mixed = make_mixed_step(model, temperature=engine.temperature)
+        self._ragged = make_ragged_step(model, temperature=engine.temperature)
         self._prefill = make_prefill_step(model)
 
     # ---- the steps: plain functions over the engine's params ----------------
@@ -325,6 +356,21 @@ class Scheduler:
         nxt, first, cache = self._mixed(self.engine.params, tok, cache, gen, chunk_tok,
                                         slot, start, length)
         return torch.where(active[:, None], nxt, self.pad_id), first, cache
+
+    def _masked_ragged(self, tok, cache, gen, active, meta: RaggedTick):
+        """One ragged tick from its host metadata, sent up as one int32 array
+        through pinned memory without blocking.  Returns (the slots' decode
+        tokens (B, 1), masked; the lanes' first tokens (L, 1); cache)."""
+        nslots = tok.shape[0]
+        lanes, c = meta.ctok.shape
+        t = meta.sids.shape[0]
+        dev = host_tensor(np.concatenate([meta.sids, meta.poss, meta.lrows,
+                                          meta.ctok.reshape(-1)]), tok.device)
+        sids, poss = dev[:t], dev[t:2 * t]
+        lrows, ctok = dev[2 * t:2 * t + nslots + lanes], dev[2 * t + nslots + lanes:]
+        nxt, cache = self._ragged(self.engine.params, tok, cache, gen, ctok.view(lanes, c),
+                                  sids, poss, lrows)
+        return torch.where(active[:, None], nxt[:nslots], self.pad_id), nxt[nslots:], cache
 
     def _slot_prefill(self, tokens, plen: int, gen):
         """(1, P) prompt -> (first token (1, 1), batch-1 cache), the LM head
@@ -370,7 +416,9 @@ class Scheduler:
         One-shot admission prefills once per distinct (bucketed) prompt
         length; chunked admission runs one mixed step (paged: after a
         throwaway page assignment for slot 0 and its table events).  Both
-        then run one decode step and evict slot 0.
+        then run one decode step and evict slot 0.  Ragged admission runs one
+        ragged tick of inert rows at the run's fixed T instead, then evicts
+        slot 0.
         """
         eng = self.engine
         t0 = time.perf_counter()
@@ -389,6 +437,17 @@ class Scheduler:
                     cache = set_cache_slot_len(cache, 0, 0)
                     if self.prefix_sharing:
                         cache = copy_cache_page(cache, 0, n - 1)
+                if self.ragged:
+                    b, lanes, c = eng.batch_slots, self.prefill_lanes, self.chunk_size
+                    meta = RaggedTick(sids=np.zeros(b + lanes * c, np.int32),
+                                      poss=np.full(b + lanes * c, -1, np.int32),
+                                      ctok=np.full((lanes, c), self.pad_id, np.int32),
+                                      lrows=np.zeros(b + lanes, np.int32), ran=[], stalled=0)
+                    tok, firsts, cache = self._masked_ragged(tok, cache, gen, active, meta)
+                    tok = self._set_tok(tok, firsts[:1], 0)
+                    cache = evict_cache_slot(cache, 0)
+                    _sync(eng.device)
+                    return time.perf_counter() - t0
                 ctok = torch.full((1, self.chunk_size), self.pad_id, dtype=torch.int32,
                                   device=eng.device)
                 tok, first, cache = self._masked_mixed(tok, cache, gen, active, ctok, 0, 0,
@@ -491,7 +550,8 @@ class Scheduler:
         pending = deque(sorted(requests, key=lambda r: (r.arrival, r.rid)))
         queue: deque = deque()
         slots: List[Optional[_Slot]] = [None] * nslots
-        lanes: List[PrefillLane] = []       # the mixed step drives one lane
+        lanes: List[PrefillLane] = []       # the mixed step drives one, the ragged L
+        max_lanes = self.prefill_lanes if self.ragged else 1
         results: Dict[int, RequestResult] = {}
         finished: List[Tuple[_Slot, int, bool, str]] = []  # (slot, tick, eos, status)
         step_cols: List[torch.Tensor] = []  # no-EOS mode: each tick's (B, 1) tokens
@@ -555,6 +615,8 @@ class Scheduler:
             if r.rid not in first_admit:
                 first_admit[r.rid] = t
                 stats.ttft_steps.append(t - r.arrival)
+                if time_ticks and r.rid in arrival_wall:
+                    stats.ttft_s.append(time.perf_counter() - arrival_wall[r.rid])
             if index is not None and j in slot_pages:
                 # prefill complete: the full prompt pages become donor candidates
                 index.insert_keys(digests_of(r), slot_pages[j][:plen_of[r.rid] // ps])
@@ -702,13 +764,15 @@ class Scheduler:
                     preempt(pick_preemption_victim(cands, stats.preempted_rids,
                                                    self.preempt_aging))
 
-        def admit_lane() -> None:
+        def admit_lane() -> bool:
             """Reserve a free slot (and, paged, the request's pages) for the
-            oldest arrival; its chunks ride the mixed step."""
+            oldest arrival; its chunks ride the mixed or ragged step.  False
+            when no slot is free or the pool stalls the request."""
             nonlocal cache
-            free = [j for j in range(nslots) if slots[j] is None]
+            free = [j for j in range(nslots)
+                    if slots[j] is None and all(ln.slot != j for ln in lanes)]
             if not free:
-                return
+                return False
             r = queue[0]
             start0 = 0
             if alloc is not None:
@@ -717,7 +781,7 @@ class Scheduler:
                     # head-of-queue blocking: skipping ahead would starve a
                     # large request behind a stream of small ones
                     stats.page_stalls += 1
-                    return
+                    return False
                 row_pages, copies, n_share, start0 = plan
                 slot_pages[free[0]] = list(row_pages)
                 if n_share or copies:
@@ -737,6 +801,7 @@ class Scheduler:
             lanes.append(PrefillLane(req=r, slot=free[0],
                                      prompt=np.asarray(r.prompt, np.int32).reshape(-1),
                                      next_start=start0))
+            return True
 
         t0 = time.perf_counter()
         while pending or queue or lanes or preempted or any(s is not None for s in slots):
@@ -770,16 +835,17 @@ class Scheduler:
                     tok = self._set_tok(tok, first, j)
                     admit_live(j, r, first)
             else:
-                if not lanes and queue:
-                    admit_lane()
-                if lanes:
+                while len(lanes) < max_lanes and queue and admit_lane():
+                    pass
+                if lanes and not self.ragged:
                     n_live = sum(s is not None for s in slots)
                     if self.token_budget is not None and n_live + C > self.token_budget:
                         stats.stalled_chunks += 1    # decode never waits
                     else:
                         chunk_job = lanes[0]
 
-            if not any(s is not None for s in slots) and chunk_job is None:
+            if not any(s is not None for s in slots) and chunk_job is None \
+                    and not (self.ragged and lanes):
                 if not lanes:
                     # nothing live will ever free a page again: a blocked
                     # resume or a page-stalled head request fails, one at a time
@@ -811,7 +877,31 @@ class Scheduler:
                 active_host = active
                 active_dev = torch.tensor(active, dtype=torch.bool, device=dev)
             admitted = []                   # (slot, request, first) on last chunks
-            if chunk_job is not None:
+            if self.ragged:
+                # one forward: B decode rows + L lanes x C chunk rows; idle
+                # slots and lane tails are inert rows
+                rt = assemble_ragged_tick(
+                    slots, lanes, nslots=nslots, n_lanes=self.prefill_lanes, chunk=C,
+                    pad_id=self.pad_id, token_budget=self.token_budget, n_active=sum(active),
+                    assert_private=(
+                        (lambda sj, lo, hi: planner.assert_private_write(slot_pages[sj], lo,
+                                                                         hi, alloc))
+                        if alloc is not None else None))
+                stats.stalled_chunks += rt.stalled  # decode never waits
+                tok, firsts, cache = self._masked_ragged(tok, cache, gen, active_dev, rt)
+                done = []
+                for li, clen in rt.ran:
+                    p = lanes[li]
+                    stats.prefill_chunks += 1
+                    p.next_start += clen
+                    if p.next_start >= int(p.prompt.shape[0]):
+                        first = firsts[li:li + 1]
+                        tok = self._set_tok(tok, first, p.slot)
+                        admitted.append((p.slot, p.req, first))
+                        done.append(li)
+                for li in reversed(done):
+                    lanes.pop(li)
+            elif chunk_job is not None:
                 start = chunk_job.next_start
                 plen = int(chunk_job.prompt.shape[0])
                 clen = min(C, plen - start)

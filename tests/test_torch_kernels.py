@@ -114,8 +114,13 @@ def test_ops_dispatch_cpu_tensors_to_plain_without_counting():
                            torch.tensor([5, 8], dtype=torch.int32))
     ops.qpaged_chunk_attn(torch.from_numpy(q[0, None]), torch.from_numpy(k[0, :1]),
                           torch.from_numpy(v[0, :1]), pool, pool, 3, 3, table[1], 4)
+    kv_new = torch.from_numpy(k[:, 0] / 8.0).to(torch.float32)
+    ops.qragged_attn(torch.from_numpy(q), kv_new, kv_new, pool, pool, 3, 3, table,
+                     torch.tensor([1, 0], dtype=torch.int32),
+                     torch.tensor([4, -1], dtype=torch.int32))
     assert ops.launch_counts() == {"wq_matmul": 0, "qdecode_attn": 0, "qchunk_attn": 0,
-                                   "qpaged_decode_attn": 0, "qpaged_chunk_attn": 0}
+                                   "qpaged_decode_attn": 0, "qpaged_chunk_attn": 0,
+                                   "qragged_attn": 0}
 
 
 def test_ops_transpose_path_is_dequantize_then_matmul():

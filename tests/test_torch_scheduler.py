@@ -262,15 +262,21 @@ def test_max_new_one_finishes_at_admission_and_frees_the_slot(engines, j_run, ch
         assert_same_run((res, stats), j_run({"batch_slots": 1}, kw, specs))
 
 
-@pytest.mark.parametrize("kw,where", [
-    ({"ragged": True}, "slice 4"), ({"prefill_lanes": 2}, "slice 4"),
-    ({"reject_policy": "shed"}, "slice 6"), ({"prefill_lanes": 3}, "slice 4"),
-    ({"max_queue": 4}, "slice 6"), ({"audit": True}, "slice 6")])
-def test_scheduler_options_of_later_slices_raise(engines, kw, where):
+@pytest.mark.parametrize("kw,err,where", [
+    ({"ragged": True}, ValueError, "requires chunked admission"),
+    ({"prefill_lanes": 2}, ValueError, "requires ragged=True"),
+    ({"reject_policy": "shed"}, NotImplementedError, "slice 6"),
+    ({"prefill_lanes": 3}, ValueError, "requires ragged=True"),
+    ({"max_queue": 4}, NotImplementedError, "slice 6"),
+    ({"audit": True}, NotImplementedError, "slice 6")])
+def test_scheduler_options_of_later_slices_raise(engines, kw, err, where):
+    """Options of later slices name their slice; the ragged tick's, ported,
+    raise the reference's validation errors when misused."""
     _, te = engines()
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(err, match=where):
         te.scheduler(**kw)
     te.scheduler(**{k: v for k, v in (("ragged", False), ("prefill_lanes", 1))})
+    te.scheduler(chunk_size=4, ragged=True, prefill_lanes=3)
     with pytest.raises(TypeError, match="unexpected keyword"):
         Scheduler(te, chunk=4)
 
