@@ -19,7 +19,9 @@ Phases, each printed as it completes; any failure exits non-zero:
      rows) over the dense identity layout and fragmented tables (page sizes
      16, 1, 5), with edge and all-inert ticks and cross-checks against the
      decode and chunk kernels; ``wq_matmul`` also at M = 72 and 144, the
-     ragged ticks' GEMM rows;
+     ragged ticks' GEMM rows; ``wq4_matmul`` at the four projection shapes,
+     per-channel and block-32 scales, M = 8, 32, 72, 144 and 1024, plus an
+     odd K with a partial last block;
   4. smollm-135m at full width (random weights from a seeded generator,
      int8 weights and int8 KV cache): ``ServeEngine.generate`` (8 slots,
      prompt 128, 32 new tokens), ``run_restart_batching``, and the
@@ -40,7 +42,17 @@ Phases, each printed as it completes; any failure exits non-zero:
      tokens at tick 0, 16 slots, 4 lanes, budget 160) beside the paged
      mixed step, with TTFT in ticks and ms: launch counts exact, greedy
      tokens held to the chunked runs; a ragged tick's logits against the
-     plain versions; a dense and a paged ragged tick profiled.
+     plain versions; a dense and a paged ragged tick profiled;
+  7. packed int4 weights with block-32 scales (``--wq int4-block``):
+     ``generate``, the chunked ``Scheduler`` on the 16 requests, the paged
+     engine and the ragged tick, with exact launch counts (7 x 30
+     ``wq4_matmul`` per forward, no ``wq_matmul``), logits and generated
+     tokens held to the plain versions, paged and ragged tokens held to the
+     chunked run; per-channel ``int4`` and ``int2-block`` generate (int2:
+     no kernel); an int4 decode step and int8 / int4 forwards at M = 72
+     profiled, int8 and int4 ragged runs in turns; ``bench_weight_formats`` at
+     its full setting (fp32 / int8 / int4-block, 16 requests of 256 tokens)
+     with its token-identical repeats and int4 kernel bytes <= 0.5x int8.
 The line before the last is a JSON summary per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -60,8 +72,9 @@ L2_ROTATE_BYTES = 128 << 20
 WQ_RTOL = 2e-5             # |kernel - plain| <= WQ_RTOL * max|plain| (f32 sums, other order)
 ATTN_ATOL = 1e-4           # softmax-weighted means of values within +-16
 LOGIT_ATOL = 2e-2          # logits after 30 layers; int8 KV codes may flip at trunc edges
-NO_PAGED = {"qpaged_decode_attn": 0, "qpaged_chunk_attn": 0,   # the dense paths' counts
-            "qragged_attn": 0}
+FLOAT_KV_LOGIT_ATOL = 1e-4  # the same over a float KV cache: f32 sums in another order only
+NO_PAGED = {"qpaged_decode_attn": 0, "qpaged_chunk_attn": 0,   # the dense int8 paths' counts
+            "qragged_attn": 0, "wq4_matmul": 0}
 
 
 def fail(msg: str) -> None:
@@ -109,16 +122,18 @@ def bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+SERVE_SHAPES = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/in": (576, 1536),
+                "out": (1536, 576)}          # smollm-135m's projections, (K, N)
+CALLS_PER_LAYER = {"wq/wo": 2, "wk/wv": 2, "gate/in": 2, "out": 1}
+
+
 def check_wq_matmul(torch, ref, wq_cuda, gen):
     """Kernel vs plain at the four projection shapes, M = 8 (decode), 72 and
     144 (the ragged tick's T at B=8, L=2, C=32 and at B=16, L=4, C=32) and
     8*128."""
-    shapes = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/in": (576, 1536),
-              "out": (1536, 576)}
-    calls_per_layer = {"wq/wo": 2, "wk/wv": 2, "gate/in": 2, "out": 1}
     rows, worst = [], 0.0
     for m in (8, 72, 144, 8 * 128):
-        for label, (k, n) in shapes.items():
+        for label, (k, n) in SERVE_SHAPES.items():
             copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (k * n))))
             x = torch.randn(m, k, generator=gen, device="cuda")
             ws = [torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
@@ -142,7 +157,7 @@ def check_wq_matmul(torch, ref, wq_cuda, gen):
             b_ms, b_by = bound(4 * m * k + k * n + 4 * n + 4 * m * n, 2.0 * m * k * n)
             rows.append(dict(m=m, shape=label, k=k, n=n, err=err, ms=ms, plain_ms=plain,
                              library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                             per_layer=calls_per_layer[label]))
+                             per_layer=CALLS_PER_LAYER[label]))
             print(f"[kernel] wq_matmul M={m:4d} K={k:4d} N={n:4d} ({label}): "
                   f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us | "
                   f"plain {plain * 1e3:.2f} us | torch.matmul on dequantized "
@@ -163,6 +178,75 @@ def check_wq_matmul(torch, ref, wq_cuda, gen):
               f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us",
               flush=True)
     return rows, agg, worst
+
+
+def check_wq4_matmul(torch, ref, wq4_cuda, gen):
+    """Kernel vs plain at the four projection shapes of smollm-135m with
+    per-channel and block-32 scales, M = 8 (decode), 32 (a mixed tick's
+    chunk), 72 and 144 (ragged ticks) and 1024 (lockstep prefill), plus an
+    odd K with a partial last block.  Codes are uniform int4 bytes,
+    scales 2^-n with n in 3-6 (the smoke model's int4 range)."""
+    from repro_torch.core.qformat import exp2, unpack_subint8
+
+    cases = [(m, label, k, n, bs) for m in (8, 32, 72, 144) for bs in (0, 32)
+             for label, (k, n) in SERVE_SHAPES.items()]
+    cases += [(1024, label, k, n, bs) for bs in (0, 32)
+              for label, (k, n) in SERVE_SHAPES.items()]
+    cases.append((33, "odd K", 1001, 77, 32))
+    rows, worst = [], 0.0
+    for m, label, k, n, bs in cases:
+        kp, srows = -(-k // 2), (-(-k // bs) if bs else 1)
+        copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (kp * n + 4 * srows * n))))
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        ws = [torch.randint(-128, 128, (kp, n), generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.int8) for _ in range(copies)]
+        ss = [exp2(-torch.randint(3, 7, (srows, n), generator=gen, device="cuda",
+                                  dtype=torch.int32)) for _ in range(copies)]
+        if k % 2:   # the pad nibble of the last byte row is zero, as packing leaves it
+            for w in ws:
+                w[-1] &= 0x0F
+        got = wq4_cuda(x, ws[0], ss[0], k=k, block_size=bs)
+        want = ref.wq4_matmul_ref(x, ws[0], ss[0], k=k, block_size=bs)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = WQ_RTOL * want.abs().max().item()
+        check(err <= tol, f"wq4_matmul M={m} {k}x{n} block {bs}: max err {err} > {tol}")
+        worst = max(worst, err)
+        n_deq = max(1, min(copies, math.ceil(L2_ROTATE_BYTES / (4 * k * n))))
+        deq = []
+        for w, s in zip(ws[:n_deq], ss[:n_deq]):
+            codes = unpack_subint8(w, 4, k).to(torch.float32)
+            deq.append(codes * (s.repeat_interleave(bs, 0)[:k] if bs else s))
+        iters = max(copies, 64)
+        ms = graph_ms(torch, [lambda w=w, s=s: wq4_cuda(x, w, s, k=k, block_size=bs)
+                              for w, s in zip(ws, ss)], iters)
+        plain = graph_ms(torch, [lambda w=w, s=s: ref.wq4_matmul_ref(x, w, s, k=k,
+                                                                     block_size=bs)
+                                 for w, s in zip(ws, ss)], iters)
+        lib = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in deq], iters)
+        b_ms, b_by = bound(4 * m * k + kp * n + 4 * srows * n + 4 * m * n, 2.0 * m * k * n)
+        rows.append(dict(m=m, shape=label, k=k, n=n, block=bs, err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                         per_layer=CALLS_PER_LAYER.get(label, 0)))
+        print(f"[kernel] wq4_matmul M={m:4d} K={k:4d} N={n:4d} block {bs:2d} ({label}): "
+              f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us | plain "
+              f"{plain * 1e3:.2f} us | torch.matmul on dequantized {lib * 1e3:.2f} us | bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+        del ws, ss, deq
+    layers = {}
+    for m, bs in sorted({(r["m"], r["block"]) for r in rows if r["per_layer"]}):
+        part = [r for r in rows if r["m"] == m and r["block"] == bs and r["per_layer"]]
+        layer = {key: sum(r[key] * r["per_layer"] for r in part)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        layer["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in part)
+                             else "operations")
+        layers[(m, bs)] = layer
+        print(f"[kernel] wq4_matmul one layer (7 calls) at M={m}, "
+              f"{'block 32' if bs else 'per-channel'}: kernel {layer['ms'] * 1e3:.2f} us | "
+              f"plain {layer['plain_ms'] * 1e3:.2f} us | library "
+              f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us "
+              f"({layer['bound_by']})", flush=True)
+    return rows, layers, worst
 
 
 def check_qdecode_attn(torch, F, ref, qd_cuda, gen):
@@ -730,6 +814,93 @@ def check_served(label, results, reqs, vocab) -> None:
               f"{label}: request {req.rid} ended {r.status} with {len(r.tokens)} tokens")
 
 
+def logits_vs_plain(torch, label, engine, prompts, atol=LOGIT_ATOL) -> None:
+    """A prefill's and the first decode step's logits through the kernels,
+    held to the plain versions' on the same card: within ``atol``, and the
+    same greedy token wherever the plain top-2 margin exceeds it."""
+    from repro_torch.kernels import ops
+
+    def first_logits():
+        with torch.inference_mode():
+            l0, cache = engine.prefill(prompts, engine.new_cache())
+            tok = torch.argmax(l0, dim=-1, keepdim=True).to(torch.int32)
+            l1, _ = engine.decode(tok, cache)
+        return l0, l1
+
+    k0, k1 = first_logits()
+    ops.FORCE = "plain"
+    try:
+        p0, p1 = first_logits()
+    finally:
+        ops.FORCE = None
+    for name, a, b in ((f"{label}prefill", k0, p0), (f"{label}first decode step", k1, p1)):
+        check(bool(torch.isfinite(a).all()), f"{name} logits not finite")
+        err = (a - b).abs().max().item()
+        check(err <= atol, f"{name} logits: max err {err} > {atol}")
+        top2 = torch.topk(b, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > atol
+        same = torch.argmax(a, -1) == torch.argmax(b, -1)
+        check(bool(same[clear].all()), f"{name}: greedy token differs on a clear margin")
+        print(f"[e2e] {name} logits {tuple(a.shape)}: max_abs_err vs plain {err:.3e} "
+              f"(tol {atol}); greedy tokens equal on {int(clear.sum())}/{len(clear)} "
+              f"rows with a clear top-2 margin", flush=True)
+
+
+def kv_code_flips(torch, label, engine, prompts) -> None:
+    """One prefill through the kernels and one through the plain versions:
+    the logit gap and how many int8 KV codes of the two caches differ (a
+    value at a truncation edge lands on either side as the f32 sums' order
+    changes)."""
+    from repro_torch.kernels import ops
+
+    def prefill():
+        with torch.inference_mode():
+            return engine.prefill(prompts, engine.new_cache())
+
+    kl, kc = prefill()
+    ops.FORCE = "plain"
+    try:
+        pl, pc = prefill()
+    finally:
+        ops.FORCE = None
+    flips = sum(int((a["kv"][t] != b["kv"][t]).sum()) for a, b in zip(kc["body"], pc["body"])
+                for t in ("k", "v"))
+    total = sum(a["kv"][t].numel() for a in kc["body"] for t in ("k", "v"))
+    print(f"[e2e] {label} prefill: logits max_abs_err vs plain {(kl - pl).abs().max().item():.3e} "
+          f"(not held here); int8 KV codes differing from the plain versions' cache "
+          f"{flips} of {total}", flush=True)
+
+
+def greedy_check(torch, label, got, want, reqs, engine, vocab) -> None:
+    """Tokens equal to ``want``'s; where a stream diverges, the prompt and
+    ``want``'s tokens before the divergence are prefilled (plain lockstep
+    path) and the top-2 margin there must be within LOGIT_ATOL."""
+    import numpy as np
+
+    by_rid = {r.rid: r for r in reqs}
+    same = total = 0
+    flips = []
+    for rid in want:
+        a, w = got[rid].tokens, want[rid].tokens
+        total += len(w)
+        i = next((k for k, (x, y) in enumerate(zip(a, w)) if x != y), None)
+        same += len(w) if i is None else i
+        if i is None:
+            continue
+        seq = np.concatenate([np.asarray(by_rid[rid].prompt, np.int32).reshape(-1),
+                              np.asarray(w[:i], np.int32)])[None]
+        with torch.inference_mode():
+            logits, _ = engine.prefill(torch.from_numpy(seq).cuda(),
+                                       engine.new_cache(batch=1))
+        top2 = torch.topk(logits[0, :vocab], 2).values
+        margin = (top2[0] - top2[1]).item()
+        check(margin <= LOGIT_ATOL, f"{label}: request {rid} diverges at token {i} where "
+                                    f"the top-2 margin is {margin:.3e} > {LOGIT_ATOL}")
+        flips.append((rid, i, round(margin, 6)))
+    print(f"[e2e] {label}: greedy tokens agree on {same}/{total} before any divergence; "
+          f"divergences (rid, token, top-2 margin) {flips}", flush=True)
+
+
 def paged_engine(env, pool=None):
     """The paged engine of the serving phases (page size ``CUDA_PAGE_SIZE``;
     ``pool`` pages, dense parity by default)."""
@@ -854,31 +1025,12 @@ def end_to_end(torch, card):
           flush=True)
 
     # -- logits against the plain versions on the same card -------------------
-    def first_logits():
-        with torch.inference_mode():
-            l0, cache = engine.prefill(prompts, engine.new_cache())
-            tok = torch.argmax(l0, dim=-1, keepdim=True).to(torch.int32)
-            l1, _ = engine.decode(tok, cache)
-        return l0, l1
-
-    k0, k1 = first_logits()
+    logits_vs_plain(torch, "", engine, prompts)
     ops.FORCE = "plain"
     try:
-        p0, p1 = first_logits()
         plain_out = engine.generate(prompts, new)
     finally:
         ops.FORCE = None
-    for name, a, b in (("prefill", k0, p0), ("first decode step", k1, p1)):
-        check(bool(torch.isfinite(a).all()), f"{name} logits not finite")
-        err = (a - b).abs().max().item()
-        check(err <= LOGIT_ATOL, f"{name} logits: max err {err} > {LOGIT_ATOL}")
-        top2 = torch.topk(b, 2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
-        same = torch.argmax(a, -1) == torch.argmax(b, -1)
-        check(bool(same[clear].all()), f"{name}: greedy token differs on a clear margin")
-        print(f"[e2e] {name} logits {tuple(a.shape)}: max_abs_err vs plain {err:.3e} "
-              f"(tol {LOGIT_ATOL}); greedy tokens equal on {int(clear.sum())}/{len(clear)} "
-              f"rows with a clear top-2 margin", flush=True)
     agree = (out == plain_out).float().mean().item()
 
     t0 = time.perf_counter()
@@ -1039,12 +1191,14 @@ def end_to_end(torch, card):
                   (copy(base), tok), card)
     env = SimpleNamespace(model=model, params=params, cfg=cfg, reqs=reqs, dense=outs["chunked"],
                           slots=slots, max_len=plen + max_new, chunk=chunk, n_layers=n_layers,
-                          agreement=agreement, engine=engine)
+                          agreement=agreement, engine=engine, prompts=prompts, new=new)
     paged_launches, env.chunked, env.shared_reqs = paged_end_to_end(torch, card, env)
     env.chunked["dense"] = outs["chunked"]
     ragged_launches = ragged_end_to_end(torch, card, env)
-    return {k: launches.get(k, 0) + paged_launches.get(k, 0) + ragged_launches.get(k, 0)
-            for k in ragged_launches}
+    subint8_launches = subint8_end_to_end(torch, card, env)
+    return {k: sum(part.get(k, 0) for part in (launches, paged_launches, ragged_launches,
+                                               subint8_launches))
+            for k in subint8_launches}
 
 
 def paged_end_to_end(torch, card, env):
@@ -1075,7 +1229,8 @@ def paged_end_to_end(torch, card, env):
         ticks, chunks = stats.decode_steps, stats.prefill_chunks
         want = {"wq_matmul": per_forward * (ticks + chunks + 3), "qdecode_attn": 0,
                 "qchunk_attn": 0, "qpaged_decode_attn": n_layers * (ticks + 2),
-                "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0}
+                "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0,
+                "wq4_matmul": 0}
         check(counts == want, f"{label} launch counts {counts} != expected {want}")
         check_served(label, results, reqs, cfg.vocab)
         report(label, stats)
@@ -1232,7 +1387,7 @@ def ragged_end_to_end(torch, card, env):
     per_forward = 7 * n_layers
     lanes = 2
     others = {"qdecode_attn": 0, "qchunk_attn": 0, "qpaged_decode_attn": 0,
-              "qpaged_chunk_attn": 0}
+              "qpaged_chunk_attn": 0, "wq4_matmul": 0}
     launches, summaries = {}, {}
 
     def add(counts):
@@ -1261,45 +1416,17 @@ def ragged_end_to_end(torch, card, env):
         summaries[label] = stats.summary()
         return results, stats
 
-    def greedy_check(label, got, want, reqs, engine):
-        """Tokens equal to ``want``'s; where a stream diverges, the prompt and
-        ``want``'s tokens before the divergence are prefilled (plain lockstep
-        path) and the top-2 margin there must be within LOGIT_ATOL."""
-        by_rid = {r.rid: r for r in reqs}
-        same = total = 0
-        flips = []
-        for rid in want:
-            a, w = got[rid].tokens, want[rid].tokens
-            total += len(w)
-            i = next((k for k, (x, y) in enumerate(zip(a, w)) if x != y), None)
-            same += len(w) if i is None else i
-            if i is None:
-                continue
-            seq = np.concatenate([np.asarray(by_rid[rid].prompt, np.int32).reshape(-1),
-                                  np.asarray(w[:i], np.int32)])[None]
-            with torch.inference_mode():
-                logits, _ = engine.prefill(torch.from_numpy(seq).cuda(),
-                                           engine.new_cache(batch=1))
-            top2 = torch.topk(logits[0, :cfg.vocab], 2).values
-            margin = (top2[0] - top2[1]).item()
-            check(margin <= LOGIT_ATOL, f"{label}: request {rid} diverges at token {i} where "
-                                        f"the top-2 margin is {margin:.3e} > {LOGIT_ATOL}")
-            flips.append((rid, i, round(margin, 6)))
-        print(f"[e2e] {label}: greedy tokens agree with the chunked run on {same}/{total} "
-              f"before any divergence; divergences (rid, token, top-2 margin) {flips}",
-              flush=True)
-
     dense, paged = env.engine, paged_engine(env)
     parity = paged.kv_num_pages
     # -- the main path: ragged serving of the 16 requests, dense and paged -------
     res, _ = counted_run("ragged", dense, env.reqs)
-    greedy_check("ragged", res, env.chunked["dense"], env.reqs, dense)
+    greedy_check(torch, "ragged", res, env.chunked["dense"], env.reqs, dense, cfg.vocab)
     res, _ = counted_run("ragged, paged", paged, env.reqs)
-    greedy_check("ragged, paged", res, env.chunked["paged"], env.reqs, dense)
+    greedy_check(torch, "ragged, paged", res, env.chunked["paged"], env.reqs, dense, cfg.vocab)
     res, stats = counted_run("ragged, paged, shared prefix", paged, env.shared_reqs)
     check(stats.shared_pages_mapped > 0, "ragged prefix sharing mapped no shared page")
-    greedy_check("ragged, paged, shared prefix", res, env.chunked["shared"], env.shared_reqs,
-                 dense)
+    greedy_check(torch, "ragged, paged, shared prefix", res, env.chunked["shared"],
+                 env.shared_reqs, dense, cfg.vocab)
     half = paged_engine(env, parity // 2)
     for policy in ("recompute", "swap"):
         label = f"ragged, paged, oversubscribed ({parity // 2} pages), {policy}"
@@ -1307,7 +1434,7 @@ def ragged_end_to_end(torch, card, env):
                                  preempt_policy=policy)
         check(stats.grown_pages > 0 and stats.preemptions > 0,
               f"{label}: grown {stats.grown_pages}, preemptions {stats.preemptions}")
-        greedy_check(label, res, env.chunked[policy], env.reqs[:8], dense)
+        greedy_check(torch, label, res, env.chunked[policy], env.reqs[:8], dense, cfg.vocab)
     del half
 
     # -- the burst: bench_burst's full setting, ragged and paged mixed -----------
@@ -1327,7 +1454,8 @@ def ragged_end_to_end(torch, card, env):
     ticks, chunks = m_st.decode_steps, m_st.prefill_chunks
     want = {"wq_matmul": per_forward * (ticks + chunks + 3), "qdecode_attn": 0,
             "qchunk_attn": 0, "qpaged_decode_attn": n_layers * (ticks + 2),
-            "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0}
+            "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0,
+            "wq4_matmul": 0}
     check(counts == want, f"burst, paged mixed launch counts {counts} != expected {want}")
     check_served("burst, paged mixed", m_res, burst_reqs, cfg.vocab)
     report("burst, paged mixed", m_st)
@@ -1336,7 +1464,7 @@ def ragged_end_to_end(torch, card, env):
     r_res, r_st = counted_run(f"burst, ragged ({wl['lanes']} lanes, budget {wl['budget']})",
                               burst, burst_reqs, n_lanes=wl["lanes"], time_ticks=True,
                               token_budget=wl["budget"])
-    greedy_check("burst, ragged", r_res, m_res, burst_reqs, burst)
+    greedy_check(torch, "burst, ragged", r_res, m_res, burst_reqs, burst, cfg.vocab)
     msum, rsum = m_st.summary(), r_st.summary()
     print(f"[e2e] burst (16 x 192 tokens at tick 0, 16 slots, chunk 32, budget 160, page 16): "
           f"TTFT p50/p99 paged mixed {msum['p50_ttft_steps']:.0f}/{msum['p99_ttft_steps']:.0f} "
@@ -1452,6 +1580,203 @@ def ragged_end_to_end(torch, card, env):
     return launches
 
 
+def subint8_end_to_end(torch, card, env):
+    """``--wq int4-block`` (block 32) at full width: ``generate``, the chunked
+    ``Scheduler`` on the 16 requests, the paged engine and the ragged tick,
+    each with exact launch counts (7 x 30 ``wq4_matmul`` per forward, no
+    ``wq_matmul``); prefill and decode logits and the generated tokens held
+    to the plain versions; the paged and ragged tokens held to the chunked
+    run; one per-channel ``int4`` and one ``int2-block`` generate (int2
+    weights take the plain unpack-and-matmul, as the reference routes them:
+    no kernel); an int4 decode step profiled; the int8 KV codes that flip
+    between the kernels' and the plain versions' prefills; int8 and
+    int4-block ragged runs in turns and a forward at M = 72 of each
+    profiled; and
+    ``benchmarks/serve_bench.py::bench_weight_formats`` at its full setting
+    (fp32 / int8 / int4-block) with the reference's rule that int4 kernel
+    bytes are at most half of int8's."""
+    from types import SimpleNamespace as NS
+
+    from repro_torch.bench.serve_bench import bench_weight_formats
+    from repro_torch.core.qformat import PackedQTensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.serve import ServeEngine
+
+    slots, chunk, n_layers, cfg, new = env.slots, env.chunk, env.n_layers, env.cfg, env.new
+    per_forward = 7 * n_layers
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    launches, summaries = dict(zero), {}
+
+    def engine(fmt, quantized_kv=True, **kw):
+        eng = ServeEngine(model=env.model, params=env.params, max_len=env.max_len,
+                          batch_slots=slots, weight_quant=fmt, quantized_kv=quantized_kv,
+                          device="cuda", **kw)
+        packed = [leaf for leaf in tree_leaves(eng.params) if isinstance(leaf, PackedQTensor)]
+        width, block = {"int4-block": (4, 32), "int4": (4, None), "int2-block": (2, 32)}[fmt]
+        check(len(packed) == 7 and all((p.width, p.block_size) == (width, block)
+                                       for p in packed),
+              f"{fmt}: the engine's GEMM kernels are not packed int{width}")
+        return eng
+
+    def counted(label, want, fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = dict(zero, **want)
+        check(counts == want, f"{label} launch counts {counts} != expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        return out
+
+    def generated(label, eng, kernel_launches, float_kv=None):
+        """A counted generate, its logits and tokens held to the plain
+        versions'; with ``float_kv`` (the same weights over a float KV
+        cache) the logits are held there instead, at FLOAT_KV_LOGIT_ATOL,
+        and the tokens are not compared."""
+        t0 = time.perf_counter()
+        out = counted(f"{label} generate", {"qdecode_attn": n_layers * (new - 1),
+                                            "wq4_matmul": kernel_launches * new},
+                      lambda: eng.generate(env.prompts, new))
+        dt = time.perf_counter() - t0
+        check(tuple(out.shape) == (slots, new), f"{label} generate shape {tuple(out.shape)}")
+        print(f"[e2e] {label} generate {slots}x{new}: {kernel_launches} wq4_matmul per "
+              f"forward, 0 wq_matmul (counts exact); first call {dt:.2f}s; card {card}",
+              flush=True)
+        if float_kv is not None:
+            kv_code_flips(torch, label, eng, env.prompts)
+            logits_vs_plain(torch, f"{label}, float KV cache, ", float_kv, env.prompts,
+                            FLOAT_KV_LOGIT_ATOL)
+            return
+        logits_vs_plain(torch, f"{label} ", eng, env.prompts)
+        ops.FORCE = "plain"
+        try:
+            plain = eng.generate(env.prompts, new)
+        finally:
+            ops.FORCE = None
+        rows = [NS(rid=i, prompt=env.prompts[i].cpu().numpy()) for i in range(slots)]
+        greedy_check(torch, f"{label} generate vs plain", {i: NS(tokens=out[i].tolist())
+                                                           for i in range(slots)},
+                     {i: NS(tokens=plain[i].tolist()) for i in range(slots)}, rows, eng,
+                     cfg.vocab)
+
+    def scheduled(label, eng, want_of, **kw):
+        """One counted scheduler run of the 16 requests (warm-up included)."""
+        ops.reset_launch_counts()
+        results, stats = eng.scheduler(chunk_size=chunk, **kw).run(env.reqs, seed=0)
+        counts = ops.launch_counts()
+        want = dict(zero, **want_of(stats.decode_steps, stats.prefill_chunks))
+        check(counts == want, f"{label} launch counts {counts} != expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        check_served(label, results, env.reqs, cfg.vocab)
+        report(label, stats)
+        summaries[label] = stats.summary()
+        print(f"[e2e] {label}: {len(results)} requests ok, {stats.decode_steps} ticks, "
+              f"{stats.prefill_chunks} chunks; launches {counts} == expected; card {card}",
+              flush=True)
+        return results
+
+    # -- the main path: int4 weights with block-32 scales --------------------------
+    int4 = engine("int4-block")
+    generated("int4-block", int4, per_forward)
+    chunked = scheduled("int4-block chunked", int4, lambda t, c: {
+        "wq4_matmul": per_forward * (t + c + 3), "qdecode_attn": n_layers * (t + 2),
+        "qchunk_attn": n_layers * (c + 1)})
+    paged = engine("int4-block", paged_kv=True)
+    res = scheduled("int4-block chunked, paged", paged, lambda t, c: {
+        "wq4_matmul": per_forward * (t + c + 3), "qpaged_decode_attn": n_layers * (t + 2),
+        "qpaged_chunk_attn": n_layers * (c + 1)})
+    greedy_check(torch, "int4-block paged", res, chunked, env.reqs, int4, cfg.vocab)
+    del paged
+    res = scheduled("int4-block ragged", int4, lambda t, c: {
+        "wq4_matmul": per_forward * (t + 1), "qragged_attn": n_layers * (t + 1)},
+        ragged=True, prefill_lanes=2)
+    greedy_check(torch, "int4-block ragged", res, chunked, env.reqs, int4, cfg.vocab)
+
+    def decode_step(st):
+        cache, tok = st
+        logits, cache = int4.decode(tok, cache)
+        return cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+
+    with torch.inference_mode():
+        logits, cache = int4.prefill(env.prompts, int4.new_cache())
+    prof = profile_steps(torch, f"int4-block decode step (B={slots})", decode_step,
+                         (cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)),
+                         card)
+    if prof is not None:
+        wq4 = sum(t for t, _, key in prof["rows"] if "wq4_matmul" in key)
+        print(f"[profile] int4-block decode step: wq4_matmul {wq4:.1f} us/step of device "
+              f"time ({wq4 / 1e3 / prof['busy_ms']:.3f} of the device busy time)", flush=True)
+    kv_code_flips(torch, "int4-block", int4, env.prompts)
+
+    # -- int8 against int4-block in turns: ragged runs and one forward at M=72 ----
+    for fmt, eng in (("int8", env.engine), ("int4-block", int4), ("int4-block", int4),
+                     ("int8", env.engine)):
+        _, stats = eng.scheduler(chunk_size=chunk, ragged=True, prefill_lanes=2).run(
+            env.reqs, seed=0)
+        print(f"[e2e] in turns, {fmt} ragged: steady {stats.steady_tok_s:.1f} tok/s over "
+              f"{stats.decode_steps} ticks; card {card}", flush=True)
+    tok72 = torch.randint(0, cfg.vocab, (1, slots + 2 * chunk), device="cuda", dtype=torch.int32,
+                          generator=torch.Generator(device="cuda").manual_seed(6))
+    for fmt, eng in (("int8", env.engine), ("int4-block", int4)):
+        def forward(st, eng=eng):
+            eng.prefill(tok72, eng.new_cache(batch=1))
+            return st
+
+        prof = profile_steps(torch, f"{fmt} forward at M={tok72.shape[1]} (a batch-1 prefill)",
+                             forward, None, card)
+        if prof is not None:
+            gemm = sum(t for t, _, key in prof["rows"] if "wq" in key or "reduce_splits" in key)
+            print(f"[profile] {fmt} forward at M={tok72.shape[1]}: weight GEMM kernels "
+                  f"{gemm:.1f} us of {prof['busy_ms'] * 1e3:.1f} us device time", flush=True)
+    del int4, cache
+
+    # -- the other packed formats: per-channel int4, and int2 through no kernel ----
+    # Per-channel int4 flips more int8 KV codes at truncation edges between the
+    # kernels' and the plain versions' sums than block 32 does (kv_code_flips
+    # prints both), enough to move its logits past LOGIT_ATOL on an H100; so
+    # its logits are held to the plain versions over a float KV cache, where
+    # only the order of the f32 sums differs.
+    generated("int4 (per-channel)", engine("int4"), per_forward,
+              float_kv=engine("int4", quantized_kv=False))
+    generated("int2-block", engine("int2-block"), 0)
+
+    # -- bench_weight_formats at its full setting --------------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        frontier = bench_weight_formats(env.model, env.params, cfg.vocab, smoke=False,
+                                        device="cuda")
+    except RuntimeError as e:
+        fail(f"bench_weight_formats: {e}")
+    counts = ops.launch_counts()
+    check(counts["wq4_matmul"] > 0 and counts["wq_matmul"] > 0,
+          f"bench_weight_formats launched {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    ratio = frontier["int4"]["kernel_bytes"] / frontier["int8"]["kernel_bytes"]
+    check(ratio <= 0.5, f"int4 kernel payload {ratio:.3f}x int8 > 0.5x: packing is broken")
+    wl = frontier["workload"]
+    print(f"[e2e] bench_weight_formats ({wl['n_requests']} requests, prompt "
+          f"{wl['prompt_len']}, {wl['short_new']}/{wl['long_new']} new, {wl['slots']} slots, "
+          f"chunk {wl['chunk']}, block {wl['weight_block']}) in "
+          f"{time.perf_counter() - t0:.1f}s: " + " | ".join(
+              f"{name} {frontier[name]['tok_s']:.1f} tok/s, kernel {frontier[name]['kernel_bytes']}"
+              f" B, tables {frontier[name]['table_bytes']} B, scales "
+              f"{frontier[name]['scale_bytes']} B" for name in ("fp32", "int8", "int4"))
+          + f" | int4/int8 kernel bytes {ratio:.3f}; repeats token-identical; launches "
+          f"{counts}; card {card}", flush=True)
+    for label, m in summaries.items():
+        print(f"[e2e] {label}: steady {m['steady_tok_s']:.1f} tok/s | latency p50/p99 "
+              f"{m['p50_latency_steps']:.0f}/{m['p99_latency_steps']:.0f} ticks | ttft p50/p99 "
+              f"{m['p50_ttft_steps']:.0f}/{m['p99_ttft_steps']:.0f} ticks | chunks "
+              f"{m['prefill_chunks']} | card {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1469,6 +1794,7 @@ def main() -> int:
         from repro_torch.kernels.qpaged_attn import (qpaged_chunk_attn_cuda,
                                                      qpaged_decode_attn_cuda)
         from repro_torch.kernels.qragged_attn import qragged_attn_cuda
+        from repro_torch.kernels.wq4_matmul import wq4_matmul_cuda
         from repro_torch.kernels.wq_matmul import wq_matmul_cuda
         from repro_torch.serve.engine import CUDA_PAGE_SIZE
     except ImportError as e:
@@ -1495,6 +1821,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t1 = time.perf_counter()
     wq_rows, wq_agg, wq_err = check_wq_matmul(torch, ref, wq_matmul_cuda, gen)
+    _, wq4_layers, wq4_err = check_wq4_matmul(torch, ref, wq4_matmul_cuda, gen)
     qd_rows, qd_err = check_qdecode_attn(torch, F, ref, qdecode_attn_cuda, gen)
     qc_rows, qc_err = check_qchunk_attn(torch, F, ref, qchunk_attn_cuda, qdecode_attn_cuda, gen)
     pd_rows, _, pd_err = check_qpaged_decode_attn(torch, F, ref, qpaged_decode_attn_cuda,
@@ -1573,6 +1900,17 @@ def main() -> int:
          "shape": f"B=8 Hq=9 Hkv=3 D=64 T={qr_main['t']} (8 decode rows, 2 inert; 2 lanes x 32 "
                   f"at start 96) S={qr_main['s']} {qr_main['layout']} (the ragged serving "
                   f"tick)"})
+    wq4_main = wq4_layers[(8, 32)]
+    kernels.insert(1, {
+        "name": "wq4_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wq4_matmul.cu",
+        "replaces": "src/repro/kernels/wq_matmul.py:130",
+        "launches": launches["wq4_matmul"], "max_abs_err": wq4_err,
+        "ms": wq4_main["ms"], "plain_ms": wq4_main["plain_ms"],
+        "bound_ms": wq4_main["bound_ms"], "bound_by": wq4_main["bound_by"],
+        "library_ms": wq4_main["library_ms"],
+        "shape": "one decode layer, int4 with block-32 scales: 7 calls at M=8 (576x576 x2, "
+                 "576x192 x2, 576x1536 x2, 1536x576)"})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

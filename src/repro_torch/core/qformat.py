@@ -8,13 +8,21 @@
 Counterpart of ``repro/core/qformat.py``.  Exponents are int32 tensors (or
 Python ints), granularity is the shape of ``n`` (scalar per-tensor, a vector
 per-channel, broadcast-shaped per-layer-per-channel for stacked leaves).
-Sub-int8 packing (``PackedQTensor``) belongs to a later slice of the port.
+Sub-int8 weights pack two (int4) or four (int2) lanes per int8 byte along
+the contraction axis (:class:`PackedQTensor`).
+
+Powers of two follow the reference's arithmetic, not exact math: on XLA's
+CPU backend ``jnp.exp2(n)`` is ``exp(0.693147182 * n)`` in float32, which
+misses 2^n at most |n| >= 13 (``exp2(15)`` is 32767.984).  :func:`exp2`
+reads those float32 values from a committed table, as :func:`_log2_f32`
+follows the reference's ``log2``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple, Union
+import struct
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -23,7 +31,8 @@ import torch
 N_MIN = -30
 N_MAX = 30
 
-_INT_DTYPES = {8: torch.int8, 9: torch.int16, 16: torch.int16, 32: torch.int32}
+_INT_DTYPES = {2: torch.int8, 4: torch.int8, 8: torch.int8, 9: torch.int16, 16: torch.int16,
+               32: torch.int32}
 
 Exponent = Union[int, torch.Tensor]
 
@@ -36,6 +45,34 @@ _LOG_Q1 = -2.12194440e-4
 _LOG_Q2 = 0.693359375
 _SQRTHF = 0.707106781186547524
 _MIN_NORMAL = 1.17549435e-38
+
+# float32 bit patterns of XLA-CPU ``jnp.exp2(n)`` for n = EXP2_MIN..EXP2_MAX
+# (jax 0.9.0; tests/test_torch_subint8.py holds each entry to ``jnp.exp2``).
+# The range covers exponents in [N_MIN, N_MAX] and their pairwise sums.
+EXP2_MIN, EXP2_MAX = -64, 64
+_EXP2_BITS = (
+    0x1F7FFFFE, 0x1FFFFFE6, 0x20800007, 0x20FFFFF6, 0x2180000F, 0x22000003, 0x227FFFEE,
+    0x2300000B, 0x237FFFFE, 0x23FFFFE6, 0x24800007, 0x24FFFFF6, 0x257FFFDE, 0x26000003,
+    0x267FFFEE, 0x2700000B, 0x277FFFFE, 0x27FFFFE6, 0x28800007, 0x28FFFFF7, 0x297FFFFF,
+    0x2A000003, 0x2A7FFFEF, 0x2AFFFFF7, 0x2B7FFFFF, 0x2C000003, 0x2C800007, 0x2CFFFFF7,
+    0x2D7FFFFF, 0x2E000003, 0x2E7FFFEF, 0x2EFFFFF7, 0x2F7FFFFF, 0x30000004, 0x30800008,
+    0x30FFFFF7, 0x317FFFFF, 0x32000004, 0x327FFFEF, 0x32FFFFF7, 0x337FFFFF, 0x34000004,
+    0x347FFFFF, 0x34FFFFF7, 0x357FFFFF, 0x36000004, 0x367FFFFF, 0x36FFFFF7, 0x377FFFFF,
+    0x38000004, 0x38800000, 0x38FFFFF8, 0x39800000, 0x3A000000, 0x3A800000, 0x3B000000,
+    0x3B800000, 0x3C000000, 0x3C800000, 0x3D000000, 0x3D800000, 0x3E000000, 0x3E800000,
+    0x3F000000, 0x3F800000, 0x40000000, 0x40800000, 0x41000000, 0x41800000, 0x42000000,
+    0x42800000, 0x43000000, 0x43800000, 0x44000000, 0x44800000, 0x45000000, 0x45800000,
+    0x46000004, 0x46800000, 0x46FFFFF8, 0x47800000, 0x48000004, 0x48800000, 0x48FFFFF9,
+    0x49800000, 0x4A000004, 0x4A800000, 0x4AFFFFF9, 0x4B800000, 0x4C000004, 0x4C800008,
+    0x4CFFFFF9, 0x4D800000, 0x4E000004, 0x4E7FFFF1, 0x4EFFFFF9, 0x4F800001, 0x50000005,
+    0x50800009, 0x50FFFFF9, 0x51800001, 0x52000005, 0x527FFFF1, 0x52FFFFF9, 0x53800001,
+    0x54000005, 0x54800009, 0x54FFFFF9, 0x55800001, 0x56000005, 0x567FFFF1, 0x5700000D,
+    0x57800001, 0x57FFFFEA, 0x58800009, 0x58FFFFFA, 0x59800011, 0x5A000005, 0x5A7FFFF2,
+    0x5B00000D, 0x5B800001, 0x5BFFFFEA, 0x5C800009, 0x5CFFFFFA, 0x5D7FFFE2, 0x5E000005,
+    0x5E7FFFF2, 0x5F00000D, 0x5F800001)
+EXP2_TABLE = struct.unpack(f"<{len(_EXP2_BITS)}f", struct.pack(f"<{len(_EXP2_BITS)}I",
+                                                              *_EXP2_BITS))
+_exp2_tables: Dict[torch.device, torch.Tensor] = {}
 
 
 def storage_dtype(width: int) -> torch.dtype:
@@ -90,7 +127,7 @@ def _log_f32(x: torch.Tensor) -> torch.Tensor:
 
 def _log2_f32(x: torch.Tensor) -> torch.Tensor:
     """``log(x) * (1 / log(2))`` in float32, the way ``jnp.log2`` lowers."""
-    ln2 = _log_f32(torch.full((1,), 2.0, dtype=torch.float32, device=x.device))
+    ln2 = _log_f32(torch.full((), 2.0, dtype=torch.float32, device=x.device))
     return _log_f32(x) * (_f32(1.0, x) / ln2)
 
 
@@ -116,10 +153,20 @@ def max_abs(x: torch.Tensor, axis=None, keepdim: bool = False) -> torch.Tensor:
 
 
 def exp2(n: Exponent) -> Union[float, torch.Tensor]:
-    """2^n as float32 (a Python float for an int exponent: exact either way)."""
-    if isinstance(n, int):
-        return math.ldexp(1.0, n)
-    return torch.exp2(n.to(torch.float32))
+    """The reference's float32 ``jnp.exp2`` at integer exponents, from
+    :data:`EXP2_TABLE`: a Python float for an int, else a float32 tensor
+    on ``n``'s device (a gather, so no value comes back to the host)."""
+    if not isinstance(n, torch.Tensor):
+        if not EXP2_MIN <= int(n) <= EXP2_MAX:
+            raise ValueError(f"exp2: exponent {n} outside [{EXP2_MIN}, {EXP2_MAX}]")
+        return EXP2_TABLE[int(n) - EXP2_MIN]
+    if n.dtype.is_floating_point:
+        raise TypeError(f"exp2 takes integer exponents, got {n.dtype}")
+    table = _exp2_tables.get(n.device)
+    if table is None:
+        table = torch.tensor(EXP2_TABLE, dtype=torch.float32, device=n.device)
+        _exp2_tables[n.device] = table
+    return table[n.to(torch.int64) - EXP2_MIN]
 
 
 def quantize(x: torch.Tensor, n: Exponent, width: int) -> torch.Tensor:
@@ -203,3 +250,161 @@ def quantize_tensor(x: torch.Tensor, width: int, *,
     shape = [1] * x.ndim
     shape[ax] = -1
     return QTensor(quantize(x, n.reshape(shape), width), n, width, ax)
+
+
+# --------------------------------------------------------------------------
+# Sub-int8 packed storage (int4/int2 weights)
+# --------------------------------------------------------------------------
+
+def lanes_per_byte(width: int) -> int:
+    """How many ``width``-bit lanes fit one int8 container byte (4->2, 2->4)."""
+    if width not in (2, 4):
+        raise ValueError(f"packed storage supports widths 2 and 4, got {width}")
+    return 8 // width
+
+
+def pack_subint8(q: torch.Tensor, width: int, axis: int = -2) -> torch.Tensor:
+    """Pack ``width``-bit signed integers along ``axis`` into int8 bytes.
+
+    Lane ``i`` of byte ``j`` holds element ``lanes*j + i`` in bits
+    ``[width*i, width*(i+1))``, two's complement, so lane 0 is the low
+    nibble (the layout ``wq4_matmul`` unpacks).  A length the lane count
+    does not divide is padded with zero lanes.
+    """
+    lanes = lanes_per_byte(width)
+    ax = axis % q.ndim
+    moved = torch.movedim(q, ax, -1).to(torch.int32)
+    pad = (-moved.shape[-1]) % lanes
+    if pad:
+        moved = torch.nn.functional.pad(moved, (0, pad))
+    grp = moved.reshape(*moved.shape[:-1], -1, lanes)
+    mask = (1 << width) - 1
+    acc = torch.zeros(grp.shape[:-1], dtype=torch.int32, device=q.device)
+    for i in range(lanes):
+        acc = acc | ((grp[..., i] & mask) << (width * i))
+    packed = acc.to(torch.uint8).view(torch.int8)
+    return torch.movedim(packed, -1, ax).contiguous()
+
+
+def unpack_subint8(packed: torch.Tensor, width: int, k: int, axis: int = -2) -> torch.Tensor:
+    """Inverse of :func:`pack_subint8`: int8 bytes -> ``k`` signed lanes (int8)."""
+    lanes = lanes_per_byte(width)
+    ax = axis % packed.ndim
+    u = torch.movedim(packed, ax, -1).contiguous().view(torch.uint8).to(torch.int32)
+    mask = (1 << width) - 1
+    vals = torch.stack([(u >> (width * i)) & mask for i in range(lanes)], dim=-1)
+    vals = torch.where(vals >= 1 << (width - 1), vals - (1 << width), vals)
+    flat = vals.reshape(*vals.shape[:-2], -1)[..., :k].to(torch.int8)
+    return torch.movedim(flat, -1, ax).contiguous()
+
+
+def block_frac_bits(x: torch.Tensor, width: int, block_size: int,
+                    axis: int = -2) -> torch.Tensor:
+    """Per-block exponents: Eq. 1-2 over ``block_size`` runs of ``axis``,
+    which shrinks to the number of blocks.  A trailing partial block is
+    ranged over its real elements only (zero padding)."""
+    ax = axis % x.ndim
+    moved = torch.movedim(x, ax, -1)
+    pad = (-moved.shape[-1]) % block_size
+    if pad:
+        moved = torch.nn.functional.pad(moved, (0, pad))
+    grp = moved.reshape(*moved.shape[:-1], -1, block_size)
+    n = frac_bits_for(torch.amax(torch.abs(grp), dim=-1), width)
+    return torch.movedim(n, -1, ax).contiguous()
+
+
+def repeat_blocks(t: torch.Tensor, block_size: int, k: int) -> torch.Tensor:
+    """Per-block rows (..., nb, N) repeated over the ``k`` logical rows of
+    axis -2 (a broadcast view copied once; no value comes back to the host)."""
+    nb, n = t.shape[-2], t.shape[-1]
+    grown = t.unsqueeze(-2).expand(*t.shape[:-1], block_size, n)
+    return grown.reshape(*t.shape[:-2], nb * block_size, n)[..., :k, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedQTensor:
+    """A sub-int8 weight: a packed int8 container plus pow2 exponents.
+
+    ``q`` is ``(..., ceil(K/lanes), N)``: ``width``-bit lanes (4 or 2)
+    packed along the contraction axis of a ``(..., K, N)`` GEMM weight.
+    ``n`` is a scalar (per-tensor), ``(..., 1, N)`` (per output channel,
+    ``block_size=None``) or ``(..., ceil(K/bs), N)`` (per block of
+    ``block_size`` K rows).  ``scale`` caches 2^-n as float32 in the shape
+    of ``n``, so no tick recomputes it.
+    """
+
+    q: torch.Tensor
+    n: torch.Tensor
+    width: int
+    k: int
+    block_size: Optional[int] = None
+    scale: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.scale is None:
+            object.__setattr__(self, "scale", exp2(-self.n))
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """Logical (unpacked) shape ``(..., K, N)``."""
+        return (*self.q.shape[:-2], self.k, self.q.shape[-1])
+
+    @property
+    def nbytes_packed(self) -> int:
+        """Container bytes (the int8 payload; scales excluded)."""
+        return self.q.numel()
+
+    @property
+    def nbytes_model(self) -> int:
+        """Model bytes at the logical width."""
+        return math.prod(self.shape) * self.width // 8
+
+    def unpack(self) -> torch.Tensor:
+        """The ``width``-bit integers, as int8, in the logical shape."""
+        return unpack_subint8(self.q, self.width, self.k, axis=-2)
+
+    def scales(self) -> torch.Tensor:
+        """2^-n broadcastable against the logical ``(..., K, N)``."""
+        if self.block_size is not None and self.scale.ndim > 0:
+            return repeat_blocks(self.scale, self.block_size, self.k)
+        return self.scale
+
+    def dequantize(self) -> torch.Tensor:
+        return self.unpack().to(torch.float32) * self.scales()
+
+    def layer(self, i: int) -> "PackedQTensor":
+        """Slice ``i`` of a stacked leaf (views, no copy)."""
+        stacked = self.n.ndim == self.q.ndim
+        return PackedQTensor(self.q[i], self.n[i] if stacked else self.n, self.width, self.k,
+                             self.block_size, self.scale[i] if stacked else self.scale)
+
+    def to(self, device) -> "PackedQTensor":
+        return PackedQTensor(self.q.to(device), self.n.to(device), self.width, self.k,
+                             self.block_size, self.scale.to(device))
+
+
+def quantize_tensor_packed(x: torch.Tensor, width: int, *, block_size: Optional[int] = None,
+                           per_channel: bool = True) -> PackedQTensor:
+    """Quantize a ``(..., K, N)`` weight to packed ``width``-bit storage.
+
+    ``block_size=None``: one exponent per output channel over all of K
+    (``per_channel=False``: one for the tensor); ``block_size=bs``: one per
+    ``bs`` rows of K and output channel.
+    """
+    if x.ndim < 2:
+        raise ValueError(f"packed weights need ndim >= 2, got {x.ndim}")
+    lanes = lanes_per_byte(width)
+    k = x.shape[-2]
+    if block_size is not None:
+        if block_size < lanes or block_size % lanes:
+            raise ValueError(
+                f"block_size must be a positive multiple of {lanes} "
+                f"(the byte lane count at width {width}), got {block_size}")
+        n = block_frac_bits(x, width, block_size, axis=-2)
+        nb = repeat_blocks(n, block_size, k)
+    elif per_channel:
+        n = nb = frac_bits_for(torch.amax(torch.abs(x), dim=-2, keepdim=True), width)
+    else:
+        n = nb = frac_bits_for(max_abs(x), width)
+    q = quantize(x, nb, width)
+    return PackedQTensor(pack_subint8(q, width, axis=-2), n, width, k, block_size)

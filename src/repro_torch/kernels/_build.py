@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("wq_matmul", "qdecode_attn", "qchunk_attn", "qpaged_attn", "qragged_attn")
+KERNELS = ("wq_matmul", "wq4_matmul", "qdecode_attn", "qchunk_attn", "qpaged_attn",
+           "qragged_attn")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -13,12 +13,13 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from repro_torch.core.qformat import Exponent, QTensor
+from repro_torch.core.qformat import Exponent, PackedQTensor, QTensor
 from repro_torch.kernels import qchunk_attn as _qchunk_attn
 from repro_torch.kernels import qdecode_attn as _qdecode_attn
 from repro_torch.kernels import qpaged_attn as _qpaged_attn
 from repro_torch.kernels import qragged_attn as _qragged_attn
 from repro_torch.kernels import ref
+from repro_torch.kernels import wq4_matmul as _wq4_matmul
 from repro_torch.kernels import wq_matmul as _wq_matmul
 
 # None | "plain"
@@ -26,6 +27,7 @@ FORCE: Optional[str] = None
 
 # kernel name -> (wrapper module, its launch counter)
 _COUNTERS = {"wq_matmul": (_wq_matmul, "launches"),
+             "wq4_matmul": (_wq4_matmul, "launches"),
              "qdecode_attn": (_qdecode_attn, "launches"),
              "qchunk_attn": (_qchunk_attn, "launches"),
              "qpaged_decode_attn": (_qpaged_attn, "decode_launches"),
@@ -66,6 +68,29 @@ def wq_matmul(x: torch.Tensor, w: QTensor, *, transpose: bool = False) -> torch.
         y = _wq_matmul.wq_matmul_cuda(x2, w.q, scale.contiguous())
     else:
         y = ref.wq_matmul_ref(x2, w.q, scale)
+    return y.reshape(*lead, n_out).to(x.dtype)
+
+
+def wq4_matmul(x: torch.Tensor, w: PackedQTensor) -> torch.Tensor:
+    """x (..., K) float @ dequant(w): the packed sub-int8 weight-only path.
+
+    Routed by the weight's format, as in the reference: a 2-D int4 weight
+    goes to the kernel (the plain version on the CPU); int2 weights take the
+    plain unpack-and-matmul on every device, and a stacked container is
+    dequantized whole and multiplied.
+    """
+    if w.q.ndim != 2:
+        return torch.matmul(x, w.dequantize().to(x.dtype))
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    n_out = w.q.shape[-1]
+    bs = w.block_size or 0
+    if w.width == 4 and _use_kernel(x2):
+        # the kernel takes (1, N) or (ceil(K/bs), N) scale rows
+        scale = w.scale if w.scale.ndim == 2 else w.scale.reshape(1, 1).expand(1, n_out)
+        y = _wq4_matmul.wq4_matmul_cuda(x2, w.q, scale.contiguous(), k=w.k, block_size=bs)
+    else:
+        y = ref.wq4_matmul_ref(x2, w.q, w.scale, k=w.k, width=w.width, block_size=bs)
     return y.reshape(*lead, n_out).to(x.dtype)
 
 

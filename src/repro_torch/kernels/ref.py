@@ -25,6 +25,26 @@ def wq_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), w)
 
 
+def wq4_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale, *, k: int, width: int = 4,
+                   block_size: int = 0) -> torch.Tensor:
+    """float32 x (M, K) @ the packed sub-int8 weight, dequantized.
+
+    ``wq`` (ceil(K/lanes), N) int8 holds ``width``-bit lanes along K
+    (:func:`repro_torch.core.qformat.pack_subint8`); ``scale`` is 2^-n per
+    output channel (``block_size=0``; (), (N,) or (1, N)) or per block of
+    ``block_size`` K rows ((ceil(K/block_size), N)).  The codes widen to
+    float32 before any product.
+    """
+    n_out = wq.shape[-1]
+    w = qformat.unpack_subint8(wq, width, k, axis=-2).to(torch.float32)
+    s = torch.as_tensor(scale, dtype=torch.float32, device=wq.device)
+    if block_size:
+        s = qformat.repeat_blocks(s.reshape(-1, n_out), block_size, k)
+    else:
+        s = s.reshape(1, -1).expand(1, n_out)
+    return torch.matmul(x.to(torch.float32), w * s)
+
+
 def qdecode_attn_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      k_n: qformat.Exponent, v_n: qformat.Exponent,
                      kv_len: Union[int, torch.Tensor]) -> torch.Tensor:

@@ -3,7 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --policy chunked --chunk-size 32 --wq --qkv [--device cpu]
 
---wq   int8 weight-only storage (the ``wq_matmul`` kernel)
+--wq   int8 weight-only storage (the ``wq_matmul`` kernel); ``--wq int4`` /
+       ``int4-block`` packs two lanes per byte (the ``wq4_matmul`` kernel),
+       ``int2`` / ``int2-block`` four (unpacked and multiplied); ``-block``
+       gives one scale per ``--wq-block`` K rows (default 32)
 --qkv  int8 KV cache on the paper's Qm.n grid (the ``qdecode_attn``,
        ``qchunk_attn`` and ``qragged_attn`` kernels)
 
@@ -150,8 +153,12 @@ def main(argv=None):
                          "memory and restores them bit for bit")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop a request when this token is sampled (-1 = off)")
-    ap.add_argument("--wq", nargs="?", const="int8", default=False, choices=["int8"],
-                    help="int8 weight-only storage (packed int4/int2 come later)")
+    ap.add_argument("--wq", nargs="?", const="int8", default=False,
+                    choices=["int8", "int4", "int4-block", "int2", "int2-block"],
+                    help="weight-only storage format (bare --wq = int8; int4/int2 pack "
+                         "two/four lanes per byte, -block adds per-block scales)")
+    ap.add_argument("--wq-block", type=int, default=32,
+                    help="K rows per scale block for the --wq *-block formats")
     ap.add_argument("--qkv", action="store_true", help="int8 KV cache")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
@@ -170,7 +177,8 @@ def main(argv=None):
     engine = ServeEngine(model=model, params=params,
                          max_len=args.prompt_len + args.max_new,
                          batch_slots=args.slots, quantized_kv=args.qkv,
-                         weight_quant=args.wq, temperature=args.temperature,
+                         weight_quant=args.wq, weight_block=args.wq_block,
+                         temperature=args.temperature,
                          device=device, paged_kv=args.paged,
                          page_size=args.page_size or None,
                          kv_pool_pages=args.pool_pages or None)

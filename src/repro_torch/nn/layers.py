@@ -1,7 +1,9 @@
 """Dense, Embedding and RMSNorm (``repro/nn/layers.py``), float32 throughout.
 
-``Dense`` has the float path and the weight-only int8 path (an int8
-:class:`QTensor` kernel goes through ``kernels.ops.wq_matmul``).  The
+``Dense`` has the float path, the weight-only int8 path (an int8
+:class:`QTensor` kernel goes through ``kernels.ops.wq_matmul``) and the
+packed sub-int8 path (a :class:`PackedQTensor` kernel goes through
+``kernels.ops.wq4_matmul``).  The
 fake-quant and full-integer paths of the reference wait for the training
 and integer-engine slices of the port.
 """
@@ -14,7 +16,7 @@ import torch
 
 from repro_torch.core import qformat
 from repro_torch.core.policy import QMode
-from repro_torch.core.qformat import QTensor
+from repro_torch.core.qformat import PackedQTensor, QTensor
 from repro_torch.nn.module import Context, Params
 
 
@@ -42,7 +44,8 @@ def normal_init(gen: torch.Generator, shape, device, std: float = 0.02) -> torch
 
 @dataclasses.dataclass(frozen=True)
 class Dense:
-    """Affine projection: float, or weight-only int8 when the kernel is a QTensor."""
+    """Affine projection: float, weight-only int8 when the kernel is a QTensor,
+    packed int4/int2 when it is a PackedQTensor."""
 
     in_features: int
     out_features: int
@@ -60,6 +63,8 @@ class Dense:
         ctx = ctx.scope(self.name)
         kernel = params["kernel"]
         bias = params.get("bias")
+        if isinstance(kernel, PackedQTensor):
+            return self._packed_apply(kernel, bias, x)
         if isinstance(kernel, QTensor):
             return self._weight_only_apply(kernel, bias, x)
         if ctx.policy.mode not in (QMode.OFF, QMode.INTEGER) \
@@ -72,6 +77,15 @@ class Dense:
         from repro_torch.kernels import ops
 
         y = ops.wq_matmul(x.to(torch.float32), kernel)
+        if bias is not None:
+            b = bias.dequantize() if isinstance(bias, QTensor) else bias
+            y = y + b
+        return y
+
+    def _packed_apply(self, kernel: PackedQTensor, bias, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        y = ops.wq4_matmul(x.to(torch.float32), kernel)
         if bias is not None:
             b = bias.dequantize() if isinstance(bias, QTensor) else bias
             y = y + b

@@ -1,9 +1,10 @@
 """Minimal module substrate (``repro/nn/module.py``) plus device selection.
 
-Parameters are nested dicts/lists of tensors (or :class:`QTensor` leaves
-once a model is integerized), laid out exactly as the JAX package lays them
-out, so converted JAX parameters drive the port unchanged.  Stacked layers
-keep their leading layer axis; :func:`tree_layer` takes one layer's views.
+Parameters are nested dicts/lists of tensors (or :class:`QTensor` and
+:class:`PackedQTensor` leaves once a model is integerized), laid out exactly
+as the JAX package lays them out, so converted JAX parameters drive the port
+unchanged.  Stacked layers keep their leading layer axis; :func:`tree_layer`
+takes one layer's views.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.core.qformat import QTensor
+from repro_torch.core.qformat import PackedQTensor, QTensor
 
 Params = Dict[str, Any]
 
@@ -48,7 +49,7 @@ class Context:
 
 
 def tree_map(fn: Callable[[Any], Any], tree):
-    """Apply ``fn`` to every leaf (tensors and QTensors) of a dict/list tree."""
+    """Apply ``fn`` to every leaf (tensors and quantized leaves) of a dict/list tree."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -68,7 +69,7 @@ def tree_leaves(tree) -> list:
 def tree_layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views into the stacked storage)."""
     def take(leaf):
-        if isinstance(leaf, QTensor):
+        if isinstance(leaf, (QTensor, PackedQTensor)):
             return leaf.layer(i)
         if isinstance(leaf, torch.Tensor):
             return leaf[i]
@@ -79,7 +80,7 @@ def tree_layer(tree, i: int):
 def tree_to(tree, device):
     """Move every tensor leaf to ``device`` (no copy where already there)."""
     def move(leaf):
-        if isinstance(leaf, (torch.Tensor, QTensor)):
+        if isinstance(leaf, (torch.Tensor, QTensor, PackedQTensor)):
             return leaf.to(device)
         return leaf
     return tree_map(move, tree)

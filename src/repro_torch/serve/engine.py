@@ -1,7 +1,8 @@
 """Batched serving engine and its step builders (``repro/serve/engine.py``).
 
 ``weight_quant`` stores every GEMM and embedding weight as an int8
-:class:`QTensor` (the ``wq_matmul`` kernel path); ``quantized_kv`` keeps the
+:class:`QTensor` (the ``wq_matmul`` kernel path), or packs the GEMM weights
+to int4 (the ``wq4_matmul`` kernel path) or int2; ``quantized_kv`` keeps the
 KV cache as int8 on the paper's Qm.n grid (the ``qdecode_attn`` and
 ``qchunk_attn`` kernel paths, or with ``paged_kv`` the
 ``qpaged_decode_attn`` and ``qpaged_chunk_attn`` ones; the ragged tick
@@ -29,6 +30,23 @@ from repro_torch.nn.module import Context, resolve_device, tree_leaves, tree_to
 CUDA_PAGE_SIZE = 16
 # Off the card, the reference's default outside compiled TPU dispatch.
 CPU_PAGE_SIZE = 16
+
+
+def _weight_quant_kwargs(spec: Union[bool, str], weight_block: int) -> dict:
+    """``integerize_weights_only`` kwargs for an engine ``weight_quant`` spec:
+    ``True``/``"int8"`` per-channel int8; ``"int4"``/``"int2"`` packed
+    per-channel; the ``"-block"`` suffix gives per-block scales of
+    ``weight_block`` K rows."""
+    if spec is True or spec == "int8":
+        return {}
+    if isinstance(spec, str):
+        base, _, tail = spec.partition("-")
+        bits = {"int4": 4, "int2": 2}.get(base)
+        if bits is not None and tail in ("", "block"):
+            return {"bits": bits, "block_size": weight_block if tail == "block" else None}
+    raise ValueError(
+        f"weight_quant={spec!r}: expected True, 'int8', 'int4[-block]' "
+        f"or 'int2[-block]'")
 
 
 def mask_vocab_tail(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -137,7 +155,10 @@ class ServeEngine:
     """Fixed-slot lockstep generation over a (possibly quantized) model.
 
     ``device`` defaults to ``cuda`` (see ``resolve_device``); the params are
-    moved there and, with ``weight_quant``, integerized there.
+    moved there and, with ``weight_quant``, integerized there: ``True`` or
+    ``"int8"`` per-channel int8, ``"int4"``/``"int2"`` packed per-channel,
+    ``"int4-block"``/``"int2-block"`` packed with one scale per
+    ``weight_block`` K rows.
 
     ``paged_kv`` makes the scheduler's cache (``new_cache(per_slot=True)``)
     a pool of ``kv_pool_pages`` pages of ``page_size`` rows shared by every
@@ -153,6 +174,7 @@ class ServeEngine:
     batch_slots: int
     quantized_kv: bool = False
     weight_quant: Union[bool, str] = False
+    weight_block: int = 32
     temperature: float = 0.0
     device: Any = None
     paged_kv: bool = False
@@ -169,12 +191,8 @@ class ServeEngine:
             raise ValueError(f"kv_pool_pages must be >= 1, got {self.kv_pool_pages}")
         self.params = tree_to(self.params, self.device)
         if self.weight_quant:
-            if self.weight_quant not in (True, "int8"):
-                raise NotImplementedError(
-                    f"weight_quant={self.weight_quant!r}: the port serves int8 weights "
-                    "(True / 'int8'); packed int4/int2 arrive with the sub-int8 slice "
-                    "(ROADMAP.md queue 1)")
-            self.params = integerize_weights_only(self.params)
+            self.params = integerize_weights_only(
+                self.params, **_weight_quant_kwargs(self.weight_quant, self.weight_block))
 
     @property
     def vocab(self) -> int:

@@ -118,9 +118,13 @@ def test_ops_dispatch_cpu_tensors_to_plain_without_counting():
     ops.qragged_attn(torch.from_numpy(q), kv_new, kv_new, pool, pool, 3, 3, table,
                      torch.tensor([1, 0], dtype=torch.int32),
                      torch.tensor([4, -1], dtype=torch.int32))
-    assert ops.launch_counts() == {"wq_matmul": 0, "qdecode_attn": 0, "qchunk_attn": 0,
-                                   "qpaged_decode_attn": 0, "qpaged_chunk_attn": 0,
-                                   "qragged_attn": 0}
+    from repro_torch.core.qformat import quantize_tensor_packed
+
+    ops.wq4_matmul(torch.from_numpy(x), quantize_tensor_packed(torch.from_numpy(x.T.copy()), 4,
+                                                               block_size=8))
+    assert ops.launch_counts() == {"wq_matmul": 0, "wq4_matmul": 0, "qdecode_attn": 0,
+                                   "qchunk_attn": 0, "qpaged_decode_attn": 0,
+                                   "qpaged_chunk_attn": 0, "qragged_attn": 0}
 
 
 def test_ops_transpose_path_is_dequantize_then_matmul():

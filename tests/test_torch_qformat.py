@@ -118,5 +118,12 @@ def test_integerize_weights_only_bit_exact(per_channel):
 
 
 def test_integerize_refuses_sub_int8():
-    with pytest.raises(NotImplementedError, match="int4"):
-        t_integerize({"w": {"kernel": torch.zeros(4, 4)}}, bits=4)
+    """Packed widths take only block sizes that are whole multiples of the
+    byte's lane count; both packages refuse the rest with the same error."""
+    for bits, block_size in ((4, 3), (2, 2)):
+        msg = f"block_size must be a positive multiple of {8 // bits}"
+        with pytest.raises(ValueError, match=msg):
+            t_integerize({"w": {"kernel": torch.zeros(4, 4)}}, bits=bits, block_size=block_size)
+        with pytest.raises(ValueError, match=msg):
+            j_integerize({"w": {"kernel": jnp.zeros((4, 4), jnp.float32)}}, bits=bits,
+                         block_size=block_size)

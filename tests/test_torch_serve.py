@@ -135,10 +135,15 @@ def test_temperature_sampling_is_seeded_and_in_vocab(smoke):
 
 
 def test_sub_int8_weights_wait_for_their_slice(smoke):
-    _, _, tm, tp, _ = smoke
-    with pytest.raises(NotImplementedError, match="int4"):
-        ServeEngine(model=tm, params=tp, max_len=8, batch_slots=1, weight_quant="int4",
+    """The weight formats are the reference's: an unknown one such as
+    ``"int3"`` is refused by both engines with the same ValueError."""
+    jm, jp, tm, tp, _ = smoke
+    msg = r"weight_quant='int3': expected True, 'int8', 'int4\[-block\]' or 'int2\[-block\]'"
+    with pytest.raises(ValueError, match=msg):
+        ServeEngine(model=tm, params=tp, max_len=8, batch_slots=1, weight_quant="int3",
                     device="cpu")
+    with pytest.raises(ValueError, match=msg):
+        JServeEngine(model=jm, params=jp, max_len=8, batch_slots=1, weight_quant="int3")
 
 
 @pytest.mark.parametrize("policy", ["lockstep", "restart"])
