@@ -7,10 +7,15 @@ Phases, each printed as it completes; any failure exits non-zero:
   2. build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, all at once) and its time;
   3. each kernel against its plain PyTorch version on the card at the
-     serving path's shapes, with kernel, plain and library times (CUDA
-     graphs of many launches over rotating inputs larger than the L2) and
-     the least time the card could take (bytes at 3.35 TB/s or f32 FMAs at
-     67 TFLOP/s, H100 SXM data sheet); the chunk kernels also have the
+     path's shapes, with kernel, plain and library times (CUDA graphs of
+     many launches over rotating inputs larger than the L2) and the least
+     time the card could take (bytes at 3.35 TB/s, f32 FMAs at 67 TFLOP/s
+     or int8 products at 1,979 TOP/s, H100 SXM data sheet); the integer
+     engine's four kernels bit for bit (``qmm`` and ``qmm_requant`` at the
+     classifier's (2947, 80) @ (80, 6) and 4096^3, int8 and int16, with
+     int32 wrap and shifts of 32 or more; ``qconv1d`` at ResNetv1-6's four
+     convolution shapes at B=2947 and the edge cases; ``fake_quant`` on a
+     120.7 MB activation at every n in [-20, 20]); the chunk kernels also have the
      cache rows they write held bit for bit, and every other row held
      unchanged; the paged kernels run over fragmented, out-of-order page
      tables with pages shared between slots, beside the dense kernels on
@@ -32,13 +37,15 @@ Phases, each printed as it completes; any failure exits non-zero:
      mixed step are held to the plain versions;
   5. the paged engine (``--paged``, the engine's CUDA page size, a pool at
      dense parity) on the same 16 requests, 8 requests sharing a 96-token
-     opening, and the 16 requests oversubscribed at half the pool under
-     recompute and under swap preemption, with launch counts checked; a
+     opening, and 8 of the requests oversubscribed at half the pool under
+     recompute and under swap preemption (full width, 4 layers deep), with
+     launch counts checked; a
      paged mixed step's logits against the plain versions; a paged decode
      tick and mixed tick profiled, syncs counted;
   6. ``Scheduler(chunk_size=32, ragged=True, prefill_lanes=2)`` on the 16
      requests, dense and paged, on the shared prefix and at half the pool
-     under recompute and swap, and ``bench_burst``'s full burst (16 x 192
+     under recompute and swap (4 layers deep, as in 5), and
+     ``bench_burst``'s full burst (16 x 192
      tokens at tick 0, 16 slots, 4 lanes, budget 160) beside the paged
      mixed step, with TTFT in ticks and ms: launch counts exact, greedy
      tokens held to the chunked runs; a ragged tick's logits against the
@@ -50,14 +57,25 @@ Phases, each printed as it completes; any failure exits non-zero:
      tokens held to the plain versions, paged and ragged tokens held to the
      chunked run; per-channel ``int4`` and ``int2-block`` generate (int2:
      no kernel); an int4 decode step and int8 / int4 forwards at M = 72
-     profiled, int8 and int4 ragged runs in turns; ``bench_weight_formats`` at
-     its full setting (fp32 / int8 / int4-block, 16 requests of 256 tokens)
-     with its token-identical repeats and int4 kernel bytes <= 0.5x int8.
+     profiled, int8 and int4 ragged runs of 8 requests in turns;
+     ``bench_weight_formats`` at its full setting (fp32 / int8 / int4-block,
+     16 requests of 256 tokens, chunk 64) at full width and 4 layers deep,
+     with its token-identical repeats and int4 kernel bytes <= 0.5x int8;
+  8. the paper's integer engine: ResNetv1-6 at filters 80 on 2947
+     UCI-HAR-shaped windows (seeded), calibrated on 4 batches of 32,
+     integerized int8 per-layer and int16 Q7.9, full-integer forwards with
+     exactly 6 ``qconv1d`` and 1 ``qmm`` launches each, logits equal to the
+     plain versions', argmax agreement with the EVAL fake-quant forward >
+     0.9 and int8 ROM > 3.5x smaller than f32; ``fake_quant`` and
+     ``qmm_requant`` through their ``ops`` entry points; inferences/s and a
+     profile of each integer forward beside the float forward.
+Each phase prints its seconds (``[time]``).
 The line before the last is a JSON summary per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -68,13 +86,16 @@ from types import SimpleNamespace
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
+INT8_OPS_S = 1979e12       # H100 SXM dense int8 tensor-core rate
 L2_ROTATE_BYTES = 128 << 20
 WQ_RTOL = 2e-5             # |kernel - plain| <= WQ_RTOL * max|plain| (f32 sums, other order)
 ATTN_ATOL = 1e-4           # softmax-weighted means of values within +-16
 LOGIT_ATOL = 2e-2          # logits after 30 layers; int8 KV codes may flip at trunc edges
 FLOAT_KV_LOGIT_ATOL = 1e-4  # the same over a float KV cache: f32 sums in another order only
+NO_INT = {"qmm": 0, "qmm_requant": 0, "qconv1d": 0,      # the integer engine's kernels
+          "fake_quant": 0}
 NO_PAGED = {"qpaged_decode_attn": 0, "qpaged_chunk_attn": 0,   # the dense int8 paths' counts
-            "qragged_attn": 0, "wq4_matmul": 0}
+            "qragged_attn": 0, "wq4_matmul": 0, **NO_INT}
 
 
 def fail(msg: str) -> None:
@@ -117,9 +138,261 @@ def graph_ms(torch, calls, iters):
     return ms
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+def bound(nbytes: float, flops: float, rate: float = F32_FLOP_S):
+    """(least ms, what bounds it) for ``nbytes`` moved and ``flops`` done at
+    ``rate`` operations/s (f32 outside the tensor cores unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rotated(make, nbytes):
+    """Enough copies of an input (``make()`` draws one) to rotate past the L2."""
+    return [make() for _ in range(max(1, min(1200, math.ceil(L2_ROTATE_BYTES / nbytes))))]
+
+
+def int_codes(torch, gen, shape, dtype, lo=None):
+    """Uniform integer codes over the whole range of ``dtype`` (from ``lo``)."""
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min if lo is None else lo, info.max + 1, shape, generator=gen,
+                         device="cuda", dtype=torch.int32).to(dtype)
+
+
+def max_err(got, want) -> float:
+    """Largest |got - want| over two tensors of integer or f32 values (as
+    float64, exact for both)."""
+    return float((got.double() - want.double()).abs().max()) if want.numel() else 0.0
+
+
+def int_rate(dtype):
+    """Peak integer multiply-adds for operands of ``dtype``: int8 on the
+    tensor cores; int16 has no tensor-core form, so the f32 CUDA-core rate."""
+    import torch
+
+    return INT8_OPS_S if dtype == torch.int8 else F32_FLOP_S
+
+
+SHALLOW_LAYERS = 4           # depth of the oversubscribed runs and bench_weight_formats
+PATH_BATCH = 2947            # UCI-HAR's test split: the integer engine's batch
+RESNET_FILTERS = 80          # the widest ResNetv1-6 of the paper's sweep (Tables A3/A4)
+
+
+def check_qmm(torch, ref, kern, gen):
+    """``qmm`` vs plain, bit for bit: the classifier's (2947, 80) @ (80, 6),
+    4096^3 and an odd shape, int8 and int16, plus full-range int16 at K=512,
+    whose sums overflow int32 and must wrap as the plain version's do.  The
+    library time is ``torch._int_mm`` where it takes the shape (int8), else,
+    for int8 with K * 2^14 < 2^24, ``torch.matmul`` on the codes as f32
+    (exact: every partial sum is an integer below 2^24); int16 has none."""
+    rows = []
+    cases = [("classifier", PATH_BATCH, RESNET_FILTERS, 6), ("4096^3", 4096, 4096, 4096),
+             ("odd", 100, 300, 50), ("int16 overflow", 128, 512, 128)]
+    for label, m, k, n in cases:
+        for dt in (torch.int8, torch.int16):
+            if label == "int16 overflow" and dt == torch.int8:
+                continue
+            size = torch.tensor([], dtype=dt).element_size()
+            xs = rotated(lambda: int_codes(torch, gen, (m, k), dt), size * (m * k + k * n))
+            ws = [int_codes(torch, gen, (k, n), dt) for _ in xs]
+            got, want = kern(xs[0], ws[0]), ref.qmm_ref(xs[0], ws[0])
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(got.dtype == torch.int32 and torch.equal(got, want),
+                  f"qmm {label} {dt}: differs from plain at "
+                  f"{int((got != want).sum())} of {want.numel()} (max_abs_err {err})")
+            wide = torch.matmul(xs[0].double(), ws[0].double()).to(torch.int64)
+            wraps = bool((wide != want.to(torch.int64)).any())
+            del wide
+            if label == "int16 overflow":
+                check(wraps, "qmm int16 overflow case: no sum passed int32")
+            pairs = list(zip(xs, ws))
+            iters = max(len(pairs), 8 if m * n * k > 1 << 30 else 64)
+            ms = graph_ms(torch, [lambda a=a, b=b: kern(a, b) for a, b in pairs], iters)
+            plain = graph_ms(torch, [lambda a=a, b=b: ref.qmm_ref(a, b) for a, b in pairs],
+                             iters)
+            lib, lib_name = None, "library none"
+            if dt == torch.int8 and m > 16 and k % 8 == 0 and n % 8 == 0:
+                lib_name = "torch._int_mm"
+                lib = graph_ms(torch, [lambda a=a, b=b: torch._int_mm(a, b) for a, b in pairs],
+                               iters)
+            elif dt == torch.int8 and k << 14 < 1 << 24:
+                lib_name = "torch.matmul f32"
+                fpairs = [(a.float(), b.float()) for a, b in pairs]
+                check(torch.equal(torch.matmul(*fpairs[0]).to(torch.int32), want),
+                      f"qmm {label}: f32 matmul of the codes is not exact")
+                lib = graph_ms(torch, [lambda a=a, b=b: torch.matmul(a, b) for a, b in fpairs],
+                               iters)
+                del fpairs
+            b_ms, b_by = bound(size * (m * k + k * n) + 4 * m * n, 2.0 * m * k * n, int_rate(dt))
+            rows.append(dict(label=label, m=m, k=k, n=n, dtype=str(dt).split(".")[-1], ms=ms,
+                             plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             err=err))
+            print(f"[kernel] qmm {label} ({m}, {k}) @ ({k}, {n}) {rows[-1]['dtype']}: equal to "
+                  f"plain{' (int32 wrap)' if wraps else ''} | kernel {ms * 1e3:.2f} us | plain "
+                  f"{plain * 1e3:.2f} us | {lib_name} "
+                  f"{'' if lib is None else f'{lib * 1e3:.2f} us '}| bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+            del xs, ws, pairs
+    return rows
+
+
+def check_qmm_requant(torch, ref, kern, gen):
+    """``qmm_requant`` vs plain, bit for bit, over shifts -33, -3, 0, 5, 11,
+    31, 32 and 40 (XLA's sign fill and zero past 31), widths 8 and 16, at the
+    classifier's shape; timed there and at 4096^3, int8 and int16."""
+    rows, err = [], 0.0
+    m, k, n = PATH_BATCH, RESNET_FILTERS, 6
+    for dt in (torch.int8, torch.int16):
+        x, w = int_codes(torch, gen, (m, k), dt), int_codes(torch, gen, (k, n), dt)
+        for width in (8, 16):
+            for sh in (-33, -3, 0, 5, 11, 31, 32, 40):
+                s = torch.tensor(sh, dtype=torch.int32, device="cuda")
+                got, want = kern(x, w, s, width=width), ref.qmm_requant_ref(x, w, s, width=width)
+                torch.cuda.synchronize()
+                err = max(err, max_err(got, want))
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"qmm_requant {dt} width {width} shift {sh}: differs from plain")
+    print("[kernel] qmm_requant: equal to plain at shifts -33 -3 0 5 11 31 32 40, widths 8 "
+          "and 16, int8 and int16 operands", flush=True)
+    for label, (m, k, n) in (("classifier", (PATH_BATCH, RESNET_FILTERS, 6)),
+                             ("4096^3", (4096, 4096, 4096))):
+        for dt in (torch.int8, torch.int16):
+            size = torch.tensor([], dtype=dt).element_size()
+            xs = rotated(lambda: int_codes(torch, gen, (m, k), dt), size * (m * k + k * n))
+            ws = [int_codes(torch, gen, (k, n), dt) for _ in xs]
+            s = torch.tensor(11, dtype=torch.int32, device="cuda")
+            pairs = list(zip(xs, ws))
+            iters = max(len(pairs), 8 if m * n * k > 1 << 30 else 64)
+            ms = graph_ms(torch, [lambda a=a, b=b: kern(a, b, s) for a, b in pairs], iters)
+            plain = graph_ms(torch, [lambda a=a, b=b: ref.qmm_requant_ref(a, b, s)
+                                     for a, b in pairs], iters)
+            b_ms, b_by = bound(size * (m * k + k * n) + m * n + 4, 2.0 * m * k * n, int_rate(dt))
+            rows.append(dict(label=label, m=m, k=k, n=n, dtype=str(dt).split(".")[-1], ms=ms,
+                             plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                             err=err))
+            print(f"[kernel] qmm_requant {label} ({m}, {k}) @ ({k}, {n}) {rows[-1]['dtype']}, "
+                  f"shift 11, width 8: kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us | "
+                  f"library none | bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+            del xs, ws, pairs
+    return rows
+
+
+def check_qconv1d(torch, F, ref, kern, gen):
+    """``qconv1d`` vs plain, bit for bit, at ResNetv1-6's four convolution
+    shapes at B=2947 (C=9->80 and 80->80 at W=128, the k=1 shortcut, 80->80
+    at W=32), int8 and int16, and at the edge cases (stride 2, VALID, odd
+    F).  Library: ``F.conv1d`` in f32 on the int8 codes (exact: every sum
+    is below 2^24), channels-first; int16 has none."""
+    rows = []
+    shapes = [("conv1", PATH_BATCH, 128, 9, RESNET_FILTERS, 3, 1, "SAME"),
+              ("conv2/3", PATH_BATCH, 128, RESNET_FILTERS, RESNET_FILTERS, 3, 1, "SAME"),
+              ("short1", PATH_BATCH, 128, RESNET_FILTERS, RESNET_FILTERS, 1, 1, "SAME"),
+              ("conv4/5", PATH_BATCH, 32, RESNET_FILTERS, RESNET_FILTERS, 3, 1, "SAME")]
+    edges = [("edge", 2, 128, 9, 16, 3, 1, "SAME"), ("edge", 3, 128, 16, 24, 3, 2, "SAME"),
+             ("edge", 2, 50, 4, 8, 3, 1, "VALID"), ("edge", 1, 33, 3, 130, 7, 2, "VALID"),
+             ("edge", 5, 127, 80, 77, 5, 2, "SAME"), ("edge", 4, 64, 13, 33, 4, 3, "VALID")]
+    for label, b, wd, c, f, ks, st, pad in shapes + edges:
+        for dt in (torch.int8, torch.int16):
+            size = torch.tensor([], dtype=dt).element_size()
+            x, w = int_codes(torch, gen, (b, wd, c), dt), int_codes(torch, gen, (ks, c, f), dt)
+            got = kern(x, w, stride=st, padding=pad)
+            want = ref.qconv1d_ref(x, w, stride=st, padding=pad)
+            torch.cuda.synchronize()
+            err = max_err(got, want) if got.shape == want.shape else math.inf
+            check(got.dtype == torch.int32 and got.shape == want.shape
+                  and torch.equal(got, want),
+                  f"qconv1d {label} B={b} W={wd} C={c} F={f} K={ks} stride {st} {pad} {dt}: "
+                  f"differs from plain")
+            if label == "edge":
+                continue
+            wout = got.shape[1]
+            xs = [x] + rotated(lambda: int_codes(torch, gen, (b, wd, c), dt),
+                               size * b * wd * c)[1:]
+            iters = max(len(xs), 16)
+            ms = graph_ms(torch, [lambda a=a: kern(a, w, stride=st, padding=pad) for a in xs],
+                          iters)
+            plain = graph_ms(torch, [lambda a=a: ref.qconv1d_ref(a, w, stride=st, padding=pad)
+                                     for a in xs], iters)
+            lib = None
+            if dt == torch.int8:
+                xf = [a.to(torch.float32).transpose(1, 2).contiguous() for a in xs[:4]]
+                wf = w.to(torch.float32).permute(2, 1, 0).contiguous()
+                lib = graph_ms(torch, [lambda a=a: F.conv1d(a, wf, padding=ks // 2)
+                                       for a in xf], iters)
+                del xf
+            b_ms, b_by = bound(size * (b * wd * c + ks * c * f) + 4 * b * wout * f,
+                               2.0 * b * wout * f * ks * c, int_rate(dt))
+            rows.append(dict(label=label, b=b, w=wd, c=c, f=f, k=ks, dtype=str(dt).split(".")[-1],
+                             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             err=err))
+            print(f"[kernel] qconv1d {label} B={b} W={wd} C={c} F={f} K={ks} "
+                  f"{rows[-1]['dtype']}: equal to plain | kernel {ms * 1e3:.2f} us | plain "
+                  f"{plain * 1e3:.2f} us | F.conv1d f32 "
+                  f"{'none' if lib is None else f'{lib * 1e3:.2f} us'} | bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+            del xs
+    print("[kernel] qconv1d: equal to plain on the edge cases (stride 2 and 3, VALID, odd F, "
+          "K=4/5/7), int8 and int16", flush=True)
+    # a block stages (K, C, 32) weights in shared memory: C=1024 int16 at K=7
+    # needs more than one block can have, and the kernel's wrapper must refuse it
+    # with no effect on the next launch
+    big = (torch.zeros(1, 64, 1024, dtype=torch.int16, device="cuda"),
+           torch.zeros(7, 1024, 8, dtype=torch.int16, device="cuda"))
+    try:
+        kern(*big)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "qconv1d: C=1024 int16 at K=7 was launched past the block's shared memory")
+    x, w = int_codes(torch, gen, (2, 128, 9), torch.int8), int_codes(torch, gen, (3, 9, 16),
+                                                                     torch.int8)
+    check(torch.equal(kern(x, w), ref.qconv1d_ref(x, w)), "qconv1d after a refusal differs")
+    print("[kernel] qconv1d: C=1024 int16 at K=7 refused (shared memory); the next launch is "
+          "right", flush=True)
+    per_forward = {}
+    for dt in ("int8", "int16"):
+        part = {r["label"]: r for r in rows if r["dtype"] == dt}
+        calls = {"conv1": 1, "conv2/3": 2, "short1": 1, "conv4/5": 2}
+        per_forward[dt] = {key: (None if any(part[lb][key] is None for lb in calls) else
+                                 sum(part[lb][key] * c for lb, c in calls.items()))
+                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"[kernel] qconv1d one {dt} ResNetv1-6 forward (6 calls, B={PATH_BATCH}): "
+              f"kernel {per_forward[dt]['ms'] * 1e3:.2f} us | plain "
+              f"{per_forward[dt]['plain_ms'] * 1e3:.2f} us | bound "
+              f"{per_forward[dt]['bound_ms'] * 1e3:.2f} us", flush=True)
+    return rows, per_forward
+
+
+def check_fake_quant(torch, ref, kern, gen):
+    """``fake_quant`` vs plain, bit for bit, on a 2947 x 128 x 80 f32
+    activation (120.7 MB) at every n in [-20, 20] (|n| >= 13 included, where
+    the factors are the table's, not exact powers of two), widths 8 and 16,
+    n as an int and as a device scalar, plus an odd-sized misaligned view
+    (the scalar tail).  Timed at n = 4, width 8; bound by bytes."""
+    x = torch.randn(PATH_BATCH, 128, RESNET_FILTERS, generator=gen, device="cuda") * 4.0
+    err = 0.0
+    for width in (8, 16):
+        for n in range(-20, 21):
+            nt = torch.tensor(n, dtype=torch.int32, device="cuda")
+            want = ref.fake_quant_ref(x, n, width=width)
+            for arg in (n, nt):
+                got = kern(x, arg, width=width)
+                err = max(err, max_err(got, want))
+                check(torch.equal(got, want), f"fake_quant n={n} width {width}: differs from "
+                                              f"plain")
+    odd = x.reshape(-1)[1:1000004]
+    check(torch.equal(kern(odd, 7), ref.fake_quant_ref(odd, 7)), "fake_quant odd view differs")
+    torch.cuda.synchronize()
+    print("[kernel] fake_quant: equal to plain at every n in [-20, 20], widths 8 and 16, n as "
+          "an int and as a device scalar, and on an odd misaligned view", flush=True)
+    xs = [x, torch.randn(PATH_BATCH, 128, RESNET_FILTERS, generator=gen, device="cuda")]
+    ms = graph_ms(torch, [lambda a=a: kern(a, 4) for a in xs], 16)
+    plain = graph_ms(torch, [lambda a=a: ref.fake_quant_ref(a, 4) for a in xs], 16)
+    b_ms, b_by = bound(8.0 * x.numel(), 0.0)
+    print(f"[kernel] fake_quant {tuple(x.shape)} f32, n=4: kernel {ms * 1e3:.2f} us | plain "
+          f"{plain * 1e3:.2f} us | library none | bound {b_ms * 1e3:.2f} us ({b_by})",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=tuple(x.shape), err=err)
 
 
 SERVE_SHAPES = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/in": (576, 1536),
@@ -804,6 +1077,145 @@ def check_qragged_attn(torch, F, ref, kern, gen, page_size):
     return rows, worst
 
 
+def integer_end_to_end(torch, card):
+    """The paper's integer engine at full width: ResNetv1-6 at filters 80 on
+    UCI-HAR-shaped inputs (2947 windows of 128 x 9, the size of its test
+    split, from a seeded generator; seeded random float weights), calibrated
+    on 4 batches of 32, integerized int8 per-layer and int16 Q7.9, then the
+    full-integer forward over all 2947 windows through the port's entry
+    points (``build_resnet``, ``ptq.calibrate``, ``integerize.integerize``,
+    ``integerize.quantize_input``, ``ResNetV1_6.apply``).  Held per forward:
+    6 ``qconv1d`` and 1 ``qmm`` launches and no other kernel; integer logits
+    equal to the same forward under ``ops.FORCE = "plain"``; argmax
+    agreement with the EVAL fake-quant forward > 0.9; int8 ROM f32/int8 >
+    3.5.  Then the two kernels that lie on no model path through their
+    public entry points on the same data: ``ops.fake_quant_fused`` on the
+    input at conv1's input exponent (equal to the EVAL forward's
+    ``quantizers.fake_quant``) and ``ops.qmm_requant`` of the classifier's
+    weights.  Returns the launches of these counted runs."""
+    from repro_torch.configs.microai_resnet import build_resnet
+    from repro_torch.core import integerize, ptq, qformat
+    from repro_torch.core.policy import QMode, QuantPolicy
+    from repro_torch.core.quantizers import fake_quant
+    from repro_torch.kernels import ops, ref
+    from repro_torch.nn.module import Context
+
+    t0 = time.perf_counter()
+    model = build_resnet("uci-har", filters=RESNET_FILTERS, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = model.init(gen)
+    x = torch.randn(PATH_BATCH, 128, 9, generator=gen, device="cuda")
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    per_forward = dict(zero, qconv1d=6, qmm=1)
+    launches = dict(zero)
+    torch.cuda.synchronize()
+    print(f"[int] ResNetv1-6 (UCI-HAR shape 128 x 9, 6 classes), filters {RESNET_FILTERS}, "
+          f"B={PATH_BATCH}; init {time.perf_counter() - t0:.2f}s", flush=True)
+    with torch.no_grad():
+        float_logits = model.apply(params, x, Context())
+    check(tuple(float_logits.shape) == (PATH_BATCH, 6) and bool(torch.isfinite(float_logits)
+                                                               .all()), "float logits")
+    rom_f32 = integerize.model_rom_bytes(params)
+    policies = (("int8 per-layer", QuantPolicy(mode=QMode.EVAL, weight_bits=8, act_bits=8)),
+                ("int16 Q7.9", QuantPolicy.int16_ptq()))
+    site = "resnet6/conv1/in"
+    for label, pol in policies:
+        t0 = time.perf_counter()
+        qstate = ptq.calibrate(model.apply, params, [x[i * 32:(i + 1) * 32] for i in range(4)],
+                               pol)
+        iparams = integerize.integerize(params, pol, qstate)
+        xq = integerize.quantize_input(x, qstate, site, pol.act_bits)
+        ictx = Context(policy=pol.with_mode(QMode.INTEGER), qstate=qstate)
+        torch.cuda.synchronize()
+        prep = time.perf_counter() - t0
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            out = model.apply(iparams, xq, ictx)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            check(counts == per_forward, f"{label} integer forward launch counts {counts} != "
+                                         f"expected {per_forward}")
+            for k, v in counts.items():
+                launches[k] += v
+            ops.FORCE = "plain"
+            try:
+                plain = model.apply(iparams, xq, ictx)
+            finally:
+                ops.FORCE = None
+            eval_logits = model.apply(params, x, Context(policy=pol, qstate=qstate))
+        check(tuple(out.shape) == (PATH_BATCH, 6) and bool(torch.isfinite(out).all()),
+              f"{label} integer logits: shape {tuple(out.shape)} or not finite")
+        check(torch.equal(out, plain), f"{label} integer logits differ from the plain "
+                                       f"versions' at {int((out != plain).sum())} entries")
+        agree = (out.argmax(-1) == eval_logits.argmax(-1)).float().mean().item()
+        check(agree > 0.9, f"{label}: integer vs EVAL argmax agreement {agree:.4f} <= 0.9")
+        rom = integerize.model_rom_bytes(iparams)
+        if pol.act_bits == 8:
+            check(rom_f32 / rom > 3.5, f"int8 ROM {rom} B vs f32 {rom_f32} B: ratio <= 3.5")
+        print(f"[int] {label}: calibrate + integerize + quantize input {prep:.2f}s | integer "
+              f"forward launches {counts} == expected (6 qconv1d + 1 qmm) | integer logits "
+              f"equal to plain ({PATH_BATCH} x 6) | argmax agreement with EVAL {agree:.4f} | "
+              f"float agreement {(out.argmax(-1) == float_logits.argmax(-1)).float().mean().item():.4f}"
+              f" | ROM {rom} B (f32 {rom_f32} B, {rom_f32 / rom:.2f}x) | card {card}", flush=True)
+
+        # the kernels on no model path, through their public entry points
+        n_in = qstate[site]
+        ops.reset_launch_counts()
+        fq = ops.fake_quant_fused(x, n_in, width=pol.act_bits)
+        fc = iparams["fc"]
+        h = int_codes(torch, gen, (PATH_BATCH, RESNET_FILTERS), fc["kernel"].q.dtype, lo=0)
+        shift = (qstate["resnet6/add2/out"] + fc["kernel"].n - fc["n_out"]).to(torch.int32)
+        rq = ops.qmm_requant(h, fc["kernel"].q, shift, width=pol.act_bits)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts == dict(zero, fake_quant=1, qmm_requant=1),
+              f"{label} entry points launch counts {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        check(torch.equal(fq, fake_quant(x, n_in, pol.act_bits)),
+              f"{label}: fake_quant_fused differs from quantizers.fake_quant")
+        check(torch.equal(rq, ref.qmm_requant_ref(h, fc["kernel"].q, shift, width=pol.act_bits)),
+              f"{label}: qmm_requant differs from plain")
+        print(f"[int] {label}: ops.fake_quant_fused on the input at n={int(n_in)} equals "
+              f"quantizers.fake_quant; ops.qmm_requant of the classifier (shift {int(shift)}) "
+              f"equals plain; launches {counts}", flush=True)
+
+        # throughput and where the time goes, beside the float forward
+        def forward(st, p=iparams, a=xq, c=ictx):
+            model.apply(p, a, c)
+            return st
+
+        with torch.no_grad():
+            for _ in range(2):
+                model.apply(iparams, xq, ictx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = 10
+            for _ in range(reps):
+                model.apply(iparams, xq, ictx)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+        print(f"[int] {label} integer forward: {PATH_BATCH / wall:.1f} inferences/s, "
+              f"{wall * 1e3:.2f} ms wall per forward of {PATH_BATCH}; card {card}", flush=True)
+        profile_steps(torch, f"{label} integer forward (B={PATH_BATCH})", forward, None, card)
+        del iparams, xq, out, plain, eval_logits, fq, rq
+
+    def float_forward(st):
+        model.apply(params, x, Context())
+        return st
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for _ in range(10):
+            model.apply(params, x, Context())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 10
+    print(f"[int] float forward: {PATH_BATCH / wall:.1f} inferences/s, {wall * 1e3:.2f} ms wall "
+          f"per forward of {PATH_BATCH}; card {card}", flush=True)
+    profile_steps(torch, f"float forward (B={PATH_BATCH})", float_forward, None, card)
+    return launches
+
+
 def check_served(label, results, reqs, vocab) -> None:
     """Every request served ``ok`` with its ``max_new`` tokens, all in the vocab."""
     check(sorted(results) == sorted(r.rid for r in reqs), f"{label} lost requests")
@@ -903,7 +1315,8 @@ def greedy_check(torch, label, got, want, reqs, engine, vocab) -> None:
 
 def paged_engine(env, pool=None):
     """The paged engine of the serving phases (page size ``CUDA_PAGE_SIZE``;
-    ``pool`` pages, dense parity by default)."""
+    ``pool`` pages, dense parity by default) for ``env``'s model: the
+    full-depth one, or ``env.shallow``."""
     from repro_torch.serve import ServeEngine
 
     return ServeEngine(model=env.model, params=env.params, max_len=env.max_len,
@@ -991,6 +1404,7 @@ def end_to_end(torch, card):
     from repro_torch.serve import ServeEngine, run_restart_batching
     from repro_torch.serve.engine import make_decode_step, make_mixed_step
 
+    phase_t0 = time.perf_counter()
     cfg = get_config("smollm-135m")
     model = cfg.build()
     t0 = time.perf_counter()
@@ -1192,10 +1606,27 @@ def end_to_end(torch, card):
     env = SimpleNamespace(model=model, params=params, cfg=cfg, reqs=reqs, dense=outs["chunked"],
                           slots=slots, max_len=plen + max_new, chunk=chunk, n_layers=n_layers,
                           agreement=agreement, engine=engine, prompts=prompts, new=new)
+    # the oversubscribed runs repeat the paged path under pressure: at full
+    # width but SHALLOW_LAYERS deep (their schedules do not depend on depth)
+    shallow = dataclasses.replace(cfg, n_layers=SHALLOW_LAYERS).build()
+    env.shallow = SimpleNamespace(
+        model=shallow, params=shallow.init(torch.Generator(device="cuda").manual_seed(10),
+                                           "cuda"),
+        max_len=env.max_len, slots=slots, n_layers=SHALLOW_LAYERS)
+    env.shallow.engine = ServeEngine(model=shallow, params=env.shallow.params,
+                                     max_len=env.max_len, batch_slots=slots, weight_quant=True,
+                                     quantized_kv=True, device="cuda")
+    print(f"[time] dense serving phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
     paged_launches, env.chunked, env.shared_reqs = paged_end_to_end(torch, card, env)
     env.chunked["dense"] = outs["chunked"]
+    print(f"[time] paged phase {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
     ragged_launches = ragged_end_to_end(torch, card, env)
+    print(f"[time] ragged phase {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
     subint8_launches = subint8_end_to_end(torch, card, env)
+    print(f"[time] sub-int8 phase {time.perf_counter() - t0:.1f}s", flush=True)
     return {k: sum(part.get(k, 0) for part in (launches, paged_launches, ragged_launches,
                                                subint8_launches))
             for k in subint8_launches}
@@ -1219,18 +1650,19 @@ def paged_end_to_end(torch, card, env):
     slots, chunk, n_layers, cfg = env.slots, env.chunk, env.n_layers, env.cfg
     per_forward = 7 * n_layers
 
-    def counted_run(label, engine, reqs, **kw):
+    def counted_run(label, engine, reqs, layers=n_layers, **kw):
         """One scheduler run from zeroed counts; the counts must be the
         chunked path's with the paged kernels in place of the dense ones
-        (warm-up: one mixed step and one decode step)."""
+        (warm-up: one mixed step and one decode step), for a model
+        ``layers`` deep."""
         ops.reset_launch_counts()
         results, stats = engine.scheduler(chunk_size=chunk, **kw).run(reqs, seed=0)
         counts = ops.launch_counts()
         ticks, chunks = stats.decode_steps, stats.prefill_chunks
-        want = {"wq_matmul": per_forward * (ticks + chunks + 3), "qdecode_attn": 0,
-                "qchunk_attn": 0, "qpaged_decode_attn": n_layers * (ticks + 2),
-                "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0,
-                "wq4_matmul": 0}
+        want = {"wq_matmul": 7 * layers * (ticks + chunks + 3), "qdecode_attn": 0,
+                "qchunk_attn": 0, "qpaged_decode_attn": layers * (ticks + 2),
+                "qpaged_chunk_attn": layers * (chunks + 1), "qragged_attn": 0,
+                "wq4_matmul": 0, **NO_INT}
         check(counts == want, f"{label} launch counts {counts} != expected {want}")
         check_served(label, results, reqs, cfg.vocab)
         report(label, stats)
@@ -1270,19 +1702,21 @@ def paged_end_to_end(torch, card, env):
     check(stats.shared_pages_mapped > 0, "prefix sharing mapped no shared page")
     summaries["shared"] = stats.summary()
 
-    # -- oversubscription: half the pool, both preemption policies, 8 requests ----
-    half = paged_engine(env, parity // 2)
+    # -- oversubscription: half the pool, both preemption policies, 8 requests,
+    #    on the shallow model -------------------------------------------------------
+    half = paged_engine(env.shallow, parity // 2)
     for policy in ("recompute", "swap"):
-        label = f"paged, oversubscribed ({parity // 2} pages), {policy}"
-        got, stats, counts = counted_run(label, half, env.reqs[:8], oversubscribe=True,
-                                         preempt_policy=policy)
+        label = (f"paged, oversubscribed ({parity // 2} pages, {env.shallow.n_layers} layers), "
+                 f"{policy}")
+        got, stats, counts = counted_run(label, half, env.reqs[:8], env.shallow.n_layers,
+                                         oversubscribe=True, preempt_policy=policy)
         add(counts)
         check(stats.grown_pages > 0 and stats.preemptions > 0,
               f"{label}: grown {stats.grown_pages}, preemptions {stats.preemptions}")
-        print(f"[e2e] {label}: greedy tokens agree with the unpressured paged run on "
-              f"{env.agreement(got, res):.4f}", flush=True)
         summaries[policy] = stats.summary()
         results[policy] = got
+    print(f"[e2e] paged, oversubscribed: swap's greedy tokens agree with recompute's on "
+          f"{env.agreement(results['swap'], results['recompute']):.4f}", flush=True)
     del half
     for label, m in summaries.items():
         print(f"[e2e] paged {label}: steady {m['steady_tok_s']:.1f} tok/s | latency p50/p99 "
@@ -1387,24 +1821,26 @@ def ragged_end_to_end(torch, card, env):
     per_forward = 7 * n_layers
     lanes = 2
     others = {"qdecode_attn": 0, "qchunk_attn": 0, "qpaged_decode_attn": 0,
-              "qpaged_chunk_attn": 0, "wq4_matmul": 0}
+              "qpaged_chunk_attn": 0, "wq4_matmul": 0, **NO_INT}
     launches, summaries = {}, {}
 
     def add(counts):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-    def counted_run(label, engine, reqs, n_lanes=lanes, time_ticks=False, **kw):
+    def counted_run(label, engine, reqs, n_lanes=lanes, time_ticks=False, layers=n_layers,
+                    **kw):
         """One ragged run from zeroed counts: every tick, the warm-up's
-        included, is one forward of 7 x 30 wq_matmul and 30 qragged_attn.
-        ``time_ticks`` (the burst) syncs every tick for wall-clock TTFT; the
-        other runs do not, as the chunked runs they are compared with."""
+        included, is one forward of 7 x ``layers`` wq_matmul and ``layers``
+        qragged_attn.  ``time_ticks`` (the burst) syncs every tick for
+        wall-clock TTFT; the other runs do not, as the chunked runs they are
+        compared with."""
         ops.reset_launch_counts()
         results, stats = engine.scheduler(chunk_size=chunk, ragged=True, prefill_lanes=n_lanes,
                                           **kw).run(reqs, seed=0, time_ticks=time_ticks)
         counts = ops.launch_counts()
         ticks = stats.decode_steps
-        want = {"wq_matmul": per_forward * (ticks + 1), "qragged_attn": n_layers * (ticks + 1),
+        want = {"wq_matmul": 7 * layers * (ticks + 1), "qragged_attn": layers * (ticks + 1),
                 **others}
         check(counts == want, f"{label} launch counts {counts} != expected {want}")
         check_served(label, results, reqs, cfg.vocab)
@@ -1427,14 +1863,16 @@ def ragged_end_to_end(torch, card, env):
     check(stats.shared_pages_mapped > 0, "ragged prefix sharing mapped no shared page")
     greedy_check(torch, "ragged, paged, shared prefix", res, env.chunked["shared"],
                  env.shared_reqs, dense, cfg.vocab)
-    half = paged_engine(env, parity // 2)
+    half = paged_engine(env.shallow, parity // 2)
     for policy in ("recompute", "swap"):
-        label = f"ragged, paged, oversubscribed ({parity // 2} pages), {policy}"
-        res, stats = counted_run(label, half, env.reqs[:8], oversubscribe=True,
-                                 preempt_policy=policy)
+        label = (f"ragged, paged, oversubscribed ({parity // 2} pages, {env.shallow.n_layers} "
+                 f"layers), {policy}")
+        res, stats = counted_run(label, half, env.reqs[:8], layers=env.shallow.n_layers,
+                                 oversubscribe=True, preempt_policy=policy)
         check(stats.grown_pages > 0 and stats.preemptions > 0,
               f"{label}: grown {stats.grown_pages}, preemptions {stats.preemptions}")
-        greedy_check(torch, label, res, env.chunked[policy], env.reqs[:8], dense, cfg.vocab)
+        greedy_check(torch, label, res, env.chunked[policy], env.reqs[:8], env.shallow.engine,
+                     cfg.vocab)
     del half
 
     # -- the burst: bench_burst's full setting, ragged and paged mixed -----------
@@ -1455,7 +1893,7 @@ def ragged_end_to_end(torch, card, env):
     want = {"wq_matmul": per_forward * (ticks + chunks + 3), "qdecode_attn": 0,
             "qchunk_attn": 0, "qpaged_decode_attn": n_layers * (ticks + 2),
             "qpaged_chunk_attn": n_layers * (chunks + 1), "qragged_attn": 0,
-            "wq4_matmul": 0}
+            "wq4_matmul": 0, **NO_INT}
     check(counts == want, f"burst, paged mixed launch counts {counts} != expected {want}")
     check_served("burst, paged mixed", m_res, burst_reqs, cfg.vocab)
     report("burst, paged mixed", m_st)
@@ -1593,8 +2031,9 @@ def subint8_end_to_end(torch, card, env):
     int4-block ragged runs in turns and a forward at M = 72 of each
     profiled; and
     ``benchmarks/serve_bench.py::bench_weight_formats`` at its full setting
-    (fp32 / int8 / int4-block) with the reference's rule that int4 kernel
-    bytes are at most half of int8's."""
+    (fp32 / int8 / int4-block) on the ``SHALLOW_LAYERS``-deep model, with
+    the reference's rule that int4 kernel bytes are at most half of
+    int8's."""
     from types import SimpleNamespace as NS
 
     from repro_torch.bench.serve_bench import bench_weight_formats
@@ -1712,11 +2151,12 @@ def subint8_end_to_end(torch, card, env):
               f"time ({wq4 / 1e3 / prof['busy_ms']:.3f} of the device busy time)", flush=True)
     kv_code_flips(torch, "int4-block", int4, env.prompts)
 
-    # -- int8 against int4-block in turns: ragged runs and one forward at M=72 ----
+    # -- int8 against int4-block in turns: ragged runs of 8 requests and one
+    #    forward at M=72 ------------------------------------------------------------
     for fmt, eng in (("int8", env.engine), ("int4-block", int4), ("int4-block", int4),
                      ("int8", env.engine)):
         _, stats = eng.scheduler(chunk_size=chunk, ragged=True, prefill_lanes=2).run(
-            env.reqs, seed=0)
+            env.reqs[:8], seed=0)
         print(f"[e2e] in turns, {fmt} ragged: steady {stats.steady_tok_s:.1f} tok/s over "
               f"{stats.decode_steps} ticks; card {card}", flush=True)
     tok72 = torch.randint(0, cfg.vocab, (1, slots + 2 * chunk), device="cuda", dtype=torch.int32,
@@ -1744,12 +2184,12 @@ def subint8_end_to_end(torch, card, env):
               float_kv=engine("int4", quantized_kv=False))
     generated("int2-block", engine("int2-block"), 0)
 
-    # -- bench_weight_formats at its full setting --------------------------------
+    # -- bench_weight_formats at its full workload, full width, SHALLOW_LAYERS deep --
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        frontier = bench_weight_formats(env.model, env.params, cfg.vocab, smoke=False,
-                                        device="cuda")
+        frontier = bench_weight_formats(env.shallow.model, env.shallow.params, cfg.vocab,
+                                        smoke=False, device="cuda")
     except RuntimeError as e:
         fail(f"bench_weight_formats: {e}")
     counts = ops.launch_counts()
@@ -1760,7 +2200,8 @@ def subint8_end_to_end(torch, card, env):
     ratio = frontier["int4"]["kernel_bytes"] / frontier["int8"]["kernel_bytes"]
     check(ratio <= 0.5, f"int4 kernel payload {ratio:.3f}x int8 > 0.5x: packing is broken")
     wl = frontier["workload"]
-    print(f"[e2e] bench_weight_formats ({wl['n_requests']} requests, prompt "
+    print(f"[e2e] bench_weight_formats ({SHALLOW_LAYERS} layers, {wl['n_requests']} requests, "
+          f"prompt "
           f"{wl['prompt_len']}, {wl['short_new']}/{wl['long_new']} new, {wl['slots']} slots, "
           f"chunk {wl['chunk']}, block {wl['weight_block']}) in "
           f"{time.perf_counter() - t0:.1f}s: " + " | ".join(
@@ -1789,7 +2230,10 @@ def main() -> int:
         import torch.nn.functional as F
 
         from repro_torch.kernels import _build, ref
+        from repro_torch.kernels.fake_quant import fake_quant_cuda
         from repro_torch.kernels.qchunk_attn import qchunk_attn_cuda
+        from repro_torch.kernels.qconv1d import qconv1d_cuda
+        from repro_torch.kernels.qmm import qmm_cuda, qmm_requant_cuda
         from repro_torch.kernels.qdecode_attn import qdecode_attn_cuda
         from repro_torch.kernels.qpaged_attn import (qpaged_chunk_attn_cuda,
                                                      qpaged_decode_attn_cuda)
@@ -1832,10 +2276,22 @@ def main() -> int:
         qragged=qragged_attn_cuda, qdecode=qdecode_attn_cuda, qchunk=qchunk_attn_cuda,
         qpaged_decode=qpaged_decode_attn_cuda, qpaged_chunk=qpaged_chunk_attn_cuda),
         gen, CUDA_PAGE_SIZE)
+    t_int = time.perf_counter()
+    qmm_rows = check_qmm(torch, ref, qmm_cuda, gen)
+    qmr_rows = check_qmm_requant(torch, ref, qmm_requant_cuda, gen)
+    qconv_rows, _ = check_qconv1d(torch, F, ref, qconv1d_cuda, gen)
+    fq_row = check_fake_quant(torch, ref, fake_quant_cuda, gen)
     t2 = time.perf_counter()
+    print(f"[time] kernel checks: serving kernels {t_int - t1:.1f}s, integer-engine kernels "
+          f"{t2 - t_int:.1f}s", flush=True)
     launches = end_to_end(torch, card)
+    t3 = time.perf_counter()
+    int_launches = integer_end_to_end(torch, card)
+    t4 = time.perf_counter()
+    print(f"[time] integer engine phase {t4 - t3:.1f}s", flush=True)
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
-          f"{time.perf_counter() - t2:.1f}s", flush=True)
+          f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | all {t4 - t0:.1f}s", flush=True)
+    launches = {k: launches.get(k, 0) + int_launches.get(k, 0) for k in int_launches}
 
     qd_main = qd_rows[-1]
     qc_main = qc_rows[1]
@@ -1911,6 +2367,25 @@ def main() -> int:
         "library_ms": wq4_main["library_ms"],
         "shape": "one decode layer, int4 with block-32 scales: 7 calls at M=8 (576x576 x2, "
                  "576x192 x2, 576x1536 x2, 1536x576)"})
+    qmm_main = next(r for r in qmm_rows if r["label"] == "classifier" and r["dtype"] == "int8")
+    qmr_main = next(r for r in qmr_rows if r["label"] == "classifier" and r["dtype"] == "int8")
+    qconv_main = next(r for r in qconv_rows if r["label"] == "conv2/3" and r["dtype"] == "int8")
+    for name, source, replaces, row, shape in (
+            ("qmm", "qmm.cu", "qmm.py:77", qmm_main,
+             f"the classifier: ({PATH_BATCH}, {RESNET_FILTERS}) @ ({RESNET_FILTERS}, 6) int8"),
+            ("qmm_requant", "qmm.cu", "qmm.py:118", qmr_main,
+             f"({PATH_BATCH}, {RESNET_FILTERS}) @ ({RESNET_FILTERS}, 6) int8, shift 11, width 8"),
+            ("qconv1d", "qconv1d.cu", "qconv1d.py:36", qconv_main,
+             f"conv2/3: B={PATH_BATCH} W=128 C={RESNET_FILTERS} F={RESNET_FILTERS} K=3 int8 "
+             f"SAME"),
+            ("fake_quant", "fake_quant.cu", "fake_quant.py:30", fq_row,
+             f"{fq_row['shape']} f32, n=4, width 8")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": launches[name],
+            "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": shape})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,6 +33,8 @@ N_MAX = 30
 
 _INT_DTYPES = {2: torch.int8, 4: torch.int8, 8: torch.int8, 9: torch.int16, 16: torch.int16,
                32: torch.int32}
+_ACC_DTYPES = {2: torch.int32, 4: torch.int32, 8: torch.int32, 9: torch.int32, 16: torch.int32,
+               32: torch.int64}
 
 Exponent = Union[int, torch.Tensor]
 
@@ -78,6 +80,11 @@ _exp2_tables: Dict[torch.device, torch.Tensor] = {}
 def storage_dtype(width: int) -> torch.dtype:
     """Smallest integer dtype that holds a ``width``-bit value (int9 -> int16)."""
     return _INT_DTYPES[width]
+
+
+def accumulator_dtype(width: int) -> torch.dtype:
+    """2x-operand-width accumulator dtype (paper Sec. 5.8)."""
+    return _ACC_DTYPES[width]
 
 
 def qmin(width: int) -> int:
@@ -166,7 +173,8 @@ def exp2(n: Exponent) -> Union[float, torch.Tensor]:
     if table is None:
         table = torch.tensor(EXP2_TABLE, dtype=torch.float32, device=n.device)
         _exp2_tables[n.device] = table
-    return table[n.to(torch.int64) - EXP2_MIN]
+    # torch.take, not table[idx]: a 0-d index tensor would be read back as an int
+    return torch.take(table, n.to(torch.int64) - EXP2_MIN)
 
 
 def quantize(x: torch.Tensor, n: Exponent, width: int) -> torch.Tensor:
@@ -183,6 +191,82 @@ def quantize(x: torch.Tensor, n: Exponent, width: int) -> torch.Tensor:
 def dequantize(xq: torch.Tensor, n: Exponent) -> torch.Tensor:
     """x = x_q * 2^-n, as float32."""
     return xq.to(torch.float32) * exp2(-n)
+
+
+def on_device(v: Exponent, device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """An exponent or shift as a ``dtype`` tensor on ``device``: a tensor is
+    moved there, a Python int is filled in place (a fill kernel, not a copy
+    from the host, so no sync and nothing a CUDA graph cannot capture)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.full((), int(v), dtype=dtype, device=device)
+
+
+def scale_from_n(n: Exponent) -> Union[float, torch.Tensor]:
+    """Eq. 4: s = 2^-n as float32 (the fake-quant and float paths only)."""
+    return exp2(-n)
+
+
+def quantize_dequantize(x: torch.Tensor, n: Exponent, width: int) -> torch.Tensor:
+    """Fake-quantization: clip(trunc(x * 2^n)) * 2^-n, kept in float32 (the
+    QAT/EVAL forward, paper Sec. 4.3)."""
+    xf = x.to(torch.float32) * exp2(n)
+    return torch.clamp(torch.trunc(xf), qmin(width), qmax(width)) * exp2(-n)
+
+
+def shift_right(v: torch.Tensor, s) -> torch.Tensor:
+    """XLA's arithmetic right shift of an integer tensor by ``s`` >= 0: a
+    shift of the bit width or more gives the sign fill."""
+    bits = torch.iinfo(v.dtype).bits
+    return v >> torch.clamp(on_device(s, v.device, v.dtype), 0, bits - 1)
+
+
+def shift_left(v: torch.Tensor, s) -> torch.Tensor:
+    """XLA's left shift of an int32 (or narrower) tensor by ``s`` >= 0: the
+    result wraps modulo 2^bits, and a shift of the bit width or more gives 0.
+    Worked in int64, so no shift overflows a signed type."""
+    bits = torch.iinfo(v.dtype).bits
+    if bits > 32:
+        raise TypeError(f"shift_left takes at most 32-bit integers, got {v.dtype}")
+    s = on_device(s, v.device, torch.int64)
+    wide = v.to(torch.int64) << torch.clamp(s, 0, bits - 1).to(torch.int64)
+    half = 1 << (bits - 1)
+    wrapped = ((wide + half) & ((1 << bits) - 1)) - half
+    return torch.where(s >= bits, 0, wrapped).to(v.dtype)
+
+
+def requantize(acc: torch.Tensor, n_in: Exponent, n_out: Exponent,
+               width: int) -> torch.Tensor:
+    """Shift an accumulator from format ``n_in`` to ``n_out`` and saturate to
+    ``width`` bits (paper Sec. 5.8).
+
+    ``n_in - n_out`` >= 0 is an arithmetic right shift; < 0 a left shift
+    that saturates as if taken at infinite precision: worked in int64,
+    shifts clipped to 62, and a value whose shift would pass the limit is
+    caught first by comparing it with ``qmax >> lshift``.
+    """
+    shift = on_device(n_in, acc.device, torch.int64) - on_device(n_out, acc.device, torch.int64)
+    acc64 = acc.to(torch.int64)
+    rsh = torch.clamp(shift, 0, 62)
+    lsh = torch.clamp(-shift, 0, 62)
+    right = acc64 >> rsh
+    lim = torch.bitwise_right_shift(qmax(width), lsh)
+    sat = torch.where(acc64 >= 0, qmax(width), qmin(width))
+    left = torch.where(torch.abs(acc64) > lim, sat, acc64 << lsh)
+    out = torch.where(shift >= 0, right, left)
+    return torch.clamp(out, qmin(width), qmax(width)).to(storage_dtype(width))
+
+
+def align(xq: torch.Tensor, n_x: Exponent, n_common: Exponent,
+          acc_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Align an operand to a common Qm.n before an add (paper Sec. 5.8):
+    ``xq`` in ``acc_dtype``, shifted left by ``n_common - n_x`` (or right
+    when negative), with XLA's shift semantics."""
+    acc = xq.to(acc_dtype)
+    shift = on_device(n_common, acc.device) - on_device(n_x, acc.device)
+    left = shift_left(acc, torch.clamp(shift, min=0))
+    right = shift_right(acc, torch.clamp(-shift, min=0))
+    return torch.where(shift >= 0, left, right)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +299,11 @@ class QTensor:
     def dequantize(self) -> torch.Tensor:
         return self.q.to(torch.float32) * self._broadcast(self.scale)
 
+    @property
+    def nbytes_model(self) -> int:
+        """Model-ROM bytes at the logical width (paper Table A3)."""
+        return self.q.numel() * self.width // 8
+
     def layer(self, i: int) -> "QTensor":
         """Slice ``i`` of a stacked leaf (views, no copy)."""
         stacked = self.n.ndim == self.q.ndim
@@ -229,13 +318,24 @@ class QTensor:
 
 def quantize_tensor(x: torch.Tensor, width: int, *,
                     channel_axis: Union[None, int, Tuple[int, ...]] = None,
-                    ) -> QTensor:
+                    n_override: Optional[Exponent] = None) -> QTensor:
     """Quantize a float tensor on the paper's pow2 grid (Sec. 4.1.4).
 
     ``channel_axis=None``: per-tensor; ``k``: per-channel along axis k;
     a tuple: one exponent per index of the kept axes (stacked leaves),
-    stored broadcast-shaped with ``channel_axis=None``.
+    stored broadcast-shaped with ``channel_axis=None``.  ``n_override``: an
+    exponent chosen outside (the paper's per-network mode, e.g. Q7.9 gives
+    n = 9 for the whole net).
     """
+    if n_override is not None:
+        n = on_device(n_override, x.device)
+        nb = n
+        if isinstance(channel_axis, int) and n.ndim > 0:
+            shape = [1] * x.ndim
+            shape[channel_axis] = -1
+            nb = n.reshape(shape)
+        return QTensor(quantize(x, nb, width), n, width,
+                       channel_axis if isinstance(channel_axis, int) else None)
     if channel_axis is None:
         n = frac_bits_for(max_abs(x), width)
         return QTensor(quantize(x, n, width), n, width, None)

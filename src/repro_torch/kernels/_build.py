@@ -22,7 +22,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("wq_matmul", "wq4_matmul", "qdecode_attn", "qchunk_attn", "qpaged_attn",
-           "qragged_attn")
+           "qragged_attn", "qmm", "qconv1d", "fake_quant")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -13,9 +13,13 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from repro_torch.core import qformat
 from repro_torch.core.qformat import Exponent, PackedQTensor, QTensor
+from repro_torch.kernels import fake_quant as _fake_quant
 from repro_torch.kernels import qchunk_attn as _qchunk_attn
+from repro_torch.kernels import qconv1d as _qconv1d
 from repro_torch.kernels import qdecode_attn as _qdecode_attn
+from repro_torch.kernels import qmm as _qmm
 from repro_torch.kernels import qpaged_attn as _qpaged_attn
 from repro_torch.kernels import qragged_attn as _qragged_attn
 from repro_torch.kernels import ref
@@ -32,7 +36,11 @@ _COUNTERS = {"wq_matmul": (_wq_matmul, "launches"),
              "qchunk_attn": (_qchunk_attn, "launches"),
              "qpaged_decode_attn": (_qpaged_attn, "decode_launches"),
              "qpaged_chunk_attn": (_qpaged_attn, "chunk_launches"),
-             "qragged_attn": (_qragged_attn, "launches")}
+             "qragged_attn": (_qragged_attn, "launches"),
+             "qmm": (_qmm, "launches"),
+             "qmm_requant": (_qmm, "requant_launches"),
+             "qconv1d": (_qconv1d, "launches"),
+             "fake_quant": (_fake_quant, "launches")}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -49,6 +57,57 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def _2d(x: torch.Tensor):
+    """Leading dims collapsed to rows for the GEMM wrappers."""
+    return x.reshape(-1, x.shape[-1]).contiguous(), x.shape[:-1]
+
+
+def qmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Integer matmul with an int32 accumulator that wraps: x (..., K),
+    w (K, N), both int8 or both int16 on the card.  Returns (..., N) int32."""
+    x2, lead = _2d(x)
+    if _use_kernel(x2):
+        out = _qmm.qmm_cuda(x2, w.contiguous())
+    else:
+        out = ref.qmm_ref(x2, w)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def qmm_requant(x: torch.Tensor, w: torch.Tensor, shift: Union[int, torch.Tensor], *,
+                width: int = 8) -> torch.Tensor:
+    """Integer matmul + shift-only requantization to ``width``-bit storage:
+    ``shift`` >= 0 right-shifts the int32 accumulator (the paper's pow2
+    rescale), < 0 left-shifts it (wrapping).  Returns (..., N) saturated to
+    the Qm.n storage dtype.  On the card an int ``shift`` is filled in as
+    one int32 there; a tensor is used where it lies."""
+    x2, lead = _2d(x)
+    if _use_kernel(x2):
+        out = _qmm.qmm_requant_cuda(x2, w.contiguous(), qformat.on_device(shift, x2.device),
+                                    width=width)
+    else:
+        out = ref.qmm_requant_ref(x2, w, shift, width=width)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def fake_quant_fused(x: torch.Tensor, n: Exponent, *, width: int = 8) -> torch.Tensor:
+    """Quantize-dequantize ``x`` on the pow2 grid 2^-n in one pass (float32,
+    any shape; ``n`` an int or one integer on ``x``'s device)."""
+    if _use_kernel(x):
+        return _fake_quant.fake_quant_cuda(x, n, width=width)
+    return ref.fake_quant_ref(x, n, width=width)
+
+
+def qconv1d(x: torch.Tensor, w: torch.Tensor, *, strides: int = 1,
+            padding: str = "SAME") -> torch.Tensor:
+    """Integer 1-D convolution with an int32 accumulator that wraps: x
+    (B, W, C_in), w (K, C_in, C_out), both int8 or both int16 on the card.
+    Returns (B, W', C_out) int32."""
+    if _use_kernel(x):
+        return _qconv1d.qconv1d_cuda(x.contiguous(), w.contiguous(), stride=strides,
+                                     padding=padding)
+    return ref.qconv1d_ref(x, w, stride=strides, padding=padding)
 
 
 def wq_matmul(x: torch.Tensor, w: QTensor, *, transpose: bool = False) -> torch.Tensor:

@@ -6,14 +6,106 @@ computes.  The wrappers run them for CPU tensors, and the tests and
 """
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core import qformat
 
 NEG_INF = -1e30
+_EXACT_INT = (torch.int8, torch.int16)
+
+
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """Integers (int64, or float64 holding integers) modulo 2^32 as int32:
+    what XLA's wrapping int32 arithmetic gives."""
+    v = v.to(torch.int64)
+    return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def _exact_operands(what: str, *ts: torch.Tensor) -> None:
+    """The plain integer products run in float64: every product of int16
+    codes is below 2^30 and every partial sum of fewer than 2^23 of them
+    below 2^53, so the sums are exact in any order."""
+    for t in ts:
+        if t.dtype not in _EXACT_INT:
+            raise TypeError(f"{what}: integer operands must be int8 or int16, got {t.dtype}")
+
+
+def qmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int (M, K) @ (K, N) into int32; the sum wraps modulo 2^32."""
+    _exact_operands("qmm", x, w)
+    if x.shape[-1] >= 1 << 23:
+        raise ValueError(f"qmm: K={x.shape[-1]} past the exact float64 range")
+    return wrap_int32(torch.matmul(x.to(torch.float64), w.to(torch.float64)))
+
+
+def qmm_requant_ref(x: torch.Tensor, w: torch.Tensor, shift, *, width: int = 8) -> torch.Tensor:
+    """Integer matmul, then ``acc >> shift`` (shift >= 0) or the wrapping
+    ``acc << -shift``, with XLA's semantics for shifts of 32 or more (sign
+    fill, 0), saturated to ``width`` bits in its storage dtype: the
+    unguarded shift of ``repro``'s ``qmm_requant_ref``, not
+    ``qformat.requantize``."""
+    acc = qmm_ref(x, w)
+    s = qformat.on_device(shift, acc.device)
+    shifted = torch.where(s >= 0, qformat.shift_right(acc, torch.clamp(s, min=0)),
+                          qformat.shift_left(acc, torch.clamp(-s.to(torch.int64), min=0)))
+    return torch.clamp(shifted, qformat.qmin(width), qformat.qmax(width)).to(
+        qformat.storage_dtype(width))
+
+
+def conv_pads(size: int, k: int, stride: int, padding: str) -> Tuple[int, int, int]:
+    """(low pad, high pad, output size) of one spatial axis, as XLA pads:
+    SAME puts ``pad_total // 2`` low and the rest high."""
+    if padding == "SAME":
+        out = -(-size // stride)
+        total = max(0, (out - 1) * stride + k - size)
+        return total // 2, total - total // 2, out
+    if padding == "VALID":
+        return 0, 0, (size - k) // stride + 1
+    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+
+
+def int_conv_ref(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
+                 padding: str = "SAME", groups: int = 1) -> torch.Tensor:
+    """Integer convolution, channels last: x (B, *S, C) int8/int16, w
+    (*K, C/groups, F) -> (B, *S', F) int32 that wraps modulo 2^32, as one
+    exact float64 GEMM per kernel offset."""
+    _exact_operands("integer conv", x, w)
+    nd = x.ndim - 2
+    ks = w.shape[:nd]
+    pads = [conv_pads(x.shape[1 + i], ks[i], strides[i], padding) for i in range(nd)]
+    spec = []
+    for lo, hi, _ in reversed(pads):
+        spec += [lo, hi]
+    xp = torch.nn.functional.pad(x.to(torch.float64), [0, 0] + spec)
+    wf = w.to(torch.float64)
+    cg, f = w.shape[-2], w.shape[-1]
+    fg = f // groups
+    acc = None
+    for off in itertools.product(*(range(k) for k in ks)):
+        idx = (slice(None),) + tuple(
+            slice(o, o + (out - 1) * st + 1, st) for o, st, (_, _, out) in zip(off, strides, pads))
+        xs = xp[idx]
+        parts = [torch.matmul(xs[..., g * cg:(g + 1) * cg], wf[off][:, g * fg:(g + 1) * fg])
+                 for g in range(groups)]
+        term = parts[0] if groups == 1 else torch.cat(parts, dim=-1)
+        acc = term if acc is None else acc + term
+    return wrap_int32(acc)
+
+
+def qconv1d_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                padding: str = "SAME") -> torch.Tensor:
+    """x (B, W, C) int, w (K, C, F) int -> (B, W', F) int32 (wrapping)."""
+    return int_conv_ref(x, w, (stride,), padding)
+
+
+def fake_quant_ref(x: torch.Tensor, n: qformat.Exponent, *, width: int = 8) -> torch.Tensor:
+    """Quantize-dequantize on the pow2 grid 2^-n: clip(trunc(x * 2^n)) * 2^-n
+    in float32, with the factors of ``qformat.exp2``."""
+    return qformat.quantize_dequantize(x, n, width).to(x.dtype)
 
 
 def wq_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale) -> torch.Tensor:

@@ -1,28 +1,32 @@
-"""Dense, Embedding and RMSNorm (``repro/nn/layers.py``), float32 throughout.
+"""Core layers with the reference's execution paths (``repro/nn/layers.py``).
 
-``Dense`` has the float path, the weight-only int8 path (an int8
-:class:`QTensor` kernel goes through ``kernels.ops.wq_matmul``) and the
-packed sub-int8 path (a :class:`PackedQTensor` kernel goes through
-``kernels.ops.wq4_matmul``).  The
-fake-quant and full-integer paths of the reference wait for the training
-and integer-engine slices of the port.
+1. **float / fake-quant**: QAT, calibration and PTQ evaluation: inputs,
+   weights and biases constrained to the Qm.n grid in float, outputs
+   re-quantized after the computation (paper Fig. 2); CALIB records ranges.
+2. **full integer**: the deployed engine (Sec. 5.8): int8/int16 operands,
+   int32 accumulators (``kernels.ops.qmm`` for ``Dense``, ``ops.qconv1d``
+   for 1-D convolutions), exact shift requantization and saturation;
+   activations flow between layers as :class:`QTensor`.
+3. **weight-only**: serving with int8 (``ops.wq_matmul``) or packed
+   int4/int2 (``ops.wq4_matmul``) weights and float activations.
+
+Layouts are the reference's: convolutions are channels last (NWC / NHWC)
+with (*K, C_in, C_out) kernels, padded as XLA pads SAME.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import qformat
 from repro_torch.core.policy import QMode
 from repro_torch.core.qformat import PackedQTensor, QTensor
+from repro_torch.core.quantizers import quantize_activation, quantize_weight
 from repro_torch.nn.module import Context, Params
-
-
-def _later_slice(what: str):
-    return NotImplementedError(f"{what} arrives with a later slice of the port "
-                               "(ROADMAP.md queue 1)")
 
 
 # --------------------------------------------------------------------------
@@ -42,10 +46,77 @@ def normal_init(gen: torch.Generator, shape, device, std: float = 0.02) -> torch
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
 
 
+# --------------------------------------------------------------------------
+# Quant plumbing shared by the compute layers
+# --------------------------------------------------------------------------
+
+def _fq_in(x: torch.Tensor, ctx: Context, site: str) -> torch.Tensor:
+    """Fake-quantize a layer input (or output) per the active policy."""
+    pol = ctx.policy
+    if not pol.enabled or pol.mode is QMode.INTEGER:
+        return x
+    if ctx.collecting:
+        ctx.record(site, x)
+    if pol.mode is QMode.CALIB:
+        return x
+    return quantize_activation(x, pol, frozen_n=ctx.frozen(site))
+
+
+_fq_out = _fq_in
+
+
+def _fq_weight(w: torch.Tensor, ctx: Context, *, channel_axis: Optional[int]) -> torch.Tensor:
+    pol = ctx.policy
+    if w is None or not pol.enabled or pol.mode in (QMode.INTEGER, QMode.CALIB):
+        return w
+    return quantize_weight(w, pol, channel_axis=channel_axis)
+
+
+def _nout_for(params: Params, ctx: Context, site: str):
+    """The frozen output exponent of an integer layer (from calibration)."""
+    if "n_out" in params:
+        return params["n_out"]
+    n = ctx.frozen(site)
+    if n is None:
+        raise ValueError(f"integer mode needs a calibrated output exponent for site "
+                         f"{ctx.key(site)!r}")
+    return n
+
+
+def _broadcast_channel_n(n, ndim: int, axis: int):
+    if not isinstance(n, torch.Tensor) or n.ndim == 0:
+        return n
+    shape = [1] * ndim
+    shape[axis] = -1
+    return n.reshape(shape)
+
+
+def _integer_epilogue(acc: torch.Tensor, x: QTensor, kernel: QTensor, bias, params: Params,
+                      ctx: Context) -> QTensor:
+    """Accumulator format n_x + n_w, bias aligned into it, shift to the
+    layer's output exponent and saturate (paper Sec. 5.8)."""
+    width = ctx.policy.act_bits
+    n_acc = x.n + _broadcast_channel_n(kernel.n, acc.ndim, -1)
+    if isinstance(bias, QTensor):
+        acc = acc + qformat.align(bias.q, bias.n, n_acc, torch.int32)
+    n_out = _nout_for(params, ctx, "out")
+    return QTensor(qformat.requantize(acc, n_acc, n_out, width), n_out, width)
+
+
+def _add_bias(y: torch.Tensor, bias) -> torch.Tensor:
+    if bias is None:
+        return y
+    return y + (bias.dequantize() if isinstance(bias, QTensor) else bias)
+
+
+# --------------------------------------------------------------------------
+# Dense
+# --------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class Dense:
-    """Affine projection: float, weight-only int8 when the kernel is a QTensor,
-    packed int4/int2 when it is a PackedQTensor."""
+    """Affine projection dispatching float / fake-quant / integer GEMMs by
+    the context's policy and the kernel's type."""
 
     in_features: int
     out_features: int
@@ -59,38 +130,124 @@ class Dense:
             p["bias"] = torch.zeros(self.out_features, dtype=torch.float32, device=device)
         return p
 
-    def apply(self, params: Params, x: torch.Tensor, ctx: Context) -> torch.Tensor:
+    def apply(self, params: Params, x, ctx: Context):
         ctx = ctx.scope(self.name)
         kernel = params["kernel"]
         bias = params.get("bias")
         if isinstance(kernel, PackedQTensor):
-            return self._packed_apply(kernel, bias, x)
+            from repro_torch.kernels import ops
+
+            return _add_bias(ops.wq4_matmul(x.to(torch.float32), kernel), bias)
         if isinstance(kernel, QTensor):
-            return self._weight_only_apply(kernel, bias, x)
-        if ctx.policy.mode not in (QMode.OFF, QMode.INTEGER) \
-                and self.kind not in ctx.policy.skip_kinds:
-            raise _later_slice(f"Dense under policy mode {ctx.policy.mode.value!r}")
-        y = torch.matmul(x.to(torch.float32), kernel)
-        return y if bias is None else y + bias
+            if isinstance(x, QTensor):
+                return self._integer_apply(params, x, ctx)
+            from repro_torch.kernels import ops
 
-    def _weight_only_apply(self, kernel: QTensor, bias, x: torch.Tensor) -> torch.Tensor:
+            return _add_bias(ops.wq_matmul(x.to(torch.float32), kernel), bias)
+        if self.kind in ctx.policy.skip_kinds or not ctx.policy.enabled:
+            return _add_bias(torch.matmul(x.to(torch.float32), kernel), bias)
+        xq = _fq_in(x, ctx, "in")
+        w = _fq_weight(kernel, ctx, channel_axis=-1)
+        y = _add_bias(torch.matmul(xq.to(torch.float32), w), _fq_weight(bias, ctx,
+                                                                        channel_axis=None))
+        return _fq_out(y, ctx, "out")
+
+    def _integer_apply(self, params: Params, x: QTensor, ctx: Context) -> QTensor:
+        """The paper's engine: int operands, int32 accumulator, shift, saturate."""
         from repro_torch.kernels import ops
 
-        y = ops.wq_matmul(x.to(torch.float32), kernel)
-        if bias is not None:
-            b = bias.dequantize() if isinstance(bias, QTensor) else bias
-            y = y + b
-        return y
+        kernel: QTensor = params["kernel"]
+        acc = ops.qmm(x.q, kernel.q)
+        return _integer_epilogue(acc, x, kernel, params.get("bias"), params, ctx)
 
-    def _packed_apply(self, kernel: PackedQTensor, bias, x: torch.Tensor) -> torch.Tensor:
-        from repro_torch.kernels import ops
 
-        y = ops.wq4_matmul(x.to(torch.float32), kernel)
-        if bias is not None:
-            b = bias.dequantize() if isinstance(bias, QTensor) else bias
-            y = y + b
-        return y
+# --------------------------------------------------------------------------
+# Convolutions (the paper's primary layer, Sec. 5.6: Conv1D; 2-D for GTSRB)
+# --------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class ConvND:
+    """N-d convolution, channels last (NWC / NHWC), kernel (*K, C_in/g, C_out)."""
+
+    ndim: int
+    in_channels: int
+    out_channels: int
+    kernel_size: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    padding: str = "SAME"
+    use_bias: bool = True
+    name: str = "conv"
+    kind: str = "conv"
+    feature_group_count: int = 1
+
+    def init(self, gen: torch.Generator, device) -> Params:
+        kshape = (*self.kernel_size, self.in_channels // self.feature_group_count,
+                  self.out_channels)
+        p: Params = {"kernel": lecun_normal(gen, kshape, device)}
+        if self.use_bias:
+            p["bias"] = torch.zeros(self.out_channels, dtype=torch.float32, device=device)
+        return p
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Float convolution, channels last, padded as XLA pads SAME."""
+        from repro_torch.kernels.ref import conv_pads
+
+        spec = []
+        for i in reversed(range(self.ndim)):
+            lo, hi, _ = conv_pads(x.shape[1 + i], self.kernel_size[i], self.strides[i],
+                                  self.padding)
+            spec += [lo, hi]
+        xt = F.pad(torch.movedim(x, -1, 1), spec)
+        wt = torch.movedim(torch.movedim(w, -1, 0), -1, 1)      # (C_out, C_in/g, *K)
+        conv = F.conv1d if self.ndim == 1 else F.conv2d
+        y = conv(xt, wt, stride=self.strides, groups=self.feature_group_count)
+        return torch.movedim(y, 1, -1)
+
+    def apply(self, params: Params, x, ctx: Context):
+        ctx = ctx.scope(self.name)
+        kernel = params["kernel"]
+        bias = params.get("bias")
+        if isinstance(kernel, (QTensor, PackedQTensor)):
+            if isinstance(x, QTensor) and isinstance(kernel, QTensor):
+                return self._integer_apply(params, x, ctx)
+            # weight-only serving: no conv kernel, so dequantize and convolve
+            return _add_bias(self._conv(x.to(torch.float32), kernel.dequantize()), bias)
+        if not ctx.policy.enabled or self.kind in ctx.policy.skip_kinds:
+            return _add_bias(self._conv(x.to(torch.float32), kernel), bias)
+        xq = _fq_in(x, ctx, "in")
+        w = _fq_weight(kernel, ctx, channel_axis=-1)
+        y = _add_bias(self._conv(xq.to(torch.float32), w),
+                      _fq_weight(bias, ctx, channel_axis=None))
+        return _fq_out(y, ctx, "out")
+
+    def _integer_apply(self, params: Params, x: QTensor, ctx: Context) -> QTensor:
+        from repro_torch.kernels import ops, ref
+
+        kernel: QTensor = params["kernel"]
+        if self.ndim == 1 and self.feature_group_count == 1:
+            acc = ops.qconv1d(x.q, kernel.q, strides=self.strides[0], padding=self.padding)
+        else:
+            # the reference leaves this to XLA's int32 conv: plain tensor code
+            acc = ref.int_conv_ref(x.q, kernel.q, self.strides, self.padding,
+                                   self.feature_group_count)
+        return _integer_epilogue(acc, x, kernel, params.get("bias"), params, ctx)
+
+
+def Conv1D(in_channels, out_channels, kernel_size, stride=1, padding="SAME", **kw) -> ConvND:
+    """``ConvND`` over one spatial dim (the paper's sensor time series)."""
+    return ConvND(1, in_channels, out_channels, (kernel_size,), (stride,), padding, **kw)
+
+
+def Conv2D(in_channels, out_channels, kernel_size, stride=1, padding="SAME", **kw) -> ConvND:
+    """``ConvND`` over two spatial dims."""
+    ks = (kernel_size, kernel_size) if isinstance(kernel_size, int) else tuple(kernel_size)
+    st = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    return ConvND(2, in_channels, out_channels, ks, st, padding, **kw)
+
+
+# --------------------------------------------------------------------------
+# Embedding and norms
+# --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Embedding:
@@ -110,9 +267,10 @@ class Embedding:
         if isinstance(table, QTensor):
             # gather int8 rows, dequantize only the gathered slice
             return qformat.dequantize(table.q[ids], table.n)
-        if ctx.policy.mode not in (QMode.OFF, QMode.CALIB, QMode.INTEGER) \
-                and self.kind not in ctx.policy.skip_kinds:
-            raise _later_slice(f"Embedding under policy mode {ctx.policy.mode.value!r}")
+        pol = ctx.policy
+        if pol.enabled and pol.mode not in (QMode.CALIB, QMode.INTEGER) \
+                and self.kind not in pol.skip_kinds:
+            table = quantize_weight(table, pol, channel_axis=None)
         return table[ids]
 
     def attend(self, params: Params, x: torch.Tensor, ctx: Context) -> torch.Tensor:
@@ -140,3 +298,116 @@ class RMSNorm:
         x = x.to(torch.float32)
         y = x * torch.rsqrt(torch.mean(torch.square(x), dim=-1, keepdim=True) + self.eps)
         return y * params["scale"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchNormFolded:
+    """Inference-form batch norm as the paper deploys it (Eqs. 5-7): training
+    keeps (mean, var, gamma, beta); :meth:`fold` gives y = w * x + b."""
+
+    features: int
+    eps: float = 1e-5
+    momentum: float = 0.9
+    name: str = "bn"
+
+    def init(self, gen: torch.Generator, device) -> Params:
+        one = torch.ones(self.features, dtype=torch.float32, device=device)
+        return {"gamma": one, "beta": torch.zeros_like(one), "mean": torch.zeros_like(one),
+                "var": one.clone()}
+
+    def fold(self, params: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+        sigma = torch.sqrt(params["var"] + self.eps)                          # Eq. 6
+        w = params["gamma"] / sigma                                            # Eq. 5
+        b = params["beta"] - params["gamma"] * params["mean"] / sigma         # Eq. 7
+        return w, b
+
+    def apply(self, params: Params, x: torch.Tensor, ctx: Context) -> torch.Tensor:
+        if ctx.train:
+            axes = tuple(range(x.ndim - 1))
+            mu = torch.mean(x, dim=axes)
+            var = torch.var(x, dim=axes, unbiased=False)
+            y = (x - mu) * torch.rsqrt(var + self.eps)
+            return y * params["gamma"] + params["beta"]
+        w, b = self.fold(params)
+        y = x * w + b
+        return _fq_out(y, ctx.scope(self.name), "out") if ctx.policy.enabled else y
+
+
+# --------------------------------------------------------------------------
+# Stateless ops with the quant semantics of Sec. 4.3 / 5.8
+# --------------------------------------------------------------------------
+
+def relu(x):
+    """ReLU: an element-wise max, no requantization (paper Sec. 4.3)."""
+    if isinstance(x, QTensor):
+        return QTensor(torch.clamp(x.q, min=0), x.n, x.width, x.channel_axis)
+    return torch.relu(x)
+
+
+def _windows(x: torch.Tensor, window: int, stride: int, ndim: int) -> torch.Tensor:
+    """VALID pooling windows of a channels-last tensor as trailing dims:
+    (B, *S, C) -> (B, *S', C, window, ...)."""
+    for d in range(1, 1 + ndim):
+        x = x.unfold(d, window, stride)
+    return x
+
+
+def _window_dims(ndim: int) -> Tuple[int, ...]:
+    return tuple(range(-ndim, 0))
+
+
+def max_pool(x, window: int, stride: Optional[int] = None, ndim: int = 1):
+    """Max pooling over VALID windows: no requantization (paper Sec. 4.3)."""
+    stride = stride or window
+    if isinstance(x, QTensor):
+        return QTensor(max_pool(x.q, window, stride, ndim), x.n, x.width, x.channel_axis)
+    return torch.amax(_windows(x, window, stride, ndim), dim=_window_dims(ndim))
+
+
+def avg_pool_sum(x: torch.Tensor, window: int, stride: int, ndim: int = 1) -> torch.Tensor:
+    """Sum over VALID pooling windows (the integer accumulator of ``avg_pool``)."""
+    return torch.sum(_windows(x, window, stride, ndim), dim=_window_dims(ndim), dtype=x.dtype)
+
+
+def avg_pool(x, window: int, stride: Optional[int] = None, ndim: int = 1):
+    """Average pooling; integer inputs take an int32 sum and a shift when the
+    window size is a power of two (the paper's no-division rule), else an
+    integer divide."""
+    stride = stride or window
+    size = window ** ndim
+    if isinstance(x, QTensor):
+        acc = avg_pool_sum(x.q.to(torch.int32), window, stride, ndim)
+        q = acc >> int(math.log2(size)) if size & (size - 1) == 0 else acc // size
+        q = torch.clamp(q, qformat.qmin(x.width), qformat.qmax(x.width))
+        return QTensor(q.to(x.q.dtype), x.n, x.width, x.channel_axis)
+    return avg_pool_sum(x, window, stride, ndim) / size
+
+
+def global_avg_pool(x, ndim: int = 1):
+    """Mean over all spatial axes (an integer divide for QTensor inputs)."""
+    axes = tuple(range(1, 1 + ndim))
+    if isinstance(x, QTensor):
+        size = math.prod(x.q.shape[a] for a in axes)
+        acc = torch.sum(x.q.to(torch.int32), dim=axes, dtype=torch.int32)
+        q = torch.clamp(acc // size, qformat.qmin(x.width), qformat.qmax(x.width))
+        return QTensor(q.to(x.q.dtype), x.n, x.width, x.channel_axis)
+    return torch.mean(x, dim=axes)
+
+
+def qadd(a, b, ctx: Context, site: str = "add", n_out=None):
+    """Element-wise add with the paper's Add-layer semantics (Sec. 4.3): the
+    output gets its own exponent.  Integer path: both operands aligned to a
+    common format in int32, added, requantized and saturated."""
+    if isinstance(a, QTensor) and isinstance(b, QTensor):
+        n_common = torch.minimum(torch.as_tensor(a.n), torch.as_tensor(b.n))
+        acc = qformat.align(a.q, a.n, n_common, torch.int32) + \
+            qformat.align(b.q, b.n, n_common, torch.int32)
+        if n_out is None:
+            n_out = ctx.frozen(f"{site}/out")
+            if n_out is None:
+                raise ValueError(f"integer add needs a calibrated exponent at {ctx.key(site)}")
+        return QTensor(qformat.requantize(acc, n_common, n_out, a.width), n_out, a.width)
+    y = a + b
+    if ctx.policy.enabled and ctx.policy.mode is not QMode.INTEGER:
+        y = _fq_out(y, ctx.scope(site), "out")
+    return y

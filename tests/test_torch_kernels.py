@@ -124,7 +124,8 @@ def test_ops_dispatch_cpu_tensors_to_plain_without_counting():
                                                                block_size=8))
     assert ops.launch_counts() == {"wq_matmul": 0, "wq4_matmul": 0, "qdecode_attn": 0,
                                    "qchunk_attn": 0, "qpaged_decode_attn": 0,
-                                   "qpaged_chunk_attn": 0, "qragged_attn": 0}
+                                   "qpaged_chunk_attn": 0, "qragged_attn": 0, "qmm": 0,
+                                   "qmm_requant": 0, "qconv1d": 0, "fake_quant": 0}
 
 
 def test_ops_transpose_path_is_dequantize_then_matmul():

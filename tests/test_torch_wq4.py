@@ -118,7 +118,7 @@ def test_ops_wq4_matmul_per_tensor_scale():
 @pytest.mark.parametrize("width,block_size", [(4, None), (4, 32), (2, 32)])
 @pytest.mark.parametrize("use_bias", [False, True])
 def test_dense_packed_apply_matches_reference(width, block_size, use_bias):
-    """``Dense`` sends a PackedQTensor kernel down ``_packed_apply``."""
+    """``Dense`` sends a PackedQTensor kernel down the packed path (``ops.wq4_matmul``)."""
     rng = np.random.default_rng(width + (block_size or 0))
     w = rng.normal(0, 0.1, (48, 20)).astype(np.float32)
     b = rng.normal(0, 0.1, (20,)).astype(np.float32)
