@@ -5,12 +5,14 @@
 Phases, each printed as it completes; any failure exits non-zero:
   1. card name and power limit, torch version, CUDA capability (must be 9.0);
   2. build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-     nvcc per source, all at once) and its time;
+     nvcc per source, all at once) and its time; the two weight-only GEMMs
+     must hold tensor-core (HMMA) instructions in their machine code;
   3. each kernel against its plain PyTorch version on the card at the
      path's shapes, with kernel, plain and library times (CUDA graphs of
      many launches over rotating inputs larger than the L2) and the least
-     time the card could take (bytes at 3.35 TB/s, f32 FMAs at 67 TFLOP/s
-     or int8 products at 1,979 TOP/s, H100 SXM data sheet); the integer
+     time the card could take (bytes at 3.35 TB/s, f32 FMAs at 67 TFLOP/s,
+     bf16 products at 989 TFLOP/s (three per f32 product in the weight-only
+     GEMMs) or int8 products at 1,979 TOP/s, H100 SXM data sheet); the integer
      engine's four kernels bit for bit (``qmm`` and ``qmm_requant`` at the
      classifier's (2947, 80) @ (80, 6) and 4096^3, int8 and int16, with
      int32 wrap and shifts of 32 or more; ``qconv1d`` at ResNetv1-6's four
@@ -23,10 +25,13 @@ Phases, each printed as it completes; any failure exits non-zero:
      ``qragged_attn`` on the ragged tick (8 decode rows, 2 lanes x 32 chunk
      rows) over the dense identity layout and fragmented tables (page sizes
      16, 1, 5), with edge and all-inert ticks and cross-checks against the
-     decode and chunk kernels; ``wq_matmul`` also at M = 72 and 144, the
-     ragged ticks' GEMM rows; ``wq4_matmul`` at the four projection shapes,
-     per-channel and block-32 scales, M = 8, 32, 72, 144 and 1024, plus an
-     odd K with a partial last block;
+     decode and chunk kernels; ``wq_matmul`` at M = 8, 32 (a mixed tick's
+     chunk), 72 and 144 (the ragged ticks' GEMM rows) and 1024;
+     ``wq4_matmul`` at the four projection shapes, per-channel and block-32
+     scales, M = 8, 32, 72, 144 and 1024, plus an odd K with a partial last
+     block, and held (untimed) at scales 2^-n with n in 13-20 and block
+     sizes 4, 10 and 16; ``qconv1d`` also past one block's shared memory
+     (C=1024 int16 at K=7, and an int32 wrap across channel chunks);
   4. smollm-135m at full width (random weights from a seeded generator,
      int8 weights and int8 KV cache): ``ServeEngine.generate`` (8 slots,
      prompt 128, 32 new tokens), ``run_restart_batching``, and the
@@ -87,6 +92,7 @@ from types import SimpleNamespace
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 INT8_OPS_S = 1979e12       # H100 SXM dense int8 tensor-core rate
+BF16_FLOP_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 L2_ROTATE_BYTES = 128 << 20
 WQ_RTOL = 2e-5             # |kernel - plain| <= WQ_RTOL * max|plain| (f32 sums, other order)
 ATTN_ATOL = 1e-4           # softmax-weighted means of values within +-16
@@ -289,7 +295,8 @@ def check_qconv1d(torch, F, ref, kern, gen):
               ("conv4/5", PATH_BATCH, 32, RESNET_FILTERS, RESNET_FILTERS, 3, 1, "SAME")]
     edges = [("edge", 2, 128, 9, 16, 3, 1, "SAME"), ("edge", 3, 128, 16, 24, 3, 2, "SAME"),
              ("edge", 2, 50, 4, 8, 3, 1, "VALID"), ("edge", 1, 33, 3, 130, 7, 2, "VALID"),
-             ("edge", 5, 127, 80, 77, 5, 2, "SAME"), ("edge", 4, 64, 13, 33, 4, 3, "VALID")]
+             ("edge", 5, 127, 80, 77, 5, 2, "SAME"), ("edge", 4, 64, 13, 33, 4, 3, "VALID"),
+             ("edge", 2, 65, 80, 40, 1, 2, "SAME"), ("edge", 3, 70, 9, 16, 2, 3, "VALID")]
     for label, b, wd, c, f, ks, st, pad in shapes + edges:
         for dt in (torch.int8, torch.int16):
             size = torch.tensor([], dtype=dt).element_size()
@@ -331,23 +338,23 @@ def check_qconv1d(torch, F, ref, kern, gen):
                   f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
             del xs
     print("[kernel] qconv1d: equal to plain on the edge cases (stride 2 and 3, VALID, odd F, "
-          "K=4/5/7), int8 and int16", flush=True)
-    # a block stages (K, C, 32) weights in shared memory: C=1024 int16 at K=7
-    # needs more than one block can have, and the kernel's wrapper must refuse it
-    # with no effect on the next launch
-    big = (torch.zeros(1, 64, 1024, dtype=torch.int16, device="cuda"),
-           torch.zeros(7, 1024, 8, dtype=torch.int16, device="cuda"))
-    try:
-        kern(*big)
-        refused = False
-    except RuntimeError:
-        refused = True
-    check(refused, "qconv1d: C=1024 int16 at K=7 was launched past the block's shared memory")
-    x, w = int_codes(torch, gen, (2, 128, 9), torch.int8), int_codes(torch, gen, (3, 9, 16),
-                                                                     torch.int8)
-    check(torch.equal(kern(x, w), ref.qconv1d_ref(x, w)), "qconv1d after a refusal differs")
-    print("[kernel] qconv1d: C=1024 int16 at K=7 refused (shared memory); the next launch is "
-          "right", flush=True)
+          "K=1/2/4/5/7, stride above K), int8 and int16", flush=True)
+    # Past one block's shared memory a block walks C in chunks, carrying its
+    # sums: C=1024 int16 at K=7, and an int32 wrap across 163 channel chunks
+    # (all codes -128 at C=65536, K=3: the plain float64 sums are exact while
+    # K*C < 2^23).
+    x, w = (int_codes(torch, gen, (1, 64, 1024), torch.int16),
+            int_codes(torch, gen, (7, 1024, 8), torch.int16))
+    check(torch.equal(kern(x, w), ref.qconv1d_ref(x, w)),
+          "qconv1d C=1024 int16 at K=7 differs from plain")
+    x = torch.full((1, 4, 65536), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((3, 65536, 8), -128, dtype=torch.int8, device="cuda")
+    got, want = kern(x, w), ref.qconv1d_ref(x, w)
+    check(torch.equal(got, want) and want[0, 1, 0].item() == 3 * 65536 * 16384 - 2 ** 32,
+          f"qconv1d C=65536 int8 wrap case: kernel {got[0, :, 0].tolist()}, plain "
+          f"{want[0, :, 0].tolist()}")
+    print("[kernel] qconv1d: equal to plain at C=1024 int16 K=7 and at C=65536 int8 K=3 "
+          "(all codes -128: int32 wraps across 163 channel chunks)", flush=True)
     per_forward = {}
     for dt in ("int8", "int16"):
         part = {r["label"]: r for r in rows if r["dtype"] == dt}
@@ -400,12 +407,32 @@ SERVE_SHAPES = {"wq/wo": (576, 576), "wk/wv": (576, 192), "gate/in": (576, 1536)
 CALLS_PER_LAYER = {"wq/wo": 2, "wk/wv": 2, "gate/in": 2, "out": 1}
 
 
+def gemm_bounds(m, k, n, nbytes):
+    """(bound ms, by) of an f32 (M, K) @ integer (K, N) product moving
+    ``nbytes``: on the bf16 tensor cores at three passes (the kernels'
+    design: the least time for exact f32 products), and, for comparison
+    with the earlier table, on the f32 CUDA cores."""
+    tc = bound(nbytes, 3 * 2.0 * m * k * n, BF16_FLOP_S)
+    return tc, bound(nbytes, 2.0 * m * k * n)
+
+
+def layer_sum(rows, keys=("ms", "plain_ms", "library_ms", "bound_ms", "f32_bound_ms")):
+    """One layer's seven projections (CALLS_PER_LAYER) summed per key."""
+    layer = {key: sum(r[key] * r["per_layer"] for r in rows) for key in keys}
+    layer["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                         else "operations")
+    return layer
+
+
 def check_wq_matmul(torch, ref, wq_cuda, gen):
-    """Kernel vs plain at the four projection shapes, M = 8 (decode), 72 and
-    144 (the ragged tick's T at B=8, L=2, C=32 and at B=16, L=4, C=32) and
-    8*128."""
+    """Kernel vs plain at the four projection shapes, per-channel scales
+    (plus one per-tensor scale), M = 8 (decode), 32 (a mixed tick's chunk),
+    72 and 144 (the ragged tick's T at B=8, L=2, C=32 and at B=16, L=4,
+    C=32) and 8*128."""
+    from repro_torch.kernels.wq_matmul import plan
+
     rows, worst = [], 0.0
-    for m in (8, 72, 144, 8 * 128):
+    for m in (8, 32, 72, 144, 8 * 128):
         for label, (k, n) in SERVE_SHAPES.items():
             copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (k * n))))
             x = torch.randn(m, k, generator=gen, device="cuda")
@@ -413,44 +440,46 @@ def check_wq_matmul(torch, ref, wq_cuda, gen):
                                 dtype=torch.int32).to(torch.int8) for _ in range(copies)]
             scale = torch.exp2(-torch.randint(5, 10, (n,), generator=gen, device="cuda")
                                .to(torch.float32))
-            got = wq_cuda(x, ws[0], scale)
             want = ref.wq_matmul_ref(x, ws[0], scale)
+            tol = WQ_RTOL * want.abs().max().item()
+            got = wq_cuda(x, ws[0], scale)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            tol = WQ_RTOL * want.abs().max().item()
             check(err <= tol, f"wq_matmul M={m} {k}x{n}: max err {err} > {tol}")
             worst = max(worst, err)
-            deq = [w.to(torch.float32) * scale for w in
-                   ws[:max(1, min(len(ws), math.ceil(L2_ROTATE_BYTES / (4 * k * n))))]]
+            if label == "wq/wo" and m == 72:   # one scale for the whole tensor
+                one = scale[:1].clone()
+                err = (wq_cuda(x, ws[0], one) - ref.wq_matmul_ref(x, ws[0], one)).abs().max()
+                check(err.item() <= WQ_RTOL * ref.wq_matmul_ref(x, ws[0], one).abs().max().item(),
+                      f"wq_matmul M={m} {k}x{n} per-tensor scale: max err {err.item()}")
             iters = max(len(ws), 64)
             ms = graph_ms(torch, [lambda w=w: wq_cuda(x, w, scale) for w in ws], iters)
+            nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+            (b_ms, b_by), (f32_ms, _) = gemm_bounds(m, k, n, nbytes)
+            deq = [w.to(torch.float32) * scale for w in
+                   ws[:max(1, min(len(ws), math.ceil(L2_ROTATE_BYTES / (4 * k * n))))]]
             plain = graph_ms(torch, [lambda w=w: ref.wq_matmul_ref(x, w, scale) for w in ws],
                              iters)
             lib = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in deq], iters)
-            b_ms, b_by = bound(4 * m * k + k * n + 4 * n + 4 * m * n, 2.0 * m * k * n)
             rows.append(dict(m=m, shape=label, k=k, n=n, err=err, ms=ms, plain_ms=plain,
-                             library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib, bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
                              per_layer=CALLS_PER_LAYER[label]))
             print(f"[kernel] wq_matmul M={m:4d} K={k:4d} N={n:4d} ({label}): "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us | "
-                  f"plain {plain * 1e3:.2f} us | torch.matmul on dequantized "
-                  f"{lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us "
+                  f"({plan(m, k, n)}) | plain {plain * 1e3:.2f} us | torch.matmul on "
+                  f"dequantized {lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by}; "
+                  f"f32 CUDA cores {f32_ms * 1e3:.2f})", flush=True)
             del ws, deq
-    decode = [r for r in rows if r["m"] == 8]
-    agg = {key: sum(r[key] * r["per_layer"] for r in decode)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print(f"[kernel] wq_matmul one decode layer (7 calls, M=8): kernel "
-          f"{agg['ms'] * 1e3:.2f} us | plain {agg['plain_ms'] * 1e3:.2f} us | library "
-          f"{agg['library_ms'] * 1e3:.2f} us | bound {agg['bound_ms'] * 1e3:.2f} us",
-          flush=True)
-    for m in (72, 144):
-        layer = {key: sum(r[key] * r["per_layer"] for r in rows if r["m"] == m)
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        print(f"[kernel] wq_matmul one ragged-tick layer (7 calls, M=T={m}): kernel "
-              f"{layer['ms'] * 1e3:.2f} us | plain {layer['plain_ms'] * 1e3:.2f} us | library "
-              f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us",
+    layers = {}
+    for m in sorted({r["m"] for r in rows}):
+        layers[m] = layer = layer_sum([r for r in rows if r["m"] == m])
+        what = "decode layer" if m == 8 else "layer"
+        print(f"[kernel] wq_matmul one {what} (7 calls, M={m}): kernel {layer['ms'] * 1e3:.2f} "
+              f"us | plain {layer['plain_ms'] * 1e3:.2f} us | library "
+              f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us "
+              f"({layer['bound_by']}; f32 CUDA cores {layer['f32_bound_ms'] * 1e3:.2f})",
               flush=True)
-    return rows, agg, worst
+    return rows, layers, worst
 
 
 def check_wq4_matmul(torch, ref, wq4_cuda, gen):
@@ -458,8 +487,33 @@ def check_wq4_matmul(torch, ref, wq4_cuda, gen):
     per-channel and block-32 scales, M = 8 (decode), 32 (a mixed tick's
     chunk), 72 and 144 (ragged ticks) and 1024 (lockstep prefill), plus an
     odd K with a partial last block.  Codes are uniform int4 bytes,
-    scales 2^-n with n in 3-6 (the smoke model's int4 range)."""
+    scales 2^-n with n in 3-6 (the smoke model's int4 range).  Then, held
+    to plain but not timed: scales with n in 13-20 (where the reference's
+    table is not exact powers of two) and block sizes 4, 10 and 16 (steps
+    that span blocks) at every M."""
     from repro_torch.core.qformat import exp2, unpack_subint8
+    from repro_torch.kernels.wq4_matmul import plan
+
+    def inputs(m, k, n, bs, copies, n_lo, n_hi):
+        kp, srows = -(-k // 2), (-(-k // bs) if bs else 1)
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        ws = [torch.randint(-128, 128, (kp, n), generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.int8) for _ in range(copies)]
+        ss = [exp2(-torch.randint(n_lo, n_hi + 1, (srows, n), generator=gen, device="cuda",
+                                  dtype=torch.int32)) for _ in range(copies)]
+        if k % 2:   # the pad nibble of the last byte row is zero, as packing leaves it
+            for w in ws:
+                w[-1] &= 0x0F
+        return x, ws, ss
+
+    def held(m, label, k, n, bs, x, w, s):
+        got = wq4_cuda(x, w, s, k=k, block_size=bs)
+        want = ref.wq4_matmul_ref(x, w, s, k=k, block_size=bs)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = WQ_RTOL * want.abs().max().item()
+        check(err <= tol, f"wq4_matmul M={m} {k}x{n} block {bs}: max err {err} > {tol}")
+        return err, tol
 
     cases = [(m, label, k, n, bs) for m in (8, 32, 72, 144) for bs in (0, 32)
              for label, (k, n) in SERVE_SHAPES.items()]
@@ -470,20 +524,8 @@ def check_wq4_matmul(torch, ref, wq4_cuda, gen):
     for m, label, k, n, bs in cases:
         kp, srows = -(-k // 2), (-(-k // bs) if bs else 1)
         copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (kp * n + 4 * srows * n))))
-        x = torch.randn(m, k, generator=gen, device="cuda")
-        ws = [torch.randint(-128, 128, (kp, n), generator=gen, device="cuda",
-                            dtype=torch.int32).to(torch.int8) for _ in range(copies)]
-        ss = [exp2(-torch.randint(3, 7, (srows, n), generator=gen, device="cuda",
-                                  dtype=torch.int32)) for _ in range(copies)]
-        if k % 2:   # the pad nibble of the last byte row is zero, as packing leaves it
-            for w in ws:
-                w[-1] &= 0x0F
-        got = wq4_cuda(x, ws[0], ss[0], k=k, block_size=bs)
-        want = ref.wq4_matmul_ref(x, ws[0], ss[0], k=k, block_size=bs)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = WQ_RTOL * want.abs().max().item()
-        check(err <= tol, f"wq4_matmul M={m} {k}x{n} block {bs}: max err {err} > {tol}")
+        x, ws, ss = inputs(m, k, n, bs, copies, 3, 6)
+        err, tol = held(m, label, k, n, bs, x, ws[0], ss[0])
         worst = max(worst, err)
         n_deq = max(1, min(copies, math.ceil(L2_ROTATE_BYTES / (4 * k * n))))
         deq = []
@@ -497,28 +539,38 @@ def check_wq4_matmul(torch, ref, wq4_cuda, gen):
                                                                      block_size=bs)
                                  for w, s in zip(ws, ss)], iters)
         lib = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in deq], iters)
-        b_ms, b_by = bound(4 * m * k + kp * n + 4 * srows * n + 4 * m * n, 2.0 * m * k * n)
+        (b_ms, b_by), (f32_ms, _) = gemm_bounds(
+            m, k, n, 4 * m * k + kp * n + 4 * srows * n + 4 * m * n)
         rows.append(dict(m=m, shape=label, k=k, n=n, block=bs, err=err, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
                          per_layer=CALLS_PER_LAYER.get(label, 0)))
         print(f"[kernel] wq4_matmul M={m:4d} K={k:4d} N={n:4d} block {bs:2d} ({label}): "
-              f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us | plain "
-              f"{plain * 1e3:.2f} us | torch.matmul on dequantized {lib * 1e3:.2f} us | bound "
-              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+              f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us "
+              f"({plan(m, k, n)}) | plain {plain * 1e3:.2f} us | torch.matmul on dequantized "
+              f"{lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by}; f32 CUDA cores "
+              f"{f32_ms * 1e3:.2f})", flush=True)
         del ws, ss, deq
+    for m in (8, 32, 72, 144, 1024):
+        for bs in (0, 4, 10, 16, 32):
+            for label, (k, n) in SERVE_SHAPES.items():
+                x, ws, ss = inputs(m, k, n, bs, 1, 13, 20)
+                worst = max(worst, held(m, label, k, n, bs, x, ws[0], ss[0])[0])
+                if bs in (4, 10, 16):   # the small blocks at the usual exponents too
+                    x, ws, ss = inputs(m, k, n, bs, 1, 3, 6)
+                    worst = max(worst, held(m, label, k, n, bs, x, ws[0], ss[0])[0])
+    print("[kernel] wq4_matmul: within tolerance of plain with scales 2^-n at n in 13-20 "
+          "(block 0, 4, 10, 16, 32) and with blocks 4, 10, 16 at n in 3-6, at M = 8, 32, 72, "
+          "144, 1024 and the four projection shapes", flush=True)
     layers = {}
     for m, bs in sorted({(r["m"], r["block"]) for r in rows if r["per_layer"]}):
-        part = [r for r in rows if r["m"] == m and r["block"] == bs and r["per_layer"]]
-        layer = {key: sum(r[key] * r["per_layer"] for r in part)
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        layer["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in part)
-                             else "operations")
-        layers[(m, bs)] = layer
+        layers[(m, bs)] = layer = layer_sum(
+            [r for r in rows if r["m"] == m and r["block"] == bs and r["per_layer"]])
         print(f"[kernel] wq4_matmul one layer (7 calls) at M={m}, "
               f"{'block 32' if bs else 'per-channel'}: kernel {layer['ms'] * 1e3:.2f} us | "
               f"plain {layer['plain_ms'] * 1e3:.2f} us | library "
               f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us "
-              f"({layer['bound_by']})", flush=True)
+              f"({layer['bound_by']}; f32 CUDA cores {layer['f32_bound_ms'] * 1e3:.2f})",
+              flush=True)
     return rows, layers, worst
 
 
@@ -2169,7 +2221,7 @@ def subint8_end_to_end(torch, card, env):
         prof = profile_steps(torch, f"{fmt} forward at M={tok72.shape[1]} (a batch-1 prefill)",
                              forward, None, card)
         if prof is not None:
-            gemm = sum(t for t, _, key in prof["rows"] if "wq" in key or "reduce_splits" in key)
+            gemm = sum(t for t, _, key in prof["rows"] if "wq" in key)
             print(f"[profile] {fmt} forward at M={tok72.shape[1]}: weight GEMM kernels "
                   f"{gemm:.1f} us of {prof['busy_ms'] * 1e3:.1f} us device time", flush=True)
     del int4, cache
@@ -2261,10 +2313,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    # the two weight-only GEMMs run on the tensor cores: HMMA in their machine code
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    check(cuobjdump.exists(), f"{cuobjdump} not found: cannot read the GEMMs' machine code")
+    for name in ("wq_matmul", "wq4_matmul"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, timeout=120).stdout
+        hmma = sum("HMMA" in line for line in sass.splitlines())
+        check(hmma > 0, f"{name}: no HMMA instruction in its machine code")
+        print(f"[build] {name}: {hmma} HMMA (tensor-core) instructions in its machine code",
+              flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t1 = time.perf_counter()
-    wq_rows, wq_agg, wq_err = check_wq_matmul(torch, ref, wq_matmul_cuda, gen)
+    _, wq_layers, wq_err = check_wq_matmul(torch, ref, wq_matmul_cuda, gen)
     _, wq4_layers, wq4_err = check_wq4_matmul(torch, ref, wq4_matmul_cuda, gen)
     qd_rows, qd_err = check_qdecode_attn(torch, F, ref, qdecode_attn_cuda, gen)
     qc_rows, qc_err = check_qchunk_attn(torch, F, ref, qchunk_attn_cuda, qdecode_attn_cuda, gen)
@@ -2293,6 +2355,7 @@ def main() -> int:
           f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | all {t4 - t0:.1f}s", flush=True)
     launches = {k: launches.get(k, 0) + int_launches.get(k, 0) for k in int_launches}
 
+    wq_main = wq_layers[8]
     qd_main = qd_rows[-1]
     qc_main = qc_rows[1]
     kernels = [
@@ -2300,9 +2363,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/wq_matmul.cu",
          "replaces": "src/repro/kernels/wq_matmul.py:51",
          "launches": launches["wq_matmul"], "max_abs_err": wq_err,
-         "ms": wq_agg["ms"], "plain_ms": wq_agg["plain_ms"],
-         "bound_ms": wq_agg["bound_ms"], "bound_by": "bytes",
-         "library_ms": wq_agg["library_ms"],
+         "ms": wq_main["ms"], "plain_ms": wq_main["plain_ms"],
+         "bound_ms": wq_main["bound_ms"], "bound_by": wq_main["bound_by"],
+         "library_ms": wq_main["library_ms"],
          "shape": "one decode layer: 7 calls at M=8 (576x576 x2, 576x192 x2, "
                   "576x1536 x2, 1536x576)"},
         {"name": "qdecode_attn", "route": "cuda",

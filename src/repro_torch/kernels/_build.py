@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout (a
-directory ``.gitignore`` lists); the hash covers the source and the flags,
-so an edited source rebuilds.  Nothing runs at import: :func:`load` builds
+directory ``.gitignore`` lists); the hash covers the source, the
+``csrc/*.cuh`` headers it includes and the flags, so an edited source or
+header rebuilds.  Nothing runs at import: :func:`load` builds
 on first use, and :func:`build` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,9 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s shared library lives for the current source."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
+    """Where ``name``'s shared library lives for the current source and the
+    ``csrc`` headers it includes (``#include "..."``)."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    headers = sorted(set(re.findall(rb'#include "([^"]+)"', src)))
+    blob = src + b"".join(h + (CSRC / h.decode()).read_bytes() for h in headers)
+    digest = hashlib.sha256(blob + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

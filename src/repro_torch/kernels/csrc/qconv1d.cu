@@ -8,8 +8,11 @@
 // (W' x C) @ (C x F) matmuls over one VMEM-resident padded row per grid
 // step.  Here a block owns one batch row, a tile of TW output positions and
 // a tile of TF filters: the input rows the tile needs, halo included, and
-// the (K, C, TF) weights go to shared memory once, so each input element
-// is read from device memory about once per filter tile.  Padding is
+// the (K, C, TF) weights go to shared memory one chunk of channels at a
+// time (all of C at once up to 64 KB: every ResNetv1-6 layer, C <= 80;
+// past that the chunks walk C, and the taps too where one channel of all
+// K taps would not fit), so each input element is read from device memory
+// about once per filter tile and any C, K and stride fits.  Padding is
 // masked while the rows are staged, never materialized.  The sums are
 // unsigned (or dp4a's wrapping 32-bit add): XLA's int32 convolution wraps,
 // and signed overflow is undefined in C++.
@@ -29,10 +32,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int TW = 64, TF = 32, NT = 256, PW = NT / TF;   // PW position groups
 constexpr int NPOS = TW / PW;                            // positions per thread
+constexpr size_t kSmemBudget = 64 << 10;                 // dynamic shared memory per block
 
 template <typename T> struct Pack;
 template <> struct Pack<int8_t> { static constexpr int PER = 4; };
@@ -51,50 +57,81 @@ __device__ __forceinline__ int pack(const T* __restrict__ src, size_t step, int 
   }
 }
 
-template <typename T>
+// kChunked false: all K taps and all C channels in one chunk (KC = K,
+// CC = CW), with the input rows of TW outputs as one contiguous span
+// (every ResNetv1-6 layer).  kChunked true: taps in chunks of KC and channel
+// words in chunks of CC, the sums carried over (they wrap modulo 2^32 in
+// any order); shared row r then holds input position
+// p0 + (r / RS) * stride + r % RS with RS = min(stride, KC): the span of the
+// chunk's taps when stride <= KC, else KC taps per output.  One loop for
+// both made the int8 ResNetv1-6 forward 8% slower (PERF.md).
+template <typename T, bool kChunked>
 __global__ void __launch_bounds__(NT)
 qconv1d_kernel(const T* __restrict__ x, const T* __restrict__ w, int32_t* __restrict__ out,
                int W, int C, int K, int F, int Wout, int stride, int pad_lo, int w_tiles,
-               int rows) {
+               int KC, int CC) {
   constexpr int PER = Pack<T>::PER;
   extern __shared__ int smem[];
   const int CW = (C + PER - 1) / PER;
-  int* xs = smem;                 // [rows][CW]
-  int* ws = smem + rows * CW;     // [K][CW][TF]
+  if constexpr (!kChunked) {
+    KC = K;
+    CC = CW;
+  }
+  const int RS = kChunked ? min(stride, KC) : stride;   // shared rows per output position
+  const bool span = !kChunked || stride <= KC;          // row r holds position p0 + r
+  const int rows = (TW - 1) * RS + KC;
+  int* xs = smem;                 // [rows][CC]
+  int* ws = smem + rows * CC;     // [KC][CC][TF]
 
   const int b = blockIdx.x / w_tiles;
   const int w0 = (blockIdx.x % w_tiles) * TW;
   const int f0 = blockIdx.y * TF;
   const int tid = threadIdx.x;
   const int f = tid % TF, pg = tid / TF;
-
-  const int p0 = w0 * stride - pad_lo;     // input position of shared row 0
   const T* xb = x + (size_t)b * W * C;
-  for (int e = tid; e < rows * CW; e += NT) {
-    const int r = e / CW, cw = e % CW, p = p0 + r;
-    xs[e] = (p >= 0 && p < W) ? pack(xb + (size_t)p * C + cw * PER, 1, cw * PER, C) : 0;
-  }
-  for (int e = tid; e < K * CW * TF; e += NT) {
-    const int ff = e % TF, kc = e / TF, cw = kc % CW, k = kc / CW, gf = f0 + ff;
-    ws[e] = gf < F ? pack(w + ((size_t)k * C + cw * PER) * F + gf, (size_t)F, cw * PER, C) : 0;
-  }
-  __syncthreads();
 
   unsigned acc[NPOS];
 #pragma unroll
   for (int i = 0; i < NPOS; ++i) acc[i] = 0u;
-  for (int k = 0; k < K; ++k) {
-    for (int cw = 0; cw < CW; ++cw) {
-      const int wv = ws[(k * CW + cw) * TF + f];
+
+  // taps [k0, k0 + kn) and channel words [c0, c0 + cn)
+  auto chunk = [&](int k0, int kn, int c0, int cn) {
+    const int p0 = w0 * stride + k0 - pad_lo;   // input position of shared row 0
+    for (int e = tid; e < rows * cn; e += NT) {
+      const int r = e / cn, cw = c0 + e % cn;
+      const int p = span ? p0 + r : p0 + (r / RS) * stride + r % RS;
+      xs[r * CC + cw - c0] =
+          (p >= 0 && p < W) ? pack(xb + (size_t)p * C + cw * PER, 1, cw * PER, C) : 0;
+    }
+    for (int e = tid; e < kn * cn * TF; e += NT) {
+      const int ff = e % TF, kc = e / TF, cw = c0 + kc % cn, k = kc / cn, gf = f0 + ff;
+      ws[(k * CC + cw - c0) * TF + ff] =
+          gf < F ? pack(w + ((size_t)(k0 + k) * C + cw * PER) * F + gf, (size_t)F, cw * PER, C)
+                 : 0;
+    }
+    __syncthreads();
+    for (int k = 0; k < kn; ++k) {
+      for (int cw = 0; cw < cn; ++cw) {
+        const int wv = ws[(k * CC + cw) * TF + f];
 #pragma unroll
-      for (int i = 0; i < NPOS; ++i) {
-        const int xv = xs[((pg + PW * i) * stride + k) * CW + cw];
-        if constexpr (PER == 4)
-          acc[i] = static_cast<unsigned>(__dp4a(xv, wv, static_cast<int>(acc[i])));
-        else
-          acc[i] += static_cast<unsigned>(xv * wv);    // |xv*wv| <= 2^30: no overflow
+        for (int i = 0; i < NPOS; ++i) {
+          const int xv = xs[((pg + PW * i) * RS + k) * CC + cw];
+          if constexpr (PER == 4)
+            acc[i] = static_cast<unsigned>(__dp4a(xv, wv, static_cast<int>(acc[i])));
+          else
+            acc[i] += static_cast<unsigned>(xv * wv);    // |xv*wv| <= 2^30: no overflow
+        }
       }
     }
+  };
+  if constexpr (kChunked) {
+    for (int k0 = 0; k0 < K; k0 += KC)
+      for (int c0 = 0; c0 < CW; c0 += CC) {
+        if (k0 + c0 > 0) __syncthreads();   // every thread is done with the last chunk
+        chunk(k0, min(KC, K - k0), c0, min(CC, CW - c0));
+      }
+  } else {
+    chunk(0, K, 0, CW);
   }
 
   const int gf = f0 + f;
@@ -107,38 +144,63 @@ qconv1d_kernel(const T* __restrict__ x, const T* __restrict__ w, int32_t* __rest
   }
 }
 
+// Shared memory per channel word for taps in chunks of kc, rows_per_out
+// shared rows per output position: the input rows and (kc, 1, TF) weights.
+inline size_t bytes_per_word(int kc, int rows_per_out) {
+  return ((size_t)(TW - 1) * rows_per_out + kc + (size_t)kc * TF) * sizeof(int);
+}
+
+template <typename T, bool kChunked>
+cudaError_t launch_chunks(const T* x, const T* w, int32_t* out, int B, int W, int C, int K,
+                          int F, int Wout, int stride, int pad_lo, int kc, int cc, size_t smem,
+                          cudaStream_t s) {
+  static bool granted = false;   // the budget is above the default 48 KB
+  if (!granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qconv1d_kernel<T, kChunked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemBudget);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
+    }
+    granted = true;
+  }
+  const int w_tiles = (Wout + TW - 1) / TW;
+  const dim3 grid((unsigned)B * w_tiles, (F + TF - 1) / TF);
+  qconv1d_kernel<T, kChunked><<<grid, NT, smem, s>>>(x, w, out, W, C, K, F, Wout, stride,
+                                                     pad_lo, w_tiles, kc, cc);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, int32_t* out, int B, int W, int C, int K,
                    int F, int Wout, int stride, int pad_lo, cudaStream_t s) {
   constexpr int PER = Pack<T>::PER;
   const int CW = (C + PER - 1) / PER;
-  const int rows = (TW - 1) * stride + K;
-  const size_t smem = ((size_t)rows * CW + (size_t)K * CW * TF) * sizeof(int);
-  static size_t granted = 48 << 10;        // the default dynamic shared memory limit
-  if (smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qconv1d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) {      // more than one block can have: refused, and the
-      cudaGetLastError();        // error is cleared so no later launch reports it
-      return e;
-    }
-    granted = smem;
-  }
-  const int w_tiles = (Wout + TW - 1) / TW;
-  const dim3 grid((unsigned)B * w_tiles, (F + TF - 1) / TF);
-  qconv1d_kernel<T><<<grid, NT, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w),
-                                           out, W, C, K, F, Wout, stride, pad_lo, w_tiles, rows);
-  return cudaGetLastError();
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const size_t whole = (size_t)CW * bytes_per_word(K, stride);
+  if (whole <= kSmemBudget)   // one chunk: every ResNetv1-6 layer (C <= 80)
+    return launch_chunks<T, false>(xt, wt, out, B, W, C, K, F, Wout, stride, pad_lo, K, CW,
+                                   whole, s);
+  // All K taps at once unless one channel word of them would not fit
+  // (halving until it does: one tap always fits), then as many channel
+  // words per chunk as fit.
+  int kc = K;
+  while (kc > 1 && bytes_per_word(kc, std::min(stride, kc)) > kSmemBudget) kc = (kc + 1) / 2;
+  const size_t per_word = bytes_per_word(kc, std::min(stride, kc));
+  const int cc = (int)std::min<size_t>(CW, kSmemBudget / per_word);
+  return launch_chunks<T, true>(xt, wt, out, B, W, C, K, F, Wout, stride, pad_lo, kc, cc,
+                                (size_t)cc * per_word, s);
 }
 
 }  // namespace
 
 // x (B, W, C) and w (K, C, F), both int8 (in_bytes 1) or both int16
 // (in_bytes 2); out (B, Wout, F) int32.  Input position of output o, tap k:
-// o * stride + k - pad_lo (outside [0, W) reads 0).  Returns
-// cudaGetLastError() after the launch, or cudaFuncSetAttribute's error,
-// with no launch, when a block would need more shared memory than it can
-// have (C, K and stride set how much; C=80 int16 at K=3 needs 51,840 B).
+// o * stride + k - pad_lo (outside [0, W) reads 0).  Any C, K and stride:
+// a block walks C (and, past 64 KB for one channel, the taps) in chunks.
+// Returns cudaGetLastError() after the launch.
 extern "C" int qconv1d_int(const void* x, const void* w, int in_bytes, int32_t* out, int B,
                            int W, int C, int K, int F, int Wout, int stride, int pad_lo,
                            void* stream) {

@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/qconv1d.py::qconv1d_pallas``.  The plain version
 is :func:`repro_torch.kernels.ref.qconv1d_ref`.  A block stages one batch
 row's input positions (halo included, padding masked) and a filter tile's
-weights in shared memory; sums wrap modulo 2^32 as XLA's int32 conv does.
+weights in shared memory, a chunk of channels at a time, so any C, K and
+stride run; sums wrap modulo 2^32 as XLA's int32 conv does.
 """
 from __future__ import annotations
 
@@ -58,8 +59,6 @@ def qconv1d_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                     f, wout, stride, lo, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"qconv1d kernel launch failed for C={c}, K={k}, stride {stride} "
-                           f"{x.dtype}: CUDA error {err} (a block stages its input rows and "
-                           f"a (K, C, filter tile) of weights in shared memory; see "
-                           f"csrc/qconv1d.cu)")
+                           f"{x.dtype}: CUDA error {err}")
     launches += 1
     return out

@@ -1,36 +1,22 @@
 """Packed int4 weight-only matmul on Hopper: wrapper of ``csrc/wq4_matmul.cu``.
 
 Replaces ``repro/kernels/wq_matmul.py::wq4_matmul_pallas``.  The plain
-version is :func:`repro_torch.kernels.ref.wq4_matmul_ref`.  The serving
-shapes give few output tiles, so :func:`split_k` cuts K across blocks until
-the launch covers about two waves of the card's SMs; the partial sums are
-added in a fixed order, so a result never depends on the run.
+version is :func:`repro_torch.kernels.ref.wq4_matmul_ref`.  The kernel is
+the bf16 tensor-core GEMM of ``csrc/wq_gemm.cuh`` at every M: one launch
+per call, K split across a thread-block cluster whose ranks add their
+partial tiles in a fixed order, so a result never depends on the run.
 """
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, wq_gemm
 
 launches = 0   # wrapper calls that launched the kernel since the last reset (kernels/ops.py)
 _fn = None
-
-SMS = 132                    # H100 SXM streaming multiprocessors
-BM, BN, BK = 32, 64, 32      # the kernel's output tile and K step (csrc/wq4_matmul.cu)
-
-
-def split_k(m: int, k: int, n: int) -> Tuple[int, int]:
-    """(splits, K rows per split) for an (M, K) @ (K, N) call: enough splits
-    to give about 2 x SMS blocks, each split a whole number of K steps."""
-    tiles = math.ceil(m / BM) * math.ceil(n / BN)
-    steps = math.ceil(k / BK)
-    want = max(1, min(steps, math.ceil(2 * SMS / tiles)))
-    per = math.ceil(steps / want)
-    return math.ceil(steps / per), per * BK
+plan = wq_gemm.tile_plan   # the launch of an (M, K) @ packed (K, N) call
 
 
 def _kernel():
@@ -38,7 +24,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("wq4_matmul").wq4_matmul_f32_s4
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, i, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -48,8 +34,8 @@ def wq4_matmul_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, k
                     block_size: int = 0) -> torch.Tensor:
     """x (M, K) f32 @ packed int4 wq (ceil(K/2), N) int8 with ``scale`` f32:
     (1, N) per output channel (``block_size=0``) or (ceil(K/bs), N) per
-    block of ``block_size`` K rows.  All on one CUDA device; returns (M, N)
-    f32."""
+    block of ``block_size`` K rows (any even size).  All on one CUDA
+    device; returns (M, N) f32."""
     global launches
     if x.ndim != 2 or wq.ndim != 2 or x.shape[1] != k or wq.shape[0] != -(-k // 2):
         raise ValueError(f"wq4_matmul: x {tuple(x.shape)}, packed wq {tuple(wq.shape)} "
@@ -66,14 +52,15 @@ def wq4_matmul_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, k
             raise ValueError(f"wq4_matmul: {nm} must be on {x.device} (CUDA)")
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"wq4_matmul: {nm} must be contiguous {dt}, got {t.dtype}")
-    splits, k_per_split = split_k(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else out)   # one split writes the output directly
+    if m == 0 or n == 0:
+        return out
+    p = plan(m, k, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel()(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), block_size, out.data_ptr(),
-                    work.data_ptr(), m, k, n, splits, k_per_split, stream)
+                    m, k, n, p.bm, p.ranks, p.k_per_rank, stream)
     if err != 0:
-        raise RuntimeError(f"wq4_matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"wq4_matmul kernel launch failed for M={m}, K={k}, N={n}, "
+                           f"block {block_size}, {p}: CUDA error {err}")
     launches += 1
     return out

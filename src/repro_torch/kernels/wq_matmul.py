@@ -2,8 +2,9 @@
 
 Replaces ``repro/kernels/wq_matmul.py::wq_matmul_pallas``.  The plain
 version is :func:`repro_torch.kernels.ref.wq_matmul_ref`.  The kernel is
-bound by the int8 weight bytes at decode and by f32 FMAs at prefill; the
-source says what its tiling does about each.
+the bf16 tensor-core GEMM of ``csrc/wq_gemm.cuh`` at every M: one launch
+per call, K split across a thread-block cluster
+(:mod:`repro_torch.kernels.wq_gemm` plans it).
 """
 from __future__ import annotations
 
@@ -11,10 +12,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, wq_gemm
 
 launches = 0   # kernel launches since the last reset (kernels/ops.py)
 _fn = None
+plan = wq_gemm.tile_plan   # the launch of an (M, K) @ (K, N) call
 
 
 def _kernel():
@@ -22,7 +24,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("wq_matmul").wq_matmul_f32_s8
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, i, i, i, p]
+        fn.argtypes = [p, p, p, i, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -47,11 +49,15 @@ def wq_matmul_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> to
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"wq_matmul: {nm} must be contiguous {dt}, got {t.dtype}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    p = plan(m, k, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel()(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
                     1 if scale.numel() == n and n > 1 else 0, out.data_ptr(),
-                    m, k, n, stream)
+                    m, k, n, p.bm, p.ranks, p.k_per_rank, stream)
     if err != 0:
-        raise RuntimeError(f"wq_matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"wq_matmul kernel launch failed for M={m}, K={k}, N={n}, {p}: "
+                           f"CUDA error {err}")
     launches += 1
     return out

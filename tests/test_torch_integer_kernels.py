@@ -91,7 +91,8 @@ def test_plain_qmm_requant_int16_wraps_then_shifts(shift):
 
 _CONV_CASES = [(2, 128, 9, 16, 3, 1, "SAME"), (1, 64, 8, 32, 5, 1, "SAME"),
                (3, 128, 16, 24, 3, 2, "SAME"), (2, 50, 4, 8, 3, 1, "VALID"),
-               (1, 33, 3, 130, 7, 2, "VALID"), (2, 31, 5, 7, 4, 3, "SAME")]
+               (1, 33, 3, 130, 7, 2, "VALID"), (2, 31, 5, 7, 4, 3, "SAME"),
+               (2, 65, 12, 40, 1, 2, "SAME"), (3, 70, 9, 16, 2, 3, "VALID")]   # stride > K
 
 
 @pytest.mark.parametrize("b,w,c,f,ksize,stride,padding", _CONV_CASES)
@@ -107,6 +108,16 @@ def test_plain_qconv1d_matches_pallas_and_oracle(b, w, c, f, ksize, stride, padd
     np.testing.assert_array_equal(got.numpy(), want)
     pallas = np.asarray(qconv1d_pallas(jnp.asarray(x), jnp.asarray(wgt), stride=stride,
                                        padding=padding, bf=64, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+def test_plain_qconv1d_matches_pallas_past_one_block_of_shared_memory():
+    """C=1024 int16 at K=7, the shape the CUDA kernel walks in channel
+    chunks: the plain version against interpret-mode Pallas, bit for bit."""
+    rng = np.random.default_rng(11)
+    x, wgt = _codes(rng, (1, 64, 1024), "int16"), _codes(rng, (7, 1024, 8), "int16")
+    got = ref.qconv1d_ref(torch.from_numpy(x), torch.from_numpy(wgt))
+    pallas = np.asarray(qconv1d_pallas(jnp.asarray(x), jnp.asarray(wgt), interpret=True))
     np.testing.assert_array_equal(got.numpy(), pallas)
 
 
@@ -238,18 +249,24 @@ def _need_card():
 
 @pytest.mark.cuda
 def test_qconv1d_wrapper_refuses_what_one_block_cannot_stage():
-    """A block stages its input rows and a (K, C, 32) weight tile in shared
-    memory; the kernel's host code refuses shapes past what one block can
-    have (C=1024 int16 at K=7: about 1.2 MB), with no launch and no error
-    left for the next launch.  ResNetv1-6's int16 convolutions need 51,840
-    bytes and run."""
+    """Shapes past one block's shared memory run: a block walks C in
+    chunks, carrying its sums.  C=1024 int16 at K=7 (about 1.2 MB of
+    weights per filter tile in one chunk) equals the plain
+    version; so does a sum that wraps int32 across 163 channel chunks (all
+    codes -128 at C=65536, K=3: the plain float64 sums are exact, K*C <
+    2^23).  ResNetv1-6's int16 convolutions (51,840 bytes, one chunk) too."""
     _need_card()
     from repro_torch.kernels.qconv1d import qconv1d_cuda
 
-    with pytest.raises(RuntimeError, match="shared memory"):
-        qconv1d_cuda(torch.zeros(1, 64, 1024, dtype=torch.int16, device="cuda"),
-                     torch.zeros(7, 1024, 8, dtype=torch.int16, device="cuda"))
     rng = np.random.default_rng(0)
+    x = torch.from_numpy(_codes(rng, (1, 64, 1024), "int16")).cuda()
+    w = torch.from_numpy(_codes(rng, (7, 1024, 8), "int16")).cuda()
+    assert torch.equal(qconv1d_cuda(x, w), ref.qconv1d_ref(x, w))
+    x = torch.full((1, 4, 65536), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((3, 65536, 8), -128, dtype=torch.int8, device="cuda")
+    want = ref.qconv1d_ref(x, w)
+    assert torch.equal(qconv1d_cuda(x, w), want)
+    assert want[0, 1, 0].item() == 3 * 65536 * 16384 - 2 ** 32   # the sum wrapped
     x = torch.from_numpy(_codes(rng, (2, 128, 80), "int16")).cuda()
     w = torch.from_numpy(_codes(rng, (3, 80, 80), "int16")).cuda()
     assert torch.equal(qconv1d_cuda(x, w), ref.qconv1d_ref(x, w))

@@ -192,11 +192,13 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(8, 576, 192), (1024, 576, 1536), (3, 37, 53)])
-def test_cuda_kernel_wq_matmul_matches_plain(m, k, n):
+@pytest.mark.parametrize("m,k,n", [(8, 576, 192), (1024, 576, 1536), (3, 37, 53), (32, 576, 576),
+                                   (72, 576, 1536), (144, 1536, 576), (33, 1001, 77)])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_cuda_kernel_wq_matmul_matches_plain(m, k, n, per_channel):
     _need_card()
-    x, wq, _, scale = _wq_inputs(m, k, n, True, seed=7)
-    args = [torch.from_numpy(a).cuda() for a in (x, wq, scale)]
+    x, wq, _, scale = _wq_inputs(m, k, n, per_channel, seed=7)
+    args = [torch.from_numpy(np.array(a)).cuda() for a in (x, wq, scale)]
     from repro_torch.kernels.wq_matmul import wq_matmul_cuda
 
     got = wq_matmul_cuda(*args)

@@ -1,7 +1,8 @@
 """Port parity for the packed int4 GEMM: the plain ``wq4_matmul_ref``
 against repro's interpret-mode ``wq4_matmul_pallas`` and its oracle on the
 cases of ``tests/test_kernels.py:160-227``, ``ops.wq4_matmul``'s routing,
-``Dense`` on packed kernels, and the kernel's K split.
+``Dense`` on packed kernels, and the kernel's tiling (K split across a
+thread-block cluster).
 
 The CUDA kernel runs only on the card: ``test_cuda_kernel_wq4_matmul_*``
 carry the ``cuda`` marker and skip without one (``chip_smoke.py`` holds the
@@ -24,7 +25,8 @@ from repro.nn.module import Context as JContext
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import qformat as tq
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.wq4_matmul import BK, split_k, wq4_matmul_cuda
+from repro_torch.kernels import wq_gemm
+from repro_torch.kernels.wq4_matmul import plan, wq4_matmul_cuda
 from repro_torch.nn.layers import Dense
 from repro_torch.nn.module import Context
 
@@ -135,12 +137,17 @@ def test_dense_packed_apply_matches_reference(width, block_size, use_bias):
 @pytest.mark.parametrize("m", [8, 32, 72, 144, 1024])
 @pytest.mark.parametrize("k,n", [(576, 576), (576, 192), (576, 1536), (1536, 576), (31, 16)])
 def test_split_k_covers_k_in_whole_steps(m, k, n):
-    """Every K row in exactly one split, no split empty, and at the serving
-    shapes at least one wave of 132 blocks where K allows it."""
-    splits, per = split_k(m, k, n)
-    assert per % BK == 0 and (splits - 1) * per < k <= splits * per
-    blocks = math.ceil(m / 32) * math.ceil(n / 64) * splits
-    assert blocks >= 132 or splits == math.ceil(k / BK)
+    """The planner's K split across a cluster: every K row in exactly one
+    rank, no rank empty, at most 8 ranks (the portable cluster), and at the
+    serving shapes at least one wave of 132 blocks where the cluster size
+    and K allow it."""
+    p = plan(m, k, n)
+    ranks, per = p.ranks, p.k_per_rank
+    assert per % wq_gemm.BK == 0 and (ranks - 1) * per < k <= ranks * per
+    assert 1 <= ranks <= wq_gemm.MAX_RANKS
+    steps = math.ceil(k / wq_gemm.BK)
+    most = math.ceil(steps / math.ceil(steps / min(wq_gemm.MAX_RANKS, steps)))
+    assert wq_gemm.blocks(p, m, n) >= 132 or ranks == most
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_bad_arguments():
@@ -161,11 +168,33 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,block_size", CASES + [(72, 576, 1536, 32), (8, 1536, 576, 0)])
+@pytest.mark.parametrize("m,k,n,block_size", CASES + [
+    (72, 576, 1536, 32), (8, 1536, 576, 0), (32, 576, 192, 16), (144, 576, 576, 10),
+    (1024, 1536, 576, 4), (8, 576, 192, 4)])
 def test_cuda_kernel_wq4_matmul_matches_plain(m, k, n, block_size):
     _need_card()
     x, t, scale = _inputs(m, k, n, block_size, seed=11)
     args = [torch.from_numpy(np.array(a)).cuda() for a in (x, t.q, scale)]
     got = wq4_matmul_cuda(*args, k=k, block_size=block_size)
     want = ref.wq4_matmul_ref(*args, k=k, block_size=block_size)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [0, 4, 10, 16, 32])
+@pytest.mark.parametrize("m", [8, 32, 72, 144, 1024])
+def test_cuda_kernel_wq4_matmul_at_inexact_exponents(m, block_size):
+    """Scales 2^-n with n in 13-20, where the reference's table is not
+    exact powers of two (the kernel folds them per block, never into the
+    bf16 weights)."""
+    _need_card()
+    rng = np.random.default_rng(m + block_size)
+    k, n = 576, 192
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).cuda()
+    wq = torch.from_numpy(rng.integers(-128, 128, (k // 2, n)).astype(np.int8)).cuda()
+    rows = -(-k // block_size) if block_size else 1
+    exps = torch.from_numpy(rng.integers(13, 21, (rows, n)).astype(np.int32)).cuda()
+    scale = tq.exp2(-exps)
+    got = wq4_matmul_cuda(x, wq, scale, k=k, block_size=block_size)
+    want = ref.wq4_matmul_ref(x, wq, scale, k=k, block_size=block_size)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * want.abs().max().item())
