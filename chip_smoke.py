@@ -6,16 +6,19 @@ Phases, each printed as it completes; any failure exits non-zero:
   1. card name and power limit, torch version, CUDA capability (must be 9.0);
   2. build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, all at once) and its time; the two weight-only GEMMs
-     must hold tensor-core (HMMA) instructions in their machine code;
+     must hold tensor-core (HMMA) instructions in their machine code, and
+     ``qmm`` and ``qconv1d`` integer tensor-core (IMMA) ones and no dp4a;
   3. each kernel against its plain PyTorch version on the card at the
      path's shapes, with kernel, plain and library times (CUDA graphs of
      many launches over rotating inputs larger than the L2) and the least
      time the card could take (bytes at 3.35 TB/s, f32 FMAs at 67 TFLOP/s,
      bf16 products at 989 TFLOP/s (three per f32 product in the weight-only
-     GEMMs) or int8 products at 1,979 TOP/s, H100 SXM data sheet); the integer
+     GEMMs), int8 products at 1,979 TOP/s and int16 at a quarter of that
+     (four 8-bit products each), H100 SXM data sheet); the integer
      engine's four kernels bit for bit (``qmm`` and ``qmm_requant`` at the
      classifier's (2947, 80) @ (80, 6) and 4096^3, int8 and int16, with
-     int32 wrap and shifts of 32 or more; ``qconv1d`` at ResNetv1-6's four
+     int32 wrap (int8 all -128 at K = 196608, int16 extreme codes) and
+     shifts of 32 or more; ``qconv1d`` at ResNetv1-6's four
      convolution shapes at B=2947 and the edge cases; ``fake_quant`` on a
      120.7 MB activation at every n in [-20, 20]); the chunk kernels also have the
      cache rows they write held bit for bit, and every other row held
@@ -170,11 +173,13 @@ def max_err(got, want) -> float:
 
 
 def int_rate(dtype):
-    """Peak integer multiply-adds for operands of ``dtype``: int8 on the
-    tensor cores; int16 has no tensor-core form, so the f32 CUDA-core rate."""
+    """Peak integer operations/s for operands of ``dtype`` on the tensor
+    cores: int8 at the int8 rate; int16 at a quarter of it, since the
+    kernels do each int16 product as four 8-bit products (a = 256 hi + lo,
+    hi signed and lo unsigned bytes; ``csrc/int_mma.cuh``)."""
     import torch
 
-    return INT8_OPS_S if dtype == torch.int8 else F32_FLOP_S
+    return INT8_OPS_S if dtype == torch.int8 else INT8_OPS_S / 4
 
 
 SHALLOW_LAYERS = 4           # depth of the oversubscribed runs and bench_weight_formats
@@ -188,7 +193,27 @@ def check_qmm(torch, ref, kern, gen):
     whose sums overflow int32 and must wrap as the plain version's do.  The
     library time is ``torch._int_mm`` where it takes the shape (int8), else,
     for int8 with K * 2^14 < 2^24, ``torch.matmul`` on the codes as f32
-    (exact: every partial sum is an integer below 2^24); int16 has none."""
+    (exact: every partial sum is an integer below 2^24); int16 has none.
+    Untimed: int8 codes all -128 at (16, 196608) @ (196608, 8), where every
+    sum is 3 * 2^30 and wraps (K split over 8 cluster ranks), and int16 at
+    the extreme codes (-32768, 32767 and their neighbours)."""
+    x = torch.full((16, 196608), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((196608, 8), -128, dtype=torch.int8, device="cuda")
+    got, want = kern(x, w), ref.qmm_ref(x, w)
+    check(torch.equal(got, want) and bool((want == -(1 << 30)).all()),
+          f"qmm int8 wrap case: kernel {got[0, :4].tolist()}, plain {want[0, :4].tolist()}")
+    codes = torch.tensor([-32768, -32767, -256, -1, 0, 1, 255, 256, 32767], dtype=torch.int16,
+                         device="cuda")
+    for m, k, n in ((128, 512, 128), (100, 300, 50)):
+        x = codes[torch.randint(0, len(codes), (m, k), generator=gen, device="cuda")]
+        w = codes[torch.randint(0, len(codes), (k, n), generator=gen, device="cuda")]
+        got, want = kern(x, w), ref.qmm_ref(x, w)
+        check(torch.equal(got, want), f"qmm int16 extreme codes ({m}, {k}) @ ({k}, {n}): differs "
+                                      f"from plain at {int((got != want).sum())} entries")
+    torch.cuda.synchronize()
+    print("[kernel] qmm: equal to plain with int8 codes all -128 at (16, 196608) @ (196608, 8) "
+          "(every sum 3 * 2^30 wraps to -2^30) and int16 extreme codes at (128, 512) @ "
+          "(512, 128) and (100, 300) @ (300, 50)", flush=True)
     rows = []
     cases = [("classifier", PATH_BATCH, RESNET_FILTERS, 6), ("4096^3", 4096, 4096, 4096),
              ("odd", 100, 300, 50), ("int16 overflow", 128, 512, 128)]
@@ -340,9 +365,11 @@ def check_qconv1d(torch, F, ref, kern, gen):
     print("[kernel] qconv1d: equal to plain on the edge cases (stride 2 and 3, VALID, odd F, "
           "K=1/2/4/5/7, stride above K), int8 and int16", flush=True)
     # Past one block's shared memory a block walks C in chunks, carrying its
-    # sums: C=1024 int16 at K=7, and an int32 wrap across 163 channel chunks
+    # sums: C=1024 int16 at K=7, and an int32 wrap across channel chunks
     # (all codes -128 at C=65536, K=3: the plain float64 sums are exact while
     # K*C < 2^23).
+    from repro_torch.kernels import int_mma
+
     x, w = (int_codes(torch, gen, (1, 64, 1024), torch.int16),
             int_codes(torch, gen, (7, 1024, 8), torch.int16))
     check(torch.equal(kern(x, w), ref.qconv1d_ref(x, w)),
@@ -353,8 +380,14 @@ def check_qconv1d(torch, F, ref, kern, gen):
     check(torch.equal(got, want) and want[0, 1, 0].item() == 3 * 65536 * 16384 - 2 ** 32,
           f"qconv1d C=65536 int8 wrap case: kernel {got[0, :, 0].tolist()}, plain "
           f"{want[0, :, 0].tolist()}")
-    print("[kernel] qconv1d: equal to plain at C=1024 int16 K=7 and at C=65536 int8 K=3 "
-          "(all codes -128: int32 wraps across 163 channel chunks)", flush=True)
+    chunks = {}
+    for label, (c, k, wd, nb) in (("C=1024 int16 K=7", (1024, 7, 64, 2)),
+                                  ("C=65536 int8 K=3", (65536, 3, 4, 1))):
+        p = int_mma.conv_plan(1, c, k, 8, wd, 1, nb)
+        chunks[label] = math.ceil(k / p.kc) * math.ceil(-(-c // 16) * 16 / p.cc)
+    print(f"[kernel] qconv1d: equal to plain at C=1024 int16 K=7 ({chunks['C=1024 int16 K=7']} "
+          f"chunks) and at C=65536 int8 K=3 (all codes -128: int32 wraps across "
+          f"{chunks['C=65536 int8 K=3']} channel chunks)", flush=True)
     per_forward = {}
     for dt in ("int8", "int16"):
         part = {r["label"]: r for r in rows if r["dtype"] == dt}
@@ -2313,16 +2346,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
-    # the two weight-only GEMMs run on the tensor cores: HMMA in their machine code
+    # the GEMMs run on the tensor cores: HMMA in the weight-only GEMMs' machine
+    # code, IMMA (integer) and no dp4a in the integer kernels'
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     check(cuobjdump.exists(), f"{cuobjdump} not found: cannot read the GEMMs' machine code")
-    for name in ("wq_matmul", "wq4_matmul"):
+    for name, op in (("wq_matmul", "HMMA"), ("wq4_matmul", "HMMA"), ("qmm", "IMMA"),
+                     ("qconv1d", "IMMA")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
-                              capture_output=True, text=True, timeout=120).stdout
-        hmma = sum("HMMA" in line for line in sass.splitlines())
-        check(hmma > 0, f"{name}: no HMMA instruction in its machine code")
-        print(f"[build] {name}: {hmma} HMMA (tensor-core) instructions in its machine code",
-              flush=True)
+                              capture_output=True, text=True, timeout=120).stdout.splitlines()
+        found = sum(op in line for line in sass)
+        dp4a = sum("IDP" in line for line in sass)
+        check(found > 0, f"{name}: no {op} instruction in its machine code")
+        check(dp4a == 0, f"{name}: {dp4a} dp4a (IDP) instructions in its machine code")
+        print(f"[build] {name}: {found} {op} (tensor-core) instructions and no dp4a in its "
+              f"machine code", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t1 = time.perf_counter()
@@ -2433,22 +2470,32 @@ def main() -> int:
     qmm_main = next(r for r in qmm_rows if r["label"] == "classifier" and r["dtype"] == "int8")
     qmr_main = next(r for r in qmr_rows if r["label"] == "classifier" and r["dtype"] == "int8")
     qconv_main = next(r for r in qconv_rows if r["label"] == "conv2/3" and r["dtype"] == "int8")
-    for name, source, replaces, row, shape in (
+
+    def beside(rows, main):
+        """The other timed shapes of a kernel, so that every line a library
+        call beat stays visible beside the main one."""
+        keys = ("label", "dtype", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        return [{k: r[k] for k in keys} for r in rows if r is not main]
+
+    for name, source, replaces, row, shape, others in (
             ("qmm", "qmm.cu", "qmm.py:77", qmm_main,
-             f"the classifier: ({PATH_BATCH}, {RESNET_FILTERS}) @ ({RESNET_FILTERS}, 6) int8"),
+             f"the classifier: ({PATH_BATCH}, {RESNET_FILTERS}) @ ({RESNET_FILTERS}, 6) int8",
+             beside(qmm_rows, qmm_main)),
             ("qmm_requant", "qmm.cu", "qmm.py:118", qmr_main,
-             f"({PATH_BATCH}, {RESNET_FILTERS}) @ ({RESNET_FILTERS}, 6) int8, shift 11, width 8"),
+             f"({PATH_BATCH}, {RESNET_FILTERS}) @ ({RESNET_FILTERS}, 6) int8, shift 11, width 8",
+             beside(qmr_rows, qmr_main)),
             ("qconv1d", "qconv1d.cu", "qconv1d.py:36", qconv_main,
              f"conv2/3: B={PATH_BATCH} W=128 C={RESNET_FILTERS} F={RESNET_FILTERS} K=3 int8 "
-             f"SAME"),
+             f"SAME", beside(qconv_rows, qconv_main)),
             ("fake_quant", "fake_quant.cu", "fake_quant.py:30", fq_row,
-             f"{fq_row['shape']} f32, n=4, width 8")):
+             f"{fq_row['shape']} f32, n=4, width 8", [])):
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", "launches": launches[name],
             "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": shape})
+            "library_ms": row["library_ms"], "shape": shape,
+            **({"beside": others} if others else {})})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

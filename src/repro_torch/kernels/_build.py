@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout (a
 directory ``.gitignore`` lists); the hash covers the source, the
-``csrc/*.cuh`` headers it includes and the flags, so an edited source or
-header rebuilds.  Nothing runs at import: :func:`load` builds
+``csrc/*.cuh`` headers it includes (directly or through another header)
+and the flags, so an edited source or header rebuilds.  Nothing runs at import: :func:`load` builds
 on first use, and :func:`build` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -45,10 +45,15 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``name``'s shared library lives for the current source and the
-    ``csrc`` headers it includes (``#include "..."``)."""
+    ``csrc`` headers it includes (``#include "..."``, and theirs)."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    headers = sorted(set(re.findall(rb'#include "([^"]+)"', src)))
-    blob = src + b"".join(h + (CSRC / h.decode()).read_bytes() for h in headers)
+    headers, todo = set(), re.findall(rb'#include "([^"]+)"', src)
+    while todo:
+        h = todo.pop()
+        if h not in headers:
+            headers.add(h)
+            todo += re.findall(rb'#include "([^"]+)"', (CSRC / h.decode()).read_bytes())
+    blob = src + b"".join(h + (CSRC / h.decode()).read_bytes() for h in sorted(headers))
     digest = hashlib.sha256(blob + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace wq_gemm {
 
 namespace cg = cooperative_groups;
@@ -85,25 +87,7 @@ struct Smem {
   uint16_t wp[BN * LDS];              // the codes as bf16, [n][k]
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; bytes past `bytes` are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Until at most N of this thread's latest groups of copies are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using cp_async::smem_addr;
 
 // Two f32 as bf16x2, round to nearest even; `lo` in the low half.
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
@@ -171,7 +155,7 @@ __device__ __forceinline__ void gemm(const float* __restrict__ x, const int8_t* 
       for (int c = tid; c < BM * BK / 4; c += NT) {
         const int r = c / (BK / 4), kk = k0 + (c % (BK / 4)) * 4;
         const int bytes = m0 + r < M ? 4 * max(0, min(4, kend - kk)) : 0;
-        cp_async16(xs + c * 4, bytes ? x + (size_t)(m0 + r) * K + kk : x, bytes);
+        cp_async::copy16(xs + c * 4, bytes ? x + (size_t)(m0 + r) * K + kk : x, bytes);
       }
     } else {
       for (int e = tid; e < BM * BK; e += NT) {
@@ -186,7 +170,7 @@ __device__ __forceinline__ void gemm(const float* __restrict__ x, const int8_t* 
       for (int c = tid; c < WROWS * BN / 16; c += NT) {
         const int r = c / (BN / 16), n = n0 + (c % (BN / 16)) * 16;
         const int bytes = r0 + r < rows ? max(0, min(16, N - n)) : 0;
-        cp_async16(ws + c * 16, bytes ? w + (size_t)(r0 + r) * N + n : w, bytes);
+        cp_async::copy16(ws + c * 16, bytes ? w + (size_t)(r0 + r) * N + n : w, bytes);
       }
     } else {
       for (int e = tid; e < WROWS * BN; e += NT) {
@@ -326,7 +310,7 @@ __device__ __forceinline__ void gemm(const float* __restrict__ x, const int8_t* 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < steps) load(s, kbeg + s * BK);
-    cp_async_commit();
+    cp_async::commit();
   }
   for (int s = 0; s < steps; ++s) {
     const int k0 = kbeg + s * BK;
@@ -337,17 +321,17 @@ __device__ __forceinline__ void gemm(const float* __restrict__ x, const int8_t* 
                            ((k0 + BK) % block_size == 0 || k0 + BK >= kend);
     float sc[FN][2];
     if (fold_here) scales(sc, k0 / block_size);
-    cp_async_wait<STAGES - 2>();
+    cp_async::wait<STAGES - 2>();
     __syncthreads();   // step s visible; every warp is done with step s - 1
     const int next = s + STAGES - 1;
     if (next < steps) load(next % STAGES, kbeg + next * BK);
-    cp_async_commit();
+    cp_async::commit();
     convert(s % STAGES);
     __syncthreads();
     mma_step(k0);
     if (fold_here) fold(sc);
   }
-  cp_async_wait<0>();   // only empty groups are left: the partial tile may reuse the ring
+  cp_async::wait<0>();   // only empty groups are left: the partial tile may reuse the ring
   if (block_size == 0) {
 #pragma unroll
     for (int i = 0; i < FM; ++i)

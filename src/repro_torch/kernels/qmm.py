@@ -3,8 +3,11 @@
 Replaces ``repro/kernels/qmm.py::qmm_pallas`` and ``::qmm_requant_pallas``
 (one source, one kernel with an optional epilogue).  The plain versions are
 :func:`repro_torch.kernels.ref.qmm_ref` and :func:`~repro_torch.kernels.ref.
-qmm_requant_ref`.  int8 operands take dp4a, int16 one 32-bit multiply-add
-per product; sums wrap modulo 2^32 as XLA's int32 dot does.
+qmm_requant_ref`.  The products run on the integer tensor cores
+(``csrc/int_mma.cuh``: int8 as ``mma`` s8, int16 as four 8-bit products on
+a hi/lo byte split); sums wrap modulo 2^32 as XLA's int32 dot does.  One
+launch per call, K split across a thread-block cluster where the output
+tiles would not fill the card (:func:`repro_torch.kernels.int_mma.qmm_plan`).
 """
 from __future__ import annotations
 
@@ -13,12 +16,13 @@ import ctypes
 import torch
 
 from repro_torch.core import qformat
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, int_mma
 
 launches = 0           # qmm kernel launches since the last reset (kernels/ops.py)
 requant_launches = 0   # qmm_requant kernel launches
 _fn = None
 _BYTES = {torch.int8: 1, torch.int16: 2}
+plan = int_mma.qmm_plan   # the launch of an (M, K) @ (K, N) call
 
 
 def _kernel():
@@ -26,7 +30,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("qmm").qmm_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -47,12 +51,15 @@ def _check(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
 
 def _launch(what, x, w, shift, out, lo, hi):
     m, k = x.shape
+    n = w.shape[1]
+    p = plan(m, k, n, _BYTES[x.dtype]) if m and n else int_mma.QmmPlan(16, 1, 64)
     err = _kernel()(x.data_ptr(), w.data_ptr(), _BYTES[x.dtype],
                     None if shift is None else shift.data_ptr(), out.data_ptr(),
-                    out.element_size(), lo, hi, m, k, w.shape[1],
+                    out.element_size(), lo, hi, m, k, n, p.bm, p.ranks, p.k_per_rank,
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what} kernel launch failed for M={m}, K={k}, N={n} {x.dtype}, "
+                           f"{p}: CUDA error {err}")
 
 
 def qmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -252,9 +252,9 @@ def test_qconv1d_wrapper_refuses_what_one_block_cannot_stage():
     """Shapes past one block's shared memory run: a block walks C in
     chunks, carrying its sums.  C=1024 int16 at K=7 (about 1.2 MB of
     weights per filter tile in one chunk) equals the plain
-    version; so does a sum that wraps int32 across 163 channel chunks (all
+    version; so does a sum that wraps int32 across channel chunks (all
     codes -128 at C=65536, K=3: the plain float64 sums are exact, K*C <
-    2^23).  ResNetv1-6's int16 convolutions (51,840 bytes, one chunk) too."""
+    2^23).  ResNetv1-6's int16 convolutions (one chunk) too."""
     _need_card()
     from repro_torch.kernels.qconv1d import qconv1d_cuda
 
@@ -273,7 +273,8 @@ def test_qconv1d_wrapper_refuses_what_one_block_cannot_stage():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(2947, 80, 6), (100, 300, 50), (1, 512, 64)])
+@pytest.mark.parametrize("m,k,n", [(2947, 80, 6), (100, 300, 50), (1, 512, 64),
+                                   (128, 512, 128)])
 @pytest.mark.parametrize("dtype", ["int8", "int16"])
 def test_cuda_kernel_qmm_matches_plain(m, k, n, dtype):
     _need_card()
@@ -289,7 +290,36 @@ def test_cuda_kernel_qmm_matches_plain(m, k, n, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,w,c,f,ksize,stride,padding", _CONV_CASES)
+def test_cuda_kernel_qmm_wraps_at_the_extreme_codes():
+    """int8 codes all -128 at (16, 196608) @ (196608, 8): every sum is
+    3 * 2^30 and wraps to -2^30 (K split over 8 cluster ranks); int16 codes
+    at both ends of the range and next to them, where the byte split's
+    high bytes are -128 and 127 and the sums pass int32."""
+    _need_card()
+    from repro_torch.kernels.qmm import qmm_cuda, qmm_requant_cuda
+
+    x = torch.full((16, 196608), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((196608, 8), -128, dtype=torch.int8, device="cuda")
+    got = qmm_cuda(x, w)
+    assert torch.equal(got, ref.qmm_ref(x, w)) and bool((got == -(1 << 30)).all())
+    rng = np.random.default_rng(9)
+    extreme = np.array([-32768, -32767, -256, -1, 0, 1, 255, 256, 32767], dtype=np.int16)
+    for m, k, n in ((128, 512, 128), (100, 300, 50), (2947, 80, 6)):
+        x = torch.from_numpy(rng.choice(extreme, (m, k))).cuda()
+        w = torch.from_numpy(rng.choice(extreme, (k, n))).cuda()
+        assert torch.equal(qmm_cuda(x, w), ref.qmm_ref(x, w))
+        s = torch.tensor(13, dtype=torch.int32, device="cuda")
+        assert torch.equal(qmm_requant_cuda(x, w, s, width=16),
+                           ref.qmm_requant_ref(x, w, s, width=16))
+
+
+# ResNetv1-6's conv1 (C=9, padded to 16 channels) and conv4/5 (W'=32: several
+# batch rows a block) at a small batch, beside the edge cases
+_CARD_CONV_CASES = _CONV_CASES + [(64, 128, 9, 80, 3, 1, "SAME"), (64, 32, 80, 80, 3, 1, "SAME")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,c,f,ksize,stride,padding", _CARD_CONV_CASES)
 @pytest.mark.parametrize("dtype", ["int8", "int16"])
 def test_cuda_kernel_qconv1d_matches_plain(b, w, c, f, ksize, stride, padding, dtype):
     _need_card()
