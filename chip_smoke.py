@@ -28,7 +28,9 @@ Phases, each printed as it completes; any failure exits non-zero:
      ``qragged_attn`` on the ragged tick (8 decode rows, 2 lanes x 32 chunk
      rows) over the dense identity layout and fragmented tables (page sizes
      16, 1, 5), with edge and all-inert ticks and cross-checks against the
-     decode and chunk kernels; ``wq_matmul`` at M = 8, 32 (a mixed tick's
+     decode and chunk kernels; both (split across a cluster of R blocks,
+     printed with their register counts) also at D = 16, 32, 64, 128 and
+     G = 1, 5, 16; ``wq_matmul`` at M = 8, 32 (a mixed tick's
      chunk), 72 and 144 (the ragged ticks' GEMM rows) and 1024;
      ``wq4_matmul`` at the four projection shapes, per-channel and block-32
      scales, M = 8, 32, 72, 144 and 1024, plus an odd K with a partial last
@@ -123,6 +125,25 @@ def card_line() -> str:
                          timeout=60)
     check(out.returncode == 0, f"nvidia-smi exit {out.returncode}: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def split_registers(log: str, entry: str) -> str:
+    """'D/G: registers (spill bytes)' of each instantiation of ``entry``
+    (templated on D and the G bucket) in a ``-Xptxas -v`` build log."""
+    import re
+
+    out, key = [], None
+    for line in log.splitlines():
+        hit = re.search(entry + r"ILi(\d+)ELi(\d+)E", line)
+        if "Compiling entry" in line:
+            key, spill = (f"{hit.group(1)}/{hit.group(2)}" if hit else None), 0
+        elif key and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif key and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{key}: {regs}" + (f" ({spill} B spilled)" if spill else ""))
+            key = None
+    return ", ".join(out)
 
 
 def graph_ms(torch, calls, iters):
@@ -789,12 +810,15 @@ def check_qpaged_decode_attn(torch, F, ref, qpd_cuda, qd_cuda, gen, page_size):
     evicted slot (row all -1, length > 0).  Each case is also run through
     ``qdecode_attn`` on the same logical contents laid out densely.  Then the
     page-size sweep: B=8, S=2048 for ps in 16, 32, 64, 128."""
+    from repro_torch.kernels.attn_split import split_ranks
+
     b, hq, hkv, d = 8, 9, 3, 64
     g = hq // hkv
     rows, swept, worst = [], [], 0.0
     cases = [(s, page_size) for s in (192, 2048)] + [(2048, ps) for ps in (16, 32, 64, 128)]
     for s, ps in cases:
         table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
+        ranks = split_ranks(mp * ps, b, hkv, d)
         lens = [1, ps, s // 2 + ps // 2 + 1, mp * ps, s - 3, 50, mp * ps + 40, 2 * ps + 1]
         table[5] = -1                                   # evicted, len 50 keeps ticking
         kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -824,8 +848,8 @@ def check_qpaged_decode_attn(torch, F, ref, qpd_cuda, qd_cuda, gen, page_size):
                                     for kv in dense_pools], iters)
         del dense_pools
         if len(rows) == 2 or ps != page_size:      # the page-size sweep
-            swept.append(dict(s=s, ps=ps, ms=ms, dense_ms=dense_ms, err=err))
-            print(f"[kernel] qpaged_decode_attn page-size sweep B={b} S={s} ps={ps}: "
+            swept.append(dict(s=s, ps=ps, ms=ms, dense_ms=dense_ms, err=err, ranks=ranks))
+            print(f"[kernel] qpaged_decode_attn page-size sweep B={b} S={s} ps={ps} R={ranks}: "
                   f"kernel {ms * 1e3:.2f} us | qdecode_attn on the dense layout "
                   f"{dense_ms * 1e3:.2f} us | max_abs_err {err:.3e}", flush=True)
             del pools
@@ -849,14 +873,60 @@ def check_qpaged_decode_attn(torch, F, ref, qpd_cuda, qd_cuda, gen, page_size):
         b_ms, b_by = bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * pages + 4 * b,
                            4.0 * live * hq * d)
         rows.append(dict(s=s, ps=ps, lens=lens, err=err, dense_err=derr, ms=ms, plain_ms=plain,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, dense_ms=dense_ms))
-        print(f"[kernel] qpaged_decode_attn B={b} Hq={hq} Hkv={hkv} D={d} S={s} ps={ps} "
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, dense_ms=dense_ms,
+                         ranks=ranks))
+        print(f"[kernel] qpaged_decode_attn B={b} Hq={hq} Hkv={hkv} D={d} S={s} ps={ps} R={ranks} "
               f"kv_len={lens} (slot 5 evicted): max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}) | "
               f"kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us | index_select + sdpa "
               f"{lib_ms * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by}) | qdecode_attn on "
               f"the dense layout {dense_ms * 1e3:.2f} us, max diff {derr:.3e}", flush=True)
         del pools
     return rows, swept, worst
+
+
+def check_split_instantiations(torch, ref, qpd_cuda, qr_cuda, gen):
+    """The other instantiations of the split kernels (``csrc/attn_split.cuh``)
+    against their plain versions: D in 16, 32, 64, 128 and G in 1, 5, 16
+    (the serving shape, D=64 and G=3, is held above), at a walk long enough
+    for a cluster, with kv_len 0 and past the table, an evicted slot, a slot
+    with a decode row and chunk rows in one tick, a token that sees no
+    mapped position, and an inert token.  Returns the worst error."""
+    from repro_torch.kernels.attn_split import split_ranks
+
+    b, hkv, ps, worst = 4, 2, 8, 0.0
+    for d in (16, 32, 64, 128):
+        for g in (1, 5, 16):
+            s = 16 * 128
+            table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
+            table[3] = -1
+            kp, vp = (pool_codes(torch, gen, (n_pool, ps, hkv, d)) for _ in range(2))
+            lens = torch.tensor([0, s - 5, mp * ps + 9, 7], dtype=torch.int32, device="cuda")
+            q = torch.randn(b, g * hkv, d, generator=gen, device="cuda")
+            got = qpd_cuda(q, kp, vp, 3, 3, table, lens)
+            want = ref.qpaged_decode_attn_ref(q, kp, vp, 3, 3, table, lens)
+            # kv_len 0 on a mapped row: the mean of V over its first page
+            first = vp[table[0, 0].long()].float().mul(0.125).repeat_interleave(g, dim=1).mean(0)
+            slots = [0, 1, 3, 2] + [0] * 16
+            pos = [1000, s - 1, 3, -1] + list(range(1001, 1017))
+            sl, po = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (slots, pos))
+            qt = torch.randn(len(pos), g * hkv, d, generator=gen, device="cuda")
+            kn, vn = (torch.randn(len(pos), hkv, d, generator=gen, device="cuda") for _ in range(2))
+            kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+            rgot = qr_cuda(qt, kn, vn, kk, vk, 3, 3, table, sl, po)
+            rwant = ref.qragged_attn_ref(qt, kn, vn, kr, vr, 3, 3, table, sl, po)
+            torch.cuda.synchronize()
+            err = max(max_err(got[1:], want[1:]), max_err(got[0], first),
+                      max_err(rgot, rwant))
+            label = (f"split kernels D={d} G={g} R={split_ranks(mp * ps, b, hkv, d)} / "
+                     f"{split_ranks(mp * ps, len(pos), hkv, d)}")
+            check(err <= ATTN_ATOL, f"{label}: max err {err} > {ATTN_ATOL}")
+            check(torch.equal(kk, kr) and torch.equal(vk, vr), f"{label}: pools differ")
+            check(not bool(rgot[2:4].any()), f"{label}: a row that sees nothing is not 0")
+            worst = max(worst, err)
+    print(f"[kernel] qpaged_decode_attn and qragged_attn at D in (16, 32, 64, 128) x G in "
+          f"(1, 5, 16), S=2048 ps=8: max_abs_err {worst:.3e} (tol {ATTN_ATOL:.0e}), pools equal, "
+          f"rows that see nothing 0", flush=True)
+    return worst
 
 
 def check_qpaged_chunk_attn(torch, F, ref, qpc_cuda, qc_cuda, gen, page_size):
@@ -1014,6 +1084,7 @@ def check_qragged_attn(torch, F, ref, kern, gen, page_size):
     then a per-token gather and SDPA on dequantized, head-expanded K/V with
     a per-token mask) and bound."""
     from repro_torch.core import qformat
+    from repro_torch.kernels.attn_split import split_ranks
 
     b, hq, hkv, d, c = 8, 9, 3, 64, 32
     g = hq // hkv
@@ -1062,6 +1133,7 @@ def check_qragged_attn(torch, F, ref, kern, gen, page_size):
         for j in lane_slots:
             pos[j] = -1
         t = len(pos)
+        ranks = split_ranks(mp * ps, t, hkv, d)
         q, kn, vn = inputs(t)
         copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * n_pool * ps * hkv * d)))
         pools = [(pool_codes(torch, gen, (n_pool, ps, hkv, d)),
@@ -1150,9 +1222,10 @@ def check_qragged_attn(torch, F, ref, kern, gen, page_size):
         b_ms, b_by = ragged_tick_bound(tab, ps, slots, pos, hq, hkv, d)
         rows.append(dict(s=s, ps=ps, layout=lay, t=t, err=err, edge_err=eerr,
                          decode_err=derr, chunk_err=cerr, ms=ms, plain_ms=plain,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, ranks=ranks))
         print(f"[kernel] qragged_attn B={b} Hq={hq} Hkv={hkv} D={d} T={t} (8 decode rows, 2 "
-              f"inert; 2 lanes x {c} at start {start}) S={s} {lay}: max_abs_err {err:.3e}, edge "
+              f"inert; 2 lanes x {c} at start {start}) S={s} {lay} R={ranks}: max_abs_err "
+              f"{err:.3e}, edge "
               f"tick {eerr:.3e} (tol {ATTN_ATOL:.0e}), pools equal to the plain version's, "
               f"inert rows 0, all-inert tick writes nothing | vs {which[0]} {derr:.3e}, vs "
               f"{which[1]} {cerr:.3e} | kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us "
@@ -2346,6 +2419,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    for name, entry in (("qpaged_attn", "qpaged_decode_kernel"),
+                        ("qragged_attn", "qragged_kernel")):
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        print(f"[build] {name}: the split kernel's registers by (D, G bucket): "
+              f"{split_registers(log, entry)}", flush=True)
     # the GEMMs run on the tensor cores: HMMA in the weight-only GEMMs' machine
     # code, IMMA (integer) and no dp4a in the integer kernels'
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -2375,6 +2453,7 @@ def main() -> int:
         qragged=qragged_attn_cuda, qdecode=qdecode_attn_cuda, qchunk=qchunk_attn_cuda,
         qpaged_decode=qpaged_decode_attn_cuda, qpaged_chunk=qpaged_chunk_attn_cuda),
         gen, CUDA_PAGE_SIZE)
+    check_split_instantiations(torch, ref, qpaged_decode_attn_cuda, qragged_attn_cuda, gen)
     t_int = time.perf_counter()
     qmm_rows = check_qmm(torch, ref, qmm_cuda, gen)
     qmr_rows = check_qmm_requant(torch, ref, qmm_requant_cuda, gen)
@@ -2433,7 +2512,7 @@ def main() -> int:
          "bound_ms": pd_main["bound_ms"], "bound_by": pd_main["bound_by"],
          "library_ms": pd_main["library_ms"],
          "shape": f"B=8 Hq=9 Hkv=3 D=64 S={pd_main['s']} ps={pd_main['ps']} "
-                  f"kv_len={pd_main['lens']} (slot 5 evicted)"},
+                  f"kv_len={pd_main['lens']} (slot 5 evicted)", "ranks": pd_main["ranks"]},
         {"name": "qpaged_chunk_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qpaged_attn.cu",
          "replaces": "src/repro/kernels/qpaged_attn.py:247",
@@ -2455,7 +2534,7 @@ def main() -> int:
          "library_ms": qr_main["library_ms"],
          "shape": f"B=8 Hq=9 Hkv=3 D=64 T={qr_main['t']} (8 decode rows, 2 inert; 2 lanes x 32 "
                   f"at start 96) S={qr_main['s']} {qr_main['layout']} (the ragged serving "
-                  f"tick)"})
+                  f"tick)", "ranks": qr_main["ranks"]})
     wq4_main = wq4_layers[(8, 32)]
     kernels.insert(1, {
         "name": "wq4_matmul", "route": "cuda",

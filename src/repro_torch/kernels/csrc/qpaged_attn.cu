@@ -15,12 +15,7 @@
 // visited (page 0 alone when kv_len <= 0), so the walk stops at the table's
 // end even when an inactive slot's length has ticked past it; an unmapped
 // entry reads pool page 0 (jnp.maximum(page, 0)) and never faults; positions
-// >= kv_len are masked with -1e30.  One block of 256 threads per (KV head,
-// slot), the dense qdecode_attn design: the G query heads sit in shared
-// memory, the block walks its visited positions in tiles of BS (each
-// position's pool row looked up through the table, the next tile's loads in
-// flight while the current one is computed) with a running (m, l, acc)
-// online softmax and the reference's max(l, 1e-30) floor.
+// >= kv_len are masked with -1e30, and the output is acc / max(l, 1e-30).
 //
 // qpaged_chunk_attn: chunk q (C, Hq, D) f32 and k, v (C, Hkv, D) f32, the
 // target slot's table row (max_pages,) and start.  Logical rows [start,
@@ -42,83 +37,59 @@
 // Bound on an H100: bytes.  Decode reads the live rows' int8 K/V, 2 * len *
 // Hkv * D bytes per slot and layer, at about one multiply-add per byte; the
 // chunk reads the slot's int8 prefix and the f32 chunk.  The table adds 4
-// bytes per page.  This first version, like the dense kernels, runs one
-// block per (slot, head) or per (head, row tile) and walks the positions
-// serially: few SMs are busy at serving shapes, and splitting the walk
-// across blocks (flash-decoding) is the next step.  Positions, not pages,
-// are the unit of the walk, so any page size >= 1 takes the same path.
+// bytes per page.  Positions, not pages, are the unit of both walks, so any
+// page size >= 1 takes the same path.
+//
+// Decode design (attn_split.cuh): one cluster of R blocks per (KV head,
+// slot), grid (Hkv * R, B).  Each rank reads kv_len, computes the visited
+// range above, and walks its contiguous run of whole tiles of it over
+// cp.async-staged rows, each group of lanes an online softmax of its own;
+// the ranks' (m, l, acc) are folded through distributed shared memory and one
+// launch writes out.  R comes from shapes alone (kernels/attn_split.py:
+// the table's reach, B and Hkv, never kv_len), so a call makes no host
+// sync and is safe in a CUDA graph.
+//
+// The chunk kernel runs one block per (KV head, tile of chunk rows) and
+// walks the prefix serially.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_split.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+namespace cg = cooperative_groups;
+using attn_split::kMasked;
+using attn_split::kThreads;
+using attn_split::quantize_i8;
+
 constexpr int kMaxG = 16;
 constexpr int kMaxQ = 32;  // chunk kernel: queries (chunk rows x group heads) per block
-constexpr float kMasked = -1e30f;
-
-// sat(trunc(x * 2^n)) with inv_scale = 2^n: a product by an exact power of
-// two, so the codes equal the plain version's bit for bit.
-__device__ __forceinline__ signed char quantize_i8(float x, float inv_scale) {
-  const float t = truncf(x * inv_scale);
-  return static_cast<signed char>(fminf(fmaxf(t, -128.f), 127.f));
-}
 
 // ---------------------------------------------------------------------------
 // Decode
 // ---------------------------------------------------------------------------
 
-// The tile's K/V bytes for this thread, each position's row found through
-// the slot's table row; positions at or past s_end load zeros.
-template <int D, int kLoads>
-__device__ __forceinline__ void fetch_paged(char4 (&kr)[kLoads], char4 (&vr)[kLoads],
-                                            const int8_t* __restrict__ kh,
-                                            const int8_t* __restrict__ vh,
-                                            const int* __restrict__ trow, int ps,
-                                            size_t page_elems, size_t row, int s0,
-                                            int s_end) {
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int s = e / (D / 4), d = (e % (D / 4)) * 4;
-    const int pos = s0 + s;
-    kr[i] = make_char4(0, 0, 0, 0);
-    vr[i] = make_char4(0, 0, 0, 0);
-    if (pos < s_end) {
-      const int lp = pos / ps;
-      const int page = max(__ldg(trow + lp), 0);
-      const size_t off = (size_t)page * page_elems + (size_t)(pos - lp * ps) * row + d;
-      kr[i] = *reinterpret_cast<const char4*>(kh + off);
-      vr[i] = *reinterpret_cast<const char4*>(vh + off);
-    }
-  }
-}
-
-template <int D, int BS>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int KG>
+// G <= 4: two blocks an SM (at most 128 registers), as a cluster needs its
+// ranks resident at once
+__global__ void __launch_bounds__(kThreads, KG <= 4 ? 2 : 1)
 qpaged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
                      const int8_t* __restrict__ v, const int* __restrict__ k_n_ptr,
                      int k_n_val, const int* __restrict__ v_n_ptr, int v_n_val,
                      const int* __restrict__ table, const int* __restrict__ kv_len_ptr,
                      int kv_len_stride, int kv_len_val, float* __restrict__ out, int ps,
                      int max_pages, int Hkv, int G, float sm_scale) {
-  __shared__ float qs[kMaxG][D];
-  __shared__ float ks[BS][D + 1];  // +1: conflict-free reads along a row
-  __shared__ float vs[BS][D];
-  __shared__ float ps_[kMaxG][BS];
-  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
-  constexpr int kAcc = (kMaxG * D + kThreads - 1) / kThreads;
-  constexpr int kLoads = BS * D / 4 / kThreads;
-  static_assert(kLoads * kThreads * 4 == BS * D, "a tile splits evenly over the threads");
-
-  const int h = blockIdx.x;
+  using Gm = attn_split::Geom<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<attn_split::Smem<D, KG>*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int h = blockIdx.x / ranks;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int lane = threadIdx.x % 32;
   const int Hq = Hkv * G;
-  const float k_scale = exp2f(-static_cast<float>(k_n_ptr ? *k_n_ptr : k_n_val));
-  const float v_scale = exp2f(-static_cast<float>(v_n_ptr ? *v_n_ptr : v_n_val));
   const int len = kv_len_ptr ? kv_len_ptr[(size_t)b * kv_len_stride] : kv_len_val;
   // pages the Pallas kernel visits: through the last live one (page 0 when
   // the slot is empty), never past the table
@@ -126,105 +97,37 @@ qpaged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
   const int n_walk = (last + 1) * ps;
   const int s_end = len > 0 ? min(len, n_walk) : n_walk;
 
-  const size_t row = (size_t)Hkv * D;  // elements between consecutive rows of a page
-  const size_t page_elems = (size_t)ps * row;
-  const int8_t* kh = k + (size_t)h * D;
-  const int8_t* vh = v + (size_t)h * D;
-  const int* trow = table + (size_t)b * max_pages;
-  char4 kr[kLoads], vr[kLoads];
-  fetch_paged<D, kLoads>(kr, vr, kh, vh, trow, ps, page_elems, row, 0, s_end);
+  attn_split::Walk wk = {};
+  wk.kh = k + (size_t)h * D;
+  wk.vh = v + (size_t)h * D;
+  wk.trow = table + (size_t)b * max_pages;
+  wk.row = (size_t)Hkv * D;
+  wk.page_elems = (size_t)ps * wk.row;
+  wk.ps = ps;
+  attn_split::rank_range(s_end, Gm::BS, static_cast<int>(cluster.block_rank()), ranks, wk.lo,
+                         wk.hi);
+  wk.len = len;
+  wk.k_scale = exp2f(-static_cast<float>(k_n_ptr ? *k_n_ptr : k_n_val));
+  wk.v_scale = exp2f(-static_cast<float>(v_n_ptr ? *v_n_ptr : v_n_val));
+  wk.sm_scale = sm_scale;
 
   const float* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int e = tid; e < G * D; e += kThreads) qs[e / D][e % D] = qb[e];
-  if (tid < G) {
-    m_s[tid] = kMasked;
-    l_s[tid] = 0.f;
-  }
-  float acc[kAcc];
+  // this lane's 8 dimensions of q, times 2^-k_n (exact)
+  const int d0 = (lane % Gm::LPP) * 8;
+  float qv[KG][8], acc[KG][8], m[KG], l[KG];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-
-  for (int s0 = 0; s0 < s_end; s0 += BS) {
-    __syncthreads();  // the previous tile's ps_ / vs are consumed
+  for (int g = 0; g < KG; ++g) {
+    m[g] = kMasked;
+    l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int e = tid + i * kThreads;
-      const int s = e / (D / 4), d = (e % (D / 4)) * 4;
-      ks[s][d + 0] = kr[i].x * k_scale;
-      ks[s][d + 1] = kr[i].y * k_scale;
-      ks[s][d + 2] = kr[i].z * k_scale;
-      ks[s][d + 3] = kr[i].w * k_scale;
-      vs[s][d + 0] = vr[i].x * v_scale;
-      vs[s][d + 1] = vr[i].y * v_scale;
-      vs[s][d + 2] = vr[i].z * v_scale;
-      vs[s][d + 3] = vr[i].w * v_scale;
-    }
-    __syncthreads();
-    if (s0 + BS < s_end)
-      fetch_paged<D, kLoads>(kr, vr, kh, vh, trow, ps, page_elems, row, s0 + BS, s_end);
-    for (int e = tid; e < G * BS; e += kThreads) {
-      const int g = e / BS, s = e % BS;
-      const int pos = s0 + s;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        a0 = fmaf(qs[g][d + 0], ks[s][d + 0], a0);
-        a1 = fmaf(qs[g][d + 1], ks[s][d + 1], a1);
-        a2 = fmaf(qs[g][d + 2], ks[s][d + 2], a2);
-        a3 = fmaf(qs[g][d + 3], ks[s][d + 3], a3);
-      }
-      const float dot = (a0 + a1) + (a2 + a3);
-      // positions past the walk are not visited; masked ones weigh exp(-1e30 - m)
-      ps_[g][s] = pos >= s_end ? -INFINITY : (pos < len ? dot * sm_scale : kMasked);
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float mx = -INFINITY;
-      for (int s = lane; s < BS; s += 32) mx = fmaxf(mx, ps_[g][s]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int s = lane; s < BS; s += 32) {
-        const float p = expf(ps_[g][s] - m_new);
-        ps_[g][s] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < G * D) {
-        const int g = e / D, d = e % D;
-        float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
-#pragma unroll
-        for (int s = 0; s < BS; s += 4) {
-          b0 = fmaf(ps_[g][s + 0], vs[s + 0][d], b0);
-          b1 = fmaf(ps_[g][s + 1], vs[s + 1][d], b1);
-          b2 = fmaf(ps_[g][s + 2], vs[s + 2][d], b2);
-          b3 = fmaf(ps_[g][s + 3], vs[s + 3][d], b3);
-        }
-        acc[i] = acc[i] * alpha_s[g] + ((b0 + b1) + (b2 + b3));
-      }
+    for (int j = 0; j < 8; ++j) {
+      qv[g][j] = g < G ? qb[g * D + d0 + j] * wk.k_scale : 0.f;
+      acc[g][j] = 0.f;
     }
   }
-  __syncthreads();
-  float* ob = out + ((size_t)b * Hq + (size_t)h * G) * D;
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < G * D) ob[e] = acc[i] / fmaxf(l_s[e / D], 1e-30f);
-  }
+  attn_split::walk<D, KG, false>(sm, wk, G, qv, acc, m, l);
+  attn_split::combine<D, KG>(sm, G, wk.v_scale, acc, m, l,
+                             out + ((size_t)b * Hq + (size_t)h * G) * D);
 }
 
 // ---------------------------------------------------------------------------
@@ -423,15 +326,47 @@ qpaged_chunk_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   }
 }
 
-template <int D, int BS>
-void launch_decode(const float* q, const int8_t* k, const int8_t* v, const int* k_n_ptr,
-                   int k_n_val, const int* v_n_ptr, int v_n_val, const int* table,
-                   const int* kv_len_ptr, int kv_len_stride, int kv_len_val, float* out,
-                   int B, int ps, int max_pages, int Hkv, int G, float sm_scale,
-                   cudaStream_t stream) {
-  qpaged_decode_kernel<D, BS><<<dim3(Hkv, B), kThreads, 0, stream>>>(
-      q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, kv_len_ptr, kv_len_stride,
-      kv_len_val, out, ps, max_pages, Hkv, G, sm_scale);
+template <int D, int KG>
+cudaError_t launch_decode(const float* q, const int8_t* k, const int8_t* v, const int* k_n_ptr,
+                          int k_n_val, const int* v_n_ptr, int v_n_val, const int* table,
+                          const int* kv_len_ptr, int kv_len_stride, int kv_len_val, float* out,
+                          int B, int ps, int max_pages, int Hkv, int G, float sm_scale,
+                          int ranks, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(attn_split::Smem<D, KG>);
+  static const cudaError_t granted = attn_split::grant(qpaged_decode_kernel<D, KG>, smem);
+  if (granted != cudaSuccess) return granted;
+  return attn_split::launch(qpaged_decode_kernel<D, KG>, dim3(Hkv * ranks, B), ranks, smem,
+                            stream, q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                            kv_len_ptr, kv_len_stride, kv_len_val, out, ps, max_pages, Hkv, G,
+                            sm_scale);
+}
+
+template <int KG>
+cudaError_t dispatch_decode(const float* q, const int8_t* k, const int8_t* v,
+                            const int* k_n_ptr, int k_n_val, const int* v_n_ptr, int v_n_val,
+                            const int* table, const int* kv_len_ptr, int kv_len_stride,
+                            int kv_len_val, float* out, int B, int ps, int max_pages, int Hkv,
+                            int G, int D, float sm_scale, int ranks, cudaStream_t st) {
+  switch (D) {
+    case 16:
+      return launch_decode<16, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
+                                   max_pages, Hkv, G, sm_scale, ranks, st);
+    case 32:
+      return launch_decode<32, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
+                                   max_pages, Hkv, G, sm_scale, ranks, st);
+    case 64:
+      return launch_decode<64, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
+                                   max_pages, Hkv, G, sm_scale, ranks, st);
+    case 128:
+      return launch_decode<128, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                                    kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
+                                    max_pages, Hkv, G, sm_scale, ranks, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int D, int BS>
@@ -451,45 +386,31 @@ void launch_chunk(const float* q, const float* kc, const float* vc, int8_t* k, i
 
 // Exponents and the live length come from device memory (non-null pointer;
 // kv_len_stride 1 for a (B,) vector, 0 for one shared value) or by value.
-// Takes D in {16, 32, 64, 128}, G <= 16, ps >= 1, max_pages >= 1 and 4-byte
-// aligned pools.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments it does not take).
+// Takes D in {16, 32, 64, 128}, G <= 16, ps >= 1, max_pages >= 1, B <= 65535,
+// 1 <= ranks <= 8 (the cluster that splits each walk) and 16-byte aligned
+// pools.  Returns the launch's error (cudaErrorInvalidValue for arguments
+// it does not take).
 extern "C" int qpaged_decode_attn_f32_s8(const float* q, const int8_t* k, const int8_t* v,
                                          const int* k_n_ptr, int k_n_val,
                                          const int* v_n_ptr, int v_n_val, const int* table,
                                          const int* kv_len_ptr, int kv_len_stride,
                                          int kv_len_val, float* out, int B, int ps,
                                          int max_pages, int Hkv, int G, int D,
-                                         float sm_scale, void* stream) {
-  if (G > kMaxG || G < 1 || ps < 1 || max_pages < 1)
+                                         float sm_scale, int ranks, void* stream) {
+  if (G > kMaxG || G < 1 || ps < 1 || max_pages < 1 || B > 65535 || ranks < 1 ||
+      ranks > attn_split::kMaxRanks ||
+      reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Hkv <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      launch_decode<16, 64>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, kv_len_ptr,
-                            kv_len_stride, kv_len_val, out, B, ps, max_pages, Hkv, G,
-                            sm_scale, st);
-      break;
-    case 32:
-      launch_decode<32, 64>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, kv_len_ptr,
-                            kv_len_stride, kv_len_val, out, B, ps, max_pages, Hkv, G,
-                            sm_scale, st);
-      break;
-    case 64:
-      launch_decode<64, 64>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, kv_len_ptr,
-                            kv_len_stride, kv_len_val, out, B, ps, max_pages, Hkv, G,
-                            sm_scale, st);
-      break;
-    case 128:
-      launch_decode<128, 32>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, kv_len_ptr,
-                             kv_len_stride, kv_len_val, out, B, ps, max_pages, Hkv, G,
-                             sm_scale, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      G <= 4 ? dispatch_decode<4>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                                  kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps, max_pages,
+                                  Hkv, G, D, sm_scale, ranks, st)
+             : dispatch_decode<16>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
+                                   max_pages, Hkv, G, D, sm_scale, ranks, st);
+  return static_cast<int>(e);
 }
 
 // The exponents and start come from device memory (non-null pointer) or by

@@ -22,280 +22,217 @@
 //
 // Ordering.  The Pallas kernel re-merges every batch row of its slot into
 // each page it visits; here blocks run in no order, so no block reads a pool
-// row that any block of the launch writes.  One block per (KV head, token)
-// walks its slot's positions in tiles of BS.  For each tile it first marks
-// which positions a batch row of the same slot writes this tick (a scan of
-// the T slot ids and positions, L1 hits after the first tile); those
-// positions take that row's K/V, quantized in the block from the f32 inputs,
-// and only the others are read from the pool.  So a slot may carry a decode
-// row and chunk rows in one tick.  Each written (row, KV head) is stored by
-// exactly one block, the token's own.  Two batch rows at one (slot,
-// position), a table that maps one pool page at two logical pages, or a
-// write through a page that another slot also maps (the scheduler's
-// assert_private_write keeps them out) have no defined result.
+// row that any block of the launch writes: a position that a batch row of
+// the same slot writes this tick takes that row's K/V, quantized in the
+// block from the f32 inputs, and only the others are read from the pool.
+// So a slot may carry a decode row and chunk rows in one tick.  Each
+// written (row, KV head) is stored by exactly one block, rank 0 of the
+// token's own cluster.  Two batch rows at one (slot, position), a table
+// that maps one pool page at two logical pages, or a write through a page
+// that another slot also maps (the scheduler's assert_private_write keeps
+// them out) have no defined result.
 //
 // Bound on an H100: bytes.  The tick must read each slot's visible int8
 // prefix once, 2 * len * Hkv * D bytes, at about one multiply-add per byte
-// per query head.  This first version gives each token its own block, as
-// the decode kernels give each slot one: T * Hkv blocks (216 at the serving
-// shape, all resident at once) that each walk their own prefix serially, so
-// a slot's chunk tokens re-read the same prefix rows (from L2 after the
-// first).  Sharing one prefix walk between a chunk's tokens, as the chunk
-// kernels do, and splitting long walks across blocks are the next steps.
+// per query head.  Its time is its longest walk: a decode row at the end of
+// a long slot.
+//
+// Design (attn_split.cuh): one cluster of R blocks per (KV head, token),
+// grid (Hkv * R, T); R comes from shapes alone (kernels/attn_split.py: the
+// table's reach, T and Hkv, never the positions).  Each rank walks its run
+// of whole tiles of [0, s_end) over cp.async-staged rows, each group of
+// lanes an online softmax of its own, and the ranks' (m, l, acc) are
+// folded through distributed shared memory.  At the start each block scans
+// the T tokens once for the lowest position its slot writes this tick
+// (wmin); only a warp step that reaches wmin scans them again, to mark the
+// positions that take a batch row.  An inert token is inert for every rank
+// of its cluster: all of them write their slice of zeros and leave before
+// any barrier.  A slot's chunk tokens still re-read the same prefix rows
+// (from L2 after the first): sharing one prefix walk between them, as the
+// chunk kernels do, is not done here.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_split.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+namespace cg = cooperative_groups;
+
 constexpr int kMaxG = 16;
-constexpr float kMasked = -1e30f;
-constexpr int kFromPool = -1;   // src[]: the position's bytes come from the pool
-constexpr int kUnseen = -2;     // src[]: past the walk or on an unmapped entry
 
-// sat(trunc(x * 2^n)) with inv_scale = 2^n: a product by an exact power of
-// two, so the codes equal the plain version's bit for bit.
-__device__ __forceinline__ signed char quantize_i8(float x, float inv_scale) {
-  const float t = truncf(x * inv_scale);
-  return static_cast<signed char>(fminf(fmaxf(t, -128.f), 127.f));
-}
-
-template <int D, int BS>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int KG>
+// G <= 4: two blocks an SM (at most 128 registers), as a cluster needs its
+// ranks resident at once
+__global__ void __launch_bounds__(attn_split::kThreads, KG <= 4 ? 2 : 1)
 qragged_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                const float* __restrict__ vc, int8_t* k, int8_t* v,
                const int* __restrict__ k_n_ptr, int k_n_val, const int* __restrict__ v_n_ptr,
                int v_n_val, const int* __restrict__ table, const int* __restrict__ slot_ids,
                const int* __restrict__ positions, float* __restrict__ out, int T, int ps,
                int max_pages, int Hkv, int G, float sm_scale) {
-  __shared__ float qs[kMaxG][D];
-  __shared__ float ks[BS][D + 1];  // +1: conflict-free reads along a row
-  __shared__ float vs[BS][D];
-  __shared__ float ps_[kMaxG][BS];
-  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
-  __shared__ int src[BS];          // batch row, kFromPool or kUnseen per tile position
-  constexpr int kAcc = (kMaxG * D + kThreads - 1) / kThreads;
-  constexpr int kLoads = BS * D / 4 / kThreads;
-  static_assert(kLoads * kThreads * 4 == BS * D, "a tile splits evenly over the threads");
-
-  const int h = blockIdx.x;
+  using Gm = attn_split::Geom<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<attn_split::Smem<D, KG>*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = blockIdx.x / ranks;
   const int t = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
   const int Hq = Hkv * G;
   const int my_pos = __ldg(positions + t);
   float* ob = out + ((size_t)t * Hq + (size_t)h * G) * D;
-  if (my_pos < 0) {  // inert: the whole block leaves before any barrier
-    for (int e = tid; e < G * D; e += kThreads) ob[e] = 0.f;
+  if (my_pos < 0) {  // inert: every rank of the cluster leaves here, before any barrier
+    for (int e = rank * G * D / ranks + tid; e < (rank + 1) * G * D / ranks;
+         e += attn_split::kThreads)
+      ob[e] = 0.f;
     return;
   }
   const int slot = __ldg(slot_ids + t);
   const int k_n = k_n_ptr ? *k_n_ptr : k_n_val;
   const int v_n = v_n_ptr ? *v_n_ptr : v_n_val;
-  const float k_scale = exp2f(-static_cast<float>(k_n));
-  const float v_scale = exp2f(-static_cast<float>(v_n));
-  const float k_inv = exp2f(static_cast<float>(k_n));
-  const float v_inv = exp2f(static_cast<float>(v_n));
 
-  const size_t row = (size_t)Hkv * D;  // elements between consecutive token or pool rows
-  const size_t page_elems = (size_t)ps * row;
-  const int* trow = table + (size_t)slot * max_pages;
-  int8_t* kh = k + (size_t)h * D;
-  int8_t* vh = v + (size_t)h * D;
-  const float* kcb = kc + (size_t)h * D;
-  const float* vcb = vc + (size_t)h * D;
+  attn_split::Walk wk = {};
+  wk.kh = k + (size_t)h * D;
+  wk.vh = v + (size_t)h * D;
+  wk.trow = table + (size_t)slot * max_pages;
+  wk.row = (size_t)Hkv * D;   // elements between consecutive token or pool rows
+  wk.page_elems = (size_t)ps * wk.row;
+  wk.ps = ps;
+  wk.len = INT_MAX;
+  wk.k_scale = exp2f(-static_cast<float>(k_n));
+  wk.v_scale = exp2f(-static_cast<float>(v_n));
+  wk.k_inv = exp2f(static_cast<float>(k_n));
+  wk.v_inv = exp2f(static_cast<float>(v_n));
+  wk.sm_scale = sm_scale;
+  wk.kc = kc + (size_t)h * D;
+  wk.vc = vc + (size_t)h * D;
+  wk.slot_ids = slot_ids;
+  wk.positions = positions;
+  wk.T = T;
+  wk.slot = slot;
 
-  // this token's own row: quantized and stored by this block alone; no block
-  // of the launch reads it back from the pool
+  // this token's own row: quantized and stored by rank 0 alone; no block of
+  // the launch reads it back from the pool
   const int my_lp = my_pos / ps;
-  if (my_lp < max_pages) {
-    const int page = __ldg(trow + my_lp);
+  if (rank == 0 && my_lp < max_pages) {
+    const int page = __ldg(wk.trow + my_lp);
     if (page >= 0) {
-      const size_t off = (size_t)page * page_elems + (size_t)(my_pos - my_lp * ps) * row;
-      for (int d = tid; d < D; d += kThreads) {
-        kh[off + d] = quantize_i8(kcb[(size_t)t * row + d], k_inv);
-        vh[off + d] = quantize_i8(vcb[(size_t)t * row + d], v_inv);
+      const size_t off = (size_t)page * wk.page_elems +
+                         (size_t)(my_pos - my_lp * ps) * wk.row + (size_t)h * D;
+      for (int d = tid; d < D; d += attn_split::kThreads) {
+        k[off + d] = attn_split::quantize_i8(wk.kc[(size_t)t * wk.row + d], wk.k_inv);
+        v[off + d] = attn_split::quantize_i8(wk.vc[(size_t)t * wk.row + d], wk.v_inv);
       }
     }
   }
+
+  // the lowest position a row of this slot writes this tick
+  if (tid == 0) sm.wmin = INT_MAX;
+  __syncthreads();
+  int lowest = INT_MAX;
+  for (int u = tid; u < T; u += attn_split::kThreads) {
+    const int pu = __ldg(positions + u);
+    if (pu >= 0 && __ldg(slot_ids + u) == slot) lowest = min(lowest, pu);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lowest = min(lowest, __shfl_xor_sync(0xffffffffu, lowest, off));
+  if (lane == 0 && lowest != INT_MAX) atomicMin(&sm.wmin, lowest);
+  __syncthreads();
+  wk.wmin = sm.wmin;
 
   // visible positions [0, s_end): through the token's own, never past the table
   const int s_end = min(my_pos + 1, max_pages * ps);
-  const float* qb = q + ((size_t)t * Hq + (size_t)h * G) * D;
-  for (int e = tid; e < G * D; e += kThreads) qs[e / D][e % D] = qb[e];
-  if (tid < G) {
-    m_s[tid] = kMasked;
-    l_s[tid] = 0.f;
-  }
-  float acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  attn_split::rank_range(s_end, Gm::BS, rank, ranks, wk.lo, wk.hi);
 
-  for (int s0 = 0; s0 < s_end; s0 += BS) {
-    __syncthreads();  // the previous tile's ps_ / vs / src are consumed
-    for (int s = tid; s < BS; s += kThreads) {
-      const int pos = s0 + s;
-      src[s] = (pos < s_end && __ldg(trow + pos / ps) >= 0) ? kFromPool : kUnseen;
-    }
-    __syncthreads();
-    // batch rows of this slot that land on a mapped position of the tile
-    // replace the pool's bytes there
-    const int tile_end = min(s0 + BS, s_end);
-    for (int u = tid; u < T; u += kThreads) {
-      const int pu = __ldg(positions + u);
-      if (pu >= s0 && pu < tile_end && __ldg(slot_ids + u) == slot && src[pu - s0] == kFromPool)
-        src[pu - s0] = u;
-    }
-    __syncthreads();
+  const float* qb = q + ((size_t)t * Hq + (size_t)h * G) * D;
+  // this lane's 8 dimensions of q, times 2^-k_n (exact)
+  const int d0 = (lane % Gm::LPP) * 8;
+  float qv[KG][8], acc[KG][8], m[KG], l[KG];
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int e = tid + i * kThreads;
-      const int s = e / (D / 4), d = (e % (D / 4)) * 4;
-      const int pos = s0 + s;
-      const int sr = src[s];
-      float kf[4] = {0.f, 0.f, 0.f, 0.f}, vf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (sr >= 0) {
-        const float* kp = kcb + (size_t)sr * row + d;
-        const float* vp = vcb + (size_t)sr * row + d;
+  for (int g = 0; g < KG; ++g) {
+    m[g] = attn_split::kMasked;
+    l[g] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          kf[j] = static_cast<float>(quantize_i8(kp[j], k_inv)) * k_scale;
-          vf[j] = static_cast<float>(quantize_i8(vp[j], v_inv)) * v_scale;
-        }
-      } else if (sr == kFromPool) {
-        const int lp = pos / ps;
-        const size_t off = (size_t)__ldg(trow + lp) * page_elems + (size_t)(pos - lp * ps) * row + d;
-        const char4 kq = *reinterpret_cast<const char4*>(kh + off);
-        const char4 vq = *reinterpret_cast<const char4*>(vh + off);
-        kf[0] = kq.x * k_scale;
-        kf[1] = kq.y * k_scale;
-        kf[2] = kq.z * k_scale;
-        kf[3] = kq.w * k_scale;
-        vf[0] = vq.x * v_scale;
-        vf[1] = vq.y * v_scale;
-        vf[2] = vq.z * v_scale;
-        vf[3] = vq.w * v_scale;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ks[s][d + j] = kf[j];
-        vs[s][d + j] = vf[j];
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < G * BS; e += kThreads) {
-      const int g = e / BS, s = e % BS;
-      float sc = -INFINITY;  // unseen positions weigh exactly 0, and a row that
-      //                        sees nothing keeps l = 0 and outputs zeros
-      if (src[s] != kUnseen) {
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          a0 = fmaf(qs[g][d + 0], ks[s][d + 0], a0);
-          a1 = fmaf(qs[g][d + 1], ks[s][d + 1], a1);
-          a2 = fmaf(qs[g][d + 2], ks[s][d + 2], a2);
-          a3 = fmaf(qs[g][d + 3], ks[s][d + 3], a3);
-        }
-        sc = ((a0 + a1) + (a2 + a3)) * sm_scale;
-      }
-      ps_[g][s] = sc;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float mx = -INFINITY;
-      for (int s = lane; s < BS; s += 32) mx = fmaxf(mx, ps_[g][s]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int s = lane; s < BS; s += 32) {
-        const float p = expf(ps_[g][s] - m_new);
-        ps_[g][s] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < G * D) {
-        const int g = e / D, d = e % D;
-        float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
-#pragma unroll
-        for (int s = 0; s < BS; s += 4) {
-          b0 = fmaf(ps_[g][s + 0], vs[s + 0][d], b0);
-          b1 = fmaf(ps_[g][s + 1], vs[s + 1][d], b1);
-          b2 = fmaf(ps_[g][s + 2], vs[s + 2][d], b2);
-          b3 = fmaf(ps_[g][s + 3], vs[s + 3][d], b3);
-        }
-        acc[i] = acc[i] * alpha_s[g] + ((b0 + b1) + (b2 + b3));
-      }
+    for (int j = 0; j < 8; ++j) {
+      qv[g][j] = g < G ? qb[g * D + d0 + j] * wk.k_scale : 0.f;
+      acc[g][j] = 0.f;
     }
   }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < G * D) ob[e] = acc[i] / fmaxf(l_s[e / D], 1e-30f);
-  }
+  attn_split::walk<D, KG, true>(sm, wk, G, qv, acc, m, l);
+  attn_split::combine<D, KG>(sm, G, wk.v_scale, acc, m, l, ob);
 }
 
-template <int D, int BS>
-void launch(const float* q, const float* kc, const float* vc, int8_t* k, int8_t* v,
-            const int* k_n_ptr, int k_n_val, const int* v_n_ptr, int v_n_val,
-            const int* table, const int* slot_ids, const int* positions, float* out, int T,
-            int ps, int max_pages, int Hkv, int G, float sm_scale, cudaStream_t stream) {
-  qragged_kernel<D, BS><<<dim3(Hkv, T), kThreads, 0, stream>>>(
-      q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, slot_ids, positions, out, T,
-      ps, max_pages, Hkv, G, sm_scale);
+template <int D, int KG>
+cudaError_t launch(const float* q, const float* kc, const float* vc, int8_t* k, int8_t* v,
+                   const int* k_n_ptr, int k_n_val, const int* v_n_ptr, int v_n_val,
+                   const int* table, const int* slot_ids, const int* positions, float* out,
+                   int T, int ps, int max_pages, int Hkv, int G, float sm_scale, int ranks,
+                   cudaStream_t stream) {
+  constexpr size_t smem = sizeof(attn_split::Smem<D, KG>);
+  static const cudaError_t granted = attn_split::grant(qragged_kernel<D, KG>, smem);
+  if (granted != cudaSuccess) return granted;
+  return attn_split::launch(qragged_kernel<D, KG>, dim3(Hkv * ranks, T), ranks, smem, stream,
+                            q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                            slot_ids, positions, out, T, ps, max_pages, Hkv, G, sm_scale);
+}
+
+template <int KG>
+cudaError_t dispatch(const float* q, const float* kc, const float* vc, int8_t* k, int8_t* v,
+                     const int* k_n_ptr, int k_n_val, const int* v_n_ptr, int v_n_val,
+                     const int* table, const int* slot_ids, const int* positions, float* out,
+                     int T, int ps, int max_pages, int Hkv, int G, int D, float sm_scale,
+                     int ranks, cudaStream_t st) {
+  switch (D) {
+    case 16:
+      return launch<16, KG>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                            slot_ids, positions, out, T, ps, max_pages, Hkv, G, sm_scale,
+                            ranks, st);
+    case 32:
+      return launch<32, KG>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                            slot_ids, positions, out, T, ps, max_pages, Hkv, G, sm_scale,
+                            ranks, st);
+    case 64:
+      return launch<64, KG>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                            slot_ids, positions, out, T, ps, max_pages, Hkv, G, sm_scale,
+                            ranks, st);
+    case 128:
+      return launch<128, KG>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                             slot_ids, positions, out, T, ps, max_pages, Hkv, G, sm_scale,
+                             ranks, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // The exponents come from device memory (non-null pointer) or by value.
-// Takes D in {16, 32, 64, 128}, G <= 16, ps >= 1, max_pages >= 1, T <= 65535
-// and 4-byte aligned pools; slot ids must index the table's rows.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
-// it does not take).
+// Takes D in {16, 32, 64, 128}, G <= 16, ps >= 1, max_pages >= 1, T <= 65535,
+// 1 <= ranks <= 8 (the cluster that splits each walk) and 16-byte aligned
+// pools; slot ids must index the table's rows.  Returns the launch's error
+// (cudaErrorInvalidValue for arguments it does not take).
 extern "C" int qragged_attn_f32_s8(const float* q, const float* kc, const float* vc,
                                    int8_t* k, int8_t* v, const int* k_n_ptr, int k_n_val,
                                    const int* v_n_ptr, int v_n_val, const int* table,
                                    const int* slot_ids, const int* positions, float* out,
                                    int T, int ps, int max_pages, int Hkv, int G, int D,
-                                   float sm_scale, void* stream) {
-  if (G > kMaxG || G < 1 || Hkv < 1 || ps < 1 || max_pages < 1 || T > 65535)
+                                   float sm_scale, int ranks, void* stream) {
+  if (G > kMaxG || G < 1 || Hkv < 1 || ps < 1 || max_pages < 1 || T > 65535 || ranks < 1 ||
+      ranks > attn_split::kMaxRanks || reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      launch<16, 64>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, slot_ids,
-                     positions, out, T, ps, max_pages, Hkv, G, sm_scale, st);
-      break;
-    case 32:
-      launch<32, 64>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, slot_ids,
-                     positions, out, T, ps, max_pages, Hkv, G, sm_scale, st);
-      break;
-    case 64:
-      launch<64, 64>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, slot_ids,
-                     positions, out, T, ps, max_pages, Hkv, G, sm_scale, st);
-      break;
-    case 128:
-      launch<128, 32>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, slot_ids,
-                      positions, out, T, ps, max_pages, Hkv, G, sm_scale, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      G <= 4 ? dispatch<4>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table, slot_ids,
+                           positions, out, T, ps, max_pages, Hkv, G, D, sm_scale, ranks, st)
+             : dispatch<16>(q, kc, vc, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                            slot_ids, positions, out, T, ps, max_pages, Hkv, G, D, sm_scale,
+                            ranks, st);
+  return static_cast<int>(e);
 }

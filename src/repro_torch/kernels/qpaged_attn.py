@@ -5,8 +5,11 @@ Replaces ``repro/kernels/qpaged_attn.py::qpaged_decode_attn_pallas`` and
 ``::qpaged_chunk_attn_pallas``.  The plain versions are
 :func:`repro_torch.kernels.ref.qpaged_decode_attn_ref` and
 :func:`~repro_torch.kernels.ref.qpaged_chunk_attn_ref`.  Both kernels are
-bound by the int8 K/V bytes they read through the page table; the source
-says what their design does about it.
+bound by the int8 K/V bytes they read through the page table.  Decode
+splits each slot's walk across a thread-block cluster of
+:func:`~repro_torch.kernels.attn_split.split_ranks` blocks (one launch per
+call, ``csrc/attn_split.cuh``); the chunk kernel walks its slot's prefix in
+one block per (KV head, tile of chunk rows).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, attn_split
 
 decode_launches = 0   # kernel launches since the last reset (kernels/ops.py)
 chunk_launches = 0
@@ -48,6 +51,12 @@ def _check_tensors(what: str, device, items) -> None:
             raise ValueError(f"{what}: {nm} must be contiguous, aligned {dt}")
 
 
+def _check_pool_alignment(what: str, k_pool: torch.Tensor, v_pool: torch.Tensor) -> None:
+    """The split walk stages pool rows with 16-byte copies."""
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{what}: pools must start on 16-byte boundaries")
+
+
 def _head_geometry(what: str, hq: int, hkv: int, d: int) -> int:
     if hq % hkv:
         raise ValueError(f"{what}: Hq={hq} is not a multiple of Hkv={hkv}")
@@ -62,9 +71,11 @@ def qpaged_decode_attn_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
                             k_n: Union[int, torch.Tensor], v_n: Union[int, torch.Tensor],
                             page_table: torch.Tensor,
                             kv_len: Union[int, torch.Tensor]) -> torch.Tensor:
-    """q (B, Hq, D) f32; pools (P, ps, Hkv, D) int8; k_n/v_n scalar exponents;
-    page_table (B, max_pages) int32 (-1 unmapped); ``kv_len`` an int or a (B,)
-    int32 tensor.  Returns (B, Hq, D)."""
+    """q (B, Hq, D) f32; pools (P, ps, Hkv, D) int8, 16-byte aligned; k_n/v_n
+    scalar exponents; page_table (B, max_pages) int32 (-1 unmapped);
+    ``kv_len`` an int or a (B,) int32 tensor.  Returns (B, Hq, D).  One
+    launch: each (KV head, slot) walk is split across a cluster of
+    ``attn_split.split_ranks`` blocks (from shapes alone)."""
     global decode_launches
     what = "qpaged_decode_attn"
     if q.ndim != 3 or page_table.ndim != 2 or page_table.shape[0] != q.shape[0]:
@@ -72,11 +83,13 @@ def qpaged_decode_attn_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
     b, hq, d = q.shape
     hkv, ps = _check_pools(what, k_pool, v_pool, d), k_pool.shape[1]
     g = _head_geometry(what, hq, hkv, d)
-    if page_table.shape[1] < 1 or ps < 1:
-        raise ValueError(f"{what}: table {tuple(page_table.shape)} or page size {ps} is empty")
+    if page_table.shape[1] < 1 or ps < 1 or b > 65535:
+        raise ValueError(f"{what}: table {tuple(page_table.shape)} or page size {ps} is empty, "
+                         f"or B={b} is out of the kernel's range")
     _check_tensors(what, q.device, ((q, torch.float32, "q"), (k_pool, torch.int8, "k_pool"),
                                     (v_pool, torch.int8, "v_pool"),
                                     (page_table, torch.int32, "page_table")))
+    _check_pool_alignment(what, k_pool, v_pool)
     k_ptr, k_val = _build.int_arg(k_n, q.device, f"{what}: k_n")
     v_ptr, v_val = _build.int_arg(v_n, q.device, f"{what}: v_n")
     if isinstance(kv_len, torch.Tensor):
@@ -90,10 +103,11 @@ def qpaged_decode_attn_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _kernel("qpaged_decode_attn_f32_s8",
-                 [p, p, p, p, i, p, i, p, p, i, i, p, i, i, i, i, i, i, ctypes.c_float, p])
+                 [p, p, p, p, i, p, i, p, p, i, i, p, i, i, i, i, i, i, ctypes.c_float, i, p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_ptr, k_val, v_ptr, v_val,
              page_table.data_ptr(), len_ptr, len_stride, len_val, out.data_ptr(), b, ps,
              page_table.shape[1], hkv, g, d, 1.0 / math.sqrt(d),
+             attn_split.split_ranks(page_table.shape[1] * ps, b, hkv, d),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -4,8 +4,10 @@
 Replaces ``repro/kernels/qragged_attn.py::qragged_attn_pallas``.  The plain
 version is :func:`repro_torch.kernels.ref.qragged_attn_ref`.  The kernel
 writes every token's quantized K/V row into the pool in place and is bound
-by the int8 bytes of the slots' prefixes; the source says what its design
-does about it.
+by the int8 bytes of the slots' prefixes.  It splits each token's walk
+across a thread-block cluster of
+:func:`~repro_torch.kernels.attn_split.split_ranks` blocks, one launch per
+call (``csrc/attn_split.cuh``).
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ from typing import Union
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.qpaged_attn import _check_pools, _check_tensors, _head_geometry
+from repro_torch.kernels import _build, attn_split
+from repro_torch.kernels.qpaged_attn import (_check_pool_alignment, _check_pools,
+                                             _check_tensors, _head_geometry)
 
 launches = 0   # kernel launches since the last reset (kernels/ops.py)
 _fn = None
@@ -28,7 +31,7 @@ def _kernel():
         fn = _build.load("qragged_attn").qragged_attn_f32_s8
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, p, i, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+                       ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -40,10 +43,12 @@ def qragged_attn_cuda(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                       table: torch.Tensor, slot_ids: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
     """q (T, Hq, D), k/v new (T, Hkv, D) f32; pools (P, ps, Hkv, D) int8,
-    written in place through ``table`` (slots, max_pages) int32 at each
-    token's (``slot_ids``, ``positions``) row, (T,) int32 each (position -1:
-    inert); k_n/v_n scalar exponents.  Slot ids must index the table's rows.
-    Returns out (T, Hq, D)."""
+    16-byte aligned, written in place through ``table`` (slots, max_pages)
+    int32 at each token's (``slot_ids``, ``positions``) row, (T,) int32 each
+    (position -1: inert); k_n/v_n scalar exponents.  Slot ids must index the
+    table's rows.  Returns out (T, Hq, D).  One launch: each (KV head,
+    token) walk is split across a cluster of
+    ``attn_split.split_ranks`` blocks (from shapes alone)."""
     global launches
     what = "qragged_attn"
     if q.ndim != 3 or k_new.ndim != 3 or k_new.shape != v_new.shape or table.ndim != 2:
@@ -68,6 +73,7 @@ def qragged_attn_cuda(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                                     (table, torch.int32, "table"),
                                     (slot_ids, torch.int32, "slot_ids"),
                                     (positions, torch.int32, "positions")))
+    _check_pool_alignment(what, k_pool, v_pool)
     k_ptr, k_val = _build.int_arg(k_n, q.device, f"{what}: k_n")
     v_ptr, v_val = _build.int_arg(v_n, q.device, f"{what}: v_n")
     out = torch.empty_like(q)
@@ -75,6 +81,7 @@ def qragged_attn_cuda(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                     v_pool.data_ptr(), k_ptr, k_val, v_ptr, v_val, table.data_ptr(),
                     slot_ids.data_ptr(), positions.data_ptr(), out.data_ptr(), t,
                     k_pool.shape[1], table.shape[1], hkv, g, d, 1.0 / math.sqrt(d),
+                    attn_split.split_ranks(table.shape[1] * k_pool.shape[1], t, hkv, d),
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

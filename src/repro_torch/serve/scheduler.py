@@ -238,9 +238,9 @@ class _Slot:
 # Scheduler options of the reference that wait for a later slice of the
 # port: name -> (the reference's default, which is accepted, the slice).
 _LATER = {
-    "max_queue": (None, "ROADMAP slice 6 (hardened serving)"),
-    "reject_policy": ("reject", "ROADMAP slice 6 (hardened serving)"),
-    "audit": (False, "ROADMAP slice 6 (hardened serving)"),
+    "max_queue": (None, "the hardened serving slice"),
+    "reject_policy": ("reject", "the hardened serving slice"),
+    "audit": (False, "the hardened serving slice"),
 }
 
 
@@ -481,9 +481,9 @@ class Scheduler:
         for name, value in (("cancels", cancels), ("preempts", preempts),
                             ("on_tick", on_tick)):
             if value is not None:
-                raise _later(f"run({name}=...)", "ROADMAP slice 6 (hardened serving)")
+                raise _later(f"run({name}=...)", "the hardened serving slice")
         if fault_plan is not None:
-            raise _later("run(fault_plan=...)", "ROADMAP slice 6 (hardened serving)")
+            raise _later("run(fault_plan=...)", "the hardened serving slice")
         with torch.inference_mode():
             return self._run(requests, seed=seed, warmup=warmup, time_ticks=time_ticks)
 
@@ -501,10 +501,10 @@ class Scheduler:
                 raise ValueError(f"request {r.rid}: empty prompt")
             if r.deadline_steps is not None:
                 raise _later(f"request {r.rid}: deadline_steps",
-                             "ROADMAP slice 6 (hardened serving)")
+                             "the hardened serving slice")
             if r.enc is not None:
                 raise _later(f"request {r.rid}: Request.enc (EncDec serving)",
-                             "ROADMAP slice 9 (other architectures)")
+                             "the other architectures slice")
             if C is not None:
                 rows = -(-plen // C) * C   # the last (padded) chunk's extent
                 # a paged slot is bounded by its table (max_len rounded up to pages)

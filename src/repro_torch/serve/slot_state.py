@@ -6,8 +6,8 @@ one slot lifecycle event (admit a batch-1 prefilled cache, evict, install or
 grow a page-table row, copy a page, park or restore pages) to every
 per-layer KV node of a cache tree, so the scheduler never looks inside the
 model.  The port serves attention models: recurrent (SSM/RWKV) and
-cross-attention state wait for slice 9 of the port; a cache node or a
-model of those kinds raises.  A paged cache node keeps one table and one
+cross-attention state wait for the other architectures slice of the port;
+a cache node or a model of those kinds raises.  A paged cache node keeps one table and one
 ``len`` for all the layers it stacks, so each event writes them once.
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ def _walk(big, small, fn):
     if isinstance(big, dict):
         if _OTHER_STATE_KEYS & set(big):
             raise NotImplementedError("recurrent and cross-attention slot state waits for "
-                                      "ROADMAP slice 9 of the port")
+                                      "the other architectures slice of the port")
         return {k: _walk(v, None if small is None else small[k], fn) for k, v in big.items()}
     if isinstance(big, (list, tuple)):
         return type(big)(_walk(v, None if small is None else small[i], fn)
@@ -119,8 +119,8 @@ def state_kinds(model) -> Tuple[str, ...]:
     attention models the port builds."""
     if hasattr(model, "encode") or any(getattr(b, "mixer", "attn") != "attn"
                                        for b in model.stack.body):
-        raise NotImplementedError("recurrent and cross-attention models wait for ROADMAP "
-                                  "slice 9 of the port")
+        raise NotImplementedError("recurrent and cross-attention models wait for the other "
+                                  "architectures slice of the port")
     return ("kv",)
 
 

@@ -265,10 +265,10 @@ def test_max_new_one_finishes_at_admission_and_frees_the_slot(engines, j_run, ch
 @pytest.mark.parametrize("kw,err,where", [
     ({"ragged": True}, ValueError, "requires chunked admission"),
     ({"prefill_lanes": 2}, ValueError, "requires ragged=True"),
-    ({"reject_policy": "shed"}, NotImplementedError, "slice 6"),
+    ({"reject_policy": "shed"}, NotImplementedError, "hardened serving"),
     ({"prefill_lanes": 3}, ValueError, "requires ragged=True"),
-    ({"max_queue": 4}, NotImplementedError, "slice 6"),
-    ({"audit": True}, NotImplementedError, "slice 6")])
+    ({"max_queue": 4}, NotImplementedError, "hardened serving"),
+    ({"audit": True}, NotImplementedError, "hardened serving")])
 def test_scheduler_options_of_later_slices_raise(engines, kw, err, where):
     """Options of later slices name their slice; the ragged tick's, ported,
     raise the reference's validation errors when misused."""
@@ -282,9 +282,11 @@ def test_scheduler_options_of_later_slices_raise(engines, kw, err, where):
 
 
 @pytest.mark.parametrize("run_kw,req_kw,where", [
-    ({"cancels": {0: 1}}, {}, "slice 6"), ({"fault_plan": object()}, {}, "slice 6"),
-    ({"on_tick": print}, {}, "slice 6"), ({}, {"deadline_steps": 3}, "slice 6"),
-    ({}, {"enc": np.zeros((2, 4))}, "slice 9")])
+    ({"cancels": {0: 1}}, {}, "hardened serving"),
+    ({"fault_plan": object()}, {}, "hardened serving"),
+    ({"on_tick": print}, {}, "hardened serving"),
+    ({}, {"deadline_steps": 3}, "hardened serving"),
+    ({}, {"enc": np.zeros((2, 4))}, "other architectures")])
 def test_run_inputs_of_later_slices_raise(engines, run_kw, req_kw, where):
     _, te = engines()
     with pytest.raises(NotImplementedError, match=where):
@@ -340,9 +342,9 @@ def test_state_kinds_and_adapters_name_their_slices(smoke):
         def encode(self):
             pass
 
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="other architectures"):
         slot_state.state_kinds(EncDec())
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="other architectures"):
         slot_state.evict_cache_slot({"body": [{"ssm": {"h": torch.zeros(1), "conv": None}}]}, 0)
     with pytest.raises(ValueError, match="dense KV cache"):
         slot_state.set_cache_page_row({"k": 0, "len": 0}, 0, [0])
