@@ -13,16 +13,21 @@ Phases, each printed as it completes; any failure exits non-zero:
      many launches over rotating inputs larger than the L2) and the least
      time the card could take (bytes at 3.35 TB/s, f32 FMAs at 67 TFLOP/s,
      bf16 products at 989 TFLOP/s (three per f32 product in the weight-only
-     GEMMs), int8 products at 1,979 TOP/s and int16 at a quarter of that
+     GEMMs and the chunk pair), int8 products at 1,979 TOP/s and int16 at a quarter of that
      (four 8-bit products each), H100 SXM data sheet); the integer
      engine's four kernels bit for bit (``qmm`` and ``qmm_requant`` at the
      classifier's (2947, 80) @ (80, 6) and 4096^3, int8 and int16, with
      int32 wrap (int8 all -128 at K = 196608, int16 extreme codes) and
      shifts of 32 or more; ``qconv1d`` at ResNetv1-6's four
      convolution shapes at B=2947 and the edge cases; ``fake_quant`` on a
-     120.7 MB activation at every n in [-20, 20]); the chunk kernels also have the
-     cache rows they write held bit for bit, and every other row held
-     unchanged; the paged kernels run over fragmented, out-of-order page
+     120.7 MB activation at every n in [-20, 20]); the chunk kernels (one
+     core, a cluster of R blocks per query tile, printed with their register
+     counts; bf16x3 tensor-core bounds with the f32 figure beside them) also
+     have the cache rows they write held bit for bit and every other row
+     held unchanged, at S=2048 from start 0 to 1984, C = 1, 16, 32, D = 16,
+     64, 128 and G = 3, 16, with a start on the card and a chunk written
+     into pool page 0 under an unmapped entry, and are timed at R = 1, 2, 4,
+     8; the paged kernels run over fragmented, out-of-order page
      tables with pages shared between slots, beside the dense kernels on
      the same contents, and ``qpaged_decode_attn`` over a page-size sweep;
      ``qragged_attn`` on the ragged tick (8 decode rows, 2 lanes x 32 chunk
@@ -129,14 +134,16 @@ def card_line() -> str:
 
 def split_registers(log: str, entry: str) -> str:
     """'D/G: registers (spill bytes)' of each instantiation of ``entry``
-    (templated on D and the G bucket) in a ``-Xptxas -v`` build log."""
+    (templated on D and the G bucket, or on D alone) in a ``-Xptxas -v``
+    build log."""
     import re
 
     out, key = [], None
     for line in log.splitlines():
-        hit = re.search(entry + r"ILi(\d+)ELi(\d+)E", line)
+        hit = re.search(entry + r"ILi(\d+)E(?:Li(\d+)E)?", line)
         if "Compiling entry" in line:
-            key, spill = (f"{hit.group(1)}/{hit.group(2)}" if hit else None), 0
+            key = ("/".join(x for x in hit.groups() if x) if hit else None)
+            spill = 0
         elif key and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif key and "Used" in line:
@@ -683,12 +690,51 @@ def check_qdecode_attn(torch, F, ref, qd_cuda, gen):
     return rows, worst
 
 
+def chunk_bounds(nbytes, pairs, hq, d):
+    """(bf16x3 bound ms, by, f32 bound ms) of a chunk launch: ``nbytes``
+    moved, 4 operations per (visible (row, position) pair, query head, dim),
+    three bf16 passes on the tensor cores (``csrc/chunk_split.cuh``) and,
+    after the slash in PERF.md, the same at the f32 rate."""
+    flops = 4.0 * pairs * hq * d
+    b_ms, b_by = bound(nbytes, 3 * flops, BF16_FLOP_S)
+    return b_ms, b_by, bound(nbytes, flops)[0]
+
+
+def chunk_rank_sweep(torch, label, call, tiles, hkv, d, walk, iters):
+    """Device µs of one chunk case at R = 1, 2, 4, 8 (ranks past the rule's
+    limit of one per 64 positions of the reach left out): ``call(ranks)``
+    launches the kernel's C entry with that cluster size.  The figures
+    behind ``attn_split.chunk_ranks``."""
+    from repro_torch.kernels.attn_split import CHUNK_TILE, chunk_ranks
+
+    cells = []
+    for r in (1, 2, 4, 8):
+        if r <= math.ceil(walk / CHUNK_TILE):
+            cells.append(f"R={r} {graph_ms(torch, [lambda r=r: call(r)], iters) * 1e3:.2f}")
+    print(f"[kernel] {label} rank sweep (us): {' | '.join(cells)}; the rule picks "
+          f"R={chunk_ranks(walk, tiles, hkv, d)}", flush=True)
+
+
+def chunk_beside(rows, main):
+    """The chunk kernels' other timed cases (plain and library timed too),
+    so that the S=2048 line a library call used to beat stays beside the
+    serving one."""
+    keys = ("c", "s", "start", "ranks", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "f32_bound_ms")
+    return [{k: r[k] for k in keys} for r in rows if r is not main and "plain_ms" in r]
+
+
 def check_qchunk_attn(torch, F, ref, qc_cuda, qd_cuda, gen):
-    """Kernel vs plain at B=8, Hq=9, Hkv=3, D=64: C=32 at S=192 (the serving
-    path's chunks; start 160 puts the chunk's end on S) and at S=2048 behind
-    a 1984-row prefix, C=16 at an untiled start, and C=1, which is also held
-    to ``qdecode_attn`` over the written cache.  Each launch targets another
-    slot of another cache copy, so the prefix comes from device memory.
+    """Kernel vs plain at B=8, Hkv=3: at D=64, G=3 (Hq=9), C=32 at S=192
+    (the serving path's chunks; start 160 puts the chunk's end on S) and at
+    S=2048 at starts 0, 1000 and 1984 (a cluster of R=8, whose ranks end
+    early on the causal limit at start 0), C=16 at an untiled start and at
+    S=2048, and C=1 at S=192 and 2048, which is also held to
+    ``qdecode_attn`` over the written cache; then C=32 at S=2048 at D=16,
+    D=128 and G=16 (Hq=48).  Each launch targets another slot of another
+    cache copy, so the prefix comes from device memory.  R is printed on
+    each row; the S=2048 and S=192 serving cases are also timed at R = 1,
+    2, 4, 8 through the C entry.
 
     Prefix codes and chunk values have the spread of post-norm K/V on the
     Q4.3 grid (|x| mostly below 2), as the CPU tests draw them, with a few
@@ -696,18 +742,28 @@ def check_qchunk_attn(torch, F, ref, qc_cuda, qd_cuda, gen):
     (|x| up to 16) give scores of +-40, where any other summation order
     moves the output by about 1e-4."""
     from repro_torch.core import qformat
+    from repro_torch.kernels import qchunk_attn as qc_mod
+    from repro_torch.kernels.attn_split import chunk_ranks, chunk_tiles
 
     def codes(shape):
         x = torch.randn(shape, generator=gen, device="cuda").mul(8).round()
         x.view(-1)[::97] = 127
         return x.clamp(-128, 127).to(torch.int8)
 
-    b, hq, hkv, d = 8, 9, 3, 64
-    g = hq // hkv
+    b, hkv = 8, 3
     rows, worst = [], 0.0
-    for c, s, start in ((32, 192, 0), (32, 192, 96), (32, 192, 160), (32, 2048, 1984),
-                        (16, 192, 100), (1, 192, 150)):
+    # (C, S, start, D, G, timed against plain and library)
+    cases = [(32, 192, 0, 64, 3, True), (32, 192, 96, 64, 3, True), (32, 192, 160, 64, 3, True),
+             (32, 2048, 1984, 64, 3, True), (16, 192, 100, 64, 3, True), (1, 192, 150, 64, 3, True),
+             (32, 2048, 0, 64, 3, False), (32, 2048, 1000, 64, 3, False),
+             (16, 2048, 1500, 64, 3, False), (1, 2048, 2000, 64, 3, False),
+             (32, 2048, 1000, 16, 3, False), (32, 2048, 1000, 128, 3, False),
+             (32, 2048, 1000, 64, 16, False)]
+    for c, s, start, d, g, timed in cases:
+        hq = g * hkv
         slot = 5
+        tiles = chunk_tiles(c, g)[0]
+        ranks = chunk_ranks(s, tiles, hkv, d)
         q = torch.randn(c, hq, d, generator=gen, device="cuda")
         kc, vc = (1.5 * torch.randn(c, hkv, d, generator=gen, device="cuda")
                   for _ in range(2))
@@ -721,17 +777,17 @@ def check_qchunk_attn(torch, F, ref, qc_cuda, qd_cuda, gen):
         want = ref.qchunk_attn_ref(q, kc, vc, kp, vp, 3, 3, slot, start)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        check(err <= ATTN_ATOL, f"qchunk_attn C={c} S={s} start={start}: max err {err} > "
-                                f"{ATTN_ATOL}")
+        label = f"qchunk_attn C={c} S={s} start={start} D={d} G={g} R={ranks}"
+        check(err <= ATTN_ATOL, f"{label}: max err {err} > {ATTN_ATOL}")
         check(torch.equal(kk, kp) and torch.equal(vk, vp),
-              f"qchunk_attn C={c} S={s} start={start}: caches differ from the plain version's")
+              f"{label}: caches differ from the plain version's")
         check(torch.equal(kk[slot, start:start + c], qformat.quantize(kc, 3, 8))
               and torch.equal(vk[slot, start:start + c], qformat.quantize(vc, 3, 8)),
-              f"qchunk_attn C={c} S={s} start={start}: written rows are not the chunk's codes")
+              f"{label}: written rows are not the chunk's codes")
         keep = torch.ones(b, s, dtype=torch.bool, device="cuda")
         keep[slot, start:start + c] = False
         check(torch.equal(kk[keep], k0[keep]) and torch.equal(vk[keep], v0[keep]),
-              f"qchunk_attn C={c} S={s} start={start}: a row outside the chunk changed")
+              f"{label}: a row outside the chunk changed")
         note = ""
         if c == 1:
             qd = torch.zeros(b, hq, d, device="cuda")
@@ -740,44 +796,66 @@ def check_qchunk_attn(torch, F, ref, qc_cuda, qd_cuda, gen):
             dec = qd_cuda(qd, kk, vk, 3, 3, lens)[slot]
             torch.cuda.synchronize()
             derr = (dec - got[0]).abs().max().item()
-            check(derr <= ATTN_ATOL, f"qchunk_attn C=1 vs qdecode_attn: max err {derr}")
+            check(derr <= ATTN_ATOL, f"{label} vs qdecode_attn: max err {derr}")
             note = f" | vs qdecode_attn at kv_len {start + 1}: max_abs_err {derr:.3e}"
         worst = max(worst, err)
-        # library: the chunk's quantize-and-copy, then SDPA over the slot's
-        # dequantized, head-expanded rows with the causal offset mask
-        end = start + c
-        mask = torch.arange(end, device="cuda")[None, :] <= \
-            start + torch.arange(c, device="cuda")[:, None]
-        qs = q.permute(1, 0, 2)[None]
-        lib_copies = max(1, min(copies, math.ceil(L2_ROTATE_BYTES / (8 * end * hq * d))))
-        deq = [tuple(qformat.dequantize(x[slot, :end], 3).repeat_interleave(g, dim=1)
-                     .permute(1, 0, 2)[None].contiguous() for x in (kp, vp))
-               for _ in range(lib_copies)]
-
-        def lib(kv, kq=kk, vq=vk):
-            kq[slot, start:end] = qformat.quantize(kc, 3, 8)
-            vq[slot, start:end] = qformat.quantize(vc, 3, 8)
-            return F.scaled_dot_product_attention(qs, kv[0], kv[1], attn_mask=mask)
-
         calls = [(kv, j) for kv in caches for j in range(b)]
         iters = max(len(calls), 64)
         ms = graph_ms(torch, [lambda kv=kv, j=j: qc_cuda(q, kc, vc, kv[0], kv[1], 3, 3, j, start)
                               for kv, j in calls], iters)
-        plain = graph_ms(torch, [lambda kv=kv, j=j: ref.qchunk_attn_ref(q, kc, vc, kv[0], kv[1],
-                                                                        3, 3, j, start)
-                                 for kv, j in calls], iters)
-        lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in deq], iters)
         pairs = c * start + c * (c + 1) // 2           # visible (query row, position) pairs
-        b_ms, b_by = bound(2 * start * hkv * d + 2 * c * hkv * d
-                           + 4 * (2 * c * hq * d + 2 * c * hkv * d), 4.0 * pairs * hq * d)
-        rows.append(dict(c=c, s=s, start=start, err=err, ms=ms, plain_ms=plain,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"[kernel] qchunk_attn B={b} Hq={hq} Hkv={hkv} D={d} C={c} S={s} start={start}: "
-              f"max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}), written rows bit-identical, other "
-              f"rows unchanged | kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us | "
-              f"quantize-copy + sdpa {lib_ms * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us "
-              f"({b_by}){note}", flush=True)
-        del caches, deq
+        b_ms, b_by, f32_ms = chunk_bounds(2 * start * hkv * d + 2 * c * hkv * d
+                                          + 4 * (2 * c * hq * d + 2 * c * hkv * d), pairs, hq, d)
+        row = dict(c=c, s=s, start=start, d=d, g=g, ranks=ranks, err=err, ms=ms,
+                   bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms)
+        timing = f"kernel {ms * 1e3:.2f} us"
+        if timed:
+            # library: the chunk's quantize-and-copy, then SDPA over the slot's
+            # dequantized, head-expanded rows with the causal offset mask
+            end = start + c
+            mask = torch.arange(end, device="cuda")[None, :] <= \
+                start + torch.arange(c, device="cuda")[:, None]
+            qs = q.permute(1, 0, 2)[None]
+            lib_copies = max(1, min(copies, math.ceil(L2_ROTATE_BYTES / (8 * end * hq * d))))
+            deq = [tuple(qformat.dequantize(x[slot, :end], 3).repeat_interleave(g, dim=1)
+                         .permute(1, 0, 2)[None].contiguous() for x in (kp, vp))
+                   for _ in range(lib_copies)]
+
+            def lib(kv, kq=kk, vq=vk):
+                kq[slot, start:end] = qformat.quantize(kc, 3, 8)
+                vq[slot, start:end] = qformat.quantize(vc, 3, 8)
+                return F.scaled_dot_product_attention(qs, kv[0], kv[1], attn_mask=mask)
+
+            plain = graph_ms(torch, [lambda kv=kv, j=j: ref.qchunk_attn_ref(
+                q, kc, vc, kv[0], kv[1], 3, 3, j, start) for kv, j in calls], iters)
+            lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in deq], iters)
+            del deq
+            row.update(plain_ms=plain, library_ms=lib_ms)
+            timing += (f" | plain {plain * 1e3:.2f} us | quantize-copy + sdpa "
+                       f"{lib_ms * 1e3:.2f} us")
+        rows.append(row)
+        print(f"[kernel] {label} B={b} Hq={hq} Hkv={hkv}: max_abs_err {err:.3e} (tol "
+              f"{ATTN_ATOL:.0e}), written rows bit-identical, other rows unchanged | {timing} | "
+              f"bound {b_ms * 1e3:.2f} us ({b_by}; bf16x3) / {f32_ms * 1e3:.2f} us (f32){note}",
+              flush=True)
+        if (c, start) in ((32, 1984), (32, 160)) and d == 64 and g == 3:
+            kv = caches[0]
+
+            def raw(r, kv=kv):
+                out = torch.empty_like(q)
+                e = qc_mod._kernel()(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), kv[0].data_ptr(),
+                                     kv[1].data_ptr(), None, 3, None, 3, out.data_ptr(), b, c, s,
+                                     hkv, g, d, slot, start, 1.0 / math.sqrt(d), r,
+                                     torch.cuda.current_stream().cuda_stream)
+                check(e == 0, f"{label}: launch at R={r} failed: CUDA error {e}")
+                return out
+
+            for r in (1, 2, 4, 8):    # every cluster size the rule may pick is right
+                if r <= math.ceil(s / 64):
+                    rerr = max_err(raw(r), want)
+                    check(rerr <= ATTN_ATOL, f"{label} at R={r}: max err {rerr}")
+            chunk_rank_sweep(torch, label, raw, tiles, hkv, d, s, 64)
+        del caches
     return rows, worst
 
 
@@ -930,25 +1008,54 @@ def check_split_instantiations(torch, ref, qpd_cuda, qr_cuda, gen):
 
 
 def check_qpaged_chunk_attn(torch, F, ref, qpc_cuda, qc_cuda, gen, page_size):
-    """Kernel vs plain at Hq=9, Hkv=3, D=64, C=32 into one slot of a
-    fragmented, out-of-order 8-slot table: slot 1, whose first two pages are
-    slot 0's (a shared prefix the chunk reads), or slot 3 when the chunk
-    starts inside them.  Start 0, 96, 160 at S=192, 1984 at S=2048, and start
-    176 at S=192, whose padded tail runs past the table (rows 192.. are
-    dropped).  The pool bytes must
-    equal the plain version's, hold the chunk's codes in the written rows,
-    and hold every other byte unchanged.  Each case is also run through
-    ``qchunk_attn`` on the slot's contents laid out densely."""
+    """Kernel vs plain at Hkv=3 into one slot of a fragmented, out-of-order
+    8-slot table: slot 1, whose first two pages are slot 0's (a shared
+    prefix the chunk reads), or slot 3 when the chunk starts inside them.
+    At D=64, G=3 (Hq=9), C=32: start 0, 96, 160 at S=192, 0, 1000 and 1984
+    at S=2048, and start 176 at S=192, whose padded tail runs past the table
+    (rows 192.. are dropped); C=1 and C=16 at S=2048; start passed as an
+    int32 on the card; a chunk written into pool page 0 while an unmapped
+    entry of the prefix reads page 0 (it must read the chunk's new codes);
+    then D=16, D=128 and G=16 (Hq=48).  The pool bytes must equal the plain
+    version's, hold the chunk's codes in the written rows, and hold every
+    other byte unchanged.  Each case inside the table is also run through
+    ``qchunk_attn`` on the slot's contents laid out densely.  R is printed
+    on each row; the S=2048 serving case is also timed at R = 1, 2, 4, 8
+    through the C entry."""
     from repro_torch.core import qformat
+    from repro_torch.kernels import qpaged_attn as qp_mod
+    from repro_torch.kernels.attn_split import chunk_ranks, chunk_tiles
 
-    b, hq, hkv, d, c = 8, 9, 3, 64, 32
-    g = hq // hkv
+    b, hkv = 8, 3
     rows, worst = [], 0.0
-    for s, start in ((192, 0), (192, 96), (192, 160), (2048, 1984), (192, 176)):
+    # (S, start, C, D, G, variant, timed against plain and library)
+    cases = [(192, 0, 32, 64, 3, None, True), (192, 96, 32, 64, 3, None, True),
+             (192, 160, 32, 64, 3, None, True), (2048, 1984, 32, 64, 3, None, True),
+             (192, 176, 32, 64, 3, None, True), (2048, 0, 32, 64, 3, None, False),
+             (2048, 1000, 32, 64, 3, None, False), (2048, 2000, 1, 64, 3, None, False),
+             (2048, 1500, 16, 64, 3, None, False), (192, 96, 32, 64, 3, "device start", False),
+             (192, 96, 32, 64, 3, "page 0", False), (2048, 1000, 32, 16, 3, None, False),
+             (2048, 1000, 32, 128, 3, None, False), (2048, 1000, 32, 64, 16, None, False)]
+    for s, start, c, d, g, variant, timed in cases:
+        hq = g * hkv
         ps = page_size
         table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
         slot = 1 if start >= 2 * ps else 3
         prow = table[slot].contiguous()
+        if variant == "page 0":
+            # the chunk's first logical page is pool page 0 and the prefix's
+            # logical page 2 is unmapped: positions 2 ps + r read page 0's row
+            # r, which the chunk writes
+            prow = prow.clone()
+            hit = (prow == 0).nonzero()
+            if len(hit):
+                prow[int(hit[0, 0])] = prow[start // ps]
+            prow[start // ps] = 0
+            prow[2] = -1
+        tiles = chunk_tiles(c, g)[0]
+        ranks = chunk_ranks(mp * ps, tiles, hkv, d)
+        st = torch.full((), start, dtype=torch.int32, device="cuda") \
+            if variant == "device start" else start
         q = torch.randn(c, hq, d, generator=gen, device="cuda")
         kc, vc = (1.5 * torch.randn(c, hkv, d, generator=gen, device="cuda") for _ in range(2))
         kc.view(-1)[::31] = 20.0
@@ -958,11 +1065,12 @@ def check_qpaged_chunk_attn(torch, F, ref, qpc_cuda, qc_cuda, gen, page_size):
                   pool_codes(torch, gen, (n_pool, ps, hkv, d))) for _ in range(copies)]
         k0, v0 = pools[0][0].clone(), pools[0][1].clone()
         kk, vk, kp, vp = k0.clone(), v0.clone(), k0.clone(), v0.clone()
-        got = qpc_cuda(q, kc, vc, kk, vk, 3, 3, prow, start)
+        got = qpc_cuda(q, kc, vc, kk, vk, 3, 3, prow, st)
         want = ref.qpaged_chunk_attn_ref(q, kc, vc, kp, vp, 3, 3, prow, start)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        label = f"qpaged_chunk_attn C={c} S={s} ps={ps} start={start}"
+        label = (f"qpaged_chunk_attn C={c} S={s} ps={ps} start={start} D={d} G={g} R={ranks}"
+                 + (f" ({variant})" if variant else ""))
         check(err <= ATTN_ATOL, f"{label}: max err {err} > {ATTN_ATOL}")
         check(torch.equal(kk, kp) and torch.equal(vk, vp),
               f"{label}: pools differ from the plain version's")
@@ -980,57 +1088,82 @@ def check_qpaged_chunk_attn(torch, F, ref, qpc_cuda, qc_cuda, gen, page_size):
         worst = max(worst, err)
         note = ""
         if start + c <= mp * ps:
-            kd, vd = (ref.gather_pages_ref(x, prow[None]).contiguous() for x in (k0, v0))
+            # the slot's contents after the write (an unmapped entry reads the
+            # page-0 rows the chunk wrote), laid out densely
+            kd, vd = (ref.gather_pages_ref(x, prow[None]).contiguous() for x in (kp, vp))
             dense = qc_cuda(q, kc, vc, kd, vd, 3, 3, 0, start)
             torch.cuda.synchronize()
             derr = (got - dense).abs().max().item()
             check(derr <= ATTN_ATOL, f"{label}: differs from qchunk_attn on the dense layout "
                                      f"by {derr}")
-            # timed over every slot's dense copy of every pool copy, as the
-            # paged kernel is timed over the pool copies
-            dense_caches = [tuple(ref.gather_pages_ref(x, table).contiguous() for x in kv)
-                            for kv in pools]
-            dense_ms = graph_ms(torch, [lambda kv=kv: qc_cuda(q, kc, vc, kv[0], kv[1], 3, 3,
-                                                              slot, start)
-                                        for kv in dense_caches], max(copies, 64))
-            del dense_caches
-            note = (f" | qchunk_attn on the dense layout {dense_ms * 1e3:.2f} us, max diff "
-                    f"{derr:.3e}")
-        # library: the chunk's quantize-and-copy into its pool rows, then the
-        # slot's pages gathered (index_select), dequantized, head-expanded,
-        # and SDPA with the causal offset mask
-        end = min(start + c, mp * ps)
-        idx = prow.clamp(min=0).to(torch.int64)
-        mask = torch.arange(mp * ps, device="cuda")[None, :] <= \
-            start + torch.arange(c, device="cuda")[:, None]
-        qs = q.permute(1, 0, 2)[None]
-
-        def lib(kv):
-            kv[0].view(-1, hkv, d)[flat] = qformat.quantize(kc[:n_kept], 3, 8)
-            kv[1].view(-1, hkv, d)[flat] = qformat.quantize(vc[:n_kept], 3, 8)
-            kk_, vv_ = (x.index_select(0, idx).reshape(mp * ps, hkv, d).to(torch.float32)
-                        .mul(0.125).repeat_interleave(g, dim=1).permute(1, 0, 2)[None]
-                        for x in kv)
-            return F.scaled_dot_product_attention(qs, kk_, vv_, attn_mask=mask)
-
+            note = f" | qchunk_attn on the dense layout: max diff {derr:.3e}"
         iters = max(copies, 64)
-        ms = graph_ms(torch, [lambda kv=kv: qpc_cuda(q, kc, vc, kv[0], kv[1], 3, 3, prow, start)
+        ms = graph_ms(torch, [lambda kv=kv: qpc_cuda(q, kc, vc, kv[0], kv[1], 3, 3, prow, st)
                               for kv in pools], iters)
-        plain = graph_ms(torch, [lambda kv=kv: ref.qpaged_chunk_attn_ref(
-            q, kc, vc, kv[0], kv[1], 3, 3, prow, start) for kv in pools[:4]], iters)
-        lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in pools], iters)
         pairs = sum(min(start + i + 1, mp * ps) for i in range(c))   # visible (row, position)
         prefix = min(start, mp * ps)
-        b_ms, b_by = bound(2 * prefix * hkv * d + 2 * n_kept * hkv * d
-                           + 4 * (2 * c * hq * d + 2 * c * hkv * d) + 4 * mp,
-                           4.0 * pairs * hq * d)
-        rows.append(dict(c=c, s=s, ps=ps, start=start, end=end, err=err, ms=ms,
-                         plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        b_ms, b_by, f32_ms = chunk_bounds(2 * prefix * hkv * d + 2 * n_kept * hkv * d
+                                          + 4 * (2 * c * hq * d + 2 * c * hkv * d) + 4 * mp,
+                                          pairs, hq, d)
+        row = dict(c=c, s=s, ps=ps, start=start, d=d, g=g, ranks=ranks, err=err, ms=ms,
+                   bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms)
+        timing = f"kernel {ms * 1e3:.2f} us"
+        if timed:
+            if start + c <= mp * ps:
+                # timed over every slot's dense copy of every pool copy, as the
+                # paged kernel is timed over the pool copies
+                dense_caches = [tuple(ref.gather_pages_ref(x, table).contiguous() for x in kv)
+                                for kv in pools]
+                dense_ms = graph_ms(torch, [lambda kv=kv: qc_cuda(q, kc, vc, kv[0], kv[1], 3, 3,
+                                                                  slot, start)
+                                            for kv in dense_caches], max(copies, 64))
+                del dense_caches
+                row.update(dense_ms=dense_ms)
+                note += f", {dense_ms * 1e3:.2f} us"
+            # library: the chunk's quantize-and-copy into its pool rows, then
+            # the slot's pages gathered (index_select), dequantized,
+            # head-expanded, and SDPA with the causal offset mask
+            idx = prow.clamp(min=0).to(torch.int64)
+            mask = torch.arange(mp * ps, device="cuda")[None, :] <= \
+                start + torch.arange(c, device="cuda")[:, None]
+            qs = q.permute(1, 0, 2)[None]
+
+            def lib(kv):
+                kv[0].view(-1, hkv, d)[flat] = qformat.quantize(kc[:n_kept], 3, 8)
+                kv[1].view(-1, hkv, d)[flat] = qformat.quantize(vc[:n_kept], 3, 8)
+                kk_, vv_ = (x.index_select(0, idx).reshape(mp * ps, hkv, d).to(torch.float32)
+                            .mul(0.125).repeat_interleave(g, dim=1).permute(1, 0, 2)[None]
+                            for x in kv)
+                return F.scaled_dot_product_attention(qs, kk_, vv_, attn_mask=mask)
+
+            plain = graph_ms(torch, [lambda kv=kv: ref.qpaged_chunk_attn_ref(
+                q, kc, vc, kv[0], kv[1], 3, 3, prow, start) for kv in pools[:4]], iters)
+            lib_ms = graph_ms(torch, [lambda kv=kv: lib(kv) for kv in pools], iters)
+            row.update(plain_ms=plain, library_ms=lib_ms)
+            timing += (f" | plain {plain * 1e3:.2f} us | quantize-copy + index_select + sdpa "
+                       f"{lib_ms * 1e3:.2f} us")
+        rows.append(row)
         print(f"[kernel] {label} (slot {slot}, {n_kept} rows kept): max_abs_err {err:.3e} "
               f"(tol {ATTN_ATOL:.0e}), pools equal to the plain version's, written rows the "
-              f"chunk's codes, other rows unchanged | kernel {ms * 1e3:.2f} us | plain "
-              f"{plain * 1e3:.2f} us | quantize-copy + index_select + sdpa {lib_ms * 1e3:.2f} us "
-              f"| bound {b_ms * 1e3:.2f} us ({b_by}){note}", flush=True)
+              f"chunk's codes, other rows unchanged | {timing} | bound {b_ms * 1e3:.2f} us "
+              f"({b_by}; bf16x3) / {f32_ms * 1e3:.2f} us (f32){note}", flush=True)
+        if (s, start, c, d, g, variant) == (2048, 1984, 32, 64, 3, None):
+            kv = pools[0]
+
+            def raw(r, kv=kv):
+                out = torch.empty_like(q)
+                e = qp_mod._fns["qpaged_chunk_attn_f32_s8"](
+                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(), kv[0].data_ptr(),
+                    kv[1].data_ptr(), None, 3, None, 3, prow.data_ptr(), None, start,
+                    out.data_ptr(), c, ps, mp, hkv, g, d, 1.0 / math.sqrt(d), r,
+                    torch.cuda.current_stream().cuda_stream)
+                check(e == 0, f"{label}: launch at R={r} failed: CUDA error {e}")
+                return out
+
+            for r in (1, 2, 4, 8):    # every cluster size the rule may pick is right
+                rerr = max_err(raw(r), want)
+                check(rerr <= ATTN_ATOL, f"{label} at R={r}: max err {rerr}")
+            chunk_rank_sweep(torch, label, raw, tiles, hkv, d, mp * ps, 64)
         del pools
     return rows, worst
 
@@ -2424,6 +2557,11 @@ def main() -> int:
         log = _build.library_path(name).with_suffix(".log").read_text()
         print(f"[build] {name}: the split kernel's registers by (D, G bucket): "
               f"{split_registers(log, entry)}", flush=True)
+    for name, entry in (("qchunk_attn", "qchunk_attn_kernel"),
+                        ("qpaged_attn", "qpaged_chunk_kernel")):
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        print(f"[build] {name}: the chunk kernel's registers by D: "
+              f"{split_registers(log, entry)}", flush=True)
     # the GEMMs run on the tensor cores: HMMA in the weight-only GEMMs' machine
     # code, IMMA (integer) and no dp4a in the integer kernels'
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -2500,7 +2638,9 @@ def main() -> int:
          "bound_ms": qc_main["bound_ms"], "bound_by": qc_main["bound_by"],
          "library_ms": qc_main["library_ms"],
          "shape": f"B=8 Hq=9 Hkv=3 D=64 C={qc_main['c']} S={qc_main['s']} "
-                  f"start={qc_main['start']} (the serving path's last chunk)"},
+                  f"start={qc_main['start']} (the serving path's last chunk)",
+         "ranks": qc_main["ranks"], "f32_bound_ms": qc_main["f32_bound_ms"],
+         "beside": chunk_beside(qc_rows, qc_main)},
     ]
     pd_main, pc_main = pd_rows[0], pc_rows[1]
     kernels += [
@@ -2521,7 +2661,9 @@ def main() -> int:
          "bound_ms": pc_main["bound_ms"], "bound_by": pc_main["bound_by"],
          "library_ms": pc_main["library_ms"],
          "shape": f"Hq=9 Hkv=3 D=64 C={pc_main['c']} S={pc_main['s']} ps={pc_main['ps']} "
-                  f"start={pc_main['start']} (the serving path's last chunk)"},
+                  f"start={pc_main['start']} (the serving path's last chunk)",
+         "ranks": pc_main["ranks"], "f32_bound_ms": pc_main["f32_bound_ms"],
+         "beside": chunk_beside(pc_rows, pc_main)},
     ]
     qr_main = qr_rows[0]
     kernels.append(

@@ -1,6 +1,8 @@
-"""The split of ``csrc/attn_split.cuh``: how many blocks of a thread-block
-cluster share one walk over a slot's positions in ``qpaged_decode_attn``
-and ``qragged_attn``.
+"""The splits of ``csrc/attn_split.cuh`` and ``csrc/chunk_split.cuh``: how
+many blocks of a thread-block cluster share one walk over a slot's
+positions in ``qpaged_decode_attn`` and ``qragged_attn``
+(:func:`split_ranks`), and in ``qchunk_attn`` and ``qpaged_chunk_attn``
+(:func:`chunk_tiles`, :func:`chunk_ranks`).
 
 A walk is cut into tiles of :func:`tile` positions, and rank r of R takes
 tiles [r n / R, (r + 1) n / R) of the n tiles the walk has.  R is chosen
@@ -59,3 +61,53 @@ def split_ranks(walk: int, walks: int, hkv: int, d: int) -> int:
         return math.ceil(tiles / r) + WAVE_TILES * math.ceil(walks * hkv * r / WAVE)
 
     return min((r for r in (1, 2, 4, MAX_RANKS) if r <= tiles), key=cost)
+
+
+CHUNK_TILE = 64      # positions per tile of the chunk core
+CHUNK_QUERIES = 32   # queries per query tile: two m16 slabs
+
+
+def chunk_tiles(c: int, g: int) -> tuple:
+    """(query tiles, rows per tile) of a chunk of ``c`` rows at ``g`` query
+    heads per KV head: as few tiles of at most :data:`CHUNK_QUERIES`
+    queries (whole rows times their heads) as ``g`` allows, the rows spread
+    evenly over them (``chunk_split::query_rows``)."""
+    most = CHUNK_QUERIES // g
+    tiles = math.ceil(c / most)
+    rows = math.ceil(c / tiles)
+    return math.ceil(c / rows), rows
+
+
+def chunk_ranks(walk: int, tiles: int, hkv: int, d: int) -> int:
+    """Ranks R (1, 2, 4 or 8) that share the prefix of each (query tile,
+    KV head) of a chunk launch of ``tiles`` query tiles x ``hkv`` heads
+    over a table that reaches ``walk`` = ``max_pages * ps`` positions (S
+    for a dense cache) at head dimension ``d``.
+
+    Shapes alone: never ``start``, which the paged entry may read on the
+    card, so a call reads nothing back and is safe under CUDA-graph
+    capture.  R has at most one rank per :data:`CHUNK_TILE` positions of
+    the reach (none is empty at the table's end) and minimises the tiles
+    of the longest rank plus ``WAVE_TILES`` per wave of ``SMS`` blocks,
+    the smallest R on a tie, as :func:`split_ranks` does.  The figures
+    behind it (``chip_smoke.py``'s rank sweep: C=32, G=3, Hkv=3, D=64,
+    four query tiles; NVIDIA H100 80GB HBM3, 700 W; µs per call from CUDA
+    graphs, R = 1 / 2 / 4 / 8; PERF.md, §6):
+
+    - dense, S=2048, start 1984 (32 tiles): 63.65 / 32.63 / 19.87 / 13.70;
+      paged (ps 16): 67.15 / 34.24 / 20.74 / 14.13;
+    - dense, S=192, start 160 (3 tiles): 12.62 / 10.09.
+
+    A tile costs one rank about 1.8 µs (the sweep's slope at S=2048), and
+    a cluster pays its prologue and fold once, so ranks pay wherever the
+    prefix is long.  A chunk early in a long table takes the table's R;
+    its later ranks then have no tile.
+    """
+    if walk < 1 or tiles < 1 or hkv < 1 or d < 1:
+        raise ValueError(f"chunk_split: no split for {tiles} x {hkv} tiles over {walk} at D={d}")
+    n = math.ceil(walk / CHUNK_TILE)
+
+    def cost(r: int) -> int:
+        return math.ceil(n / r) + WAVE_TILES * math.ceil(tiles * hkv * r / SMS)
+
+    return min((r for r in (1, 2, 4, MAX_RANKS) if r <= n), key=cost)

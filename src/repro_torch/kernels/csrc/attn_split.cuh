@@ -2,7 +2,9 @@
 // qragged_attn.cu (the ragged tick): one query group of G heads of one KV
 // head attends one slot's positions [0, s_end) through its page table row,
 // the walk split across the R blocks of a thread-block cluster
-// (flash-decoding in one launch).
+// (flash-decoding in one launch).  The chunk core (chunk_split.cuh) takes
+// its partition (rank_range), cluster fold (fold_ranks), quantize_i8,
+// widen8 and launch.
 //
 // Partition.  [0, s_end) is cut into tiles of BS positions (64 at D = 32
 // and 64, 128 at D = 16, 32 at D = 128), and rank r of the cluster takes
@@ -294,6 +296,72 @@ __device__ __forceinline__ void walk(Smem<D, KG>& sm, const Walk& wk, int G,
   }
 }
 
+// The cluster's fold of `rows` rows of D outputs, each block's (m, l, acc)
+// in its shared memory (acc row-major [rows][D], 16-byte aligned when W is
+// 4): after a cluster barrier rank r folds slice [r n / R, (r + 1) n / R) of
+// the n = rows D / W groups of W outputs of a row over ranks 0 .. R-1 in
+// order through distributed shared memory (rescaled by exp(m_i - max m);
+// each rank's m and l read once a group) and hands out(e, acc / max(l,
+// 1e-30)) each output e = row D + d; a second barrier keeps every block
+// alive until its peers have read it.  combine below folds one output a
+// group (W = 1), chunk_split.cuh four (a float4 of acc per rank).
+template <int D, int W, typename Out>
+__device__ __forceinline__ void fold_ranks(const float* blk_acc, const float* blk_m,
+                                           const float* blk_l, int rows, Out out) {
+  static_assert((W == 1 || W == 4) && D % W == 0, "groups of one or four outputs of a row");
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n = rows * (D / W);
+  for (int e = rank * n / ranks + static_cast<int>(threadIdx.x); e < (rank + 1) * n / ranks;
+       e += kThreads) {
+    const int g = e / (D / W);
+    float a[W], ls = 0.f;
+#pragma unroll
+    for (int j = 0; j < W; ++j) a[j] = 0.f;
+    if constexpr (W == 4) {
+      // every rank's m, l and float4 of acc loaded before the first use
+      float mv[kMaxRanks], lv[kMaxRanks];
+      float4 av[kMaxRanks];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int p = 0; p < kMaxRanks; ++p) {
+        if (p < ranks) {
+          mv[p] = *cluster.map_shared_rank(blk_m + g, p);
+          lv[p] = *cluster.map_shared_rank(blk_l + g, p);
+          av[p] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(blk_acc + W * e, p));
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kMaxRanks; ++p)
+        if (p < ranks) mx = fmaxf(mx, mv[p]);
+#pragma unroll
+      for (int p = 0; p < kMaxRanks; ++p) {
+        if (p < ranks) {
+          const float f = expf(mv[p] - mx);
+          a[0] = fmaf(av[p].x, f, a[0]);
+          a[1] = fmaf(av[p].y, f, a[1]);
+          a[2] = fmaf(av[p].z, f, a[2]);
+          a[3] = fmaf(av[p].w, f, a[3]);
+          ls = fmaf(lv[p], f, ls);
+        }
+      }
+    } else {
+      float mx = -INFINITY;
+      for (int p = 0; p < ranks; ++p) mx = fmaxf(mx, *cluster.map_shared_rank(blk_m + g, p));
+      for (int p = 0; p < ranks; ++p) {
+        const float f = expf(*cluster.map_shared_rank(blk_m + g, p) - mx);
+        a[0] = fmaf(*cluster.map_shared_rank(blk_acc + e, p), f, a[0]);
+        ls = fmaf(*cluster.map_shared_rank(blk_l + g, p), f, ls);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) out(W * e + j, a[j] / fmaxf(ls, 1e-30f));
+  }
+  cluster.sync();   // no block leaves while a peer still reads its fold
+}
+
 // Fold the lane groups, the warps, then the cluster's ranks, and write
 // out[0 .. G*D) (acc times v_scale over l).
 template <int D, int KG>
@@ -351,24 +419,7 @@ __device__ __forceinline__ void combine(Smem<D, KG>& sm, int G, float v_scale,
       sm.blk_l[g] = ls;
     }
   }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int ranks = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int gd = G * D;
-  for (int e = rank * gd / ranks + tid; e < (rank + 1) * gd / ranks; e += kThreads) {
-    const int g = e / D, d = e % D;
-    float mx = -INFINITY;
-    for (int p = 0; p < ranks; ++p) mx = fmaxf(mx, *cluster.map_shared_rank(&sm.blk_m[g], p));
-    float a = 0.f, ls = 0.f;
-    for (int p = 0; p < ranks; ++p) {
-      const float f = expf(*cluster.map_shared_rank(&sm.blk_m[g], p) - mx);
-      a = fmaf(*cluster.map_shared_rank(&sm.blk_acc[g][d], p), f, a);
-      ls = fmaf(*cluster.map_shared_rank(&sm.blk_l[g], p), f, ls);
-    }
-    out[e] = a / fmaxf(ls, 1e-30f);
-  }
-  cluster.sync();   // no block leaves while a peer still reads its fold
+  fold_ranks<D, 1>(&sm.blk_acc[0][0], sm.blk_m, sm.blk_l, G, [&](int e, float x) { out[e] = x; });
 }
 
 // Dynamic shared memory above 48 KB for `kernel` (the G > 4 instantiations

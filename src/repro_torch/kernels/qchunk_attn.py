@@ -3,8 +3,12 @@ wrapper of ``csrc/qchunk_attn.cu``.
 
 Replaces ``repro/kernels/qchunk_attn.py::qchunk_attn_pallas``.  The plain
 version is :func:`repro_torch.kernels.ref.qchunk_attn_ref`.  The kernel
-quantizes the chunk's K/V into the cache in place and is bound by the int8
-bytes of the slot's prefix; the source says what its design does about it.
+quantizes the chunk's K/V into the cache in place; it runs the chunk core
+of ``csrc/chunk_split.cuh`` (shared with ``qpaged_chunk_attn``: the cache
+is a pool of page size S): each query tile on the bf16x3 tensor cores, the
+slot's prefix split across a cluster of
+:func:`~repro_torch.kernels.attn_split.chunk_ranks` blocks, one launch per
+call.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from typing import Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, attn_split
 from repro_torch.kernels.ref import check_chunk_target
 
 launches = 0   # kernel launches since the last reset (kernels/ops.py)
@@ -27,7 +31,7 @@ def _kernel():
         fn = _build.load("qchunk_attn").qchunk_attn_f32_s8
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, p, i, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+                       ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -38,8 +42,10 @@ def qchunk_attn_cuda(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tens
                      k_n: Union[int, torch.Tensor], v_n: Union[int, torch.Tensor],
                      slot: int, start: int) -> torch.Tensor:
     """q (C, Hq, D), k/v chunk (C, Hkv, D) f32; caches (B, S, Hkv, D) int8,
-    written in place at rows [start, start+C) of ``slot``; k_n/v_n scalar
-    exponents.  Returns out (C, Hq, D)."""
+    16-byte aligned, written in place at rows [start, start+C) of ``slot``;
+    k_n/v_n scalar exponents.  Returns out (C, Hq, D).  One launch: each
+    (query tile, KV head) prefix is split across a cluster of
+    ``attn_split.chunk_ranks`` blocks (from shapes alone)."""
     global launches
     if q.ndim != 3 or k_chunk.ndim != 3 or k_chunk.shape != v_chunk.shape \
             or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
@@ -63,13 +69,17 @@ def qchunk_attn_cuda(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tens
             raise ValueError(f"qchunk_attn: {nm} must be on {q.device} (CUDA)")
         if t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 4:
             raise ValueError(f"qchunk_attn: {nm} must be contiguous, aligned {dt}")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("qchunk_attn: caches must start on 16-byte boundaries")
     k_ptr, k_val = _build.int_arg(k_n, q.device, "qchunk_attn: k_n")
     v_ptr, v_val = _build.int_arg(v_n, q.device, "qchunk_attn: v_n")
     out = torch.empty_like(q)
+    ranks = attn_split.chunk_ranks(s, attn_split.chunk_tiles(c, g)[0], hkv, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(), k_cache.data_ptr(),
                     v_cache.data_ptr(), k_ptr, k_val, v_ptr, v_val, out.data_ptr(),
-                    b, c, s, hkv, g, d, int(slot), int(start), 1.0 / math.sqrt(d), stream)
+                    b, c, s, hkv, g, d, int(slot), int(start), 1.0 / math.sqrt(d), ranks,
+                    stream)
     if err != 0:
         raise RuntimeError(f"qchunk_attn kernel launch failed: CUDA error {err}")
     launches += 1

@@ -8,8 +8,11 @@ Replaces ``repro/kernels/qpaged_attn.py::qpaged_decode_attn_pallas`` and
 bound by the int8 K/V bytes they read through the page table.  Decode
 splits each slot's walk across a thread-block cluster of
 :func:`~repro_torch.kernels.attn_split.split_ranks` blocks (one launch per
-call, ``csrc/attn_split.cuh``); the chunk kernel walks its slot's prefix in
-one block per (KV head, tile of chunk rows).
+call, ``csrc/attn_split.cuh``); the chunk kernel runs the chunk core of
+``csrc/chunk_split.cuh`` (shared with ``qchunk_attn``): each query tile on
+the bf16x3 tensor cores, the prefix split across a cluster of
+:func:`~repro_torch.kernels.attn_split.chunk_ranks` blocks, one launch per
+call.
 """
 from __future__ import annotations
 
@@ -121,10 +124,12 @@ def qpaged_chunk_attn_cuda(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torc
                            page_row: torch.Tensor,
                            start: Union[int, torch.Tensor]) -> torch.Tensor:
     """q (C, Hq, D), k/v chunk (C, Hkv, D) f32; pools (P, ps, Hkv, D) int8,
-    written in place at the pool rows of logical rows [start, start+C) that
-    ``page_row`` (max_pages,) int32 maps (rows on -1 entries or past the
-    table are dropped); ``start`` an int >= 0 or one int32 on the card.
-    Returns out (C, Hq, D)."""
+    16-byte aligned, written in place at the pool rows of logical rows
+    [start, start+C) that ``page_row`` (max_pages,) int32 maps (rows on -1
+    entries or past the table are dropped); ``start`` an int >= 0 or one
+    int32 on the card.  Returns out (C, Hq, D).  One launch: each (query
+    tile, KV head) prefix is split across a cluster of
+    ``attn_split.chunk_ranks`` blocks (from shapes alone, never ``start``)."""
     global chunk_launches
     what = "qpaged_chunk_attn"
     if q.ndim != 3 or k_chunk.ndim != 3 or k_chunk.shape != v_chunk.shape \
@@ -148,17 +153,20 @@ def qpaged_chunk_attn_cuda(q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torc
                                     (k_pool, torch.int8, "k_pool"),
                                     (v_pool, torch.int8, "v_pool"),
                                     (page_row, torch.int32, "page_row")))
+    _check_pool_alignment(what, k_pool, v_pool)
     k_ptr, k_val = _build.int_arg(k_n, q.device, f"{what}: k_n")
     v_ptr, v_val = _build.int_arg(v_n, q.device, f"{what}: v_n")
     s_ptr, s_val = _build.int_arg(start, q.device, f"{what}: start")
     out = torch.empty_like(q)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _kernel("qpaged_chunk_attn_f32_s8",
-                 [p, p, p, p, p, p, i, p, i, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, p])
+                 [p, p, p, p, p, p, i, p, i, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, i, p])
+    ps, mp = k_pool.shape[1], page_row.shape[0]
     err = fn(q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(), k_pool.data_ptr(),
              v_pool.data_ptr(), k_ptr, k_val, v_ptr, v_val, page_row.data_ptr(), s_ptr, s_val,
-             out.data_ptr(), c, k_pool.shape[1], page_row.shape[0], hkv, g, d,
-             1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), c, ps, mp, hkv, g, d, 1.0 / math.sqrt(d),
+             attn_split.chunk_ranks(mp * ps, attn_split.chunk_tiles(c, g)[0], hkv, d),
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     chunk_launches += 1

@@ -262,13 +262,20 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,start,s", [(32, 96, 192), (32, 1984, 2048), (16, 100, 192)])
-def test_cuda_kernel_qchunk_attn_matches_plain(c, start, s):
+@pytest.mark.parametrize("c,start,s,g,d", [(32, 96, 192, 3, 64), (32, 1984, 2048, 3, 64),
+                                           (16, 100, 192, 3, 64), (32, 0, 2048, 3, 64),
+                                           (32, 1000, 2048, 3, 64), (1, 2000, 2048, 3, 64),
+                                           (16, 1500, 2048, 3, 64), (32, 1000, 2048, 3, 16),
+                                           (32, 1000, 2048, 3, 128), (32, 1000, 2048, 16, 64)])
+def test_cuda_kernel_qchunk_attn_matches_plain(c, start, s, g, d):
+    """The chunk core at the serving cache and at S=2048 (a cluster of 8
+    ranks, which end early on the causal limit at start 0), C = 1, 16, 32,
+    D = 16, 64, 128 and G = 3, 16."""
     _need_card()
     from repro_torch.kernels.qchunk_attn import qchunk_attn_cuda
 
     q, kc, vc, kcache, vcache = (torch.from_numpy(a).cuda()
-                                 for a in _inputs(c, 3, 3, 64, s, 8, seed=s))
+                                 for a in _inputs(c, g, 3, d, s, 8, seed=s + start))
     kk, vk, kp, vp = kcache.clone(), vcache.clone(), kcache.clone(), vcache.clone()
     got = qchunk_attn_cuda(q, kc, vc, kk, vk, 3, 3, 5, start)
     want = ref.qchunk_attn_ref(q, kc, vc, kp, vp, 3, 3, 5, start)

@@ -478,18 +478,30 @@ def test_cuda_kernel_qpaged_decode_attn_matches_plain(ps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ps,start", [(16, 96), (5, 160), (16, 176)])
-def test_cuda_kernel_qpaged_chunk_attn_matches_plain(ps, start):
+@pytest.mark.parametrize("ps,start,s,variant", [(16, 96, 192, None), (5, 160, 192, None),
+                                                (16, 176, 192, None), (16, 1984, 2048, None),
+                                                (16, 0, 2048, None), (16, 96, 192, "device start"),
+                                                (16, 96, 192, "page 0")])
+def test_cuda_kernel_qpaged_chunk_attn_matches_plain(ps, start, s, variant):
+    """The chunk core over a fragmented row: the serving cache, the tail
+    past the table (start 176), S=2048 (a cluster of 8), start passed as
+    an int32 on the card, and a chunk written into pool page 0 that an
+    unmapped entry of the prefix reads."""
     _need_card()
     from repro_torch.kernels.qpaged_attn import qpaged_chunk_attn_cuda
 
-    mp = -(-192 // ps)
+    mp = -(-s // ps)
     q, kc, vc, kp, vp = (torch.from_numpy(a).cuda()
                          for a in _chunk_inputs(32, 9, 3, 64, ps, 2 * mp, seed=start))
-    row = torch.from_numpy(np.random.default_rng(ps).permutation(2 * mp)[:mp]
-                           .astype(np.int32)).cuda()
+    row = np.random.default_rng(ps).permutation(2 * mp)[:mp].astype(np.int32)
+    if variant == "page 0":
+        row[np.nonzero(row == 0)[0]] = row[start // ps]
+        row[start // ps], row[2] = 0, -1
+    row = torch.from_numpy(row).cuda()
+    st = torch.full((), start, dtype=torch.int32, device="cuda") if variant == "device start" \
+        else start
     kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    got = qpaged_chunk_attn_cuda(q, kc, vc, kk, vk, 3, 3, row, start)
+    got = qpaged_chunk_attn_cuda(q, kc, vc, kk, vk, 3, 3, row, st)
     want = ref.qpaged_chunk_attn_ref(q, kc, vc, kr, vr, 3, 3, row, start)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     assert torch.equal(kk, kr) and torch.equal(vk, vr)

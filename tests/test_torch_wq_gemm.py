@@ -295,8 +295,9 @@ def test_tile_plan_refuses_empty_calls():
 
 
 def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
-    """Both GEMMs include ``wq_gemm.cuh``: an edit there must rebuild them,
-    and leave the kernels that do not include it alone."""
+    """Both GEMMs include ``wq_gemm.cuh``, and the chunk pair through
+    ``chunk_split.cuh``: an edit there must rebuild them, and leave the
+    kernels that do not include it alone."""
     for src in _build.CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -304,7 +305,7 @@ def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
     (tmp_path / "wq_gemm.cuh").write_text((tmp_path / "wq_gemm.cuh").read_text() + "\n// edit\n")
     after = {name: _build.library_path(name) for name in _build.KERNELS}
     changed = {name for name in _build.KERNELS if before[name] != after[name]}
-    assert changed == {"wq_matmul", "wq4_matmul"}
+    assert changed == {"wq_matmul", "wq4_matmul", "qchunk_attn", "qpaged_attn"}
 
 
 @pytest.mark.parametrize("m", [8, 72, 1024])
