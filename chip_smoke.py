@@ -27,9 +27,14 @@ Phases, each printed as it completes; any failure exits non-zero:
      held unchanged, at S=2048 from start 0 to 1984, C = 1, 16, 32, D = 16,
      64, 128 and G = 3, 16, with a start on the card and a chunk written
      into pool page 0 under an unmapped entry, and are timed at R = 1, 2, 4,
-     8; the paged kernels run over fragmented, out-of-order page
-     tables with pages shared between slots, beside the dense kernels on
-     the same contents, and ``qpaged_decode_attn`` over a page-size sweep;
+     8; ``qdecode_attn`` (the paged decode's split walk over the dense
+     cache as a pool of page size S) also on post-norm codes with rows at
+     kv_len <= 0 and past S, at D=128 and G=16, byte-equal to
+     ``qpaged_decode_attn`` under the table {b} at ps = S, timed at R = 1,
+     2, 4, 8, and refusing a cache off 16 bytes; the paged kernels run
+     over fragmented, out-of-order page tables with pages shared between
+     slots, beside the dense kernels on the same contents, and
+     ``qpaged_decode_attn`` over a page-size sweep;
      ``qragged_attn`` on the ragged tick (8 decode rows, 2 lanes x 32 chunk
      rows) over the dense identity layout and fragmented tables (page sizes
      16, 1, 5), with edge and all-inert ticks and cross-checks against the
@@ -84,6 +89,8 @@ Phases, each printed as it completes; any failure exits non-zero:
      0.9 and int8 ROM > 3.5x smaller than f32; ``fake_quant`` and
      ``qmm_requant`` through their ``ops`` entry points; inferences/s and a
      profile of each integer forward beside the float forward.
+After each phase that runs a weight-only GEMM, each GEMM library's count
+of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
 The line before the last is a JSON summary per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -635,30 +642,56 @@ def check_wq4_matmul(torch, ref, wq4_cuda, gen):
     return rows, layers, worst
 
 
-def check_qdecode_attn(torch, F, ref, qd_cuda, gen):
-    """Kernel vs plain at B=8, Hq=9, Hkv=3, D=64 over S = 192 (the smoke
-    run's cache), 256 and 2048 with per-row live lengths, and at S = 192
-    with one Python-int length, the form ``Attention.apply`` passes."""
-    b, hq, hkv, d = 8, 9, 3, 64
-    g = hq // hkv
+def check_qdecode_attn(torch, F, ref, qd_cuda, qpd_cuda, gen):
+    """Kernel vs plain at B=8, Hkv=3.  Uniform codes at D=64, G=3 (Hq=9)
+    over S = 192 (the smoke run's cache), 256 and 2048 with per-row live
+    lengths, and at S = 192 with one Python-int length, the form
+    ``Attention.apply`` passes; then post-norm codes (``pool_codes``) at
+    S = 192 and 2048 with rows at kv_len 0, -4 and past S, and at D=128,
+    G=16 (Hq=48, the 16-row instantiation past 48 KB of shared memory).
+    Every case is also run through ``qpaged_decode_attn`` on the same bytes
+    under the table ``arange(B)[:, None]`` at ps = S: the two share one
+    body, so the outputs must be equal to the byte.  The S=192 and S=2048
+    serving cases are also held and timed at R = 1, 2, 4, 8, and a cache
+    off 16 bytes must be refused by the wrapper and by the C entry."""
+    from repro_torch.kernels import qdecode_attn as qd_mod
+
+    b, hkv = 8, 3
     rows, worst = [], 0.0
-    for s, lens in ((192, [128 + i for i in range(b)]),
-                    (192, 191),
-                    (256, [256, 1, 100, 255, 17, 64, 200, 129]),
-                    (2048, [2048, 5, 1000, 2047, 333, 1536, 64, 1999])):
+    edge = [2048, 0, 1000, 2100, 333, -4, 64, 1999]
+    # (S, lengths, D, G, codes, swept over R)
+    cases = [(192, [128 + i for i in range(b)], 64, 3, "uniform", True),
+             (192, 191, 64, 3, "uniform", False),
+             (256, [256, 1, 100, 255, 17, 64, 200, 129], 64, 3, "uniform", False),
+             (2048, [2048, 5, 1000, 2047, 333, 1536, 64, 1999], 64, 3, "uniform", True),
+             (192, [150, 0, 191, 300, 1, -4, 192, 100], 64, 3, "post-norm", False),
+             (2048, edge, 64, 3, "post-norm", False),
+             (2048, edge, 128, 16, "post-norm", False)]
+    table = torch.arange(b, dtype=torch.int32, device="cuda")[:, None]
+    for s, lens, d, g, codes, sweep in cases:
+        hq = g * hkv
+        ranks = qd_mod.plan(b, s, hkv, d).ranks
         row_lens = [lens] * b if isinstance(lens, int) else lens
         kv_len = lens if isinstance(lens, int) else torch.tensor(lens, dtype=torch.int32,
                                                                  device="cuda")
         q = torch.randn(b, hq, d, generator=gen, device="cuda")
         copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * b * s * hkv * d)))
-        caches = [tuple(torch.randint(-128, 128, (b, s, hkv, d), generator=gen,
-                                      device="cuda", dtype=torch.int32).to(torch.int8)
-                        for _ in range(2)) for _ in range(copies)]
+        if codes == "uniform":
+            caches = [tuple(torch.randint(-128, 128, (b, s, hkv, d), generator=gen,
+                                          device="cuda", dtype=torch.int32).to(torch.int8)
+                            for _ in range(2)) for _ in range(copies)]
+        else:
+            caches = [tuple(pool_codes(torch, gen, (b, s, hkv, d)) for _ in range(2))
+                      for _ in range(copies)]
         got = qd_cuda(q, caches[0][0], caches[0][1], 3, 3, kv_len)
         want = ref.qdecode_attn_ref(q, caches[0][0], caches[0][1], 3, 3, kv_len)
+        paged = qpd_cuda(q, caches[0][0], caches[0][1], 3, 3, table, kv_len)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        check(err <= ATTN_ATOL, f"qdecode_attn S={s}: max err {err} > {ATTN_ATOL}")
+        label = f"qdecode_attn S={s} D={d} G={g} {codes} R={ranks}"
+        check(err <= ATTN_ATOL, f"{label}: max err {err} > {ATTN_ATOL}")
+        check(torch.equal(got, paged), f"{label}: differs from qpaged_decode_attn under the "
+                                       f"table arange(B)[:, None] at ps = S")
         worst = max(worst, err)
         mask = (torch.arange(s, device="cuda")[None, :]
                 < torch.tensor(row_lens, device="cuda")[:, None])[:, None, None, :]
@@ -678,16 +711,61 @@ def check_qdecode_attn(torch, F, ref, qd_cuda, gen):
         live = sum(min(n, s) if n > 0 else s for n in row_lens)
         b_ms, b_by = bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * b,
                            4.0 * live * hq * d)
-        rows.append(dict(s=s, lens=lens, err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=b_ms, bound_by=b_by))
+        rows.append(dict(s=s, lens=lens, d=d, g=g, codes=codes, ranks=ranks, err=err, ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
         form = "int" if isinstance(lens, int) else "(B,) int32"
-        print(f"[kernel] qdecode_attn B={b} Hq={hq} Hkv={hkv} D={d} S={s} kv_len={lens} "
-              f"({form}): "
-              f"max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}) | kernel {ms * 1e3:.2f} us | "
-              f"plain {plain * 1e3:.2f} us | sdpa on dequantized {lib * 1e3:.2f} us | "
-              f"bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
-        del caches, deq
+        print(f"[kernel] {label} B={b} Hq={hq} Hkv={hkv} kv_len={lens} ({form}): "
+              f"max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}), equal to qpaged_decode_attn at "
+              f"ps=S | kernel {ms * 1e3:.2f} us | plain {plain * 1e3:.2f} us | sdpa on "
+              f"dequantized {lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+        del deq
+        if sweep:
+            cells = []
+            for r in (1, 2, 4, 8):
+                rerr = max_err(qd_cuda(q, caches[0][0], caches[0][1], 3, 3, kv_len, ranks=r),
+                               want)
+                check(rerr <= ATTN_ATOL, f"{label} at R={r}: max err {rerr}")
+                r_ms = graph_ms(torch, [lambda kv=kv, r=r: qd_cuda(q, kv[0], kv[1], 3, 3, kv_len,
+                                                                   ranks=r)
+                                        for kv in caches], iters)
+                cells.append(f"R={r} {r_ms * 1e3:.2f}")
+            print(f"[kernel] {label} rank sweep (us): {' | '.join(cells)}; the rule picks "
+                  f"R={ranks}", flush=True)
+        del caches
+    # a cache off 16 bytes: refused by the wrapper and by the C entry
+    b, s, d = 2, 64, 16
+    q = torch.zeros(b, 2, d, device="cuda")
+    flat = torch.zeros(b * s * d + 16, dtype=torch.int8, device="cuda")
+    off = flat[4:4 + b * s * d].view(b, s, 1, d)
+    try:
+        qd_cuda(q, off, off, 3, 3, 5)
+        fail("qdecode_attn took a cache off 16 bytes")
+    except ValueError:
+        pass
+    out = torch.empty_like(q)
+    e = qd_mod._kernel()(q.data_ptr(), off.data_ptr(), off.data_ptr(), None, 3, None, 3, None, 0,
+                         5, out.data_ptr(), b, s, 1, 2, d, 0.25, 1,
+                         torch.cuda.current_stream().cuda_stream)
+    check(e == 1, f"qdecode_attn's C entry returned {e} for a cache off 16 bytes, not "
+                  f"cudaErrorInvalidValue (1)")
+    print("[kernel] qdecode_attn: a cache off 16 bytes is refused (ValueError; the C entry "
+          "returns cudaErrorInvalidValue)", flush=True)
     return rows, worst
+
+
+def check_grants(label, ran=()):
+    """The weight-only GEMM libraries each ask for their tile kernels'
+    shared memory once per kernel: at most 3 ``cudaFuncSetAttribute`` calls
+    a library, however many launches, and at least one in each library of
+    ``ran`` (the count is live)."""
+    from repro_torch.kernels import wq4_matmul, wq_matmul
+
+    counts = {"wq_matmul": wq_matmul.grants(), "wq4_matmul": wq4_matmul.grants()}
+    check(all(n <= 3 for n in counts.values()),
+          f"{label}: shared-memory grants {counts}: more than 3 in a library")
+    check(all(counts[name] >= 1 for name in ran), f"{label}: grants {counts}, none in {ran}")
+    print(f"[grants] after {label}: cudaFuncSetAttribute calls {counts} (at most 3 a library)",
+          flush=True)
 
 
 def chunk_bounds(nbytes, pairs, hq, d):
@@ -962,13 +1040,15 @@ def check_qpaged_decode_attn(torch, F, ref, qpd_cuda, qd_cuda, gen, page_size):
     return rows, swept, worst
 
 
-def check_split_instantiations(torch, ref, qpd_cuda, qr_cuda, gen):
+def check_split_instantiations(torch, ref, qpd_cuda, qr_cuda, qd_cuda, gen):
     """The other instantiations of the split kernels (``csrc/attn_split.cuh``)
     against their plain versions: D in 16, 32, 64, 128 and G in 1, 5, 16
     (the serving shape, D=64 and G=3, is held above), at a walk long enough
     for a cluster, with kv_len 0 and past the table, an evicted slot, a slot
     with a decode row and chunk rows in one tick, a token that sees no
-    mapped position, and an inert token.  Returns the worst error."""
+    mapped position, and an inert token; ``qdecode_attn`` on the same
+    contents laid out densely (at kv_len 0 the mean of V over the whole
+    row).  Returns the worst error."""
     from repro_torch.kernels.attn_split import split_ranks
 
     b, hkv, ps, worst = 4, 2, 8, 0.0
@@ -992,18 +1072,22 @@ def check_split_instantiations(torch, ref, qpd_cuda, qr_cuda, gen):
             kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
             rgot = qr_cuda(qt, kn, vn, kk, vk, 3, 3, table, sl, po)
             rwant = ref.qragged_attn_ref(qt, kn, vn, kr, vr, 3, 3, table, sl, po)
+            kd, vd = (ref.gather_pages_ref(x, table).contiguous() for x in (kp, vp))
+            dgot = qd_cuda(q, kd, vd, 3, 3, lens)
+            dwant = ref.qdecode_attn_ref(q, kd, vd, 3, 3, lens)
             torch.cuda.synchronize()
             err = max(max_err(got[1:], want[1:]), max_err(got[0], first),
-                      max_err(rgot, rwant))
+                      max_err(rgot, rwant), max_err(dgot, dwant))
             label = (f"split kernels D={d} G={g} R={split_ranks(mp * ps, b, hkv, d)} / "
-                     f"{split_ranks(mp * ps, len(pos), hkv, d)}")
+                     f"{split_ranks(mp * ps, len(pos), hkv, d)} / "
+                     f"{split_ranks(kd.shape[1], b, hkv, d)}")
             check(err <= ATTN_ATOL, f"{label}: max err {err} > {ATTN_ATOL}")
             check(torch.equal(kk, kr) and torch.equal(vk, vr), f"{label}: pools differ")
             check(not bool(rgot[2:4].any()), f"{label}: a row that sees nothing is not 0")
             worst = max(worst, err)
-    print(f"[kernel] qpaged_decode_attn and qragged_attn at D in (16, 32, 64, 128) x G in "
-          f"(1, 5, 16), S=2048 ps=8: max_abs_err {worst:.3e} (tol {ATTN_ATOL:.0e}), pools equal, "
-          f"rows that see nothing 0", flush=True)
+    print(f"[kernel] qpaged_decode_attn, qragged_attn and qdecode_attn (dense layout) at D in "
+          f"(16, 32, 64, 128) x G in (1, 5, 16), S=2048 ps=8: max_abs_err {worst:.3e} (tol "
+          f"{ATTN_ATOL:.0e}), pools equal, rows that see nothing 0", flush=True)
     return worst
 
 
@@ -1907,16 +1991,20 @@ def end_to_end(torch, card):
     env.shallow.engine = ServeEngine(model=shallow, params=env.shallow.params,
                                      max_len=env.max_len, batch_slots=slots, weight_quant=True,
                                      quantized_kv=True, device="cuda")
+    check_grants("the dense serving phase", ran=("wq_matmul",))
     print(f"[time] dense serving phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     paged_launches, env.chunked, env.shared_reqs = paged_end_to_end(torch, card, env)
     env.chunked["dense"] = outs["chunked"]
+    check_grants("the paged phase", ran=("wq_matmul",))
     print(f"[time] paged phase {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     ragged_launches = ragged_end_to_end(torch, card, env)
+    check_grants("the ragged phase", ran=("wq_matmul",))
     print(f"[time] ragged phase {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     subint8_launches = subint8_end_to_end(torch, card, env)
+    check_grants("the sub-int8 phase", ran=("wq_matmul", "wq4_matmul"))
     print(f"[time] sub-int8 phase {time.perf_counter() - t0:.1f}s", flush=True)
     return {k: sum(part.get(k, 0) for part in (launches, paged_launches, ragged_launches,
                                                subint8_launches))
@@ -2552,7 +2640,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
-    for name, entry in (("qpaged_attn", "qpaged_decode_kernel"),
+    for name, entry in (("qdecode_attn", "qdecode_attn_kernel"),
+                        ("qpaged_attn", "qpaged_decode_kernel"),
                         ("qragged_attn", "qragged_kernel")):
         log = _build.library_path(name).with_suffix(".log").read_text()
         print(f"[build] {name}: the split kernel's registers by (D, G bucket): "
@@ -2580,8 +2669,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t1 = time.perf_counter()
     _, wq_layers, wq_err = check_wq_matmul(torch, ref, wq_matmul_cuda, gen)
+    check_grants("the wq_matmul kernel check", ran=("wq_matmul",))
     _, wq4_layers, wq4_err = check_wq4_matmul(torch, ref, wq4_matmul_cuda, gen)
-    qd_rows, qd_err = check_qdecode_attn(torch, F, ref, qdecode_attn_cuda, gen)
+    check_grants("the wq4_matmul kernel check", ran=("wq_matmul", "wq4_matmul"))
+    qd_rows, qd_err = check_qdecode_attn(torch, F, ref, qdecode_attn_cuda,
+                                         qpaged_decode_attn_cuda, gen)
     qc_rows, qc_err = check_qchunk_attn(torch, F, ref, qchunk_attn_cuda, qdecode_attn_cuda, gen)
     pd_rows, _, pd_err = check_qpaged_decode_attn(torch, F, ref, qpaged_decode_attn_cuda,
                                                   qdecode_attn_cuda, gen, CUDA_PAGE_SIZE)
@@ -2591,7 +2683,8 @@ def main() -> int:
         qragged=qragged_attn_cuda, qdecode=qdecode_attn_cuda, qchunk=qchunk_attn_cuda,
         qpaged_decode=qpaged_decode_attn_cuda, qpaged_chunk=qpaged_chunk_attn_cuda),
         gen, CUDA_PAGE_SIZE)
-    check_split_instantiations(torch, ref, qpaged_decode_attn_cuda, qragged_attn_cuda, gen)
+    check_split_instantiations(torch, ref, qpaged_decode_attn_cuda, qragged_attn_cuda,
+                               qdecode_attn_cuda, gen)
     t_int = time.perf_counter()
     qmm_rows = check_qmm(torch, ref, qmm_cuda, gen)
     qmr_rows = check_qmm_requant(torch, ref, qmm_requant_cuda, gen)
@@ -2610,7 +2703,7 @@ def main() -> int:
     launches = {k: launches.get(k, 0) + int_launches.get(k, 0) for k in int_launches}
 
     wq_main = wq_layers[8]
-    qd_main = qd_rows[-1]
+    qd_main = next(r for r in qd_rows if r["s"] == 2048 and r["codes"] == "uniform")
     qc_main = qc_rows[1]
     kernels = [
         {"name": "wq_matmul", "route": "cuda",
@@ -2629,7 +2722,11 @@ def main() -> int:
          "ms": qd_main["ms"], "plain_ms": qd_main["plain_ms"],
          "bound_ms": qd_main["bound_ms"], "bound_by": qd_main["bound_by"],
          "library_ms": qd_main["library_ms"],
-         "shape": f"B=8 Hq=9 Hkv=3 D=64 S={qd_main['s']} kv_len={qd_main['lens']}"},
+         "shape": f"B=8 Hq=9 Hkv=3 D=64 S={qd_main['s']} kv_len={qd_main['lens']}",
+         "ranks": qd_main["ranks"],
+         "beside": [{k: r[k] for k in ("s", "lens", "d", "g", "codes", "ranks", "ms",
+                                       "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                    for r in qd_rows if r is not qd_main]},
         {"name": "qchunk_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qchunk_attn.cu",
          "replaces": "src/repro/kernels/qchunk_attn.py:107",

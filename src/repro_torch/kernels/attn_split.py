@@ -1,6 +1,6 @@
 """The splits of ``csrc/attn_split.cuh`` and ``csrc/chunk_split.cuh``: how
 many blocks of a thread-block cluster share one walk over a slot's
-positions in ``qpaged_decode_attn`` and ``qragged_attn``
+positions in ``qdecode_attn``, ``qpaged_decode_attn`` and ``qragged_attn``
 (:func:`split_ranks`), and in ``qchunk_attn`` and ``qpaged_chunk_attn``
 (:func:`chunk_tiles`, :func:`chunk_ranks`).
 

@@ -1,10 +1,13 @@
-// The split walk over an int8 KV pool shared by qpaged_attn.cu (decode) and
-// qragged_attn.cu (the ragged tick): one query group of G heads of one KV
-// head attends one slot's positions [0, s_end) through its page table row,
-// the walk split across the R blocks of a thread-block cluster
-// (flash-decoding in one launch).  The chunk core (chunk_split.cuh) takes
-// its partition (rank_range), cluster fold (fold_ranks), quantize_i8,
-// widen8 and launch.
+// The split walk over an int8 KV pool shared by qpaged_attn.cu (decode),
+// qdecode_attn.cu (decode over a dense cache) and qragged_attn.cu (the
+// ragged tick): one query group of G heads of one KV head attends one
+// slot's positions [0, s_end) through its page table row, the walk split
+// across the R blocks of a thread-block cluster (flash-decoding in one
+// launch).  The two decode entries run one body, decode below: a dense
+// (B, S, Hkv, D) cache is a pool of B pages of page size S, slot b pool
+// page b under the one-entry table row {b} (a null table).  The chunk core
+// (chunk_split.cuh) takes its partition (rank_range), cluster fold
+// (fold_ranks), quantize_i8, widen8 and launch.
 //
 // Partition.  [0, s_end) is cut into tiles of BS positions (64 at D = 32
 // and 64, 128 at D = 16, 32 at D = 128), and rank r of the cluster takes
@@ -108,7 +111,7 @@ struct Smem {
 struct Walk {
   const int8_t* kh;        // the pools at this KV head (k + h * D)
   const int8_t* vh;
-  const int* trow;         // the slot's table row
+  const int* trow;         // the slot's table row; null: page `slot` (a dense cache)
   size_t row;              // elements between consecutive rows of a page (Hkv * D)
   size_t page_elems;       // and between pages (ps * row)
   int ps;
@@ -152,7 +155,7 @@ __device__ __forceinline__ void stage(Smem<D, KG>& sm, const Walk& wk, int w, in
     const int pos = p0 + lane;
     int page = -1;
     if (pos < wk.hi) {
-      const int e = __ldg(wk.trow + pos / wk.ps);
+      const int e = wk.trow ? __ldg(wk.trow + pos / wk.ps) : wk.slot;
       page = kRagged ? e : max(e, 0);   // decode: an unmapped entry reads pool page 0
     }
     sm.page[w][st][lane] = page;
@@ -422,6 +425,87 @@ __device__ __forceinline__ void combine(Smem<D, KG>& sm, int G, float v_scale,
   fold_ranks<D, 1>(&sm.blk_acc[0][0], sm.blk_m, sm.blk_l, G, [&](int e, float x) { out[e] = x; });
 }
 
+// The arguments of a decode launch over B slots.  The paged pool (P, ps,
+// Hkv, D) comes with its table (B, max_pages); a dense cache (B, S, Hkv, D)
+// is the pool with a null table, ps = S and max_pages = 1.  The exponents
+// and the live length come from device memory (non-null pointer;
+// kv_len_stride 1 for a (B,) vector, 0 for one shared value) or by value.
+struct DecodeArgs {
+  const float* q;          // (B, Hq, D), Hq = G * Hkv
+  const int8_t* k;
+  const int8_t* v;
+  const int* k_n_ptr;
+  int k_n_val;
+  const int* v_n_ptr;
+  int v_n_val;
+  const int* table;
+  const int* kv_len_ptr;
+  int kv_len_stride;
+  int kv_len_val;
+  float* out;              // (B, Hq, D)
+  int ps, max_pages, Hkv, G;
+  float sm_scale;
+};
+
+// The body of a decode kernel of kThreads threads that each source names
+// for itself (launch_decode below): one cluster of R blocks per (KV head,
+// slot), grid (Hkv * R, B).  The reads are the Pallas kernels': pages 0 ..
+// min((kv_len - 1) / ps, max_pages - 1) are visited (page 0 alone when
+// kv_len <= 0), so the walk stops at the table's end even when an inactive
+// slot's length has ticked past it; an unmapped entry reads pool page 0.
+// For a dense cache that is [0, min(kv_len, S)), and all of [0, S) at
+// kv_len <= 0, where every score is masked and the output is the mean of V
+// over the whole row.
+template <int D, int KG>
+__device__ __forceinline__ void decode(const DecodeArgs& a) {
+  using Gm = Geom<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<Smem<D, KG>*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int h = blockIdx.x / ranks;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x % 32;
+  const int G = a.G, Hq = a.Hkv * G;
+  const int len = a.kv_len_ptr ? a.kv_len_ptr[(size_t)b * a.kv_len_stride] : a.kv_len_val;
+  // pages the Pallas kernel visits: through the last live one (page 0 when
+  // the slot is empty), never past the table
+  const int last = min(max((len - 1) / a.ps, 0), a.max_pages - 1);
+  const int n_walk = (last + 1) * a.ps;
+  const int s_end = len > 0 ? min(len, n_walk) : n_walk;
+
+  Walk wk = {};
+  wk.kh = a.k + (size_t)h * D;
+  wk.vh = a.v + (size_t)h * D;
+  wk.trow = a.table ? a.table + (size_t)b * a.max_pages : nullptr;
+  wk.slot = b;
+  wk.row = (size_t)a.Hkv * D;
+  wk.page_elems = (size_t)a.ps * wk.row;
+  wk.ps = a.ps;
+  rank_range(s_end, Gm::BS, static_cast<int>(cluster.block_rank()), ranks, wk.lo, wk.hi);
+  wk.len = len;
+  wk.k_scale = exp2f(-static_cast<float>(a.k_n_ptr ? *a.k_n_ptr : a.k_n_val));
+  wk.v_scale = exp2f(-static_cast<float>(a.v_n_ptr ? *a.v_n_ptr : a.v_n_val));
+  wk.sm_scale = a.sm_scale;
+
+  const float* qb = a.q + ((size_t)b * Hq + (size_t)h * G) * D;
+  // this lane's 8 dimensions of q, times 2^-k_n (exact)
+  const int d0 = (lane % Gm::LPP) * 8;
+  float qv[KG][8], acc[KG][8], m[KG], l[KG];
+#pragma unroll
+  for (int g = 0; g < KG; ++g) {
+    m[g] = kMasked;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      qv[g][j] = g < G ? qb[g * D + d0 + j] * wk.k_scale : 0.f;
+      acc[g][j] = 0.f;
+    }
+  }
+  walk<D, KG, false>(sm, wk, G, qv, acc, m, l);
+  combine<D, KG>(sm, G, wk.v_scale, acc, m, l, a.out + ((size_t)b * Hq + (size_t)h * G) * D);
+}
+
 // Dynamic shared memory above 48 KB for `kernel` (the G > 4 instantiations
 // at D = 128); call once per kernel.
 template <typename Kernel>
@@ -452,6 +536,31 @@ inline cudaError_t launch(void (*kernel)(Params...), dim3 grid, int ranks, size_
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   const cudaError_t last = cudaGetLastError();   // read (and clear) the launch's error
   return e != cudaSuccess ? e : last;
+}
+
+// cudaErrorInvalidValue for a decode launch of B slots at head dimension D
+// in clusters of `ranks` blocks that decode does not take: D in {16, 32,
+// 64, 128}, G <= 16, ps >= 1, max_pages >= 1, B <= 65535, 1 <= ranks <= 8
+// and 16-byte aligned pools (the walk stages rows with 16-byte copies).
+inline cudaError_t check_decode(const DecodeArgs& a, int B, int D, int ranks) {
+  const bool ok = (D == 16 || D == 32 || D == 64 || D == 128) && a.G >= 1 && a.G <= 16 &&
+                  a.ps >= 1 && a.max_pages >= 1 && B <= 65535 && ranks >= 1 &&
+                  ranks <= kMaxRanks && reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One launch of Kernel (the caller's __global__ around decode<D, KG>) over
+// B slots, each (KV head, slot) a cluster of `ranks` blocks.  Returns the
+// launch's error.  The kernel is a template argument so that each kernel,
+// internal to its source, keeps its own record of the grant: a static of a
+// function shared by two libraries would be one object per process.
+template <int D, int KG, void (*Kernel)(DecodeArgs)>
+cudaError_t launch_decode(const DecodeArgs& a, int B, int ranks, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(Smem<D, KG>);
+  static const cudaError_t granted = grant(Kernel, smem);
+  if (granted != cudaSuccess) return granted;
+  return launch(Kernel, dim3(a.Hkv * ranks, B), ranks, smem, stream, a);
 }
 
 }  // namespace attn_split

@@ -36,14 +36,15 @@
 // bytes per page.  Positions, not pages, are the unit of both walks, so any
 // page size >= 1 takes the same path.
 //
-// Decode design (attn_split.cuh): one cluster of R blocks per (KV head,
-// slot), grid (Hkv * R, B).  Each rank reads kv_len, computes the visited
-// range above, and walks its contiguous run of whole tiles of it over
-// cp.async-staged rows, each group of lanes an online softmax of its own;
-// the ranks' (m, l, acc) are folded through distributed shared memory and one
-// launch writes out.  R comes from shapes alone (kernels/attn_split.py:
-// the table's reach, B and Hkv, never kv_len), so a call makes no host
-// sync and is safe in a CUDA graph.
+// Decode design (attn_split::decode, the body qdecode_attn.cu's dense
+// cache runs too): one cluster of R blocks per (KV head, slot), grid
+// (Hkv * R, B).  Each rank reads kv_len, computes the visited range above,
+// and walks its contiguous run of whole tiles of it over cp.async-staged
+// rows, each group of lanes an online softmax of its own; the ranks' (m, l,
+// acc) are folded through distributed shared memory and one launch writes
+// out.  R comes from shapes alone (kernels/attn_split.py: the table's
+// reach, B and Hkv, never kv_len), so a call makes no host sync and is
+// safe in a CUDA graph.
 //
 // Chunk design (chunk_split.cuh, shared with qchunk_attn.cu's dense cache):
 // one cluster of R blocks per (query tile, KV head); a query tile's rows
@@ -59,73 +60,26 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
-using attn_split::kMasked;
-using attn_split::kThreads;
-
 constexpr int kMaxG = 16;
 
 // ---------------------------------------------------------------------------
-// Decode
+// Decode (attn_split::decode)
 // ---------------------------------------------------------------------------
 
 template <int D, int KG>
 // G <= 4: two blocks an SM (at most 128 registers), as a cluster needs its
 // ranks resident at once
-__global__ void __launch_bounds__(kThreads, KG <= 4 ? 2 : 1)
-qpaged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
-                     const int8_t* __restrict__ v, const int* __restrict__ k_n_ptr,
-                     int k_n_val, const int* __restrict__ v_n_ptr, int v_n_val,
-                     const int* __restrict__ table, const int* __restrict__ kv_len_ptr,
-                     int kv_len_stride, int kv_len_val, float* __restrict__ out, int ps,
-                     int max_pages, int Hkv, int G, float sm_scale) {
-  using Gm = attn_split::Geom<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<attn_split::Smem<D, KG>*>(smem_raw);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int ranks = static_cast<int>(cluster.num_blocks());
-  const int h = blockIdx.x / ranks;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int Hq = Hkv * G;
-  const int len = kv_len_ptr ? kv_len_ptr[(size_t)b * kv_len_stride] : kv_len_val;
-  // pages the Pallas kernel visits: through the last live one (page 0 when
-  // the slot is empty), never past the table
-  const int last = min(max((len - 1) / ps, 0), max_pages - 1);
-  const int n_walk = (last + 1) * ps;
-  const int s_end = len > 0 ? min(len, n_walk) : n_walk;
+__global__ void __launch_bounds__(attn_split::kThreads, KG <= 4 ? 2 : 1)
+qpaged_decode_kernel(const attn_split::DecodeArgs a) {
+  attn_split::decode<D, KG>(a);
+}
 
-  attn_split::Walk wk = {};
-  wk.kh = k + (size_t)h * D;
-  wk.vh = v + (size_t)h * D;
-  wk.trow = table + (size_t)b * max_pages;
-  wk.row = (size_t)Hkv * D;
-  wk.page_elems = (size_t)ps * wk.row;
-  wk.ps = ps;
-  attn_split::rank_range(s_end, Gm::BS, static_cast<int>(cluster.block_rank()), ranks, wk.lo,
-                         wk.hi);
-  wk.len = len;
-  wk.k_scale = exp2f(-static_cast<float>(k_n_ptr ? *k_n_ptr : k_n_val));
-  wk.v_scale = exp2f(-static_cast<float>(v_n_ptr ? *v_n_ptr : v_n_val));
-  wk.sm_scale = sm_scale;
-
-  const float* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  // this lane's 8 dimensions of q, times 2^-k_n (exact)
-  const int d0 = (lane % Gm::LPP) * 8;
-  float qv[KG][8], acc[KG][8], m[KG], l[KG];
-#pragma unroll
-  for (int g = 0; g < KG; ++g) {
-    m[g] = kMasked;
-    l[g] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      qv[g][j] = g < G ? qb[g * D + d0 + j] * wk.k_scale : 0.f;
-      acc[g][j] = 0.f;
-    }
-  }
-  attn_split::walk<D, KG, false>(sm, wk, G, qv, acc, m, l);
-  attn_split::combine<D, KG>(sm, G, wk.v_scale, acc, m, l,
-                             out + ((size_t)b * Hq + (size_t)h * G) * D);
+// The G bucket's instantiation: 4 query heads a group, or 16.
+template <int D>
+cudaError_t decode_by_g(const attn_split::DecodeArgs& a, int B, int ranks, cudaStream_t st) {
+  using attn_split::launch_decode;
+  return a.G <= 4 ? launch_decode<D, 4, qpaged_decode_kernel<D, 4>>(a, B, ranks, st)
+                  : launch_decode<D, 16, qpaged_decode_kernel<D, 16>>(a, B, ranks, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -133,51 +87,9 @@ qpaged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) qpaged_chunk_kernel(const chunk_split::Args a) {
+__global__ void __launch_bounds__(attn_split::kThreads)
+qpaged_chunk_kernel(const chunk_split::Args a) {
   chunk_split::chunk<D>(a);
-}
-
-template <int D, int KG>
-cudaError_t launch_decode(const float* q, const int8_t* k, const int8_t* v, const int* k_n_ptr,
-                          int k_n_val, const int* v_n_ptr, int v_n_val, const int* table,
-                          const int* kv_len_ptr, int kv_len_stride, int kv_len_val, float* out,
-                          int B, int ps, int max_pages, int Hkv, int G, float sm_scale,
-                          int ranks, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(attn_split::Smem<D, KG>);
-  static const cudaError_t granted = attn_split::grant(qpaged_decode_kernel<D, KG>, smem);
-  if (granted != cudaSuccess) return granted;
-  return attn_split::launch(qpaged_decode_kernel<D, KG>, dim3(Hkv * ranks, B), ranks, smem,
-                            stream, q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
-                            kv_len_ptr, kv_len_stride, kv_len_val, out, ps, max_pages, Hkv, G,
-                            sm_scale);
-}
-
-template <int KG>
-cudaError_t dispatch_decode(const float* q, const int8_t* k, const int8_t* v,
-                            const int* k_n_ptr, int k_n_val, const int* v_n_ptr, int v_n_val,
-                            const int* table, const int* kv_len_ptr, int kv_len_stride,
-                            int kv_len_val, float* out, int B, int ps, int max_pages, int Hkv,
-                            int G, int D, float sm_scale, int ranks, cudaStream_t st) {
-  switch (D) {
-    case 16:
-      return launch_decode<16, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
-                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
-                                   max_pages, Hkv, G, sm_scale, ranks, st);
-    case 32:
-      return launch_decode<32, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
-                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
-                                   max_pages, Hkv, G, sm_scale, ranks, st);
-    case 64:
-      return launch_decode<64, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
-                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
-                                   max_pages, Hkv, G, sm_scale, ranks, st);
-    case 128:
-      return launch_decode<128, KG>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
-                                    kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
-                                    max_pages, Hkv, G, sm_scale, ranks, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -195,19 +107,19 @@ extern "C" int qpaged_decode_attn_f32_s8(const float* q, const int8_t* k, const 
                                          int kv_len_val, float* out, int B, int ps,
                                          int max_pages, int Hkv, int G, int D,
                                          float sm_scale, int ranks, void* stream) {
-  if (G > kMaxG || G < 1 || ps < 1 || max_pages < 1 || B > 65535 || ranks < 1 ||
-      ranks > attn_split::kMaxRanks ||
-      reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const attn_split::DecodeArgs a = {q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
+                                    kv_len_ptr, kv_len_stride, kv_len_val, out, ps,
+                                    max_pages, Hkv, G, sm_scale};
+  cudaError_t e = attn_split::check_decode(a, B, D, ranks);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (B <= 0 || Hkv <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      G <= 4 ? dispatch_decode<4>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
-                                  kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps, max_pages,
-                                  Hkv, G, D, sm_scale, ranks, st)
-             : dispatch_decode<16>(q, k, v, k_n_ptr, k_n_val, v_n_ptr, v_n_val, table,
-                                   kv_len_ptr, kv_len_stride, kv_len_val, out, B, ps,
-                                   max_pages, Hkv, G, D, sm_scale, ranks, st);
+  switch (D) {
+    case 16: e = decode_by_g<16>(a, B, ranks, st); break;
+    case 32: e = decode_by_g<32>(a, B, ranks, st); break;
+    case 64: e = decode_by_g<64>(a, B, ranks, st); break;
+    default: e = decode_by_g<128>(a, B, ranks, st);
+  }
   return static_cast<int>(e);
 }
 

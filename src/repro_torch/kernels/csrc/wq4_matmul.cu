@@ -32,6 +32,8 @@ wq4_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                           vec_x, vec_w);
 }
 
+int grants = 0;   // cudaFuncSetAttribute calls of this library (wq_gemm::grant)
+
 }  // namespace
 
 // x (M, K) f32, w (ceil(K/2), N) int8, scale (1, N) f32 when block_size is 0
@@ -43,7 +45,12 @@ wq4_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 extern "C" int wq4_matmul_f32_s4(const float* x, const int8_t* w, const float* scale,
                                  int block_size, float* out, int M, int K, int N, int bm,
                                  int ranks, int k_per_rank, void* stream) {
-  return static_cast<int>(wq_gemm::launch<true>(
-      wq4_matmul_kernel<16>, wq4_matmul_kernel<32>, wq4_matmul_kernel<64>, x, w, scale, 1,
-      block_size, out, M, K, N, bm, ranks, k_per_rank, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      wq_gemm::launch<true, wq4_matmul_kernel<16>, wq4_matmul_kernel<32>, wq4_matmul_kernel<64>>(
+          grants, x, w, scale, 1, block_size, out, M, K, N, bm, ranks, k_per_rank,
+          static_cast<cudaStream_t>(stream)));
 }
+
+// The cudaFuncSetAttribute calls this library has made: one per tile kernel
+// it has launched, at most 3.
+extern "C" int wq4_matmul_grants() { return grants; }

@@ -383,26 +383,51 @@ __device__ __forceinline__ void gemm(const float* __restrict__ x, const int8_t* 
 using Kernel = void (*)(const float*, const int8_t*, const float*, int, int, float*, int, int,
                        int, int, int, int);
 
-inline cudaError_t launch_tile(Kernel kernel, int bm, size_t smem, const float* x,
-                               const int8_t* w, const float* scale, int scale_stride,
-                               int block_size, float* out, int M, int K, int N, int ranks,
-                               int k_per_rank, cudaStream_t stream) {
-  static Kernel allowed[3] = {};   // kernels granted their shared memory (above 48 KB)
-  bool granted = false;
-  for (Kernel k : allowed) granted = granted || k == kernel;
-  if (!granted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return e;
-    }
-    for (Kernel& k : allowed)
-      if (k == nullptr) {
-        k = kernel;
-        break;
-      }
-  }
+// Dynamic shared memory above 48 KB for `kernel`; counts the call in
+// `grants`.
+inline cudaError_t set_smem(Kernel kernel, size_t smem, int& grants) {
+  ++grants;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
+
+// K's grant, asked for on its first launch only.  The kernel is a template
+// argument, internal to its source, so each library keeps its own record: a
+// static of a function shared by two libraries (keyed by a kernel pointer at
+// run time) would be one object per process, and the second library's
+// kernels would ask again at every launch.
+template <Kernel K, int BM, bool S4>
+cudaError_t grant(int& grants) {
+  static const cudaError_t granted = set_smem(K, sizeof(Smem<BM, S4>), grants);
+  return granted;
+}
+
+// One launch of the tiling (bm, ranks, k_per_rank) that kernels/wq_gemm.py
+// plans, with the caller's kernel for each M tile (K16, K32, K64 over
+// gemm<BM, S4>); a tiling that does not cover K in whole steps, one rank
+// each, is refused with cudaErrorInvalidValue and nothing launched.
+// `grants` is the caller's count of cudaFuncSetAttribute calls (one per
+// tile kernel it has launched).
+template <bool S4, Kernel K16, Kernel K32, Kernel K64>
+cudaError_t launch(int& grants, const float* x, const int8_t* w, const float* scale,
+                   int scale_stride, int block_size, float* out, int M, int K, int N, int bm,
+                   int ranks, int k_per_rank, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return cudaGetLastError();
+  if (K < 1 || ranks < 1 || ranks > MAX_RANKS || k_per_rank < BK || k_per_rank % BK ||
+      static_cast<long long>(ranks - 1) * k_per_rank >= K ||
+      static_cast<long long>(ranks) * k_per_rank < K || block_size < 0 || (block_size & 1))
+    return cudaErrorInvalidValue;
+  const Kernel kernel = bm == 16 ? K16 : bm == 32 ? K32 : bm == 64 ? K64 : nullptr;
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = bm == 16   ? sizeof(Smem<16, S4>)
+                      : bm == 32 ? sizeof(Smem<32, S4>)
+                                 : sizeof(Smem<64, S4>);
+  const cudaError_t granted = bm == 16   ? grant<K16, 16, S4>(grants)
+                              : bm == 32 ? grant<K32, 32, S4>(grants)
+                                         : grant<K64, 64, S4>(grants);
+  if (granted != cudaSuccess) return granted;
   const int vec_x = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_w = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   cudaLaunchConfig_t cfg = {};
@@ -422,28 +447,6 @@ inline cudaError_t launch_tile(Kernel kernel, int bm, size_t smem, const float* 
                                            out, M, K, N, k_per_rank, vec_x, vec_w);
   const cudaError_t last = cudaGetLastError();   // read (and clear) the launch's error
   return e != cudaSuccess ? e : last;
-}
-
-// One launch of the tiling (bm, ranks, k_per_rank) that kernels/wq_gemm.py
-// plans, with the caller's kernel for each M tile (16, 32, 64) over
-// gemm<BM, S4>; a tiling that does not cover K in whole steps, one rank
-// each, is refused with cudaErrorInvalidValue and nothing launched.
-template <bool S4>
-cudaError_t launch(Kernel k16, Kernel k32, Kernel k64, const float* x, const int8_t* w,
-                   const float* scale, int scale_stride, int block_size, float* out, int M,
-                   int K, int N, int bm, int ranks, int k_per_rank, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return cudaGetLastError();
-  if (K < 1 || ranks < 1 || ranks > MAX_RANKS || k_per_rank < BK || k_per_rank % BK ||
-      static_cast<long long>(ranks - 1) * k_per_rank >= K ||
-      static_cast<long long>(ranks) * k_per_rank < K || block_size < 0 || (block_size & 1))
-    return cudaErrorInvalidValue;
-  const Kernel kernel = bm == 16 ? k16 : bm == 32 ? k32 : bm == 64 ? k64 : nullptr;
-  const size_t smem = bm == 16   ? sizeof(Smem<16, S4>)
-                      : bm == 32 ? sizeof(Smem<32, S4>)
-                                 : sizeof(Smem<64, S4>);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  return launch_tile(kernel, bm, smem, x, w, scale, scale_stride, block_size, out, M, K, N,
-                     ranks, k_per_rank, stream);
 }
 
 }  // namespace wq_gemm

@@ -24,6 +24,8 @@ wq_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                            vec_x, vec_w);
 }
 
+int grants = 0;   // cudaFuncSetAttribute calls of this library (wq_gemm::grant)
+
 }  // namespace
 
 // x (M, K) f32, w (K, N) int8, both row-major and contiguous; scale has N
@@ -34,7 +36,12 @@ wq_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 extern "C" int wq_matmul_f32_s8(const float* x, const int8_t* w, const float* scale,
                                 int scale_stride, float* out, int M, int K, int N, int bm,
                                 int ranks, int k_per_rank, void* stream) {
-  return static_cast<int>(wq_gemm::launch<false>(
-      wq_matmul_kernel<16>, wq_matmul_kernel<32>, wq_matmul_kernel<64>, x, w, scale,
-      scale_stride, 0, out, M, K, N, bm, ranks, k_per_rank, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      wq_gemm::launch<false, wq_matmul_kernel<16>, wq_matmul_kernel<32>, wq_matmul_kernel<64>>(
+          grants, x, w, scale, scale_stride, 0, out, M, K, N, bm, ranks, k_per_rank,
+          static_cast<cudaStream_t>(stream)));
 }
+
+// The cudaFuncSetAttribute calls this library has made: one per tile kernel
+// it has launched, at most 3.
+extern "C" int wq_matmul_grants() { return grants; }

@@ -30,6 +30,15 @@ def _kernel():
     return _fn
 
 
+def grants() -> int:
+    """The ``cudaFuncSetAttribute`` calls the loaded library has made: one
+    per tile kernel it has launched, so at most 3 (``csrc/wq_gemm.cuh``
+    keeps each library's record of its grants apart)."""
+    fn = _build.load("wq4_matmul").wq4_matmul_grants
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def wq4_matmul_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *, k: int,
                     block_size: int = 0) -> torch.Tensor:
     """x (M, K) f32 @ packed int4 wq (ceil(K/2), N) int8 with ``scale`` f32:

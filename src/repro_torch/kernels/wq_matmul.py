@@ -30,6 +30,15 @@ def _kernel():
     return _fn
 
 
+def grants() -> int:
+    """The ``cudaFuncSetAttribute`` calls the loaded library has made: one
+    per tile kernel it has launched, so at most 3 (``csrc/wq_gemm.cuh``
+    keeps each library's record of its grants apart)."""
+    fn = _build.load("wq_matmul").wq_matmul_grants
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def wq_matmul_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) f32 @ wq (K, N) int8, times ``scale`` (() or (N,) f32).
 

@@ -391,9 +391,9 @@ def test_pitch_is_an_odd_number_of_16_byte_groups():
 
 @pytest.mark.parametrize("header,users", [
     ("int_mma.cuh", {"qmm", "qconv1d"}),
-    ("cp_async.cuh", {"qmm", "qconv1d", "wq_matmul", "wq4_matmul", "qchunk_attn",
-                      "qpaged_attn", "qragged_attn"}),   # included by headers
-    ("attn_split.cuh", {"qchunk_attn", "qpaged_attn", "qragged_attn"}),
+    ("cp_async.cuh", {"qmm", "qconv1d", "wq_matmul", "wq4_matmul", "qdecode_attn",
+                      "qchunk_attn", "qpaged_attn", "qragged_attn"}),   # included by headers
+    ("attn_split.cuh", {"qdecode_attn", "qchunk_attn", "qpaged_attn", "qragged_attn"}),
     ("chunk_split.cuh", {"qchunk_attn", "qpaged_attn"})])
 def test_library_hash_covers_the_headers_a_source_reaches(tmp_path, monkeypatch, header, users):
     for src in _build.CSRC.iterdir():
