@@ -88,7 +88,16 @@ Phases, each printed as it completes; any failure exits non-zero:
      plain versions', argmax agreement with the EVAL fake-quant forward >
      0.9 and int8 ROM > 3.5x smaller than f32; ``fake_quant`` and
      ``qmm_requant`` through their ``ops`` entry points; inferences/s and a
-     profile of each integer forward beside the float forward.
+     profile of each integer forward beside the float forward;
+  9. training (``train_end_to_end``): the paper's flow on ResNetv1-6 at
+     filters 80 (float training, int8 QAT fine-tuning, calibration,
+     integerization, the integer forward over the synthetic test split with
+     exactly 6 ``qconv1d`` + 1 ``qmm`` launches and logits equal to the plain
+     versions'; accuracies and a profiled step of each training); smollm-135m
+     at full width through ``launch.train.main`` (AdamW, B=8, S=128, float
+     and ``--qat``: the loss falls; a preempted run resumes exactly; tokens/s,
+     a profiled step, syncs, peak memory); the card's gradient held to the
+     CPU's at smollm-135m-smoke and ResNet filters 12, float and QAT.
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -1452,6 +1461,51 @@ def check_qragged_attn(torch, F, ref, kern, gen, page_size):
     return rows, worst
 
 
+def integer_forward(torch, label, model, params, x, pol):
+    """Calibrate ResNetv1-6's ``params`` under ``pol`` on 4 batches of 32 of
+    ``x``, integerize, quantize ``x`` and run the full-integer forward over
+    it through the port's entry points (``ptq.calibrate``,
+    ``integerize.integerize``, ``integerize.quantize_input``,
+    ``ResNetV1_6.apply``).  Held: 6 ``qconv1d`` and 1 ``qmm`` launches and no
+    other kernel; finite (B, 6) logits equal to the same forward under
+    ``ops.FORCE = "plain"``; argmax agreement with the EVAL fake-quant
+    forward > 0.9."""
+    from repro_torch.core import integerize, ptq
+    from repro_torch.core.policy import QMode
+    from repro_torch.kernels import ops
+    from repro_torch.nn.module import Context
+
+    t0 = time.perf_counter()
+    qstate = ptq.calibrate(model.apply, params, [x[i * 32:(i + 1) * 32] for i in range(4)], pol)
+    iparams = integerize.integerize(params, pol, qstate)
+    xq = integerize.quantize_input(x, qstate, "resnet6/conv1/in", pol.act_bits)
+    ictx = Context(policy=pol.with_mode(QMode.INTEGER), qstate=qstate)
+    torch.cuda.synchronize()
+    prep = time.perf_counter() - t0
+    per_forward = dict(dict.fromkeys(ops.launch_counts(), 0), qconv1d=6, qmm=1)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out = model.apply(iparams, xq, ictx)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ops.FORCE = "plain"
+        try:
+            plain = model.apply(iparams, xq, ictx)
+        finally:
+            ops.FORCE = None
+        eval_logits = model.apply(params, x, Context(policy=pol, qstate=qstate))
+    check(counts == per_forward, f"{label} integer forward launch counts {counts} != "
+                                 f"expected {per_forward}")
+    check(tuple(out.shape) == (x.shape[0], 6) and bool(torch.isfinite(out).all()),
+          f"{label} integer logits: shape {tuple(out.shape)} or not finite")
+    check(torch.equal(out, plain), f"{label} integer logits differ from the plain "
+                                   f"versions' at {int((out != plain).sum())} entries")
+    agree = (out.argmax(-1) == eval_logits.argmax(-1)).float().mean().item()
+    check(agree > 0.9, f"{label}: integer vs EVAL argmax agreement {agree:.4f} <= 0.9")
+    return SimpleNamespace(qstate=qstate, iparams=iparams, xq=xq, ictx=ictx, out=out,
+                           counts=counts, agree=agree, prep=prep)
+
+
 def integer_end_to_end(torch, card):
     """The paper's integer engine at full width: ResNetv1-6 at filters 80 on
     UCI-HAR-shaped inputs (2947 windows of 128 x 9, the size of its test
@@ -1469,7 +1523,7 @@ def integer_end_to_end(torch, card):
     ``quantizers.fake_quant``) and ``ops.qmm_requant`` of the classifier's
     weights.  Returns the launches of these counted runs."""
     from repro_torch.configs.microai_resnet import build_resnet
-    from repro_torch.core import integerize, ptq, qformat
+    from repro_torch.core import integerize
     from repro_torch.core.policy import QMode, QuantPolicy
     from repro_torch.core.quantizers import fake_quant
     from repro_torch.kernels import ops, ref
@@ -1495,41 +1549,16 @@ def integer_end_to_end(torch, card):
                 ("int16 Q7.9", QuantPolicy.int16_ptq()))
     site = "resnet6/conv1/in"
     for label, pol in policies:
-        t0 = time.perf_counter()
-        qstate = ptq.calibrate(model.apply, params, [x[i * 32:(i + 1) * 32] for i in range(4)],
-                               pol)
-        iparams = integerize.integerize(params, pol, qstate)
-        xq = integerize.quantize_input(x, qstate, site, pol.act_bits)
-        ictx = Context(policy=pol.with_mode(QMode.INTEGER), qstate=qstate)
-        torch.cuda.synchronize()
-        prep = time.perf_counter() - t0
-        with torch.no_grad():
-            ops.reset_launch_counts()
-            out = model.apply(iparams, xq, ictx)
-            torch.cuda.synchronize()
-            counts = ops.launch_counts()
-            check(counts == per_forward, f"{label} integer forward launch counts {counts} != "
-                                         f"expected {per_forward}")
-            for k, v in counts.items():
-                launches[k] += v
-            ops.FORCE = "plain"
-            try:
-                plain = model.apply(iparams, xq, ictx)
-            finally:
-                ops.FORCE = None
-            eval_logits = model.apply(params, x, Context(policy=pol, qstate=qstate))
-        check(tuple(out.shape) == (PATH_BATCH, 6) and bool(torch.isfinite(out).all()),
-              f"{label} integer logits: shape {tuple(out.shape)} or not finite")
-        check(torch.equal(out, plain), f"{label} integer logits differ from the plain "
-                                       f"versions' at {int((out != plain).sum())} entries")
-        agree = (out.argmax(-1) == eval_logits.argmax(-1)).float().mean().item()
-        check(agree > 0.9, f"{label}: integer vs EVAL argmax agreement {agree:.4f} <= 0.9")
+        run = integer_forward(torch, label, model, params, x, pol)
+        qstate, iparams, xq, ictx, out = run.qstate, run.iparams, run.xq, run.ictx, run.out
+        for k, v in run.counts.items():
+            launches[k] += v
         rom = integerize.model_rom_bytes(iparams)
         if pol.act_bits == 8:
             check(rom_f32 / rom > 3.5, f"int8 ROM {rom} B vs f32 {rom_f32} B: ratio <= 3.5")
-        print(f"[int] {label}: calibrate + integerize + quantize input {prep:.2f}s | integer "
-              f"forward launches {counts} == expected (6 qconv1d + 1 qmm) | integer logits "
-              f"equal to plain ({PATH_BATCH} x 6) | argmax agreement with EVAL {agree:.4f} | "
+        print(f"[int] {label}: calibrate + integerize + quantize input {run.prep:.2f}s | integer "
+              f"forward launches {run.counts} == expected (6 qconv1d + 1 qmm) | integer logits "
+              f"equal to plain ({PATH_BATCH} x 6) | argmax agreement with EVAL {run.agree:.4f} | "
               f"float agreement {(out.argmax(-1) == float_logits.argmax(-1)).float().mean().item():.4f}"
               f" | ROM {rom} B (f32 {rom_f32} B, {rom_f32 / rom:.2f}x) | card {card}", flush=True)
 
@@ -1573,7 +1602,7 @@ def integer_end_to_end(torch, card):
         print(f"[int] {label} integer forward: {PATH_BATCH / wall:.1f} inferences/s, "
               f"{wall * 1e3:.2f} ms wall per forward of {PATH_BATCH}; card {card}", flush=True)
         profile_steps(torch, f"{label} integer forward (B={PATH_BATCH})", forward, None, card)
-        del iparams, xq, out, plain, eval_logits, fq, rq
+        del run, iparams, xq, out, fq, rq
 
     def float_forward(st):
         model.apply(params, x, Context())
@@ -1589,6 +1618,267 @@ def integer_end_to_end(torch, card):
           f"per forward of {PATH_BATCH}; card {card}", flush=True)
     profile_steps(torch, f"float forward (B={PATH_BATCH})", float_forward, None, card)
     return launches
+
+
+RESNET_FLOAT_ITERS = 400     # examples/qat_deploy_integer.py's float training: 400 at lr 0.02
+RESNET_QAT_ITERS = 200       # and its int8 QAT fine-tuning: 200 at lr 0.01
+LM_STEPS = 30                # smollm-135m float steps (AdamW, B=8, S=128); restart at half
+LM_QAT_STEPS = 20            # smollm-135m int8 QAT steps
+QAT_FLIP_SHARE = 1e-3        # the CPU tests' cap on flipped codes (tests/test_torch_train.py)
+
+
+def grad_misses(torch, got, want, rtol=1e-4, atol_share=1e-6) -> int:
+    """Elements of ``got`` outside rtol plus atol_share x max|want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    atol = atol_share * want.abs().max().item() if want.numel() else 0.0
+    return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+
+def step_vs_cpu(torch, label, loss_fn, params, args, qat):
+    """One gradient of ``loss_fn(params, *args)`` on the card against the
+    same on the CPU, from the same parameters and inputs: the loss at rtol
+    1e-5 and every gradient leaf at rtol 1e-4 plus 1e-6 x its max |grad|.
+
+    Under QAT a value that a sum in another order puts on the other side of
+    a grid edge takes the next code, and the change spreads through every
+    later layer, so the two runs are not compared code for code: the CPU
+    run computes each fake-quantized tensor, counts where it differs from
+    the card's (at most ``QAT_FLIP_SHARE`` of all values may) and then goes
+    on with the card's values (straight-through gradient as before), so the
+    loss and the gradients are held at the float tolerances above."""
+    from repro_torch.core import quantizers
+    from repro_torch.nn.module import tree_leaves, tree_to
+    from repro_torch.train.trainer import value_and_grad
+
+    cpu = [{k: v.to("cpu") for k, v in a.items()} if isinstance(a, dict) else a.to("cpu")
+           for a in args]
+    card_values, seen = [], {"calls": 0, "flips": 0, "values": 0}
+    plain_fq = quantizers.fake_quant
+
+    def on_card(x, n, width):
+        y = plain_fq(x, n, width)
+        card_values.append(y.detach().cpu())
+        return y
+
+    def on_cpu(x, n, width):
+        own = plain_fq(x, n, width)
+        card = card_values[seen["calls"]]
+        seen["calls"] += 1
+        check(card.shape == own.shape, f"{label}: fake-quant call {seen['calls']} shape")
+        seen["flips"] += int((own != card).sum())
+        seen["values"] += own.numel()
+        return own + (card - own).detach()     # grid values: the difference is exact
+
+    try:
+        quantizers.fake_quant = on_card
+        (l_gpu, _), g_gpu = value_and_grad(loss_fn, params, *args)
+        quantizers.fake_quant = on_cpu
+        (l_cpu, _), g_cpu = value_and_grad(loss_fn, tree_to(params, "cpu"), *cpu)
+    finally:
+        quantizers.fake_quant = plain_fq
+    check(seen["calls"] == len(card_values), f"{label}: fake-quant calls differ")
+    rel = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
+    pairs = list(zip(tree_leaves(g_gpu), tree_leaves(g_cpu)))
+    misses = sum(grad_misses(torch, a, b) for a, b in pairs)
+    total = sum(b.numel() for _, b in pairs)
+    print(f"[train] card vs CPU, {label}: loss {l_gpu.item():.6f} vs {l_cpu.item():.6f} (rel "
+          f"{rel:.2e}); {misses} of {total} gradient elements outside rtol 1e-4 + 1e-6 max|g|"
+          + (f"; fake-quantized values the CPU puts on another code: {seen['flips']} of "
+             f"{seen['values']} (the CPU went on with the card's)" if qat else ""), flush=True)
+    check(rel <= 1e-5, f"{label}: card loss {l_gpu.item()} vs CPU {l_cpu.item()} (rel {rel:.2e})")
+    check(misses == 0, f"{label}: {misses} of {total} gradient elements differ from the CPU's")
+    check(seen["flips"] <= QAT_FLIP_SHARE * max(seen["values"], 1),
+          f"{label}: {seen['flips']} of {seen['values']} fake-quantized values differ")
+
+
+def train_end_to_end(torch, card):
+    """Training through the port's entry points, on the card:
+
+    (a) the paper's flow on ResNetv1-6 at filters 80 on UCI-HAR-shaped
+        seeded data (``bench.common.dataset``): float training
+        (``train_resnet``, batch 64, the example's 400 iterations), int8 QAT
+        fine-tuning from those parameters (200), calibration on 4 batches of
+        32, integerization int8 per-layer and the full-integer forward over
+        the test split with exactly 6 ``qconv1d`` and 1 ``qmm`` launches and
+        logits equal to the plain versions'; accuracies, iterations/s and a
+        profiled step of each;
+    (b) smollm-135m at full width through ``launch.train.main``: AdamW, B=8,
+        S=128, float (the loss must fall) and ``--qat``; a run preempted
+        after its half-way checkpoint and launched again resumes at that
+        step and ends with the state of the uninterrupted run; tokens/s,
+        step wall time, a profiled step, syncs and peak memory;
+    (c) the card's gradient held to the CPU's at smollm-135m-smoke and at
+        ResNet filters 12, float and QAT.
+    Training itself launches none of the port's kernels (the counts stay
+    0); returns the integer evaluation's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.bench import common
+    from repro_torch.configs.microai_resnet import build_resnet
+    from repro_torch.core.policy import QMode, QuantPolicy
+    from repro_torch.data.pipeline import markov_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn.module import Context, tree_leaves
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.train.trainer import init_train_state, make_train_step, value_and_grad
+
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    qat_pol = QuantPolicy.int8_qat()
+    eval_pol = QuantPolicy(mode=QMode.EVAL, weight_bits=8, act_bits=8)
+
+    # -- (a) float -> int8 QAT -> integer, ResNetv1-6 at filters 80 ------------
+    x_tr, y_tr, x_te, y_te = common.dataset("uci-har")
+    runs = {}
+    ops.reset_launch_counts()
+    for label, iters, kw in (("float", RESNET_FLOAT_ITERS, {}),
+                             ("int8 QAT", RESNET_QAT_ITERS, dict(policy=qat_pol, lr=0.01))):
+        if label != "float":
+            kw["init_params"] = runs["float"][1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, params, test = common.train_resnet("uci-har", RESNET_FILTERS, iters=iters,
+                                                  batch=64, device="cuda", **kw)
+        torch.cuda.synchronize()
+        runs[label] = (model, params, time.perf_counter() - t0, iters)
+    counts = ops.launch_counts()
+    check(counts == zero, f"ResNet training launched the port's kernels: {counts}")
+    model, fparams = runs["float"][:2]
+    qparams = runs["int8 QAT"][1]
+    acc_f = common.accuracy(model, fparams, test)
+    acc_q = common.accuracy(model, qparams, test, eval_pol)
+    check(acc_f > 0.5, f"ResNetv1-6 float accuracy {acc_f:.4f} <= 0.5: the task was not learned")
+    check(acc_q > 0.5, f"ResNetv1-6 int8 QAT accuracy {acc_q:.4f} <= 0.5")
+    for label, (_, _, secs, iters) in runs.items():
+        print(f"[train] ResNetv1-6 filters {RESNET_FILTERS} {label} training: {iters} iterations "
+              f"of batch 64 in {secs:.2f}s, {iters / secs:.1f} iterations/s (the whole "
+              f"train_resnet call); card {card}", flush=True)
+    print(f"[train] ResNetv1-6 accuracy on the synthetic test split ({len(y_te)} windows): "
+          f"float {acc_f:.4f}, int8 QAT under EVAL fake-quant {acc_q:.4f}", flush=True)
+
+    x_dev = torch.from_numpy(x_te).to("cuda")
+    run = integer_forward(torch, "QAT-trained int8 per-layer", model, qparams, x_dev, eval_pol)
+    acc_i = (run.out.argmax(-1) == torch.from_numpy(y_te).to("cuda")).float().mean().item()
+    print(f"[train] calibrate (4 x 32) -> integerize int8 per-layer -> integer forward over the "
+          f"test split: launches {run.counts} == expected (6 qconv1d + 1 qmm); logits equal to "
+          f"plain; integer accuracy {acc_i:.4f} (argmax agreement with EVAL {run.agree:.4f}); "
+          f"card {card}", flush=True)
+
+    xb = torch.from_numpy(x_tr[:64]).to("cuda")
+    yb = torch.from_numpy(y_tr[:64]).to("cuda")
+    opt = sgd(momentum=0.9, weight_decay=5e-4)
+    for label, pol, p0 in (("float", QuantPolicy.float32(), fparams),
+                           ("int8 QAT", qat_pol, qparams)):
+        loss_fn = common.nll_loss(model, pol)
+
+        def resnet_step(st, loss_fn=loss_fn):
+            p, o = st
+            (_, _), g = value_and_grad(loss_fn, p, xb, yb)
+            return opt.update(g, o, p, 0.01)
+
+        profile_steps(torch, f"ResNetv1-6 filters {RESNET_FILTERS} {label} training step "
+                             f"(B=64)", resnet_step, (p0, opt.init(p0)), card, grad=True)
+
+    # -- (b) smollm-135m at full width through launch.train.main --------------
+    cfg = get_config("smollm-135m")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        args = ["--arch", "smollm-135m", "--batch", "8", "--seq", "128",
+                "--steps", str(LM_STEPS), "--ckpt-every", str(LM_STEPS // 2), "--log-every", "5"]
+        records = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = launch_train.main(args + ["--ckpt-dir", str(tmp / "whole")],
+                                  on_step=lambda st, m, dt: records.append((m["loss"], dt)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [r[0] for r in records]
+        check(len(losses) == LM_STEPS and all(np.isfinite(losses)), "smollm-135m float losses")
+        check(np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5,
+              f"smollm-135m float loss did not fall: {losses}")
+        step_ms = float(np.median([r[1] for r in records[1:]])) * 1e3
+        print(f"[train] smollm-135m float (AdamW, B=8, S=128) through launch.train.main: "
+              f"{LM_STEPS} steps in {secs:.2f}s (init and checkpoints included); loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {np.mean(losses[:5]):.4f}, last "
+              f"five {np.mean(losses[-5:]):.4f}); step wall {step_ms:.2f} ms median (the metrics "
+              f"read back), {8 * 128 / step_ms * 1e3:.1f} tokens/s; max memory allocated "
+              f"{peak / 2 ** 30:.3f} GiB; card {card}", flush=True)
+
+        class Preempted(Exception):
+            pass
+
+        def preempt(step, metrics, dt):
+            if step == LM_STEPS // 2 - 1:
+                raise Preempted
+
+        try:
+            launch_train.main(args + ["--ckpt-dir", str(tmp / "cut")], on_step=preempt)
+            fail("the preempted run was not stopped")
+        except Preempted:
+            pass
+        resumed_steps = []
+        resumed = launch_train.main(args + ["--ckpt-dir", str(tmp / "cut")],
+                                    on_step=lambda st, m, dt: resumed_steps.append(st))
+        check(resumed_steps == list(range(LM_STEPS // 2, LM_STEPS)),
+              f"the restart ran steps {resumed_steps}")
+        diff = max((a.double() - b.double()).abs().max().item()
+                   for a, b in zip(tree_leaves(resumed), tree_leaves(whole)))
+        check(int(resumed["step"]) == LM_STEPS and diff <= 1e-6,
+              f"restarted state differs from the uninterrupted run's by {diff}")
+        print(f"[train] smollm-135m restart: preempted after the step-{LM_STEPS // 2} "
+              f"checkpoint, launched again, resumed at step {resumed_steps[0]}, final state "
+              f"(params, AdamW m/v/t, step) max |diff| vs the uninterrupted run {diff:.3g}",
+              flush=True)
+        del whole, resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    launch_train.main(["--arch", "smollm-135m", "--batch", "8", "--seq", "128", "--qat",
+                       "--steps", str(LM_QAT_STEPS), "--log-every", "5"],
+                      on_step=lambda st, m, dt: records.append((m["loss"], dt)))
+    peak_q = torch.cuda.max_memory_allocated()
+    losses = [r[0] for r in records]
+    check(all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5,
+          f"smollm-135m QAT loss did not fall: {losses}")
+    step_ms = float(np.median([r[1] for r in records[1:]])) * 1e3
+    print(f"[train] smollm-135m int8 QAT through launch.train.main --qat: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}; step wall {step_ms:.2f} ms median, "
+          f"{8 * 128 / step_ms * 1e3:.1f} tokens/s; max memory allocated "
+          f"{peak_q / 2 ** 30:.3f} GiB; card {card}", flush=True)
+
+    model = cfg.build()
+    batch = markov_batch_fn(cfg.vocab, 8, 128, seed=0)(0)
+    for label, pol in (("float", None), ("int8 QAT", qat_pol)):
+        opt = adamw(weight_decay=0.01)
+        state = init_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0),
+                                 "cuda")
+        step_fn = make_train_step(model, opt, 3e-3, policy=pol)
+        profile_steps(torch, f"smollm-135m {label} training step (AdamW, B=8, S=128)",
+                      lambda st, f=step_fn: f(st, batch)[0], state, card, steps=4, grad=True)
+        del state
+
+    # -- (c) the card's gradient against the CPU's -----------------------------
+    smoke = get_config("smollm-135m-smoke").build()
+    sp = smoke.init(torch.Generator(device="cuda").manual_seed(1), "cuda")
+    sb = {k: torch.from_numpy(v).to("cuda")
+          for k, v in markov_batch_fn(503, 4, 32, seed=3)(0).items()}
+    small = build_resnet("uci-har", filters=12, device="cuda")
+    rp = small.init(torch.Generator(device="cuda").manual_seed(2))
+    for label, pol in (("float", QuantPolicy.float32()), ("int8 QAT", qat_pol)):
+        qat = pol.mode is QMode.QAT
+        step_vs_cpu(torch, f"smollm-135m-smoke {label}",
+                    lambda p, b, pol=pol: smoke.loss(p, b, Context(policy=pol, train=True)),
+                    sp, (sb,), qat)
+        step_vs_cpu(torch, f"ResNetv1-6 filters 12 {label}", common.nll_loss(small, pol), rp,
+                    (xb, yb), qat)
+    return run.counts
 
 
 def check_served(label, results, reqs, vocab) -> None:
@@ -1699,14 +1989,16 @@ def paged_engine(env, pool=None):
                        device="cuda", paged_kv=True, kv_pool_pages=pool)
 
 
-def profile_steps(torch, label, step, state, card, steps: int = 8):
+def profile_steps(torch, label, step, state, card, steps: int = 8, grad: bool = False):
     """Where a step's time goes: the host-device synchronizations one step
     makes (``torch.cuda.set_sync_debug_mode``), wall time per step without
     the profiler, then device time per step by kernel under
     ``torch.profiler`` and the device's idle share of the unprofiled wall
-    time.  ``step(state)`` returns the next state.  Returns the wall and
-    device busy ms per step and the per-kernel rows, or None when the
-    profiler recorded no device time."""
+    time.  ``step(state)`` returns the next state.  Serving steps run under
+    ``torch.inference_mode``; a training step (``grad``) runs outside it.
+    Returns the wall and device busy ms per step and the per-kernel rows, or
+    None when the profiler recorded no device time."""
+    import contextlib
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -1716,7 +2008,7 @@ def profile_steps(torch, label, step, state, card, steps: int = 8):
             st = step(st)
         return st
 
-    with torch.inference_mode():
+    with contextlib.nullcontext() if grad else torch.inference_mode():
         state = run(state)                      # warm
         torch.cuda.synchronize()
         with warnings.catch_warnings(record=True) as caught:
@@ -2698,9 +2990,14 @@ def main() -> int:
     int_launches = integer_end_to_end(torch, card)
     t4 = time.perf_counter()
     print(f"[time] integer engine phase {t4 - t3:.1f}s", flush=True)
+    train_launches = train_end_to_end(torch, card)
+    t5 = time.perf_counter()
+    print(f"[time] training phase {t5 - t4:.1f}s", flush=True)
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
-          f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | all {t4 - t0:.1f}s", flush=True)
-    launches = {k: launches.get(k, 0) + int_launches.get(k, 0) for k in int_launches}
+          f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | all "
+          f"{t5 - t0:.1f}s", flush=True)
+    launches = {k: launches.get(k, 0) + int_launches.get(k, 0) + train_launches.get(k, 0)
+                for k in int_launches}
 
     wq_main = wq_layers[8]
     qd_main = next(r for r in qd_rows if r["s"] == 2048 and r["codes"] == "uniform")

@@ -1,8 +1,13 @@
-"""Carry parameter trees across from the JAX package as numpy arrays.
+"""Carry parameter trees across from the JAX package as numpy arrays, and
+back.
 
 The port never imports ``repro``: a caller flattens the reference's tree
 into nested dicts/lists of numpy arrays (stacked layers keep their leading
-axis) and hands it here.  A quantized leaf arrives as any object with
+axis) and hands it here.  Optimizer states and whole training states
+convert the same way: the optimizers keep the reference's state trees
+(``{"m"}``, ``{"m", "v", "t"}`` with ``t`` a 0-d int32 array), so
+:func:`params_from_numpy` carries ``m``, ``v`` and ``t`` across as they
+are.  :func:`params_to_numpy` gives the port's tree back as numpy arrays.  A quantized leaf arrives as any object with
 ``q``/``n``/``width`` attributes (the reference's ``QTensor`` itself will
 do) or as a dict with those keys, optionally with ``channel_axis``; one
 that also has ``k`` and ``block_size`` (the reference's ``PackedQTensor``)
@@ -45,3 +50,22 @@ def params_from_numpy(tree, device):
     if _QKEYS <= keys:
         return _leaf(lambda a: getattr(tree, a), keys, device)
     return _tensor(tree, device)
+
+
+def params_to_numpy(tree):
+    """The port's tree as nested dicts/lists of numpy arrays; a quantized
+    leaf becomes a dict of its fields (the form :func:`params_from_numpy`
+    reads back)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, PackedQTensor):
+        return {"q": tree.q.cpu().numpy(), "n": tree.n.cpu().numpy(), "width": tree.width,
+                "k": tree.k, "block_size": tree.block_size}
+    if isinstance(tree, QTensor):
+        return {"q": tree.q.cpu().numpy(), "n": tree.n.cpu().numpy(), "width": tree.width,
+                "channel_axis": tree.channel_axis}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree

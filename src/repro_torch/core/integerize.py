@@ -9,6 +9,8 @@
   ``table`` leaves become :class:`QTensor` leaves with per-channel pow2
   exponents (8, 9 or 16 bits), or, at 4 and 2 bits, GEMM kernels pack into
   :class:`PackedQTensor` leaves; norms and everything else stay float.
+* :func:`fake_int8_weights`: int8-gather training: the same leaves through
+  the STE quantizer ``ste_int8_weight`` inside a training step.
 """
 from __future__ import annotations
 
@@ -82,6 +84,41 @@ def integerize(params, policy: QuantPolicy, qstate: Optional[Dict] = None, *,
                      else site_for(path, dev))
             if n_out is not None:
                 out["n_out"] = n_out
+        return out
+
+    return rec(params, "")
+
+
+def fake_int8_weights(params, *, mesh=None, rules=None) -> Dict:
+    """int8-gather training: every GEMM ``kernel`` and embedding ``table``
+    leaf that :func:`integerize_weights_only` would quantize passes through
+    :func:`repro_torch.core.quantizers.ste_int8_weight` (materialized int8
+    codes, one exponent per output channel and per stacked index; STE
+    backward).  The float master parameters stay untouched.  The reference
+    also pins the int8 codes to a mesh's sharding; ``mesh``/``rules`` wait
+    for the distribution slice."""
+    from repro_torch.core.quantizers import ste_int8_weight
+
+    if mesh is not None or rules is not None:
+        raise NotImplementedError("fake_int8_weights on a mesh waits for the port's "
+                                  "distribution slice (ROADMAP.md queue 1)")
+    policy = QuantPolicy.serve_int8()
+
+    def rec(node, path):
+        if isinstance(node, (list, tuple)):
+            return [rec(v, f"{path}/{i}") for i, v in enumerate(node)]
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            child_path = f"{path}/{k}" if path else k
+            if isinstance(v, (dict, list, tuple)):
+                out[k] = rec(v, child_path)
+            elif (k in _WEIGHT_LEAVES and not _is_skipped(child_path, policy)
+                  and isinstance(v, torch.Tensor) and v.ndim >= 2):
+                out[k] = ste_int8_weight(v, tuple(range(v.ndim - 2)) + (v.ndim - 1,))
+            else:
+                out[k] = v
         return out
 
     return rec(params, "")

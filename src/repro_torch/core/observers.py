@@ -4,13 +4,13 @@ An observer absorbs each batch's per-site max|x| statistics (recorded by a
 CALIB-mode forward) and converts the accumulated ranges into frozen pow2
 exponents.  :class:`MinMaxObserver` keeps the running max (order
 invariant); :class:`EMAObserver` an exponential moving average of the
-per-batch maxima.  ``calibrate_tokens`` (LM token streams) waits for the
-slice that calibrates a served LM.
+per-batch maxima.  :func:`calibrate_tokens` runs the flow over an LM's
+token stream.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, Iterable, Optional, Union
 
 import torch
 
@@ -69,3 +69,29 @@ def make_observer(kind: Union[str, Observer] = "minmax", **kw) -> Observer:
     except KeyError:
         raise ValueError(
             f"unknown observer {kind!r}; expected one of {sorted(_OBSERVERS)}") from None
+
+
+def calibrate_tokens(model, params, token_batches: Iterable, policy, *,
+                     observer: Union[str, Observer] = "minmax",
+                     existing: Optional[Dict[str, torch.Tensor]] = None,
+                     ) -> Dict[str, torch.Tensor]:
+    """Activation exponents for an LM from a token stream: each (B, T)
+    batch of token ids runs through ``model.apply`` under a CALIB-mode
+    context, its recorded max|x| statistics fold into the observer
+    (stacked layers share a site, so a site's statistic is the max over its
+    layers, as in the reference's scan), and the frozen qstate ``{site: n}``
+    comes back.  Tokens move to the parameters' device."""
+    from repro_torch.core.policy import QMode
+    from repro_torch.nn.module import Context, tree_device
+
+    obs = make_observer(observer)
+    if existing:
+        obs.observe(existing)
+    calib_policy = policy.with_mode(QMode.CALIB)
+    device = tree_device(params)
+    with torch.no_grad():
+        for toks in token_batches:
+            ctx = Context(policy=calib_policy, train=False)
+            model.apply(params, torch.as_tensor(toks, dtype=torch.int32).to(device), ctx)
+            obs.observe(ctx.stats)
+    return obs.qstate(policy)

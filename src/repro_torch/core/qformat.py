@@ -20,6 +20,7 @@ follows the reference's ``log2``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import struct
 from typing import Dict, Optional, Tuple, Union
@@ -38,13 +39,23 @@ _ACC_DTYPES = {2: torch.int32, 4: torch.int32, 8: torch.int32, 9: torch.int32, 1
 
 Exponent = Union[int, torch.Tensor]
 
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as a Python float.  A tensor op takes it as
+    that float32 constant; a ``torch.tensor`` of it would be a copy from the
+    host, and on a card a synchronization, at every use."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
 # float32 coefficients of the Cephes/Eigen polynomial logarithm that XLA's CPU
 # backend evaluates for f32 ``log``.
-_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
-          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
-          3.3333331174e-1)
-_LOG_Q1 = -2.12194440e-4
-_LOG_Q2 = 0.693359375
+_LOG_P = tuple(_f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1 = _f32(-2.12194440e-4)
+_LOG_Q2 = _f32(0.693359375)
 _SQRTHF = 0.707106781186547524
 _MIN_NORMAL = 1.17549435e-38
 
@@ -95,47 +106,49 @@ def qmax(width: int) -> int:
     return 2 ** (width - 1) - 1
 
 
-def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
-
-
 def _log_f32(x: torch.Tensor) -> torch.Tensor:
     """float32 natural log, step for step as XLA's CPU backend computes it.
 
     Every mul and add rounds to float32 on its own (no fused multiply-add).
     The reference's ``floor(log2(.))`` flips at powers of two exactly where
     this polynomial rounds, so an exact log would disagree with it there.
+    The constants are Python floats that are float32 values, so nothing is
+    copied from the host.
     """
     x = torch.clamp(x.to(torch.float32), min=_MIN_NORMAL)
     bits = x.view(torch.int32)
     e = ((bits >> 23) - 0x7F + 1).to(torch.float32)
     m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)   # [0.5, 1)
     small = m < _SQRTHF
-    one = _f32(1.0, x)
-    xm = (m - one) + torch.where(small, m, torch.zeros_like(m))
-    e = e - torch.where(small, one, torch.zeros_like(one))
+    xm = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.to(torch.float32)
     x2 = xm * xm
     x3 = x2 * xm
-    p = [_f32(c, x) for c in _LOG_P]
-    y = p[0] * xm + p[1]
-    y1 = p[3] * xm + p[4]
-    y2 = p[6] * xm + p[7]
+    p = _LOG_P
+    y = xm * p[0] + p[1]
+    y1 = xm * p[3] + p[4]
+    y2 = xm * p[6] + p[7]
     y = y * xm + p[2]
     y1 = y1 * xm + p[5]
     y2 = y2 * xm + p[8]
     y = y * x3 + y1
     y = y * x3 + y2
     y = y * x3
-    y = y + e * _f32(_LOG_Q1, x)
-    out = xm - x2 * _f32(0.5, x)
+    y = y + e * _LOG_Q1
+    out = xm - x2 * 0.5
     out = out + y
-    return out + e * _f32(_LOG_Q2, x)
+    return out + e * _LOG_Q2
+
+
+@functools.lru_cache(maxsize=1)
+def _inv_ln2() -> float:
+    """float32 ``1 / log(2)`` as ``jnp.log2`` forms it, from :func:`_log_f32`."""
+    return float(torch.ones(()) / _log_f32(torch.full((), 2.0)))
 
 
 def _log2_f32(x: torch.Tensor) -> torch.Tensor:
     """``log(x) * (1 / log(2))`` in float32, the way ``jnp.log2`` lowers."""
-    ln2 = _log_f32(torch.full((), 2.0, dtype=torch.float32, device=x.device))
-    return _log_f32(x) * (_f32(1.0, x) / ln2)
+    return _log_f32(x) * _inv_ln2()
 
 
 def integer_bits(max_abs: torch.Tensor) -> torch.Tensor:

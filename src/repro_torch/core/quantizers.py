@@ -1,11 +1,14 @@
-"""Fake-quantization forwards (``repro/core/quantizers.py``).
+"""Fake-quantization ops with straight-through gradients
+(``repro/core/quantizers.py``).
 
 Paper Sec. 4.3: the QAT and EVAL forward constrain inputs, weights and
-biases to the Qm.n value grid while staying in float.  Like the reference,
+biases to the Qm.n value grid while staying in float; the backward flows
+through the non-quantized values.  That is a straight-through estimator,
+here a ``torch.autograd.Function`` per quantizer (``torch.trunc`` alone has
+a zero gradient, so QAT would train nothing).  Like the reference,
 :func:`fake_quant` is ``qformat.quantize_dequantize`` in plain tensor ops;
 it does not route through the ``fake_quant`` kernel.  The TFLite-style
-affine quantizer the paper compares against is here too.  The
-straight-through gradients come with the training slice of the port.
+affine quantizer the paper compares against is here too.
 """
 from __future__ import annotations
 
@@ -17,21 +20,87 @@ from repro_torch.core import qformat
 from repro_torch.core.policy import Granularity, QuantPolicy
 
 
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, width):
+        return qformat.quantize_dequantize(x, n, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        # STE: the gradient passes to x unchanged, clipped elements too; the
+        # exponent gets none
+        return g, None, None
+
+
 def fake_quant(x: torch.Tensor, n: qformat.Exponent, width: int) -> torch.Tensor:
-    """Quantize-dequantize on the pow2 grid 2^-n."""
-    return qformat.quantize_dequantize(x, n, width)
+    """Quantize-dequantize on the pow2 grid 2^-n; identity gradient (STE)."""
+    return _FakeQuant.apply(x, n, width)
+
+
+class _FakeQuantAffine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, zero, width):
+        q = torch.clamp(torch.round(x / scale) + zero, qformat.qmin(width), qformat.qmax(width))
+        return (q - zero) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
 
 
 def fake_quant_affine(x: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
                       width: int) -> torch.Tensor:
-    """TFLite-style affine fake-quant: round(x/scale) + zero, clip, dequantize."""
-    q = torch.clamp(torch.round(x / scale) + zero, qformat.qmin(width), qformat.qmax(width))
-    return (q - zero) * scale
+    """TFLite-style affine fake-quant: round(x/scale) + zero, clip,
+    dequantize; gradients for ``x`` only (STE)."""
+    return _FakeQuantAffine.apply(x, scale, zero, width)
+
+
+class _SteInt8Weight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keep_axes):
+        t = qformat.quantize_tensor(x, 8, channel_axis=tuple(keep_axes) or None)
+        return (t.q.to(torch.float32) * qformat.exp2(-t.n)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ste_int8_weight(x: torch.Tensor, keep_axes: tuple) -> torch.Tensor:
+    """Weight fake-quant that materializes the int8 form: the forward emits
+    int8 codes (``quantize_tensor``, one exponent per index of ``keep_axes``,
+    e.g. (0, -1) on stacked kernels = per layer and channel) and dequantizes
+    them with the reference's ``exp2`` (``qformat.exp2``, not 2.0**-n); the
+    backward is the STE."""
+    return _SteInt8Weight.apply(x, keep_axes)
+
+
+class _FakeQuantBlocked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, width, block_size, axis):
+        ax = axis % x.ndim
+        n = qformat.block_frac_bits(x, width, block_size, axis=ax)
+        nb = torch.repeat_interleave(n, block_size, dim=ax).narrow(ax, 0, x.shape[ax])
+        return qformat.quantize_dequantize(x, nb, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def fake_quant_blocked(x: torch.Tensor, width: int, block_size: int,
+                       axis: int = -2) -> torch.Tensor:
+    """Sub-int8 fake-quant on a per-block (MX-style) pow2 grid; STE backward.
+    Each ``block_size`` run of ``axis`` gets its own Eq. 1-2 exponent from
+    the live values (``qformat.block_frac_bits``), the value set of
+    ``qformat.quantize_tensor_packed``."""
+    return _FakeQuantBlocked.apply(x, width, block_size, axis)
 
 
 def dynamic_frac_bits(x: torch.Tensor, width: int, *,
                       channel_axis: Optional[int] = None) -> torch.Tensor:
-    """Eq. 1-2 on the live tensor (QAT range reassessment)."""
+    """Eq. 1-2 on the live tensor (QAT range reassessment); the exponent is
+    not differentiated (it parameterizes the grid, not the function)."""
     x = x.detach()
     if channel_axis is None:
         return qformat.frac_bits_for(qformat.max_abs(x), width)

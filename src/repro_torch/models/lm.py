@@ -1,8 +1,9 @@
 """Decoder-only ``CausalLM`` (``repro/models/lm.py``).
 
 The vocabulary is padded (``vocab_padded``) as in the reference; serving
-masks the padded tail before sampling.  The LM head is tied to the
-embedding.  Untied heads and ``EncDecLM`` wait for the archs that need them.
+masks the padded tail before sampling, and the training loss keeps it out
+of the normalizer.  The LM head is tied to the embedding.  Untied heads and
+``EncDecLM`` wait for the archs that need them.
 """
 from __future__ import annotations
 
@@ -76,3 +77,28 @@ class CausalLM:
         x = self._final_norm().apply(params["final_norm"], x, ctx)
         logits = self._embed().attend(params["embed"], x, ctx)     # tied head
         return logits.to(torch.float32), new_cache
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], ctx: Context,
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy over ``batch["tokens"]`` against
+        ``batch["labels"]`` (labels < 0 are masked), plus the sum of
+        ``ctx.losses``.  The padded-vocabulary tail sits at -1e9, so it never
+        wins.  Returns (loss, {"nll", "aux", "accuracy"}), all device
+        tensors.  One card needs no vocab-sharded indicator sum, so the gold
+        logit is a ``gather``."""
+        logits, _ = self.apply(params, batch["tokens"], ctx)
+        labels = batch["labels"]
+        mask = (labels >= 0).to(torch.float32)
+        labels_safe = torch.clamp(labels, min=0).to(torch.int64)
+        pad = torch.arange(self.vocab_padded, device=logits.device) >= self.vocab
+        logits = logits + pad.to(torch.float32) * -1e9
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+        nll = torch.sum((lse - gold) * mask) / denom
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for v in ctx.losses.values():
+            aux = aux + v
+        hit = (torch.argmax(logits, dim=-1) == labels_safe).to(torch.float32)
+        acc = torch.sum(hit * mask) / denom
+        return nll + aux, {"nll": nll, "aux": aux, "accuracy": acc}

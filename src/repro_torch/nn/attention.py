@@ -40,6 +40,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import qformat
 from repro_torch.kernels.ref import check_chunk_target
@@ -67,32 +68,100 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
-                    kv_len: int, causal: bool) -> torch.Tensor:
-    """Forward of the reference's ``flash_attention``, as plain masked
-    softmax attention in float32 (its custom backward comes with training).
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, q_offset, kv_len, causal: bool,
+                  sliced: bool) -> torch.Tensor:
+    """Masked scores (B, Hkv, G, Sq, Skv) of q (B, Sq, Hkv, G, D), already
+    scaled, against k (B, Skv, Hkv, D).  ``sliced``: k holds only the keys
+    below ``kv_len``; otherwise keys at or past it are masked."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q, k)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = None if sliced else kpos < kv_len
+    if causal:
+        qpos = q_offset + torch.arange(q.shape[1], device=q.device)
+        seen = kpos[None, :] <= qpos[:, None]
+        mask = seen if mask is None else mask & seen
+    if mask is None:
+        return s
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
-    q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D), Hq = G * Hkv.  Key j is visible
-    to query i when j < kv_len and, if causal, j <= q_offset + i.  Keys at
-    or past ``kv_len`` are dropped before the product: the reference masks
-    them to exp(-1e30 - m) = 0, which adds nothing.
-    """
+
+def _flash_inputs(q, k, v, kv_len):
+    """float32 q grouped as (B, Sq, Hkv, G, D) and scaled by 1/sqrt(D); k and
+    v cut at ``kv_len`` when it is a Python int (then ``sliced``)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
-    g = hq // hkv
-    k = k[:, :kv_len].to(torch.float32)
-    v = v[:, :kv_len].to(torch.float32)
-    qg = q.to(torch.float32).reshape(b, sq, hkv, g, d) * (1.0 / math.sqrt(d))
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k)
-    if causal:
-        kpos = torch.arange(k.shape[1], device=q.device)
-        qpos = q_offset + torch.arange(sq, device=q.device)
-        s = torch.where(kpos[None, :] <= qpos[:, None], s, torch.full_like(s, NEG_INF))
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = torch.sum(p, dim=-1, keepdim=True)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v) / torch.clamp(l, min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    sliced = not isinstance(kv_len, torch.Tensor)
+    if sliced:
+        k, v = k[:, :kv_len], v[:, :kv_len]
+    qg = q.to(torch.float32).reshape(b, sq, hkv, hq // hkv, d) * (1.0 / math.sqrt(d))
+    return qg, k.to(torch.float32), v.to(torch.float32), sliced
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP: the forward is plain
+    masked softmax attention; it saves only (q, k, v, out, lse), and the
+    backward recomputes P one query block at a time (the FlashAttention-2
+    recipe of the reference's ``_flash_bwd``), so nothing (Sq, Skv)-sized
+    outlives a block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_len, causal, block_q):
+        b, sq, hq, d = q.shape
+        qg, kf, vf, sliced = _flash_inputs(q, k, v, kv_len)
+        s = _flash_scores(qg, kf, q_offset, kv_len, causal, sliced)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+        out = torch.einsum("bhgqk,bkhd->bhgqd", p, vf) / l
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+        if any(ctx.needs_input_grad[:3]):
+            lse = (m + torch.log(l))[..., 0]                    # (B, Hkv, G, Sq)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.q_offset, ctx.kv_len, ctx.causal, ctx.block_q = q_offset, kv_len, causal, block_q
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, gout):
+        q, k, v, out, lse = ctx.saved_tensors
+        b, sq, hq, d = q.shape
+        skv, hkv = k.shape[1], k.shape[2]
+        g = hq // hkv
+        scale = 1.0 / math.sqrt(d)
+        qg, kf, vf, sliced = _flash_inputs(q, k, v, ctx.kv_len)
+        go = gout.to(torch.float32).reshape(b, sq, hkv, g, d)
+        # D_i = rowsum(dout * out)
+        dall = torch.sum(go * out.reshape(b, sq, hkv, g, d), dim=-1).permute(0, 2, 3, 1)
+        dq = torch.empty_like(qg)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        for i0 in range(0, sq, ctx.block_q):
+            i1 = min(sq, i0 + ctx.block_q)
+            qi, gi = qg[:, i0:i1], go[:, i0:i1]
+            s = _flash_scores(qi, kf, ctx.q_offset + i0, ctx.kv_len, ctx.causal, sliced)
+            p = torch.exp(s - lse[..., i0:i1, None])             # recomputed P
+            dv += torch.einsum("bhgqk,bqhgd->bkhd", p, gi)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", gi, vf)
+            ds = p * (dp - dall[..., i0:i1, None])
+            dq[:, i0:i1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+            dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qi)
+        pad = (0, 0, 0, 0, 0, skv - kf.shape[1])                  # keys cut at kv_len
+        return (dq.reshape(b, sq, hq, d).to(q.dtype), F.pad(dk, pad).to(k.dtype),
+                F.pad(dv, pad).to(v.dtype), None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset,
+                    kv_len, causal: bool, block_q: int = 512) -> torch.Tensor:
+    """The reference's ``flash_attention``: softmax attention in float32,
+    differentiable in O(S·D) saved memory (:class:`_FlashAttention`).
+
+    q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D), Hq = G * Hkv.  Key j is visible
+    to query i when j < kv_len and, if causal, j <= q_offset + i.
+    ``q_offset`` and ``kv_len`` are Python ints or 0-d device tensors; an
+    int ``kv_len`` drops the keys at or past it before the product (the
+    reference masks them to exp(-1e30 - m) = 0, which adds nothing), a
+    tensor masks them.  ``block_q`` is the backward's query block.
+    """
+    return _FlashAttention.apply(q, k, v, q_offset, kv_len, causal, block_q)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,

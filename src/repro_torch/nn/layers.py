@@ -301,6 +301,37 @@ class RMSNorm:
 
 
 @dataclasses.dataclass(frozen=True)
+class LayerNorm:
+    """Layer normalization with a learned scale and an optional bias."""
+
+    features: int
+    eps: float = 1e-5
+    use_bias: bool = True
+    use_scale: bool = True
+    name: str = "ln"
+
+    def init(self, gen: torch.Generator, device) -> Params:
+        p: Params = {}
+        if self.use_scale:
+            p["scale"] = torch.ones(self.features, dtype=torch.float32, device=device)
+        if self.use_bias:
+            p["bias"] = torch.zeros(self.features, dtype=torch.float32, device=device)
+        return p
+
+    def apply(self, params: Params, x: torch.Tensor, ctx: Context) -> torch.Tensor:
+        dt = x.dtype
+        x = x.to(torch.float32)
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + self.eps)
+        if "scale" in params:
+            y = y * params["scale"]
+        if "bias" in params:
+            y = y + params["bias"]
+        return y.to(dt)
+
+
+@dataclasses.dataclass(frozen=True)
 class BatchNormFolded:
     """Inference-form batch norm as the paper deploys it (Eqs. 5-7): training
     keeps (mean, var, gamma, beta); :meth:`fold` gives y = w * x + b."""
@@ -357,11 +388,15 @@ def _window_dims(ndim: int) -> Tuple[int, ...]:
 
 
 def max_pool(x, window: int, stride: Optional[int] = None, ndim: int = 1):
-    """Max pooling over VALID windows: no requantization (paper Sec. 4.3)."""
+    """Max pooling over VALID windows: no requantization (paper Sec. 4.3).
+    The gradient goes to the first maximum of each window, as XLA's
+    ``reduce_window`` max routes it: fake-quantized activations tie often,
+    and ``torch.amax`` would split the gradient among the ties."""
     stride = stride or window
     if isinstance(x, QTensor):
         return QTensor(max_pool(x.q, window, stride, ndim), x.n, x.width, x.channel_axis)
-    return torch.amax(_windows(x, window, stride, ndim), dim=_window_dims(ndim))
+    w = _windows(x, window, stride, ndim)
+    return torch.max(w.reshape(*w.shape[:w.ndim - ndim], -1), dim=-1).values
 
 
 def avg_pool_sum(x: torch.Tensor, window: int, stride: int, ndim: int = 1) -> torch.Tensor:
@@ -392,6 +427,16 @@ def global_avg_pool(x, ndim: int = 1):
         q = torch.clamp(acc // size, qformat.qmin(x.width), qformat.qmax(x.width))
         return QTensor(q.to(x.q.dtype), x.n, x.width, x.channel_axis)
     return torch.mean(x, dim=axes)
+
+
+def dropout(x: torch.Tensor, rate: float, ctx: Context, name: str = "dropout") -> torch.Tensor:
+    """Inverted dropout; the identity when not training, at rate 0 or
+    without ``ctx.rng``.  The mask comes from ``ctx.fold_rng(name)``."""
+    if not ctx.train or rate <= 0.0 or ctx.rng is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=ctx.fold_rng(name), device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def qadd(a, b, ctx: Context, site: str = "add", n_out=None):

@@ -4,14 +4,16 @@ Parameters are nested dicts/lists of tensors (or :class:`QTensor` and
 :class:`PackedQTensor` leaves once a model is integerized), laid out exactly
 as the JAX package lays them out, so converted JAX parameters drive the port
 unchanged.  Stacked layers keep their leading layer axis; :func:`tree_layer`
-takes one layer's views.  A :class:`Context` carries the quantization
+takes one layer's views and :func:`tree_unstack` all of them at once.  A :class:`Context` carries the quantization
 policy, the frozen activation exponents (``qstate``) and the range
-statistics a CALIB or QAT forward records.
+statistics a CALIB or QAT forward records; a training context also carries
+an explicit ``torch.Generator`` and the auxiliary losses the layers add.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import zlib
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -40,19 +42,24 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
 @dataclasses.dataclass
 class Context:
     """Per-call state threaded through every module: the quantization
-    policy, the train flag, frozen activation exponents ``{site: n}``, the
-    range statistics ``{site: max|x|}`` recorded this call, and the scope
-    path (names line up with the reference's quant sites)."""
+    policy, the train flag, the random generator (``rng``, a
+    ``torch.Generator``; torch's streams are not jax's), frozen activation
+    exponents ``{site: n}``, the range statistics ``{site: max|x|}`` and the
+    auxiliary losses recorded this call, and the scope path (names line up
+    with the reference's quant sites)."""
 
     policy: QuantPolicy = dataclasses.field(default_factory=QuantPolicy.float32)
     train: bool = False
+    rng: Optional[torch.Generator] = None
     qstate: Optional[Dict[str, torch.Tensor]] = None
     stats: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # Auxiliary losses accumulated additively (summed across sites and layers).
+    losses: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     path: str = ""
 
     def scope(self, name: str) -> "Context":
         """Child context with ``name`` appended to the naming path; it shares
-        the parent's ``stats``."""
+        the parent's ``stats`` and ``losses``."""
         return dataclasses.replace(self, path=f"{self.path}/{name}" if self.path else name)
 
     def key(self, name: str) -> str:
@@ -77,19 +84,40 @@ class Context:
             return None
         return self.qstate.get(self.key(name))
 
+    def add_loss(self, name: str, value: torch.Tensor) -> None:
+        """Accumulate an auxiliary loss term (summed across sites and layers)."""
+        self.losses[name] = self.losses[name] + value if name in self.losses else value
+
+    def fold_rng(self, name: str) -> Optional[torch.Generator]:
+        """A new generator on ``rng``'s device, seeded from ``rng``'s seed
+        (the step, in a training step) and the crc32 of the scoped name, so
+        every site draws its own deterministic stream."""
+        if self.rng is None:
+            return None
+        digest = zlib.crc32(self.key(name).encode()) & 0x7FFFFFFF
+        gen = torch.Generator(device=self.rng.device)
+        return gen.manual_seed((self.rng.initial_seed() * 1_000_003 + digest) & 0x7FFF_FFFF_FFFF)
+
 
 def eval_context(policy: Optional[QuantPolicy] = None, **kw) -> Context:
     """A non-training :class:`Context` (float32 policy unless given)."""
     return Context(policy=policy or QuantPolicy.float32(), train=False, **kw)
 
 
-def tree_map(fn: Callable[[Any], Any], tree):
-    """Apply ``fn`` to every leaf (tensors and quantized leaves) of a dict/list tree."""
+def train_context(policy: Optional[QuantPolicy] = None, rng: Optional[torch.Generator] = None,
+                  **kw) -> Context:
+    """A training :class:`Context` carrying ``rng`` for dropout."""
+    return Context(policy=policy or QuantPolicy.float32(), train=True, rng=rng, **kw)
+
+
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """Apply ``fn`` to every leaf (tensors and quantized leaves) of a
+    dict/list tree, or leaf by leaf to several trees of one structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs) for vs in zip(tree, *rest, strict=True)]
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -99,6 +127,26 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_device(tree) -> torch.device:
+    """The device of a tree's first tensor (a quantized leaf's codes)."""
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, (QTensor, PackedQTensor)):
+            return leaf.q.device
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    raise ValueError("tree_device: the tree holds no tensor")
+
+
+def tree_unflatten(like, leaves: List[Any]):
+    """A tree of ``like``'s structure whose leaves are ``leaves``, in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, it) is not it:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
 
 
 def param_count(params) -> int:
@@ -131,6 +179,22 @@ def tree_layer(tree, i: int):
             return leaf[i]
         return leaf
     return tree_map(take, tree)
+
+
+def tree_unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each a tree of views into the
+    stacked storage.  A tensor leaf is split once with ``unbind``, whose
+    backward stacks the layers' gradients into one tensor; indexing it per
+    layer would make every layer's gradient a zero-filled copy of the whole
+    stack, added up n times."""
+    def split(leaf):
+        if isinstance(leaf, (QTensor, PackedQTensor)):
+            return [leaf.layer(i) for i in range(n)]
+        if isinstance(leaf, torch.Tensor):
+            return leaf.unbind(0)
+        return [leaf] * n
+    leaves = [split(leaf) for leaf in tree_leaves(tree)]
+    return [tree_unflatten(tree, [parts[i] for parts in leaves]) for i in range(n)]
 
 
 def tree_to(tree, device):

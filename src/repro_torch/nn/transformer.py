@@ -17,7 +17,7 @@ from repro_torch.nn.attention import (Attention, KVChunk, RaggedBatch, init_kv_c
                                       init_paged_kv_cache, ragged_len)
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
-from repro_torch.nn.module import Context, Params, tree_layer
+from repro_torch.nn.module import Context, Params, tree_unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,11 +133,14 @@ class Stack:
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         ctx = ctx.scope(self.name)
         lens = {}
+        body = params["body"]
+        if self.stacked:
+            body = [tree_unstack(p, self.n_periods) for p in body]
         for period in range(self.n_periods):
             for pos, blk in enumerate(self.body):
-                p, c = params["body"][pos], None if cache is None else cache["body"][pos]
+                p, c = body[pos], None if cache is None else cache["body"][pos]
                 if self.stacked:
-                    p = tree_layer(p, period)
+                    p = p[period]
                     if c is not None:
                         c = {"kv": dict(c["kv"], k=c["kv"]["k"][period],
                                         v=c["kv"]["v"][period])}
