@@ -62,7 +62,18 @@ Phases, each printed as it completes; any failure exits non-zero:
      launch counts checked; a
      paged mixed step's logits against the plain versions; a paged decode
      tick and mixed tick profiled, syncs counted;
-  6. ``Scheduler(chunk_size=32, ragged=True, prefill_lanes=2)`` on the 16
+  6. ``[hardened]``: ``bench_chaos``'s smoke workload and fault plan (10
+     requests, prompt 64, 48 new tokens, 10 slots, a pool of 21 pages, swap
+     preemption, deadline 600, ``max_queue`` 10; alloc_fail {6, 7},
+     swap_fail {6, 7, 9}, admit_stall {3}, nan {40: 2}) at full width and
+     depth, unaudited, audited and audited under the plan: launch counts
+     exact and equal (audit adds none), the non-faulted streams equal to
+     the fault-free run's, exactly the NaN victim ``failed``, every tick
+     audited, wall and syncs per tick printed; the plan on the ragged tick
+     (2 lanes, 4 layers deep); a faulted run at temperature 0.7 (no
+     device-side assert); ``launch.serve`` with the five hardening flags;
+     an audited paged decode and mixed tick profiled;
+  7. ``Scheduler(chunk_size=32, ragged=True, prefill_lanes=2)`` on the 16
      requests, dense and paged, on the shared prefix and at half the pool
      under recompute and swap (4 layers deep, as in 5), and
      ``bench_burst``'s full burst (16 x 192
@@ -70,7 +81,7 @@ Phases, each printed as it completes; any failure exits non-zero:
      mixed step, with TTFT in ticks and ms: launch counts exact, greedy
      tokens held to the chunked runs; a ragged tick's logits against the
      plain versions; a dense and a paged ragged tick profiled;
-  7. packed int4 weights with block-32 scales (``--wq int4-block``):
+  8. packed int4 weights with block-32 scales (``--wq int4-block``):
      ``generate``, the chunked ``Scheduler`` on the 16 requests, the paged
      engine and the ragged tick, with exact launch counts (7 x 30
      ``wq4_matmul`` per forward, no ``wq_matmul``), logits and generated
@@ -81,7 +92,7 @@ Phases, each printed as it completes; any failure exits non-zero:
      ``bench_weight_formats`` at its full setting (fp32 / int8 / int4-block,
      16 requests of 256 tokens, chunk 64) at full width and 4 layers deep,
      with its token-identical repeats and int4 kernel bytes <= 0.5x int8;
-  8. the paper's integer engine: ResNetv1-6 at filters 80 on 2947
+  9. the paper's integer engine: ResNetv1-6 at filters 80 on 2947
      UCI-HAR-shaped windows (seeded), calibrated on 4 batches of 32,
      integerized int8 per-layer and int16 Q7.9, full-integer forwards with
      exactly 6 ``qconv1d`` and 1 ``qmm`` launches each, logits equal to the
@@ -89,7 +100,7 @@ Phases, each printed as it completes; any failure exits non-zero:
      0.9 and int8 ROM > 3.5x smaller than f32; ``fake_quant`` and
      ``qmm_requant`` through their ``ops`` entry points; inferences/s and a
      profile of each integer forward beside the float forward;
-  9. training (``train_end_to_end``): the paper's flow on ResNetv1-6 at
+  10. training (``train_end_to_end``): the paper's flow on ResNetv1-6 at
      filters 80 (float training, int8 QAT fine-tuning, calibration,
      integerization, the integer forward over the synthetic test split with
      exactly 6 ``qconv1d`` + 1 ``qmm`` launches and logits equal to the plain
@@ -2291,6 +2302,10 @@ def end_to_end(torch, card):
     check_grants("the paged phase", ran=("wq_matmul",))
     print(f"[time] paged phase {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
+    hardened_launches = hardened_end_to_end(torch, card, env)
+    check_grants("the hardened phase", ran=("wq_matmul",))
+    print(f"[time] hardened phase {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
     ragged_launches = ragged_end_to_end(torch, card, env)
     check_grants("the ragged phase", ran=("wq_matmul",))
     print(f"[time] ragged phase {time.perf_counter() - t0:.1f}s", flush=True)
@@ -2298,8 +2313,8 @@ def end_to_end(torch, card):
     subint8_launches = subint8_end_to_end(torch, card, env)
     check_grants("the sub-int8 phase", ran=("wq_matmul", "wq4_matmul"))
     print(f"[time] sub-int8 phase {time.perf_counter() - t0:.1f}s", flush=True)
-    return {k: sum(part.get(k, 0) for part in (launches, paged_launches, ragged_launches,
-                                               subint8_launches))
+    return {k: sum(part.get(k, 0) for part in (launches, paged_launches, hardened_launches,
+                                               ragged_launches, subint8_launches))
             for k in subint8_launches}
 
 
@@ -2465,7 +2480,211 @@ def paged_end_to_end(torch, card, env):
                   (copy(cache), tok), card)
     profile_steps(torch, f"paged mixed tick (B={slots}, C={chunk}, start 96, ps={ps})",
                   mixed_tick, (copy(cache), tok), card)
+    # the hardened phase profiles its audited ticks from this state
+    env.paged_tick = SimpleNamespace(engine=paged, cache=cache, tok=tok, ctok=ctok, copy=copy)
     return launches, results, shared_reqs
+
+
+def hardened_end_to_end(torch, card, env):
+    """``[hardened]``: hardened serving on the paged main path, with
+    ``bench_chaos``'s smoke workload and fault plan (10 requests, prompt 64,
+    48 new tokens, 10 slots, chunk 32, page 16, a pool of 21 pages, swap
+    preemption, deadline 600, ``max_queue`` 10): at full width and depth
+    unaudited, audited and audited under the plan (launch counts exact and
+    equal, audit adding none; the non-faulted streams equal, the NaN victim
+    alone ``failed``; syncs and wall time per tick); the same plan on the
+    ragged tick with two lanes ``SHALLOW_LAYERS`` deep; ``launch.serve``'s
+    five hardening flags; a faulted run at temperature 0.7; an audited
+    paged decode and mixed tick profiled on the paged phase's state."""
+    import contextlib
+    import io
+    import warnings
+
+    from repro_torch.bench.serve_bench import chaos_scheduler, chaos_setup, check_chaos_run
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve import report
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import make_decode_step, make_mixed_step
+    from repro_torch.serve.slot_state import find_paged_kv
+
+    cfg = env.cfg
+    wl, reqs, plan = chaos_setup(cfg.vocab, smoke=True)
+    max_len = wl["plen"] + wl["max_new"]
+    launches = {}
+    marks = [("start", time.perf_counter())]
+
+    def engine(model, params, **kw):
+        return ServeEngine(model=model, params=params, max_len=max_len,
+                           batch_slots=wl["slots"], weight_quant=True, quantized_kv=True,
+                           device="cuda", paged_kv=True, page_size=wl["page"],
+                           kv_pool_pages=wl["pool_pages"], **kw)
+
+    def counted(label, sched, layers, ragged=False, **run_kw):
+        """One run from zeroed counts with its host-device synchronizations
+        counted (``set_sync_debug_mode``); the launch counts must be the
+        chunked (or ragged) paged path's for a model ``layers`` deep."""
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res, st = sched.run(reqs, seed=0, **run_kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counts = ops.launch_counts()
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        ticks, chunks = st.decode_steps, st.prefill_chunks
+        zero = {k: 0 for k in counts}
+        if ragged:
+            want = dict(zero, wq_matmul=7 * layers * (ticks + 1),
+                        qragged_attn=layers * (ticks + 1))
+        else:
+            want = dict(zero, wq_matmul=7 * layers * (ticks + chunks + 3),
+                        qpaged_decode_attn=layers * (ticks + 2),
+                        qpaged_chunk_attn=layers * (chunks + 1))
+        check(counts == want, f"{label} launch counts {counts} != expected {want}")
+        check(sorted(res) == sorted(r.rid for r in reqs), f"{label}: lost requests")
+        if sched.audit:
+            check(st.audited_ticks == ticks and st.audit_reads == ticks + 1,
+                  f"{label}: audited {st.audited_ticks} of {ticks} ticks in "
+                  f"{st.audit_reads} read-backs")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        report(label, st)
+        statuses = {s: sum(r.status == s for r in res.values())
+                    for s in sorted({r.status for r in res.values()})}
+        print(f"[hardened] {label}: {ticks} ticks, {chunks} chunks; launches {counts} == "
+              f"expected; {st.steady_s * 1e3 / ticks:.2f} ms wall per tick; {syncs} host-device "
+              f"synchronizations in the run ({syncs / ticks:.3f} per tick), audit read-backs "
+              f"{st.audit_reads}; statuses {statuses}; card {card}", flush=True)
+        return res, st, counts, syncs
+
+    # -- 1. the chaos lane at full width and depth: unaudited, audited, faulted ----
+    full = engine(env.model, env.params)
+    kw = dict(chunk_size=wl["chunk"], prefix_sharing=False, oversubscribe=True,
+              preempt_policy="swap", max_queue=wl["max_queue"], reject_policy="reject")
+    plain_res, plain_st, plain_counts, plain_syncs = counted(
+        "hardened, unaudited", full.scheduler(**kw), env.n_layers)
+    ref_res, ref_st, ref_counts, ref_syncs = counted(
+        "hardened, audited", chaos_scheduler(full, wl), env.n_layers)
+    check(plain_counts == ref_counts, f"audit changed the launches: {plain_counts} -> "
+                                      f"{ref_counts}")
+    check(all(plain_res[r].tokens == ref_res[r].tokens and plain_res[r].status == "ok"
+              for r in plain_res), "the audited run's streams differ from the unaudited run's")
+    f_res, f_st, _, f_syncs = counted("hardened, audited, faulted", chaos_scheduler(full, wl),
+                                      env.n_layers, fault_plan=plan)
+    rec = check_chaos_run("smollm-135m", reqs, ref_res, ref_st, f_res, f_st)
+    check(rec["nonfaulted_completion_rate"] == 1.0, f"non-faulted completion {rec}")
+    print(f"[hardened] chaos lane ({env.n_layers} layers): {json.dumps(rec)}", flush=True)
+    marks.append(("full-depth lane", time.perf_counter()))
+    ms = {name: st.steady_s * 1e3 / st.decode_steps
+          for name, st in (("unaudited", plain_st), ("audited", ref_st), ("faulted", f_st))}
+    print(f"[hardened] per tick, unaudited / audited / audited under faults: wall "
+          f"{ms['unaudited']:.2f} / {ms['audited']:.2f} / {ms['faulted']:.2f} ms; syncs "
+          f"{plain_syncs / plain_st.decode_steps:.3f} / {ref_syncs / ref_st.decode_steps:.3f} / "
+          f"{f_syncs / f_st.decode_steps:.3f}; audit read-backs {plain_st.audit_reads} / "
+          f"{ref_st.audit_reads} / {f_st.audit_reads} over {plain_st.decode_steps} / "
+          f"{ref_st.decode_steps} / {f_st.decode_steps} ticks; card {card}", flush=True)
+    del full
+
+    # -- 2. the same plan on the ragged tick, two lanes, SHALLOW_LAYERS deep ---------
+    shallow = engine(env.shallow.model, env.shallow.params)
+    rkw = dict(ragged=True, prefill_lanes=2)
+    r_ref, r_ref_st, _, _ = counted("hardened ragged, audited",
+                                    chaos_scheduler(shallow, wl, **rkw), SHALLOW_LAYERS,
+                                    ragged=True)
+    r_f, r_f_st, _, _ = counted("hardened ragged, audited, faulted",
+                                chaos_scheduler(shallow, wl, **rkw), SHALLOW_LAYERS, ragged=True,
+                                fault_plan=plan)
+    rec = check_chaos_run("ragged", reqs, r_ref, r_ref_st, r_f, r_f_st)
+    check(rec["nonfaulted_completion_rate"] == 1.0, f"ragged non-faulted completion {rec}")
+    print(f"[hardened] chaos lane, ragged ({SHALLOW_LAYERS} layers, 2 lanes): "
+          f"{json.dumps(rec)}", flush=True)
+    marks.append(("ragged lane", time.perf_counter()))
+
+    # -- 3. a faulted run at temperature 0.7: no device-side assert ------------------
+    warm = engine(env.shallow.model, env.shallow.params, temperature=0.7)
+    t_res, t_st, _, _ = counted("hardened, temperature 0.7, faulted",
+                                chaos_scheduler(warm, wl), SHALLOW_LAYERS, fault_plan=plan)
+    torch.cuda.synchronize()
+    failed = [r for r in t_res.values() if r.status == "failed"]
+    check(len(failed) == 1 and t_st.nan_evictions == 1, f"temperature 0.7: failed {failed}")
+    check(all(r.status == "ok" and len(r.tokens) == wl["max_new"]
+              and all(0 <= x < cfg.vocab for x in r.tokens)
+              for r in t_res.values() if r is not failed[0]),
+          "temperature 0.7: a non-faulted request degraded")
+    print(f"[hardened] temperature 0.7 under the plan: rid {failed[0].rid} alone failed "
+          f"(after {len(failed[0].tokens)} tokens), no device-side assert", flush=True)
+    del shallow, warm
+    marks.append(("temperature 0.7", time.perf_counter()))
+
+    # -- 4. launch.serve with the five hardening flags, on the card -------------------
+    fault = json.dumps({"alloc_fail": [6, 7], "swap_fail": [6, 7, 9], "admit_stall": [3],
+                        "nan": [[12, 1]]})
+    argv = ["--arch", "smollm-135m", "--policy", "chunked", "--paged", "--page-size", "16",
+            "--chunk-size", "32", "--slots", "4", "--prompt-len", "64", "--requests", "8",
+            "--max-new", "32", "--arrival-spacing", "1", "--oversubscribe",
+            "--preempt-policy", "swap", "--pool-pages", "14", "--deadline-steps", "400",
+            "--max-queue", "4", "--reject-policy", "shed_oldest", "--audit",
+            "--fault-plan", fault, "--wq", "--qkv"]
+    ops.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_res = serve_main(argv)
+    counts = ops.launch_counts()
+    print(buf.getvalue(), end="", flush=True)
+    line = next((ln for ln in buf.getvalue().splitlines() if ln.startswith("[chunked]")), "")
+    for part in ("| completion ", "| audited ", "| faults "):
+        check(part in line, f"launch.serve's report line lacks '{part.strip('| ')}': {line}")
+    check(sum(r.status == "failed" for r in cli_res.values()) >= 1
+          and counts["wq_matmul"] > 0 and counts["qpaged_decode_attn"] > 0
+          and counts["qpaged_chunk_attn"] > 0, f"launch.serve: {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[hardened] launch.serve {' '.join(argv[:4])} ... with the five flags: statuses "
+          f"{sorted(r.status for r in cli_res.values())}; launches {counts}", flush=True)
+    marks.append(("launch.serve", time.perf_counter()))
+
+    # -- 5. an audited paged decode and mixed tick, on the paged phase's state
+    #    (whose unaudited ticks it profiled in this run) ----------------------------------
+    pt = env.paged_tick
+    params, slots = pt.engine.params, env.slots
+    zero = torch.zeros(slots, dtype=torch.float32, device="cuda")
+    decode_h = make_decode_step(env.model, with_health=True)
+    mixed_h = make_mixed_step(env.model, with_health=True)
+
+    def snapshot(c):
+        kv = find_paged_kv(c)
+        return torch.cat([kv["page_table"].reshape(-1), kv["len"]])
+
+    def audited_decode_tick(st):
+        # the audited scheduler's tick: the step with its poison, one read-back
+        # of the flags and the last snapshot, a new snapshot
+        c, t, snap = st
+        nxt, ok, c = decode_h(params, t, c, None, zero)
+        torch.cat([ok.to(torch.int32), snap]).cpu()
+        return c, nxt, snapshot(c)
+
+    def audited_mixed_tick(st):
+        c, t, snap = st
+        nxt, _, dok, fok, c = mixed_h(params, t, c, None, pt.ctok, 3, 96, env.chunk, zero)
+        torch.cat([dok.to(torch.int32), fok.to(torch.int32), snap]).cpu()
+        return c, nxt, snapshot(c)
+
+    # 4 steps a window, not 8: these profiles took half the phase's time
+    c0 = pt.copy(pt.cache)
+    profile_steps(torch, f"audited paged decode tick (B={slots}, ps={pt.engine.page_size})",
+                  audited_decode_tick, (c0, pt.tok, snapshot(c0)), card, steps=4)
+    c0 = pt.copy(pt.cache)
+    profile_steps(torch, f"audited paged mixed tick (B={slots}, C={env.chunk}, start 96, "
+                         f"ps={pt.engine.page_size})", audited_mixed_tick,
+                  (c0, pt.tok, snapshot(c0)), card, steps=4)
+    marks.append(("profiles", time.perf_counter()))
+    print("[time] hardened phase by part: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}s" for i, (name, t) in enumerate(marks[1:])), flush=True)
+    return launches
 
 
 def ragged_end_to_end(torch, card, env):
@@ -2674,7 +2893,7 @@ def ragged_end_to_end(torch, card, env):
 
         def ragged_tick(st, sched=sched):
             c, t = st
-            nxt, _, c = sched._masked_ragged(t, c, None, active, meta)
+            nxt, _, _, c = sched._masked_ragged(t, c, None, active, meta)
             return c, nxt
 
         prof = profile_steps(torch, f"{name} ragged tick (B={slots}, L={lanes}, C={chunk}, "

@@ -36,6 +36,17 @@ decode pages and --preempt-policy recompute|swap when the pool runs dry:
         --policy chunked --paged --page-size 16 --pool-pages 48 \
         --oversubscribe --preempt-policy swap --wq --qkv
 
+Hardening: --deadline-steps gives every request a deadline in ticks
+("timeout"), --max-queue and --reject-policy reject|shed_oldest bound the
+waiting queue ("rejected"), --audit runs the invariant auditor every tick
+and arms the NaN/Inf logit sentinel ("failed"), and --fault-plan injects a
+deterministic fault schedule (inline JSON or a file, ``serve/faults.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --policy chunked --paged --oversubscribe --preempt-policy swap \
+        --deadline-steps 600 --max-queue 4 --reject-policy shed_oldest --audit \
+        --fault-plan '{"alloc_fail": [6, 7], "nan": [[40, 2]]}' --wq --qkv
+
 Runs on the GPU unless --device says otherwise.
 """
 from __future__ import annotations
@@ -48,20 +59,23 @@ import torch
 
 from repro_torch.models.registry import get_config
 from repro_torch.nn.module import resolve_device
-from repro_torch.serve import Request, ServeEngine, run_restart_batching
+from repro_torch.serve import FaultPlan, Request, ServeEngine, run_restart_batching
 
 
 def build_workload(args, vocab: int):
     """Request i arrives at tick i*spacing with a --prompt-len prompt and a
-    max_new alternating across [--max-new-min, --max-new]."""
+    max_new alternating across [--max-new-min, --max-new] and, with
+    --deadline-steps, that deadline."""
     rng = np.random.default_rng(args.seed + 1)
     lo = args.max_new_min or args.max_new
+    deadline = getattr(args, "deadline_steps", 0) or None
     reqs = []
     for i in range(args.requests):
         max_new = lo if (lo == args.max_new or i % 2 == 0) else args.max_new
         reqs.append(Request(rid=i, prompt=rng.integers(0, vocab, size=args.prompt_len,
                                                        dtype=np.int32),
-                            max_new=int(max_new), arrival=i * args.arrival_spacing))
+                            max_new=int(max_new), arrival=i * args.arrival_spacing,
+                            deadline_steps=deadline))
     return reqs
 
 
@@ -84,11 +98,18 @@ def report(name: str, stats) -> None:
     if s.get("grown_pages"):
         extra += (f" | grown {s['grown_pages']} pages (preempt {s['preemptions']}, resume "
                   f"{s['resumes']}, swapped {s['swapped_pages']})")
-    if s.get("failed"):
-        extra += f" | failed {s['failed']}"
     if s.get("p99_ttft_steps"):
         extra += (f" | ttft p50/p99 {s['p50_ttft_steps']:.0f}/"
                   f"{s['p99_ttft_steps']:.0f} steps")
+    if s.get("rejections", 0) + s.get("timeouts", 0) + s.get("cancellations", 0) \
+            + s.get("failed", 0):
+        extra += (f" | completion {s['completion_rate']:.2f} (rej {s['rejections']}, "
+                  f"timeout {s['timeouts']}, cancel {s['cancellations']}, failed "
+                  f"{s['failed']})")
+    if s.get("audited_ticks"):
+        extra += f" | audited {s['audited_ticks']} ticks clean"
+    if s.get("fault_events"):
+        extra += f" | faults {s['fault_events']} (swap refusals {s['swap_refusals']})"
     if s.get("peak_live_slots"):
         extra += f" | peak live {s['peak_live_slots']}"
     print(f"[{name}] warmup(compile) {s['compile_s']:.2f}s | "
@@ -151,6 +172,22 @@ def main(argv=None):
                     help="with --oversubscribe: 'recompute' re-queues the victim as a "
                          "continuation prompt; 'swap' parks its private pages in host "
                          "memory and restores them bit for bit")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="per-request deadline in ticks (0 = none): a request unfinished "
+                         "this many ticks after arrival ends 'timeout' with its tokens "
+                         "so far")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound the arrived-and-waiting queue (0 = unbounded): arrivals "
+                         "past it are shed per --reject-policy as 'rejected'")
+    ap.add_argument("--reject-policy", default="reject", choices=["reject", "shed_oldest"],
+                    help="bounded queue: reject the arrival, or shed the oldest waiting "
+                         "request in its favor")
+    ap.add_argument("--audit", action="store_true",
+                    help="run the invariant auditor every tick and arm the NaN/Inf logit "
+                         "sentinel (one device-to-host copy per tick)")
+    ap.add_argument("--fault-plan", default="",
+                    help="deterministic fault injection: inline JSON (starting '{') or a "
+                         "JSON file (serve/faults.py FaultPlan.from_spec)")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop a request when this token is sampled (-1 = off)")
     ap.add_argument("--wq", nargs="?", const="int8", default=False,
@@ -168,6 +205,15 @@ def main(argv=None):
     if args.paged and args.policy not in ("chunked", "ragged"):
         raise SystemExit("--paged requires --policy chunked or ragged (pages are allocated "
                          "per request and written through the fused step's chunks)")
+    fault_plan = None
+    if args.fault_plan:
+        fault_plan = FaultPlan.from_spec(args.fault_plan)
+        if args.policy in ("restart", "lockstep"):
+            raise SystemExit("--fault-plan requires a scheduler policy (chunked, ragged or "
+                             "scheduler)")
+        if fault_plan.nan and not args.audit:
+            raise SystemExit("--fault-plan with nan events requires --audit (the NaN "
+                             "sentinel is audit mode's health read-back)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -215,8 +261,11 @@ def main(argv=None):
                                  prefill_lanes=args.prefill_lanes if ragged else 1,
                                  prefix_sharing=not args.no_prefix_sharing,
                                  oversubscribe=args.oversubscribe,
-                                 preempt_policy=args.preempt_policy)
-        results, stats = sched.run(reqs, seed=args.seed, time_ticks=args.time_ticks)
+                                 preempt_policy=args.preempt_policy,
+                                 max_queue=args.max_queue or None,
+                                 reject_policy=args.reject_policy, audit=args.audit)
+        results, stats = sched.run(reqs, seed=args.seed, time_ticks=args.time_ticks,
+                                   fault_plan=fault_plan)
     report(args.policy, stats)
     first = results[min(results)]
     print(f"request {first.rid}: {len(first.tokens)} tokens "

@@ -1,0 +1,152 @@
+"""Invariant auditor for the paged serving state (``repro/serve/audit.py``;
+the checks and their messages are the reference's).
+
+The scheduler's paging keeps three records in agreement: the host
+allocator's refcounts, the scheduler's per-slot page lists (and parked swap
+state), and the device page tables the kernels read through.  A fault in
+any one of them (a private page mapped twice, a leaked page, a stale
+refcount, a table row pointing at a freed page) decodes plausible garbage.
+``Scheduler(audit=True)`` runs :func:`check_allocator`,
+:func:`check_page_tables` and :func:`check_swap` every tick and raises
+:class:`AuditError` at the first breach.
+
+Invariants:
+
+* refcount conservation: every pool page's refcount equals the number of
+  holders mapping it (live slot rows, mid-prefill reservations, parked
+  requests' kept prefixes); the free list holds exactly the refcount-zero
+  pages, without duplicates;
+* page tables map only live pages: a resident slot's device row is its host
+  page list, then -1; a slot holding no request has an all -1 row;
+* no private page mapped twice: a page in several rows has refcount > 1;
+* lens vs extents: a live slot's device ``len`` is its ``prompt + emitted -
+  1`` write frontier and fits its mapped extent; a mid-prefill slot's
+  ``len`` never falls behind its chunk cursor;
+* SwapArea byte conservation: the area holds exactly the parked requests'
+  pages, and its byte counter matches their sizes.
+
+The reference's auditors of recurrent rows and cross-attention lengths wait
+for the other architectures slice of the port, with those state kinds.  The
+NaN/Inf logit sentinel is the scheduler's half (the steps return per-row
+health flags under ``audit=True``).
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.serve.paging import PageAllocator, SwapArea, _tree_bytes
+
+
+class AuditError(RuntimeError):
+    """A serving-state invariant was breached (see the module doc)."""
+
+
+def check_allocator(alloc: PageAllocator, holders: Mapping[Any, Sequence[int]]) -> None:
+    """Refcount conservation between ``alloc`` and its ``holders``.
+
+    ``holders`` maps a holder key (a live slot, a parked request) to the pool
+    pages it maps.  Every page's refcount must equal the number of holder
+    entries naming it, the free list must hold exactly the unreferenced
+    pages, and no page may be on the free list twice.
+    """
+    counts: Counter = Counter()
+    for key, pages in holders.items():
+        for p in pages:
+            if not 0 <= p < alloc.num_pages:
+                raise AuditError(f"holder {key!r} maps page {p} outside the pool "
+                                 f"[0, {alloc.num_pages})")
+            counts[p] += 1
+    free = list(alloc.free_list)
+    if len(free) != len(set(free)):
+        dup = [p for p, c in Counter(free).items() if c > 1]
+        raise AuditError(f"free list holds duplicate page(s) {sorted(dup)}")
+    free_set = set(free)
+    for p in range(alloc.num_pages):
+        rc = alloc.refcount(p)
+        held = counts.get(p, 0)
+        if rc != held:
+            kind = "leaked (no holder)" if held < rc else "double-mapped"
+            raise AuditError(f"page {p}: refcount {rc} but {held} holder mapping(s) — {kind}")
+        if rc > 0 and p in free_set:
+            raise AuditError(f"page {p} is on the free list with refcount {rc}")
+        if rc == 0 and p not in free_set:
+            raise AuditError(f"page {p} has refcount 0 but is missing from the free "
+                             f"list — leaked out of the pool")
+
+
+def check_page_tables(table: np.ndarray, lens: np.ndarray,
+                      slot_rows: Mapping[int, Sequence[int]], refcount_of, *,
+                      exact_lens: Optional[Mapping[int, int]] = None,
+                      min_lens: Optional[Mapping[int, int]] = None,
+                      page_size: int = 1) -> None:
+    """Device page table and lens against the scheduler's host slot state.
+
+    ``table`` is the (slots, max_pages) int32 table (every layer shares it),
+    ``lens`` the (slots,) live lengths.  ``slot_rows`` maps each resident
+    slot to its host page list; every other slot must have an all -1 row.
+    ``exact_lens`` (live decode slots) pins ``len``; ``min_lens``
+    (mid-prefill slots, whose ``len`` may run ahead over masked junk rows of
+    the mixed step) bounds it from below.  ``refcount_of`` is asked about
+    pages mapped by more than one row, which must be shared (refcount > 1).
+    """
+    nslots = table.shape[0]
+    mapped_by: Dict[int, List[int]] = {}
+    for j in range(nslots):
+        row = table[j]
+        pages = slot_rows.get(j)
+        if pages is None:
+            if (row != -1).any():
+                raise AuditError(f"slot {j} holds no request but its table row still "
+                                 f"maps pages {row[row != -1].tolist()}")
+            continue
+        n = len(pages)
+        if not np.array_equal(row[:n], np.asarray(pages, row.dtype)):
+            raise AuditError(f"slot {j}: device table row {row[:n].tolist()} != host "
+                             f"page list {list(pages)}")
+        if (row[n:] != -1).any():
+            raise AuditError(f"slot {j}: table row maps {row[row != -1].size} pages "
+                             f"past its host page list ({n})")
+        for p in pages:
+            mapped_by.setdefault(int(p), []).append(j)
+        if exact_lens is not None and j in exact_lens:
+            if int(lens[j]) != exact_lens[j]:
+                raise AuditError(f"slot {j}: device len {int(lens[j])} != expected "
+                                 f"write frontier {exact_lens[j]}")
+            if exact_lens[j] > n * page_size:
+                raise AuditError(f"slot {j}: live frontier {exact_lens[j]} exceeds its "
+                                 f"mapped extent ({n} pages x {page_size})")
+        elif min_lens is not None and j in min_lens:
+            if int(lens[j]) < min_lens[j]:
+                raise AuditError(f"slot {j}: device len {int(lens[j])} fell behind its "
+                                 f"prefill cursor {min_lens[j]}")
+    for p, rows in mapped_by.items():
+        if len(rows) > 1 and refcount_of(p) <= 1:
+            raise AuditError(f"page {p} is mapped by slots {rows} but its refcount is "
+                             f"{refcount_of(p)} — a private page aliased across rows")
+
+
+def check_swap(swap: Optional[SwapArea], parked: Sequence[Tuple[int, Any]]) -> None:
+    """SwapArea byte conservation against the scheduler's parked list.
+
+    ``parked``: (rid, data) per parked request (data None when it had no
+    private pages).  The area must hold exactly the parked rids, and its
+    byte counter must equal the sum of their trees' sizes.
+    """
+    if swap is None:
+        if parked:
+            raise AuditError(f"{len(parked)} parked request(s) but no SwapArea exists")
+        return
+    expect = 0
+    for rid, data in parked:
+        if rid not in swap:
+            raise AuditError(f"parked request {rid} missing from SwapArea")
+        expect += _tree_bytes(data)
+    if len(swap) != len(parked):
+        raise AuditError(f"SwapArea holds {len(swap)} request(s) but the scheduler has "
+                         f"{len(parked)} parked")
+    if swap.bytes_held != expect:
+        raise AuditError(f"SwapArea bytes_held {swap.bytes_held} != parked page bytes "
+                         f"{expect} — byte-conservation breach")

@@ -89,16 +89,38 @@ def make_prefill_step(model) -> Callable:
     return prefill
 
 
-def make_decode_step(model, *, temperature: float = 0.0) -> Callable:
-    """(params, token (B, 1), cache, gen) -> (next (B, 1) int32, cache')."""
-    def decode(params, token, cache, gen):
+def _health(row: torch.Tensor, poison: Optional[torch.Tensor] = None):
+    """Audit mode's sampling rows: (``row`` (+ ``poison``) with a finite row
+    in place of any non-finite one, the (R,) flags: all of the row finite).
+    The sampler must see finite rows: ``torch.multinomial`` raises on NaN
+    probabilities on the CPU and trips a device-side assert on the card.  A
+    flagged row's token is never emitted (its slot is evicted)."""
+    if poison is not None:
+        row = row + poison[:, None]
+    ok = torch.isfinite(row).all(-1)
+    return torch.where(ok[:, None], row, torch.zeros_like(row)), ok
+
+
+def make_decode_step(model, *, temperature: float = 0.0, with_health: bool = False) -> Callable:
+    """(params, token (B, 1), cache, gen) -> (next (B, 1) int32, cache').
+
+    ``with_health=True`` (the scheduler's audit mode) takes a trailing
+    ``poison``, a (B,) float32 tensor added to the last-position logits
+    (zeros are an exact no-op, a NaN is the fault plan's injection), and
+    returns (next, healthy (B,) bool, cache'): ``healthy[b]`` is False iff
+    row b's logits hold a NaN or an Inf.
+    """
+    def decode(params, token, cache, gen, poison=None):
         logits, cache = model.apply(params, token, Context(), cache=cache, decode=True)
-        return sample_tokens(logits[:, -1], gen, model.vocab, temperature), cache
+        if not with_health:
+            return sample_tokens(logits[:, -1], gen, model.vocab, temperature), cache
+        row, ok = _health(logits[:, -1], poison)
+        return sample_tokens(row, gen, model.vocab, temperature), ok, cache
 
     return decode
 
 
-def make_mixed_step(model, *, temperature: float = 0.0) -> Callable:
+def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = False) -> Callable:
     """The chunked-prefill tick: every slot decodes one token, then one
     C-token prompt chunk is written in place into its slot's KV rows.
 
@@ -110,21 +132,32 @@ def make_mixed_step(model, *, temperature: float = 0.0) -> Callable:
     means something only on that last chunk.  The decode half runs first,
     so its append for the still-prefilling slot lands on the row the chunk
     then overwrites (junk stays at rows >= ``len``).
-    """
-    decode = make_decode_step(model, temperature=temperature)
 
-    def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int):
-        nxt, cache = decode(params, tok, cache, gen)
+    ``with_health=True`` (audit mode) takes a trailing (B,) ``poison`` for
+    the decode rows (see :func:`make_decode_step`) and returns (next, first,
+    decode healthy (B,), first healthy (1,), cache').
+    """
+    decode = make_decode_step(model, temperature=temperature, with_health=with_health)
+
+    def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int,
+              poison=None):
+        if with_health:
+            nxt, dec_ok, cache = decode(params, tok, cache, gen, poison)
+        else:
+            nxt, cache = decode(params, tok, cache, gen)
         logits, cache = model.apply(params, chunk_tok, Context(), cache=cache, decode=True,
                                     chunk=KVChunk(slot=slot, start=start, length=length),
                                     logit_pos=length - 1)
-        first = sample_tokens(logits[:, 0], gen, model.vocab, temperature)
-        return nxt, first, cache
+        if not with_health:
+            return nxt, sample_tokens(logits[:, 0], gen, model.vocab, temperature), cache
+        row, first_ok = _health(logits[:, 0])
+        first = sample_tokens(row, gen, model.vocab, temperature)
+        return nxt, first, dec_ok, first_ok, cache
 
     return mixed
 
 
-def make_ragged_step(model, *, temperature: float = 0.0) -> Callable:
+def make_ragged_step(model, *, temperature: float = 0.0, with_health: bool = False) -> Callable:
     """One ragged forward per tick: the decode tokens of every slot and the
     prompt-chunk tokens of up to L admission lanes flatten into one (1, T)
     token batch, T = B + L*C, so each layer runs one GEMM per projection and
@@ -139,13 +172,20 @@ def make_ragged_step(model, *, temperature: float = 0.0) -> Callable:
     r < B is slot r's decode token, row B + l lane l's last valid chunk
     token (meaningful on its last chunk only); the LM head runs over R rows.
     Every shape depends on (B, L, C) alone.
+
+    ``with_health=True`` (audit mode) takes a trailing (R,) ``poison`` over
+    the sampled rows and returns (next (R, 1), healthy (R,), cache').
     """
-    def ragged_step(params, tok, cache, gen, chunk_tok, slot_ids, positions, logit_rows):
+    def ragged_step(params, tok, cache, gen, chunk_tok, slot_ids, positions, logit_rows,
+                    poison=None):
         flat = torch.cat([tok[:, 0], chunk_tok.reshape(-1)])[None, :]
         logits, cache = model.apply(params, flat, Context(), cache=cache, decode=True,
                                     ragged=RaggedBatch(slots=slot_ids, positions=positions),
                                     logit_rows=logit_rows)
-        return sample_tokens(logits[0], gen, model.vocab, temperature), cache
+        if not with_health:
+            return sample_tokens(logits[0], gen, model.vocab, temperature), cache
+        rows, ok = _health(logits[0], poison)
+        return sample_tokens(rows, gen, model.vocab, temperature), ok, cache
 
     return ragged_step
 

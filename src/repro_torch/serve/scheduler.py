@@ -41,13 +41,27 @@ the scheduler runs a host-side allocator (``serve/paging.py``):
   them when a slot and pages free up.  Greedy tokens stay those of the
   unpreempted run.
 
+Hardened serving: every request ends with one of :data:`STATUSES`.  A
+``deadline_steps`` expiry is a ``timeout`` wherever the request is (queued,
+mid-prefill, parked or live); a host cancel (``run(cancels=...)`` or
+:meth:`Scheduler.cancel`) a ``cancelled``; ``max_queue`` bounds the waiting
+queue under ``reject_policy`` (``rejected``); a request a dry pool can never
+serve, and under ``audit=True`` a slot whose logits turn NaN or Inf, is
+``failed``.  ``run(fault_plan=...)`` injects a :class:`~repro_torch.serve.
+faults.FaultPlan` at the allocator, swap and admission seams, and
+``audit=True`` runs the invariant auditor (``serve/audit.py``) every tick.
+
 Without an ``eos_id`` no token value is needed mid-run, so the loop reads
 nothing back from the device and harvests every token at the end; with one,
 each tick reads its (B, 1) tokens back.  A swap-out copies the victim's
-pages to the host, the one other read-back, as in the reference.  The
-reference's recurrent and cross-attention state, fault injection, audit,
-deadlines and bounded queues wait for later slices of the port (ROADMAP.md)
-and raise ``NotImplementedError``.
+pages to the host, the one other read-back, as in the reference.
+``audit=True`` adds one read-back per tick: the step's health flags, with
+the device page table and lens of the previous tick's end (snapshotted on
+the device then, audited against the host state of that moment), so a
+table breach raises one tick later than in the reference, with its message.
+The reference's recurrent and cross-attention state waits for the other
+architectures slice of the port (ROADMAP.md) and raises
+``NotImplementedError``.
 
 One deliberate difference: when a one-shot admission finishes at once
 (first token EOS, or ``max_new == 1``), the freed slot is refilled in the
@@ -65,24 +79,28 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.nn.attention import host_tensor
 from repro_torch.serve.admission import (AdmissionPlanner, Preempted, PrefillLane,
                                          pick_preemption_victim)
-from repro_torch.nn.attention import host_tensor
+from repro_torch.serve.audit import check_allocator, check_page_tables, check_swap
 from repro_torch.serve.engine import (make_decode_step, make_mixed_step, make_prefill_step,
                                       make_ragged_step, sample_tokens)
+from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.lanes import RaggedTick, assemble_ragged_tick
 from repro_torch.serve.paging import PageAllocator, PrefixIndex, SwapArea, _tree_bytes
 from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, evict_cache_slot,
-                                          gather_cache_pages, scatter_cache_pages,
-                                          set_cache_page_entry, set_cache_page_row,
-                                          set_cache_slot_len, state_kinds)
+                                          find_paged_kv, gather_cache_pages,
+                                          scatter_cache_pages, set_cache_page_entry,
+                                          set_cache_page_row, set_cache_slot_len, state_kinds)
 
 
 @dataclasses.dataclass
 class Request:
     """One generation request; ``arrival`` is the decode-step tick at which
-    it becomes visible (0 = available at start).  ``enc`` (EncDec serving)
-    and ``deadline_steps`` wait for later slices and must stay None."""
+    it becomes visible (0 = available at start).  ``deadline_steps``: a
+    request unfinished that many ticks after arrival ends ``"timeout"`` with
+    its tokens so far.  ``enc`` (EncDec serving) waits for the other
+    architectures slice and must stay None."""
 
     rid: int
     prompt: Any                 # (P,) int token ids
@@ -92,11 +110,19 @@ class Request:
     deadline_steps: Optional[int] = None
 
 
+#: Terminal request statuses: ``ok`` (ran to EOS or length), ``timeout``
+#: (deadline_steps expired), ``cancelled`` (host cancel), ``rejected``
+#: (bounded-queue backpressure), ``failed`` (unservable deadlock, or a slot
+#: the audit's NaN/Inf sentinel evicted).
+STATUSES = ("ok", "timeout", "cancelled", "rejected", "failed")
+
+
 @dataclasses.dataclass
 class RequestResult:
     """The generated ids, the (arrival, admitted, finished) tick timeline and
-    how the request ended (``"ok"``, or ``"failed"`` when a dry pool could
-    never serve it)."""
+    how the request ended (one of :data:`STATUSES`; a degraded one carries
+    the tokens emitted before it).  ``admitted_at`` is -1 for a request that
+    never reached a slot."""
 
     rid: int
     tokens: List[int]
@@ -156,8 +182,24 @@ class ServeStats:
     #                             admission: wall seconds from arrival to the
     #                             synced first token (not in the reference)
     completed: int = 0          # requests that ended "ok"
+    rejections: int = 0         # bounded queue: requests shed ("rejected")
+    timeouts: int = 0           # deadline_steps expiries ("timeout")
+    cancellations: int = 0      # host cancels ("cancelled")
     failed: int = 0             # requests that ended "failed"
-    deadlock_failures: int = 0  # nothing live, and the pool could never serve them
+    deadlock_failures: int = 0  # failed: nothing live, and the pool could never serve them
+    nan_evictions: int = 0      # failed: slots the NaN/Inf sentinel evicted (audit)
+    fault_events: int = 0       # injected FaultPlan denials and poisons that fired
+    audited_ticks: int = 0      # ticks the invariant auditor ran clean
+    audit_reads: int = 0        # audit: device-to-host copies of health flags and
+    #                             table snapshots (one per stepped tick, one at the
+    #                             end; not in the reference)
+
+    @property
+    def completion_rate(self) -> float:
+        """``ok`` results over all terminal results (1.0 when none ended)."""
+        total = (self.completed + self.rejections + self.timeouts + self.cancellations
+                 + self.failed)
+        return self.completed / total if total else 1.0
 
     @property
     def steady_tok_s(self) -> float:
@@ -216,8 +258,16 @@ class ServeStats:
             "p50_ttft_ms": round(float(np.percentile(ttft_ms, 50)), 3),
             "p99_ttft_ms": round(float(np.percentile(ttft_ms, 99)), 3),
             "completed": self.completed,
+            "rejections": self.rejections,
+            "timeouts": self.timeouts,
+            "cancellations": self.cancellations,
             "failed": self.failed,
+            "completion_rate": round(self.completion_rate, 4),
             "deadlock_failures": self.deadlock_failures,
+            "nan_evictions": self.nan_evictions,
+            "fault_events": self.fault_events,
+            "audited_ticks": self.audited_ticks,
+            "audit_reads": self.audit_reads,
         }
 
 
@@ -233,15 +283,6 @@ class _Slot:
     cols: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
     #                              no-EOS mode: (slot row, step column) per decode
     #                              token; the row moves when a swap resumes elsewhere
-
-
-# Scheduler options of the reference that wait for a later slice of the
-# port: name -> (the reference's default, which is accepted, the slice).
-_LATER = {
-    "max_queue": (None, "the hardened serving slice"),
-    "reject_policy": ("reject", "the hardened serving slice"),
-    "audit": (False, "the hardened serving slice"),
-}
 
 
 def _later(what: str, where: str) -> NotImplementedError:
@@ -273,6 +314,15 @@ class Scheduler:
     whose prompt + max_new exceeds the table (paged) or ``max_len``:
     ``"reject"`` raises at ``run()``, ``"truncate"`` clamps its ``max_new``
     and records it in ``ServeStats.truncated_rids``.
+
+    ``max_queue`` bounds the arrived-and-waiting queue: an arrival past it
+    ends ``"rejected"`` under ``reject_policy="reject"``, or under
+    ``"shed_oldest"`` the oldest waiting request is shed in its favor
+    (recompute continuations are never shed: they hold served tokens).
+    ``audit=True`` runs the invariant auditor every tick and arms the
+    NaN/Inf logit sentinel: a slot whose logits turn non-finite ends
+    ``"failed"`` instead of streaming garbage.  It costs one device-to-host
+    copy per tick, so it is opt-in.
     """
 
     def __init__(self, engine, *, eos_id: Optional[int] = None, pad_id: int = 0,
@@ -281,14 +331,14 @@ class Scheduler:
                  oversubscribe: bool = False, preempt_policy: str = "recompute",
                  preempt_aging: int = 2, oversize: str = "reject",
                  ragged: bool = False, prefill_lanes: int = 1,
-                 swap_bytes: Optional[int] = None, **later):
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"Scheduler got an unexpected keyword argument {name!r}")
-            default, where = _LATER[name]
-            if value != default:
-                raise _later(f"Scheduler({name}={value!r})", where)
+                 max_queue: Optional[int] = None, reject_policy: str = "reject",
+                 swap_bytes: Optional[int] = None, audit: bool = False):
         state_kinds(engine.model)       # raises for recurrent / cross-attention models
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if reject_policy not in ("reject", "shed_oldest"):
+            raise ValueError(f"reject_policy must be 'reject' or 'shed_oldest', "
+                             f"got {reject_policy!r}")
         self.paged = bool(getattr(engine, "paged_kv", False))
         if chunk_size is not None and chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
@@ -338,29 +388,54 @@ class Scheduler:
         self.swap_bytes = swap_bytes
         self.ragged = bool(ragged)
         self.prefill_lanes = int(prefill_lanes)
+        self.max_queue = max_queue
+        self.reject_policy = reject_policy
+        self.audit = bool(audit)
+        self._cancel_box: set = set()
         self._admission = AdmissionPlanner(
             page_size=engine.page_size, max_pages=engine.kv_max_pages, chunk_size=chunk_size,
             oversubscribe=self.oversubscribe) if self.paged else None
-        model = engine.model
-        self._decode = make_decode_step(model, temperature=engine.temperature)
-        self._mixed = make_mixed_step(model, temperature=engine.temperature)
-        self._ragged = make_ragged_step(model, temperature=engine.temperature)
+        model, health = engine.model, self.audit
+        self._decode = make_decode_step(model, temperature=engine.temperature,
+                                        with_health=health)
+        self._mixed = make_mixed_step(model, temperature=engine.temperature,
+                                      with_health=health)
+        self._ragged = make_ragged_step(model, temperature=engine.temperature,
+                                        with_health=health)
         self._prefill = make_prefill_step(model)
 
+    def cancel(self, rid: int) -> None:
+        """Ask the running ``run()`` to cancel ``rid``: it drains the request
+        at its next tick, wherever it is (queued, mid-prefill, parked or
+        live), as ``"cancelled"`` with its tokens so far.  An unknown or
+        finished rid is a no-op."""
+        self._cancel_box.add(int(rid))
+
     # ---- the steps: plain functions over the engine's params ----------------
-    def _masked_decode(self, tok, cache, gen, active):
-        nxt, cache = self._decode(self.engine.params, tok, cache, gen)
-        return torch.where(active[:, None], nxt, self.pad_id), cache
+    # Each returns the step's health flags before the cache: under ``audit``
+    # its steps take a trailing poison vector and return them; else None.
+    def _poison(self, poison) -> tuple:
+        return (poison,) if self.audit else ()
 
-    def _masked_mixed(self, tok, cache, gen, active, chunk_tok, slot, start, length):
-        nxt, first, cache = self._mixed(self.engine.params, tok, cache, gen, chunk_tok,
-                                        slot, start, length)
-        return torch.where(active[:, None], nxt, self.pad_id), first, cache
+    def _masked_decode(self, tok, cache, gen, active, poison=None):
+        out = self._decode(self.engine.params, tok, cache, gen, *self._poison(poison))
+        flags = out[1] if self.audit else None
+        return torch.where(active[:, None], out[0], self.pad_id), flags, out[-1]
 
-    def _masked_ragged(self, tok, cache, gen, active, meta: RaggedTick):
+    def _masked_mixed(self, tok, cache, gen, active, chunk_tok, slot, start, length,
+                      poison=None):
+        """(tokens (B, 1), masked; first (1, 1); flags (B + 1,), the decode
+        rows' then the first token's; cache)."""
+        out = self._mixed(self.engine.params, tok, cache, gen, chunk_tok, slot, start, length,
+                          *self._poison(poison))
+        flags = torch.cat([out[2], out[3]]) if self.audit else None
+        return torch.where(active[:, None], out[0], self.pad_id), out[1], flags, out[-1]
+
+    def _masked_ragged(self, tok, cache, gen, active, meta: RaggedTick, poison=None):
         """One ragged tick from its host metadata, sent up as one int32 array
         through pinned memory without blocking.  Returns (the slots' decode
-        tokens (B, 1), masked; the lanes' first tokens (L, 1); cache)."""
+        tokens (B, 1), masked; the lanes' first tokens (L, 1); flags (B + L,);
+        cache)."""
         nslots = tok.shape[0]
         lanes, c = meta.ctok.shape
         t = meta.sids.shape[0]
@@ -368,9 +443,11 @@ class Scheduler:
                                           meta.ctok.reshape(-1)]), tok.device)
         sids, poss = dev[:t], dev[t:2 * t]
         lrows, ctok = dev[2 * t:2 * t + nslots + lanes], dev[2 * t + nslots + lanes:]
-        nxt, cache = self._ragged(self.engine.params, tok, cache, gen, ctok.view(lanes, c),
-                                  sids, poss, lrows)
-        return torch.where(active[:, None], nxt[:nslots], self.pad_id), nxt[nslots:], cache
+        out = self._ragged(self.engine.params, tok, cache, gen, ctok.view(lanes, c), sids,
+                           poss, lrows, *self._poison(poison))
+        flags = out[1] if self.audit else None
+        return (torch.where(active[:, None], out[0][:nslots], self.pad_id), out[0][nslots:],
+                flags, out[-1])
 
     def _slot_prefill(self, tokens, plen: int, gen):
         """(1, P) prompt -> (first token (1, 1), batch-1 cache), the LM head
@@ -418,7 +495,7 @@ class Scheduler:
         throwaway page assignment for slot 0 and its table events).  Both
         then run one decode step and evict slot 0.  Ragged admission runs one
         ragged tick of inert rows at the run's fixed T instead, then evicts
-        slot 0.
+        slot 0.  Under ``audit`` the steps take all-zero poison vectors.
         """
         eng = self.engine
         t0 = time.perf_counter()
@@ -427,6 +504,9 @@ class Scheduler:
         tok = torch.full((eng.batch_slots, 1), self.pad_id, dtype=torch.int32,
                          device=eng.device)
         active = torch.ones(eng.batch_slots, dtype=torch.bool, device=eng.device)
+        lanes = self.prefill_lanes if self.ragged else 0
+        pz = torch.zeros(eng.batch_slots + lanes, dtype=torch.float32, device=eng.device) \
+            if self.audit else None
         with torch.inference_mode():
             if self.chunk_size is not None:
                 if self.paged:
@@ -443,15 +523,16 @@ class Scheduler:
                                       poss=np.full(b + lanes * c, -1, np.int32),
                                       ctok=np.full((lanes, c), self.pad_id, np.int32),
                                       lrows=np.zeros(b + lanes, np.int32), ran=[], stalled=0)
-                    tok, firsts, cache = self._masked_ragged(tok, cache, gen, active, meta)
+                    tok, firsts, _, cache = self._masked_ragged(tok, cache, gen, active, meta,
+                                                                pz)
                     tok = self._set_tok(tok, firsts[:1], 0)
                     cache = evict_cache_slot(cache, 0)
                     _sync(eng.device)
                     return time.perf_counter() - t0
                 ctok = torch.full((1, self.chunk_size), self.pad_id, dtype=torch.int32,
                                   device=eng.device)
-                tok, first, cache = self._masked_mixed(tok, cache, gen, active, ctok, 0, 0,
-                                                       self.chunk_size)
+                tok, first, _, cache = self._masked_mixed(tok, cache, gen, active, ctok, 0, 0,
+                                                          self.chunk_size, pz)
                 tok = self._set_tok(tok, first, 0)
             else:
                 for p in sorted({self._bucket(int(p)) for p in prompt_lens}):
@@ -460,32 +541,51 @@ class Scheduler:
                     first, small = self._slot_prefill(toks, p, gen)
                     cache = admit_cache_slot(cache, small, 0, p)
                     tok = self._set_tok(tok, first, 0)
-            tok, cache = self._masked_decode(tok, cache, gen, active)
+            tok, _, cache = self._masked_decode(tok, cache, gen, active, pz)
             cache = evict_cache_slot(cache, 0)
         _sync(eng.device)
         return time.perf_counter() - t0
 
     # ---- the serving loop --------------------------------------------------------
     def run(self, requests: Sequence[Request], *, seed: int = 0, warmup: bool = True,
-            time_ticks: bool = False, cancels=None, preempts=None, fault_plan=None,
+            time_ticks: bool = False, cancels: Optional[Dict[int, int]] = None,
+            preempts: Optional[Dict[int, int]] = None, fault_plan: Optional[FaultPlan] = None,
             on_tick=None) -> Tuple[Dict[int, RequestResult], ServeStats]:
         """Serve every request to a terminal status; ({rid: result}, stats).
 
         Time is discrete: one tick per batched step.  Queued requests become
         visible at their ``arrival`` tick and are admitted into the
-        lowest-numbered free slot in (arrival, rid) order.  A request that a
-        dry pool can never serve, with nothing live to free pages, ends
-        ``"failed"``.  ``time_ticks=True`` waits for each tick's tokens and
-        records each request's wall-clock latency (summary p50/p99_latency_ms).
+        lowest-numbered free slot in (arrival, rid) order.  Every request
+        gets one result: ``"ok"`` or a degraded status (:data:`STATUSES`)
+        with the tokens emitted before it.  ``run()`` raises only for invalid
+        inputs and, under ``audit``, :class:`~repro_torch.serve.audit.
+        AuditError` for corrupt state.
+
+        ``cancels={rid: tick}`` cancels ``rid`` at that tick; ``on_tick(t)``
+        runs at the top of every tick (and may call :meth:`cancel`).
+        ``preempts={rid: tick}`` preempts ``rid`` at the first tick >= ``tick``
+        at which it holds a live slot: under ``preempt_policy`` on a paged
+        engine, by recompute on a dense one.  ``fault_plan`` injects a
+        :class:`FaultPlan`; its NaN events need ``audit=True``.
+        ``time_ticks=True`` waits for each tick's tokens and records each
+        request's wall-clock latency (summary p50/p99_latency_ms).
         """
-        for name, value in (("cancels", cancels), ("preempts", preempts),
-                            ("on_tick", on_tick)):
-            if value is not None:
-                raise _later(f"run({name}=...)", "the hardened serving slice")
+        nslots = self.engine.batch_slots
         if fault_plan is not None:
-            raise _later("run(fault_plan=...)", "the hardened serving slice")
+            if fault_plan.nan and not self.audit:
+                raise ValueError("FaultPlan.nan requires Scheduler(audit=True): the NaN/Inf "
+                                 "sentinel is audit mode's per-tick health read-back — "
+                                 "without it the poison would stream garbage tokens "
+                                 "undetected")
+            for tk, sj in fault_plan.nan.items():
+                if not 0 <= sj < nslots:
+                    raise ValueError(f"FaultPlan.nan[{tk}] targets slot {sj} outside "
+                                     f"[0, {nslots})")
         with torch.inference_mode():
-            return self._run(requests, seed=seed, warmup=warmup, time_ticks=time_ticks)
+            return self._run(requests, seed=seed, warmup=warmup, time_ticks=time_ticks,
+                             cancels={int(k): int(v) for k, v in (cancels or {}).items()},
+                             preempts={int(k): int(v) for k, v in (preempts or {}).items()},
+                             fault=fault_plan, on_tick=on_tick)
 
     def _validate(self, requests: Sequence[Request], stats: ServeStats):
         """The requests as served (``oversize="truncate"`` may shorten one)
@@ -499,9 +599,9 @@ class Scheduler:
                 raise ValueError(f"request {r.rid}: max_new must be >= 1")
             if plen < 1:
                 raise ValueError(f"request {r.rid}: empty prompt")
-            if r.deadline_steps is not None:
-                raise _later(f"request {r.rid}: deadline_steps",
-                             "the hardened serving slice")
+            if r.deadline_steps is not None and r.deadline_steps < 1:
+                raise ValueError(f"request {r.rid}: deadline_steps must be >= 1, got "
+                                 f"{r.deadline_steps}")
             if r.enc is not None:
                 raise _later(f"request {r.rid}: Request.enc (EncDec serving)",
                              "the other architectures slice")
@@ -537,7 +637,7 @@ class Scheduler:
             checked.append(r)
         return checked, plen_of
 
-    def _run(self, requests, *, seed, warmup, time_ticks):
+    def _run(self, requests, *, seed, warmup, time_ticks, cancels, preempts, fault, on_tick):
         eng = self.engine
         nslots, C, dev, ps = eng.batch_slots, self.chunk_size, eng.device, eng.page_size
         stats = ServeStats()
@@ -547,8 +647,14 @@ class Scheduler:
             stats.compile_s = self.warmup([plen_of[r.rid] for r in requests], seed=seed)
 
         use_eos = self.eos_id is not None
+        # pending: not yet arrived; queue: arrived and waiting (what max_queue bounds)
         pending = deque(sorted(requests, key=lambda r: (r.arrival, r.rid)))
         queue: deque = deque()
+        cont_rids: set = set()              # recompute continuations: never shed
+        cancel_pending: set = set()
+        has_deadlines = any(r.deadline_steps is not None for r in requests)
+        poison_plan = deque(fault.nan_events()) if fault is not None else deque()
+        fault_hold = False                  # this tick idled on an injected denial
         slots: List[Optional[_Slot]] = [None] * nslots
         lanes: List[PrefillLane] = []       # the mixed step drives one, the ragged L
         max_lanes = self.prefill_lanes if self.ragged else 1
@@ -561,6 +667,9 @@ class Scheduler:
         tok = torch.full((nslots, 1), self.pad_id, dtype=torch.int32, device=dev)
         gen = self._generator(seed)
         active_host, active_dev = None, None
+        zero_poison = torch.zeros(nslots + (self.prefill_lanes if self.ragged else 0),
+                                  dtype=torch.float32, device=dev) if self.audit else None
+        table_audit = None                  # audit: the last tick's table snapshot
         alloc = PageAllocator(eng.kv_num_pages) if self.paged else None
         index = PrefixIndex(ps) if self.prefix_sharing else None
         planner = self._admission
@@ -584,6 +693,12 @@ class Scheduler:
         def bump(status: str) -> None:
             if status == "ok":
                 stats.completed += 1
+            elif status == "timeout":
+                stats.timeouts += 1
+            elif status == "cancelled":
+                stats.cancellations += 1
+            elif status == "rejected":
+                stats.rejections += 1
             else:
                 stats.failed += 1
 
@@ -593,13 +708,16 @@ class Scheduler:
             if index is not None:
                 index.drop_pages(released)
 
-        def finish(j: int, slot: _Slot, eos: bool) -> None:
+        def finish(j: int, slot: _Slot, eos: bool, status: str = "ok") -> None:
             nonlocal cache
-            finished.append((slot, t, eos, "ok"))
-            stats.latencies_steps.append(t - slot.req.arrival)
-            if time_ticks and slot.req.rid in arrival_wall:
-                stats.latencies_s.append(time.perf_counter() - arrival_wall[slot.req.rid])
-            bump("ok")
+            finished.append((slot, t, eos, status))
+            if status == "ok":
+                # a degraded ending's latency is no service time (a timeout's
+                # is its deadline), so it stays out of the percentiles
+                stats.latencies_steps.append(t - slot.req.arrival)
+                if time_ticks and slot.req.rid in arrival_wall:
+                    stats.latencies_s.append(time.perf_counter() - arrival_wall[slot.req.rid])
+            bump(status)
             # the row is unmapped (in stream order) before its pages re-enter
             # the free list: the next admission may be handed them at once
             cache = evict_cache_slot(cache, j)
@@ -629,24 +747,63 @@ class Scheduler:
                 finish(j, slot, False)
 
         def requeue(r: Request) -> None:
-            """A preemption continuation back into the queue, in (arrival, rid) order."""
+            """A preemption continuation back into the queue, in (arrival, rid)
+            order, past the max_queue bound and immune to shedding."""
+            cont_rids.add(r.rid)
             items = sorted(list(queue) + [r], key=lambda q: (q.arrival, q.rid))
             queue.clear()
             queue.extend(items)
 
-        def fail_queued(r: Request) -> None:
+        def terminal_queued(r: Request, status: str) -> None:
+            """End a request outside a live slot (queued, mid-prefill or
+            unservable) with the tokens earlier legs banked, if any."""
             results[r.rid] = RequestResult(
                 rid=r.rid, tokens=carry.pop(r.rid, []), prompt_len=orig_plen[r.rid],
                 arrival=r.arrival, admitted_at=first_admit.get(r.rid, -1), finished_at=t,
-                eos=False, status="failed")
-            bump("failed")
+                eos=False, status=status)
+            bump(status)
 
-        def fail_parked(p: Preempted) -> None:
+        def fail_slot_state(j: int, r: Request, status: str) -> None:
+            """Tear down reserved slot j (unmapped before its pages are freed,
+            as in ``finish``) and end its request."""
+            nonlocal cache
+            cache = evict_cache_slot(cache, j)
+            if alloc is not None and j in slot_pages:
+                release(slot_pages.pop(j))
+            terminal_queued(r, status)
+
+        def abort_lane(p: PrefillLane, status: str) -> None:
+            lanes.remove(p)
+            fail_slot_state(p.slot, p.req, status)
+
+        def terminal_parked(p: Preempted, status: str) -> None:
+            """End a parked request: its kept prefix references and swapped
+            bytes go, its tokens are harvested."""
             preempted.remove(p)
-            finished.append((p.slot, t, False, "failed"))
-            bump("failed")
+            finished.append((p.slot, t, False, status))
+            bump(status)
             release(p.kept)
-            swap.pop(p.slot.req.rid)
+            if p.slot.req.rid in swap:
+                swap.pop(p.slot.req.rid)
+
+        def reap_status(r: Request) -> Optional[str]:
+            """The terminal status ``r`` takes this tick (a cancel beats a
+            timeout), or None to go on serving it."""
+            if r.rid in cancel_pending:
+                return "cancelled"
+            if r.deadline_steps is not None and t >= r.arrival + r.deadline_steps:
+                return "timeout"
+            return None
+
+        def pool_alloc(n: int) -> Optional[List[int]]:
+            """``alloc.alloc`` through the fault seam: a ``deny_alloc`` tick
+            answers None whatever is free."""
+            nonlocal fault_hold
+            if fault is not None and fault.deny_alloc(t):
+                stats.fault_events += 1
+                fault_hold = True
+                return None
+            return alloc.alloc(n)
 
         def harvest_slot_tokens(slot: _Slot) -> List[int]:
             """Tokens this leg emitted so far (one device read in no-EOS mode)."""
@@ -657,16 +814,21 @@ class Scheduler:
 
         def preempt(j: int) -> None:
             """Evict live slot j mid-decode to hand its pages to someone else:
-            ``recompute`` re-queues it as prompt + tokens so far; ``swap``
-            parks its private pages on the host (shared prefix pages stay
-            resident under the refcount it keeps)."""
+            ``recompute`` (and any preemption on a dense engine) re-queues it
+            as prompt + tokens so far; ``swap`` parks its private pages on the
+            host (shared prefix pages stay resident under the refcount it
+            keeps), or recomputes when the swap seam or area refuses."""
             nonlocal cache
             slot = slots[j]
             rid = slot.req.rid
             stats.preemptions += 1
             stats.preempted_rids[rid] = stats.preempted_rids.get(rid, 0) + 1
-            pages = slot_pages.pop(j)
+            pages = slot_pages.pop(j) if alloc is not None else None
             park = swap is not None
+            if park and fault is not None and fault.deny_swap(t):
+                stats.fault_events += 1      # an injected host-memory refusal
+                stats.swap_refusals += 1
+                park = False
             if park:
                 # admission keeps shared mappings a leading run of the row
                 m = 0
@@ -705,7 +867,8 @@ class Scheduler:
                 plen_of[rid] = int(cont_prompt.shape[0])
                 prompt_keys.pop(rid, None)     # the digests are stale now
                 cache = evict_cache_slot(cache, j)
-                release(pages)
+                if alloc is not None:
+                    release(pages)
                 requeue(dataclasses.replace(slot.req, prompt=cont_prompt,
                                             max_new=slot.req.max_new - slot.emitted))
             slots[j] = None
@@ -717,7 +880,7 @@ class Scheduler:
                 p = preempted[0]
                 free = [j for j in range(nslots)
                         if slots[j] is None and all(ln.slot != j for ln in lanes)]
-                got = alloc.alloc(p.n_priv) if free else None
+                got = pool_alloc(p.n_priv) if free else None
                 if got is None:
                     stats.resume_stalls += 1
                     return
@@ -752,7 +915,7 @@ class Scheduler:
                         raise RuntimeError(f"slot {j} (rid {slot.req.rid}) needs row "
                                            f"{need_rows} past its page table "
                                            f"({eng.kv_max_pages} pages)")
-                    got = alloc.alloc(1)
+                    got = pool_alloc(1)
                     if got is not None:
                         cache = set_cache_page_entry(cache, j, len(slot_pages[j]), got[0])
                         slot_pages[j].append(got[0])
@@ -767,8 +930,13 @@ class Scheduler:
         def admit_lane() -> bool:
             """Reserve a free slot (and, paged, the request's pages) for the
             oldest arrival; its chunks ride the mixed or ragged step.  False
-            when no slot is free or the pool stalls the request."""
-            nonlocal cache
+            when an injected stall holds admission, no slot is free or the
+            pool stalls the request."""
+            nonlocal cache, fault_hold
+            if fault is not None and fault.deny_admission(t):
+                stats.fault_events += 1
+                fault_hold = True
+                return False
             free = [j for j in range(nslots)
                     if slots[j] is None and all(ln.slot != j for ln in lanes)]
             if not free:
@@ -776,6 +944,12 @@ class Scheduler:
             r = queue[0]
             start0 = 0
             if alloc is not None:
+                if fault is not None and fault.deny_alloc(t):
+                    # injected pool exhaustion at the admission seam
+                    stats.fault_events += 1
+                    stats.page_stalls += 1
+                    fault_hold = True
+                    return False
                 plan = planner.plan(r, plen_of[r.rid], alloc, index, keys=digests_of(r))
                 if plan is None:
                     # head-of-queue blocking: skipping ahead would starve a
@@ -803,13 +977,130 @@ class Scheduler:
                                      next_start=start0))
             return True
 
+        def audit_tables(snap: Tuple, host: np.ndarray) -> None:
+            """``check_page_tables`` on a table snapshot read back as ``host``,
+            against the host state recorded with it."""
+            shape, rows, refs, exact, mins = snap[1:]
+            n = shape[0] * shape[1]
+            check_page_tables(host[:n].reshape(shape), host[n:n + shape[0]], rows,
+                              lambda p: refs.get(p, 0), exact_lens=exact, min_lens=mins,
+                              page_size=ps)
+
+        def read_back(flags: torch.Tensor):
+            """Audit's one device-to-host copy of a tick: the (B, 1) tokens in
+            EOS mode, the step's health flags and the last tick's table
+            snapshot, which is audited here.  Returns (tokens or None, flags)."""
+            nonlocal table_audit
+            parts = ([tok.reshape(-1)] if use_eos else []) + [flags.to(torch.int32)]
+            if table_audit is not None:
+                parts.append(table_audit[0])
+            host = torch.cat(parts).cpu().numpy()
+            stats.audit_reads += 1
+            k = nslots if use_eos else 0
+            ok = host[k:k + flags.shape[0]] != 0
+            if table_audit is not None:
+                audit_tables(table_audit, host[k + flags.shape[0]:])
+                table_audit = None
+            return (host[:nslots].reshape(nslots, 1) if use_eos else None), ok
+
+        def audit_tick() -> None:
+            """The invariant auditor at the end of a tick: the allocator and
+            swap area now; the device table and lens snapshotted now (one small
+            device copy) and read back with the next tick's health flags."""
+            nonlocal table_audit
+            holders: Dict[Any, List[int]] = {("slot", j_): pgs for j_, pgs in slot_pages.items()}
+            for p_ in preempted:
+                holders[("parked", p_.slot.req.rid)] = p_.kept
+            if alloc is not None:
+                check_allocator(alloc, holders)
+                kv = find_paged_kv(cache)
+                if kv is not None:
+                    # live decode slots pin their len (plen + emitted - 1 rows
+                    # written); a lane only bounds it from below: the mixed
+                    # step's masked junk appends may run it past the cursor
+                    exact = {j_: s_.plen + s_.emitted - 1 for j_, s_ in enumerate(slots)
+                             if s_ is not None}
+                    mins = {p_.slot: p_.next_start for p_ in lanes}
+                    table_audit = (
+                        torch.cat([kv["page_table"].reshape(-1), kv["len"]]),
+                        tuple(kv["page_table"].shape),
+                        {j_: list(pgs) for j_, pgs in slot_pages.items()},
+                        {p: alloc.refcount(p) for pgs in slot_pages.values() for p in pgs},
+                        exact, mins)
+            check_swap(swap, [(p_.slot.req.rid, p_.data) for p_ in preempted])
+            stats.audited_ticks += 1
+
         t0 = time.perf_counter()
         while pending or queue or lanes or preempted or any(s is not None for s in slots):
+            if on_tick is not None:
+                on_tick(t)
+            fault_hold = False
+
+            # -- arrivals, and the bounded queue's backpressure ---------------------
             while pending and pending[0].arrival <= t:
                 r = pending.popleft()
                 if time_ticks:
                     arrival_wall.setdefault(r.rid, time.perf_counter())
+                if self.max_queue is not None and len(queue) >= self.max_queue:
+                    victim = next((q for q in queue if q.rid not in cont_rids), None) \
+                        if self.reject_policy == "shed_oldest" else None
+                    if victim is not None:
+                        queue.remove(victim)
+                        print(f"serve: queue full ({self.max_queue}) — shedding oldest "
+                              f"waiting request {victim.rid} for arrival {r.rid}")
+                        terminal_queued(victim, "rejected")
+                        queue.append(r)
+                    else:
+                        print(f"serve: queue full ({self.max_queue}) — rejecting request "
+                              f"{r.rid}")
+                        terminal_queued(r, "rejected")
+                    continue
                 queue.append(r)
+
+            # -- cancels and deadlines, wherever a request is --------------------------
+            for rid_, tk_ in cancels.items():
+                if tk_ <= t:
+                    cancel_pending.add(rid_)
+            if self._cancel_box:
+                cancel_pending |= self._cancel_box
+                self._cancel_box = set()
+            if cancel_pending or has_deadlines:
+                for r in list(queue):
+                    st = reap_status(r)
+                    if st:
+                        queue.remove(r)
+                        cancel_pending.discard(r.rid)
+                        terminal_queued(r, st)
+                for p in list(lanes):
+                    st = reap_status(p.req)
+                    if st:
+                        cancel_pending.discard(p.req.rid)
+                        abort_lane(p, st)
+                for p in list(preempted):
+                    st = reap_status(p.slot.req)
+                    if st:
+                        cancel_pending.discard(p.slot.req.rid)
+                        terminal_parked(p, st)
+                for j in range(nslots):
+                    if slots[j] is not None:
+                        st = reap_status(slots[j].req)
+                        if st:
+                            cancel_pending.discard(slots[j].req.rid)
+                            finish(j, slots[j], False, status=st)
+
+            # -- forced preemptions: at the first tick >= the key with rid live;
+            #    an entry for a request that ended outside a slot is dropped ------
+            for rid_, tk_ in list(preempts.items()):
+                if tk_ > t:
+                    continue
+                if rid_ in results:
+                    preempts.pop(rid_)
+                    continue
+                for j in range(nslots):
+                    if slots[j] is not None and slots[j].req.rid == rid_:
+                        preempt(j)
+                        preempts.pop(rid_)
+                        break
 
             # parked requests get the first claim on freed pages, then live
             # slots grow into what remains, before a new admission
@@ -825,6 +1116,10 @@ class Scheduler:
                 while queue:
                     free = [j for j in range(nslots) if slots[j] is None]
                     if not free:
+                        break
+                    if fault is not None and fault.deny_admission(t):
+                        stats.fault_events += 1
+                        fault_hold = True
                         break
                     j, r = free[0], queue.popleft()
                     if any(s is not None for s in slots):
@@ -847,6 +1142,11 @@ class Scheduler:
             if not any(s is not None for s in slots) and chunk_job is None \
                     and not (self.ragged and lanes):
                 if not lanes:
+                    if fault_hold:
+                        # an injected denial idled this tick: a passing stall,
+                        # not a deadlock (fault windows are finite)
+                        t += 1
+                        continue
                     # nothing live will ever free a page again: a blocked
                     # resume or a page-stalled head request fails, one at a time
                     if preempted:
@@ -855,7 +1155,7 @@ class Scheduler:
                               f"{preempted[0].slot.req.rid} cannot resume (pool pages pinned "
                               f"by parked shared prefixes, nothing live to free any); failing "
                               f"it to unblock (raise kv_pool_pages to avoid this)")
-                        fail_parked(preempted[0])
+                        terminal_parked(preempted[0], "failed")
                         continue
                     if queue:
                         r = queue.popleft()
@@ -864,7 +1164,7 @@ class Scheduler:
                               f"live yet its admission plan still cannot be served from the "
                               f"pool ({eng.kv_num_pages} pages); failing it (raise "
                               f"kv_pool_pages or shrink the request)")
-                        fail_queued(r)
+                        terminal_queued(r, "failed")
                         continue
                     if pending:                 # idle gap: jump to the next arrival
                         t = max(t + 1, pending[0].arrival)
@@ -876,7 +1176,16 @@ class Scheduler:
             if active != active_host:       # rebuild the device mask only on change
                 active_host = active
                 active_dev = torch.tensor(active, dtype=torch.bool, device=dev)
-            admitted = []                   # (slot, request, first) on last chunks
+            poison, tok_host, ok_host = zero_poison, None, None
+            if self.audit and poison_plan and t >= poison_plan[0][0] \
+                    and slots[poison_plan[0][1]] is not None:
+                # a NaN event poisons its slot's row at the first tick >= its
+                # key at which the slot is live; zeros are an exact no-op
+                _, sj = poison_plan.popleft()
+                stats.fault_events += 1
+                vec = np.zeros(zero_poison.shape[0], np.float32)
+                vec[sj] = np.nan
+                poison = host_tensor(vec, dev)
             if self.ragged:
                 # one forward: B decode rows + L lanes x C chunk rows; idle
                 # slots and lane tails are inert rows
@@ -888,40 +1197,47 @@ class Scheduler:
                                                                          hi, alloc))
                         if alloc is not None else None))
                 stats.stalled_chunks += rt.stalled  # decode never waits
-                tok, firsts, cache = self._masked_ragged(tok, cache, gen, active_dev, rt)
-                done = []
-                for li, clen in rt.ran:
-                    p = lanes[li]
-                    stats.prefill_chunks += 1
-                    p.next_start += clen
-                    if p.next_start >= int(p.prompt.shape[0]):
-                        first = firsts[li:li + 1]
-                        tok = self._set_tok(tok, first, p.slot)
-                        admitted.append((p.slot, p.req, first))
-                        done.append(li)
-                for li in reversed(done):
-                    lanes.pop(li)
+                tok, firsts, flags, cache = self._masked_ragged(tok, cache, gen, active_dev,
+                                                                rt, poison)
+                ran = rt.ran
             elif chunk_job is not None:
                 start = chunk_job.next_start
-                plen = int(chunk_job.prompt.shape[0])
-                clen = min(C, plen - start)
+                clen = min(C, int(chunk_job.prompt.shape[0]) - start)
                 ctok = np.full((1, C), self.pad_id, np.int32)
                 ctok[0, :clen] = chunk_job.prompt[start:start + clen]
                 if alloc is not None:
                     # the chunk writes C (padded) rows: none through a shared page
                     planner.assert_private_write(slot_pages[chunk_job.slot], start, start + C,
                                                  alloc)
-                tok, first, cache = self._masked_mixed(
-                    tok, cache, gen, active_dev, torch.from_numpy(ctok).to(dev),
-                    chunk_job.slot, start, clen)
-                stats.prefill_chunks += 1
-                chunk_job.next_start = start + clen
-                if chunk_job.next_start >= plen:
-                    tok = self._set_tok(tok, first, chunk_job.slot)
-                    admitted.append((chunk_job.slot, chunk_job.req, first))
-                    lanes.pop(0)
+                tok, first, flags, cache = self._masked_mixed(
+                    tok, cache, gen, active_dev, torch.from_numpy(ctok).to(dev), chunk_job.slot,
+                    start, clen, poison)
+                # lane 0 and flag row B: the ragged tick's layout with one lane
+                ran, firsts = [(0, clen)], first
             else:
-                tok, cache = self._masked_decode(tok, cache, gen, active_dev)
+                tok, flags, cache = self._masked_decode(tok, cache, gen, active_dev, poison)
+                ran = []
+            if self.audit:
+                tok_host, ok_host = read_back(flags)
+            admitted = []                   # (slot, request, first) on last chunks
+            done = []
+            for li, clen in ran:
+                p = lanes[li]
+                stats.prefill_chunks += 1
+                p.next_start += clen
+                if p.next_start >= int(p.prompt.shape[0]):
+                    done.append(li)
+                    if ok_host is not None and not ok_host[nslots + li]:
+                        # non-finite first-token logits: the lane's slot state
+                        # is torn down instead of admitted
+                        stats.nan_evictions += 1
+                        fail_slot_state(p.slot, p.req, "failed")
+                        continue
+                    first = firsts[li:li + 1]
+                    tok = self._set_tok(tok, first, p.slot)
+                    admitted.append((p.slot, p.req, first))
+            for li in reversed(done):
+                lanes.pop(li)
             if time_ticks:
                 _sync(dev)
             t += 1
@@ -947,12 +1263,20 @@ class Scheduler:
                     _acc(p_.kept, len(p_.kept) * ps)
                 stats.page_util_sum += sum(fill.values()) / (alloc.pages_in_use * ps)
                 stats.page_util_ticks += 1
-            tok_host = tok.cpu().numpy() if use_eos else None
+            if use_eos and not self.audit:
+                tok_host = tok.cpu().numpy()
             if not use_eos:
                 step_cols.append(tok)
             for j in range(nslots):
                 slot = slots[j]
                 if slot is None:
+                    continue
+                if ok_host is not None and not ok_host[j]:
+                    # non-finite logits in row j: the slot ends "failed" and
+                    # its token is never recorded (the harvest stops at the
+                    # last healthy one)
+                    stats.nan_evictions += 1
+                    finish(j, slot, False, status="failed")
                     continue
                 slot.emitted += 1
                 stats.tokens_out += 1
@@ -967,6 +1291,11 @@ class Scheduler:
                     finish(j, slot, hit_eos)
             for a in admitted:
                 admit_live(*a)
+            if self.audit:
+                audit_tick()
+        if table_audit is not None:         # the last tick's table snapshot
+            stats.audit_reads += 1
+            audit_tables(table_audit, table_audit[0].cpu().numpy())
         _sync(dev)
         stats.steady_s = time.perf_counter() - t0
 

@@ -12,7 +12,7 @@ a cache node or a model of those kinds raises.  A paged cache node keeps one tab
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 from repro_torch.nn.attention import (copy_kv_page, gather_pool_pages, reset_kv_slot,
                                       scatter_pool_pages, set_kv_slot_len, set_page_entry,
@@ -50,6 +50,20 @@ def _walk_paged(cache, fn):
             raise ValueError("a page-table event on a dense KV cache")
         return fn(kv)
     return _walk(cache, None, op)
+
+
+def find_paged_kv(cache):
+    """The first paged KV node of ``cache`` (its table and ``len`` are every
+    layer's), or None for a dense cache: what the auditor reads."""
+    if _is_kv(cache):
+        return cache if "page_table" in cache else None
+    nodes = cache.values() if isinstance(cache, dict) else \
+        cache if isinstance(cache, (list, tuple)) else ()
+    for node in nodes:
+        found = find_paged_kv(node)
+        if found is not None:
+            return found
+    return None
 
 
 def admit_cache_slot(big_cache, small_cache, slot: int, length: int):
@@ -137,6 +151,10 @@ class SlotState:
         """Install a batch-1 prefilled state into ``slot``."""
         return admit_cache_slot(big_cache, small_cache, slot, length)
 
+    def audit_check(self, cache, live: Dict[int, int]) -> None:
+        """Assert this kind's device invariants (``serve/audit.py``).  Dense
+        KV has none beyond what the scheduler's auditor checks."""
+
 
 class DenseKVState(SlotState):
     """Dense per-slot K/V slabs with a per-slot ``len`` vector."""
@@ -158,6 +176,11 @@ class PagedKVState(DenseKVState):
     def resume_unpack(self, cache, pages, data):
         """Scatter swapped page data back into pool pages ``pages``."""
         return scatter_cache_pages(cache, pages, data)
+
+    def audit_check(self, cache, live: Dict[int, int]) -> None:
+        """The page-table invariants run through ``serve/audit.py``
+        ``check_page_tables``, which the scheduler feeds with its allocator's
+        state; nothing more here."""
 
 
 def adapters_for(model, *, paged: bool = False) -> Tuple[Any, ...]:

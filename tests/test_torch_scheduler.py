@@ -18,7 +18,7 @@ from repro.serve.slot_state import evict_cache_slot as j_evict
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as t_launch
 from repro_torch.models.registry import get_config
-from repro_torch.serve import Request, Scheduler, ServeEngine
+from repro_torch.serve import FaultPlan, Request, Scheduler, ServeEngine
 from repro_torch.serve import slot_state
 
 torch.set_num_threads(2)
@@ -265,32 +265,43 @@ def test_max_new_one_finishes_at_admission_and_frees_the_slot(engines, j_run, ch
 @pytest.mark.parametrize("kw,err,where", [
     ({"ragged": True}, ValueError, "requires chunked admission"),
     ({"prefill_lanes": 2}, ValueError, "requires ragged=True"),
-    ({"reject_policy": "shed"}, NotImplementedError, "hardened serving"),
+    ({"reject_policy": "shed"}, ValueError, "reject_policy must be"),
     ({"prefill_lanes": 3}, ValueError, "requires ragged=True"),
-    ({"max_queue": 4}, NotImplementedError, "hardened serving"),
-    ({"audit": True}, NotImplementedError, "hardened serving")])
+    ({"max_queue": 0}, ValueError, "max_queue must be >= 1"),
+    ({"audit": True}, None, "runs")])
 def test_scheduler_options_of_later_slices_raise(engines, kw, err, where):
-    """Options of later slices name their slice; the ragged tick's, ported,
-    raise the reference's validation errors when misused."""
+    """Misused options raise the reference's validation errors; hardened
+    serving's ``audit=True`` serves (an audited tick per step)."""
     _, te = engines()
-    with pytest.raises(err, match=where):
-        te.scheduler(**kw)
+    if err is None:
+        res, stats = te.scheduler(**kw).run([Request(0, np.arange(4), 3)], warmup=False)
+        assert res[0].status == "ok" and stats.audited_ticks == stats.decode_steps > 0
+    else:
+        with pytest.raises(err, match=where):
+            te.scheduler(**kw)
     te.scheduler(**{k: v for k, v in (("ragged", False), ("prefill_lanes", 1))})
     te.scheduler(chunk_size=4, ragged=True, prefill_lanes=3)
     with pytest.raises(TypeError, match="unexpected keyword"):
         Scheduler(te, chunk=4)
 
 
-@pytest.mark.parametrize("run_kw,req_kw,where", [
-    ({"cancels": {0: 1}}, {}, "hardened serving"),
-    ({"fault_plan": object()}, {}, "hardened serving"),
-    ({"on_tick": print}, {}, "hardened serving"),
-    ({}, {"deadline_steps": 3}, "hardened serving"),
-    ({}, {"enc": np.zeros((2, 4))}, "other architectures")])
-def test_run_inputs_of_later_slices_raise(engines, run_kw, req_kw, where):
+@pytest.mark.parametrize("run_kw,req_kw,err,where", [
+    ({"cancels": {0: 2}}, {}, None, "cancelled"),
+    ({"fault_plan": FaultPlan(nan={1: 0})}, {}, ValueError, "requires Scheduler"),
+    ({"on_tick": lambda t: None}, {}, None, "ok"),
+    ({}, {"deadline_steps": 0}, ValueError, "must be >= 1"),
+    ({}, {"enc": np.zeros((2, 4))}, NotImplementedError, "other architectures")])
+def test_run_inputs_of_later_slices_raise(engines, run_kw, req_kw, err, where):
+    """Hardened serving's inputs run (``cancels``, ``on_tick``) or raise the
+    reference's validation errors; EncDec's still name their slice."""
     _, te = engines()
-    with pytest.raises(NotImplementedError, match=where):
-        te.scheduler().run([Request(0, np.arange(4), 2, **req_kw)], warmup=False, **run_kw)
+    reqs = [Request(0, np.arange(4), 6, **req_kw)]
+    if err is None:
+        res, _ = te.scheduler().run(reqs, warmup=False, **run_kw)
+        assert res[0].status == where
+    else:
+        with pytest.raises(err, match=where):
+            te.scheduler().run(reqs, warmup=False, **run_kw)
 
 
 def test_time_ticks_records_wall_latency(engines):
