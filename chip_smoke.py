@@ -46,7 +46,14 @@ Phases, each printed as it completes; any failure exits non-zero:
      scales, M = 8, 32, 72, 144 and 1024, plus an odd K with a partial last
      block, and held (untimed) at scales 2^-n with n in 13-20 and block
      sizes 4, 10 and 16; ``qconv1d`` also past one block's shared memory
-     (C=1024 int16 at K=7, and an int32 wrap across channel chunks);
+     (C=1024 int16 at K=7, and an int32 wrap across channel chunks); at the
+     dense-family archs' shapes, ``wq_matmul`` at glm4-9b's projections
+     (M = 8 and 32; K = 13696 = 107 x 128 for the down projection) and
+     qwen2.5-14b's untied head (N = 152064), and the five attention kernels
+     at D=128 and G = 2, 5, 12, 16 (internvl, qwen, command-r, glm4) over
+     post-norm codes on glm4-9b's served cache (B=8, S=160, C=32 at start
+     96, the ragged tick's 8 decode rows and 2 lanes), timed beside their
+     plain versions and library calls;
   4. smollm-135m at full width (random weights from a seeded generator,
      int8 weights and int8 KV cache): ``ServeEngine.generate`` (8 slots,
      prompt 128, 32 new tokens), ``run_restart_batching``, and the
@@ -108,7 +115,17 @@ Phases, each printed as it completes; any failure exits non-zero:
      at full width through ``launch.train.main`` (AdamW, B=8, S=128, float
      and ``--qat``: the loss falls; a preempted run resumes exactly; tokens/s,
      a profiled step, syncs, peak memory); the card's gradient held to the
-     CPU's at smollm-135m-smoke and ResNet filters 12, float and QAT.
+     CPU's at smollm-135m-smoke and ResNet filters 12, float and QAT;
+  11. ``[archs]`` (``archs_end_to_end``): glm4-9b at its published width and
+     depth (8.78 B parameters, seeded), int8 weights and KV, served through
+     ``launch.serve.main`` (``--policy chunked --paged``, 8 requests of 128 +
+     32 tokens, 8 slots): every request ``ok``, launch counts exact, peak
+     memory printed; on the same weights a lockstep prefill and decode step
+     and a chunked prefill held to the plain versions, a decode step
+     profiled; then qwen2.5-14b (8 of 48 layers), command-r-plus-104b (2 of
+     64) and internvl2-2b (whole, one forward over its 256-position stub
+     prefix) at full width, each held to the plain versions with launch
+     counts exact, each freed before the next.
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -512,52 +529,54 @@ def layer_sum(rows, keys=("ms", "plain_ms", "library_ms", "bound_ms", "f32_bound
     return layer
 
 
+def wq_case(torch, ref, wq_cuda, gen, m, label, k, n, per_layer=1):
+    """One ``wq_matmul`` shape against its plain version on per-channel
+    scales, timed (kernel, plain, ``torch.matmul`` on the dequantized
+    weight) over weight copies rotated past the L2; the row."""
+    from repro_torch.kernels.wq_matmul import plan
+
+    copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (k * n))))
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    ws = [torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.int8) for _ in range(copies)]
+    scale = torch.exp2(-torch.randint(5, 10, (n,), generator=gen, device="cuda")
+                       .to(torch.float32))
+    want = ref.wq_matmul_ref(x, ws[0], scale)
+    tol = WQ_RTOL * want.abs().max().item()
+    got = wq_cuda(x, ws[0], scale)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(err <= tol, f"wq_matmul M={m} {k}x{n}: max err {err} > {tol}")
+    if label == "wq/wo" and m == 72:   # one scale for the whole tensor
+        one = scale[:1].clone()
+        e1 = (wq_cuda(x, ws[0], one) - ref.wq_matmul_ref(x, ws[0], one)).abs().max()
+        check(e1.item() <= WQ_RTOL * ref.wq_matmul_ref(x, ws[0], one).abs().max().item(),
+              f"wq_matmul M={m} {k}x{n} per-tensor scale: max err {e1.item()}")
+    del want, got
+    iters = max(len(ws), 64)
+    ms = graph_ms(torch, [lambda w=w: wq_cuda(x, w, scale) for w in ws], iters)
+    nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+    (b_ms, b_by), (f32_ms, _) = gemm_bounds(m, k, n, nbytes)
+    deq = [w.to(torch.float32) * scale for w in
+           ws[:max(1, min(len(ws), math.ceil(L2_ROTATE_BYTES / (4 * k * n))))]]
+    plain = graph_ms(torch, [lambda w=w: ref.wq_matmul_ref(x, w, scale) for w in ws], iters)
+    lib = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in deq], iters)
+    print(f"[kernel] wq_matmul M={m:4d} K={k:4d} N={n:4d} ({label}): "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us "
+          f"({plan(m, k, n)}) | plain {plain * 1e3:.2f} us | torch.matmul on "
+          f"dequantized {lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by}; "
+          f"f32 CUDA cores {f32_ms * 1e3:.2f})", flush=True)
+    return dict(m=m, shape=label, k=k, n=n, err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms, per_layer=per_layer)
+
+
 def check_wq_matmul(torch, ref, wq_cuda, gen):
     """Kernel vs plain at the four projection shapes, per-channel scales
     (plus one per-tensor scale), M = 8 (decode), 32 (a mixed tick's chunk),
     72 and 144 (the ragged tick's T at B=8, L=2, C=32 and at B=16, L=4,
     C=32) and 8*128."""
-    from repro_torch.kernels.wq_matmul import plan
-
-    rows, worst = [], 0.0
-    for m in (8, 32, 72, 144, 8 * 128):
-        for label, (k, n) in SERVE_SHAPES.items():
-            copies = max(1, min(1200, math.ceil(L2_ROTATE_BYTES / (k * n))))
-            x = torch.randn(m, k, generator=gen, device="cuda")
-            ws = [torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
-                                dtype=torch.int32).to(torch.int8) for _ in range(copies)]
-            scale = torch.exp2(-torch.randint(5, 10, (n,), generator=gen, device="cuda")
-                               .to(torch.float32))
-            want = ref.wq_matmul_ref(x, ws[0], scale)
-            tol = WQ_RTOL * want.abs().max().item()
-            got = wq_cuda(x, ws[0], scale)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            check(err <= tol, f"wq_matmul M={m} {k}x{n}: max err {err} > {tol}")
-            worst = max(worst, err)
-            if label == "wq/wo" and m == 72:   # one scale for the whole tensor
-                one = scale[:1].clone()
-                err = (wq_cuda(x, ws[0], one) - ref.wq_matmul_ref(x, ws[0], one)).abs().max()
-                check(err.item() <= WQ_RTOL * ref.wq_matmul_ref(x, ws[0], one).abs().max().item(),
-                      f"wq_matmul M={m} {k}x{n} per-tensor scale: max err {err.item()}")
-            iters = max(len(ws), 64)
-            ms = graph_ms(torch, [lambda w=w: wq_cuda(x, w, scale) for w in ws], iters)
-            nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
-            (b_ms, b_by), (f32_ms, _) = gemm_bounds(m, k, n, nbytes)
-            deq = [w.to(torch.float32) * scale for w in
-                   ws[:max(1, min(len(ws), math.ceil(L2_ROTATE_BYTES / (4 * k * n))))]]
-            plain = graph_ms(torch, [lambda w=w: ref.wq_matmul_ref(x, w, scale) for w in ws],
-                             iters)
-            lib = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in deq], iters)
-            rows.append(dict(m=m, shape=label, k=k, n=n, err=err, ms=ms, plain_ms=plain,
-                             library_ms=lib, bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
-                             per_layer=CALLS_PER_LAYER[label]))
-            print(f"[kernel] wq_matmul M={m:4d} K={k:4d} N={n:4d} ({label}): "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms * 1e3:.2f} us "
-                  f"({plan(m, k, n)}) | plain {plain * 1e3:.2f} us | torch.matmul on "
-                  f"dequantized {lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by}; "
-                  f"f32 CUDA cores {f32_ms * 1e3:.2f})", flush=True)
-            del ws, deq
+    rows = [wq_case(torch, ref, wq_cuda, gen, m, label, k, n, CALLS_PER_LAYER[label])
+            for m in (8, 32, 72, 144, 8 * 128) for label, (k, n) in SERVE_SHAPES.items()]
     layers = {}
     for m in sorted({r["m"] for r in rows}):
         layers[m] = layer = layer_sum([r for r in rows if r["m"] == m])
@@ -567,7 +586,7 @@ def check_wq_matmul(torch, ref, wq_cuda, gen):
               f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us "
               f"({layer['bound_by']}; f32 CUDA cores {layer['f32_bound_ms'] * 1e3:.2f})",
               flush=True)
-    return rows, layers, worst
+    return rows, layers, max(r["err"] for r in rows)
 
 
 def check_wq4_matmul(torch, ref, wq4_cuda, gen):
@@ -1472,6 +1491,226 @@ def check_qragged_attn(torch, F, ref, kern, gen, page_size):
     return rows, worst
 
 
+# The dense-family archs' shapes (``[archs]``): their GQA groups at D=128,
+# (arch, Hq, Hkv), and glm4-9b's projections and qwen2.5-14b's untied head,
+# (label, K, N, calls per layer).
+ARCH_HEADS = (("internvl2-2b", 16, 8), ("qwen2.5-14b", 40, 8),
+              ("command-r-plus-104b", 96, 8), ("glm4-9b", 32, 2))
+ARCH_GEMMS = (("glm4 wq/wo", 4096, 4096, 2), ("glm4 wk/wv", 4096, 256, 2),
+              ("glm4 gate/in", 4096, 13696, 2), ("glm4 out", 13696, 4096, 1),
+              ("qwen lm_head", 5120, 152064, 0))
+ARCH_S, ARCH_B, ARCH_C, ARCH_START = 160, 8, 32, 96   # glm4-9b's served cache and chunk
+
+
+def check_arch_kernels(torch, F, ref, kern, gen, page_size):
+    """The kernels at the dense-family archs' shapes, against their plain
+    versions and timed beside them (kernel, plain, library, bound):
+    ``wq_matmul`` at glm4-9b's projections (M = 8 and 32) and qwen2.5-14b's
+    untied head (M = 8, N = 152064); the five attention kernels at D = 128
+    and G = 2, 5, 12, 16 (internvl, qwen, command-r, glm4), B = 8 over the
+    served cache (S = 160; paged at ``page_size`` through a fragmented
+    table), a C = 32 chunk at start 96, and the ragged tick (8 decode rows,
+    2 lanes x 32), all over post-norm codes.  Chunk and ragged writes must
+    equal the plain versions' bytes.  Returns the rows by kernel and the
+    worst error."""
+    from repro_torch.core import qformat
+    from repro_torch.kernels.attn_split import chunk_ranks, chunk_tiles, split_ranks
+
+    out = {"wq_matmul": [wq_case(torch, ref, kern.wq, gen, m, label, k, n, per)
+                         for label, k, n, per in ARCH_GEMMS for m in ((8,) if per == 0
+                                                                      else (8, 32))]}
+    glm = [r for r in out["wq_matmul"] if r["shape"].startswith("glm4")]
+    for m in (8, 32):
+        layer = layer_sum([r for r in glm if r["m"] == m])
+        out["wq_matmul"].append(dict(layer, m=m, shape="glm4 layer (7 calls)", err=0.0))
+        print(f"[kernel] wq_matmul one glm4-9b layer (7 calls, M={m}): kernel "
+              f"{layer['ms'] * 1e3:.2f} us | plain {layer['plain_ms'] * 1e3:.2f} us | library "
+              f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us "
+              f"({layer['bound_by']})", flush=True)
+    worst = max(r["err"] for r in out["wq_matmul"])
+
+    b, s, c, start, d, ps = ARCH_B, ARCH_S, ARCH_C, ARCH_START, 128, page_size
+    lens = [160, 1, 100, 159, 17, 64, 128, 129]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = sum(lens)
+    pairs = c * start + c * (c + 1) // 2
+    for name in ("qdecode_attn", "qpaged_decode_attn", "qchunk_attn", "qpaged_chunk_attn",
+                 "qragged_attn"):
+        out[name] = []
+
+    def add(name, arch, g, hq, hkv, ranks, err, calls, plain_calls, lib_calls, bnd):
+        iters = max(len(calls), 64)
+        ms = graph_ms(torch, calls, iters)
+        plain = graph_ms(torch, plain_calls, iters)
+        lib = graph_ms(torch, lib_calls, iters)
+        b_ms, b_by = bnd[:2]
+        out[name].append(dict(arch=arch, g=g, hq=hq, hkv=hkv, d=d, s=s, ranks=ranks, err=err,
+                              ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                              bound_by=b_by))
+        print(f"[kernel] {name} {arch}: B={b} Hq={hq} Hkv={hkv} D={d} G={g} S={s} R={ranks}: "
+              f"max_abs_err {err:.3e} (tol {ATTN_ATOL:.0e}) | kernel {ms * 1e3:.2f} us | "
+              f"plain {plain * 1e3:.2f} us | library {lib * 1e3:.2f} us | bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+
+    for arch, hq, hkv in ARCH_HEADS:
+        g = hq // hkv
+        # -- the dense decode, over post-norm codes ------------------------------
+        q = torch.randn(b, hq, d, generator=gen, device="cuda")
+        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * b * s * hkv * d)))
+        caches = [tuple(pool_codes(torch, gen, (b, s, hkv, d)) for _ in range(2))
+                  for _ in range(copies)]
+        err = max_err(kern.qd(q, *caches[0], 3, 3, kv_len),
+                      ref.qdecode_attn_ref(q, *caches[0], 3, 3, kv_len))
+        check(err <= ATTN_ATOL, f"qdecode_attn {arch}: max err {err} > {ATTN_ATOL}")
+        mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        deq = [tuple(x.to(torch.float32).mul(0.125).repeat_interleave(g, dim=2)
+                     .permute(0, 2, 1, 3).contiguous() for x in kv) for kv in caches[:4]]
+        add("qdecode_attn", arch, g, hq, hkv, split_ranks(s, b, hkv, d), err,
+            [lambda kv=kv: kern.qd(q, kv[0], kv[1], 3, 3, kv_len) for kv in caches],
+            [lambda kv=kv: ref.qdecode_attn_ref(q, kv[0], kv[1], 3, 3, kv_len)
+             for kv in caches],
+            [lambda kv=kv: F.scaled_dot_product_attention(qs, kv[0], kv[1], attn_mask=mask)
+             for kv in deq],
+            bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * b, 4.0 * live * hq * d))
+        del deq
+
+        # -- the dense chunk into slot 5 at start 96 ------------------------------
+        slot = 5
+        qc = torch.randn(c, hq, d, generator=gen, device="cuda")
+        kc, vc = (1.5 * torch.randn(c, hkv, d, generator=gen, device="cuda") for _ in range(2))
+        kc.view(-1)[::31] = 20.0
+        vc.view(-1)[::37] = -20.0
+        kk, vk, kp, vp = (x.clone() for x in (*caches[0], *caches[0]))
+        err = max_err(kern.qc(qc, kc, vc, kk, vk, 3, 3, slot, start),
+                      ref.qchunk_attn_ref(qc, kc, vc, kp, vp, 3, 3, slot, start))
+        check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp),
+              f"qchunk_attn {arch}: max err {err} (tol {ATTN_ATOL}) or caches differ")
+        end = start + c
+        cmask = torch.arange(end, device="cuda")[None, :] <= \
+            start + torch.arange(c, device="cuda")[:, None]
+        qcs = qc.permute(1, 0, 2)[None]
+        cdeq = [tuple(qformat.dequantize(x[slot, :end], 3).repeat_interleave(g, dim=1)
+                      .permute(1, 0, 2)[None].contiguous() for x in (kp, vp)) for _ in range(4)]
+
+        def chunk_lib(kv, kq=kk, vq=vk):
+            kq[slot, start:end] = qformat.quantize(kc, 3, 8)
+            vq[slot, start:end] = qformat.quantize(vc, 3, 8)
+            return F.scaled_dot_product_attention(qcs, kv[0], kv[1], attn_mask=cmask)
+
+        calls = [(kv, j) for kv in caches for j in range(b)]
+        add("qchunk_attn", arch, g, hq, hkv, chunk_ranks(s, chunk_tiles(c, g)[0], hkv, d), err,
+            [lambda kv=kv, j=j: kern.qc(qc, kc, vc, kv[0], kv[1], 3, 3, j, start)
+             for kv, j in calls],
+            [lambda kv=kv, j=j: ref.qchunk_attn_ref(qc, kc, vc, kv[0], kv[1], 3, 3, j, start)
+             for kv, j in calls[:16]],
+            [lambda kv=kv: chunk_lib(kv) for kv in cdeq],
+            chunk_bounds(2 * start * hkv * d + 2 * c * hkv * d
+                         + 4 * (2 * c * hq * d + 2 * c * hkv * d), pairs, hq, d))
+        del caches, cdeq
+
+        # -- the paged decode and chunk through a fragmented table ---------------
+        table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
+        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * n_pool * ps * hkv * d)))
+        pools = [tuple(pool_codes(torch, gen, (n_pool, ps, hkv, d)) for _ in range(2))
+                 for _ in range(copies)]
+        err = max_err(kern.qpd(q, *pools[0], 3, 3, table, kv_len),
+                      ref.qpaged_decode_attn_ref(q, *pools[0], 3, 3, table, kv_len))
+        check(err <= ATTN_ATOL, f"qpaged_decode_attn {arch}: max err {err} > {ATTN_ATOL}")
+        idx = table.clamp(min=0).reshape(-1).to(torch.int64)
+        pmask = (torch.arange(mp * ps, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+
+        def paged_lib(kv):
+            kk_, vv_ = (x.index_select(0, idx).reshape(b, mp * ps, hkv, d).to(torch.float32)
+                        .mul(0.125).repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
+            return F.scaled_dot_product_attention(qs, kk_, vv_, attn_mask=pmask)
+
+        pages = sum(-(-n // ps) for n in lens)
+        add("qpaged_decode_attn", arch, g, hq, hkv, split_ranks(mp * ps, b, hkv, d), err,
+            [lambda kv=kv: kern.qpd(q, kv[0], kv[1], 3, 3, table, kv_len) for kv in pools],
+            [lambda kv=kv: ref.qpaged_decode_attn_ref(q, kv[0], kv[1], 3, 3, table, kv_len)
+             for kv in pools],
+            [lambda kv=kv: paged_lib(kv) for kv in pools[:4]],
+            bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * pages + 4 * b,
+                  4.0 * live * hq * d))
+        prow = table[1].contiguous()                   # slot 1: a shared two-page prefix
+        kk, vk, kp, vp = (x.clone() for x in (*pools[0], *pools[0]))
+        err = max_err(kern.qpc(qc, kc, vc, kk, vk, 3, 3, prow, start),
+                      ref.qpaged_chunk_attn_ref(qc, kc, vc, kp, vp, 3, 3, prow, start))
+        check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp),
+              f"qpaged_chunk_attn {arch}: max err {err} (tol {ATTN_ATOL}) or pools differ")
+        rows_w = torch.tensor([int(prow[(start + i) // ps]) * ps + (start + i) % ps
+                               for i in range(c)], dtype=torch.int64, device="cuda")
+        ridx = prow.clamp(min=0).to(torch.int64)
+        rmask = torch.arange(mp * ps, device="cuda")[None, :] <= \
+            start + torch.arange(c, device="cuda")[:, None]
+
+        def paged_chunk_lib(kv):
+            kv[0].view(-1, hkv, d)[rows_w] = qformat.quantize(kc, 3, 8)
+            kv[1].view(-1, hkv, d)[rows_w] = qformat.quantize(vc, 3, 8)
+            kk_, vv_ = (x.index_select(0, ridx).reshape(mp * ps, hkv, d).to(torch.float32)
+                        .mul(0.125).repeat_interleave(g, dim=1).permute(1, 0, 2)[None]
+                        for x in kv)
+            return F.scaled_dot_product_attention(qcs, kk_, vv_, attn_mask=rmask)
+
+        add("qpaged_chunk_attn", arch, g, hq, hkv,
+            chunk_ranks(mp * ps, chunk_tiles(c, g)[0], hkv, d), err,
+            [lambda kv=kv: kern.qpc(qc, kc, vc, kv[0], kv[1], 3, 3, prow, start)
+             for kv in pools],
+            [lambda kv=kv: ref.qpaged_chunk_attn_ref(qc, kc, vc, kv[0], kv[1], 3, 3, prow,
+                                                     start) for kv in pools[:4]],
+            [lambda kv=kv: paged_chunk_lib(kv) for kv in pools[:4]],
+            chunk_bounds(2 * start * hkv * d + 2 * c * hkv * d
+                         + 4 * (2 * c * hq * d + 2 * c * hkv * d) + 4 * mp, pairs, hq, d))
+
+        # -- the ragged tick: 8 decode rows (the lane slots' inert), 2 lanes ------
+        lane_slots = (2, 6)
+        slots = list(range(b)) + [lane_slots[0]] * c + [lane_slots[1]] * c
+        pos = [n - 1 for n in lens] + list(range(start, start + c)) * 2
+        for j in lane_slots:
+            pos[j] = -1
+        t = len(pos)
+        sl, po = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (slots, pos))
+        qt = torch.randn(t, hq, d, generator=gen, device="cuda")
+        kn, vn = (1.5 * torch.randn(t, hkv, d, generator=gen, device="cuda") for _ in range(2))
+        kk, vk, kp, vp = (x.clone() for x in (*pools[0], *pools[0]))
+        got = kern.qr(qt, kn, vn, kk, vk, 3, 3, table, sl, po)
+        want = ref.qragged_attn_ref(qt, kn, vn, kp, vp, 3, 3, table, sl, po)
+        valid = po >= 0
+        err = max_err(got[valid], want[valid])
+        check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp)
+              and not bool(got[~valid].any()),
+              f"qragged_attn {arch}: max err {err} (tol {ATTN_ATOL}), pools or inert rows differ")
+        tab = table.cpu().tolist()
+        wrote = [(u, tab[a][p // ps] * ps + p % ps) for u, (a, p) in enumerate(zip(slots, pos))
+                 if p >= 0]
+        w_tok = torch.tensor([u for u, _ in wrote], dtype=torch.int64, device="cuda")
+        w_row = torch.tensor([r for _, r in wrote], dtype=torch.int64, device="cuda")
+        gidx = table[sl.to(torch.int64)].clamp(min=0).to(torch.int64)
+        vis = torch.arange(mp * ps, device="cuda")[None, :] <= po[:, None]
+        vis[:, 0] |= ~vis.any(dim=1)     # inert rows attend row 0: their output is unused
+        qq, gmask = qt[:, :, None, :], vis[:, None, None, :]
+        kq, vq = qformat.quantize(kn[w_tok], 3, 8), qformat.quantize(vn[w_tok], 3, 8)
+
+        def ragged_lib(kv):
+            kv[0].view(-1, hkv, d)[w_row] = kq
+            kv[1].view(-1, hkv, d)[w_row] = vq
+            kk_, vv_ = (x[gidx].reshape(t, mp * ps, hkv, d).to(torch.float32).mul(0.125)
+                        .repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
+            return F.scaled_dot_product_attention(qq, kk_, vv_, attn_mask=gmask)
+
+        add("qragged_attn", arch, g, hq, hkv, split_ranks(mp * ps, t, hkv, d), err,
+            [lambda kv=kv: kern.qr(qt, kn, vn, kv[0], kv[1], 3, 3, table, sl, po)
+             for kv in pools],
+            [lambda kv=kv: ref.qragged_attn_ref(qt, kn, vn, kv[0], kv[1], 3, 3, table, sl, po)
+             for kv in pools[:4]],
+            [lambda kv=kv: ragged_lib(kv) for kv in pools[:4]],
+            ragged_tick_bound(tab, ps, slots, pos, hq, hkv, d))
+        del pools
+        worst = max([worst] + [r["err"] for rows in out.values() for r in rows])
+    return out, worst
+
+
 def integer_forward(torch, label, model, params, x, pol):
     """Calibrate ResNetv1-6's ``params`` under ``pol`` on 4 batches of 32 of
     ``x``, integerize, quantize ``x`` and run the full-integer forward over
@@ -1934,11 +2173,11 @@ def logits_vs_plain(torch, label, engine, prompts, atol=LOGIT_ATOL) -> None:
               f"rows with a clear top-2 margin", flush=True)
 
 
-def kv_code_flips(torch, label, engine, prompts) -> None:
+def kv_code_flips(torch, label, engine, prompts):
     """One prefill through the kernels and one through the plain versions:
     the logit gap and how many int8 KV codes of the two caches differ (a
     value at a truncation edge lands on either side as the f32 sums' order
-    changes)."""
+    changes).  Returns the kernels' prefill (logits, cache)."""
     from repro_torch.kernels import ops
 
     def prefill():
@@ -1957,6 +2196,7 @@ def kv_code_flips(torch, label, engine, prompts) -> None:
     print(f"[e2e] {label} prefill: logits max_abs_err vs plain {(kl - pl).abs().max().item():.3e} "
           f"(not held here); int8 KV codes differing from the plain versions' cache "
           f"{flips} of {total}", flush=True)
+    return kl, kc
 
 
 def greedy_check(torch, label, got, want, reqs, engine, vocab) -> None:
@@ -2547,7 +2787,8 @@ def hardened_end_to_end(torch, card, env):
         check(counts == want, f"{label} launch counts {counts} != expected {want}")
         check(sorted(res) == sorted(r.rid for r in reqs), f"{label}: lost requests")
         if sched.audit:
-            check(st.audited_ticks == ticks and st.audit_reads == ticks + 1,
+            # paged: the flags mid-tick and the table and lens at its end
+            check(st.audited_ticks == ticks and st.audit_reads == 2 * ticks,
                   f"{label}: audited {st.audited_ticks} of {ticks} ticks in "
                   f"{st.audit_reads} read-backs")
         for k, v in counts.items():
@@ -2660,27 +2901,27 @@ def hardened_end_to_end(torch, card, env):
         return torch.cat([kv["page_table"].reshape(-1), kv["len"]])
 
     def audited_decode_tick(st):
-        # the audited scheduler's tick: the step with its poison, one read-back
-        # of the flags and the last snapshot, a new snapshot
-        c, t, snap = st
+        # the audited scheduler's tick: the step with its poison, a read-back of
+        # the flags, then one of the table and lens at the tick's end
+        c, t = st
         nxt, ok, c = decode_h(params, t, c, None, zero)
-        torch.cat([ok.to(torch.int32), snap]).cpu()
-        return c, nxt, snapshot(c)
+        ok.to(torch.int32).cpu()
+        snapshot(c).cpu()
+        return c, nxt
 
     def audited_mixed_tick(st):
-        c, t, snap = st
+        c, t = st
         nxt, _, dok, fok, c = mixed_h(params, t, c, None, pt.ctok, 3, 96, env.chunk, zero)
-        torch.cat([dok.to(torch.int32), fok.to(torch.int32), snap]).cpu()
-        return c, nxt, snapshot(c)
+        torch.cat([dok.to(torch.int32), fok.to(torch.int32)]).cpu()
+        snapshot(c).cpu()
+        return c, nxt
 
     # 4 steps a window, not 8: these profiles took half the phase's time
-    c0 = pt.copy(pt.cache)
     profile_steps(torch, f"audited paged decode tick (B={slots}, ps={pt.engine.page_size})",
-                  audited_decode_tick, (c0, pt.tok, snapshot(c0)), card, steps=4)
-    c0 = pt.copy(pt.cache)
+                  audited_decode_tick, (pt.copy(pt.cache), pt.tok), card, steps=4)
     profile_steps(torch, f"audited paged mixed tick (B={slots}, C={env.chunk}, start 96, "
                          f"ps={pt.engine.page_size})", audited_mixed_tick,
-                  (c0, pt.tok, snapshot(c0)), card, steps=4)
+                  (pt.copy(pt.cache), pt.tok), card, steps=4)
     marks.append(("profiles", time.perf_counter()))
     print("[time] hardened phase by part: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}s" for i, (name, t) in enumerate(marks[1:])), flush=True)
@@ -3108,6 +3349,336 @@ def subint8_end_to_end(torch, card, env):
     return launches
 
 
+ARCH_CUTS = (("qwen2.5-14b", 8), ("command-r-plus-104b", 2), ("internvl2-2b", None))
+GIB = float(1 << 30)
+
+
+def lockstep_counts(cfg, n_layers, forwards, decodes):
+    """The kernel counts of ``forwards`` lockstep forwards over a dense int8
+    cache, ``decodes`` of them decode steps: 7 ``wq_matmul`` a layer, one
+    more for an untied head, one ``qdecode_attn`` a layer per decode step."""
+    from repro_torch.kernels import ops
+
+    per = 7 * n_layers + (0 if cfg.tie_embeddings else 1)
+    return dict({k: 0 for k in ops.launch_counts()}, wq_matmul=per * forwards,
+                qdecode_attn=n_layers * decodes)
+
+
+def copy_cache(c):
+    """A copy of a serving cache's K/V and lengths (tensors cloned)."""
+    return {"body": [{"kv": {k: v.clone() if hasattr(v, "clone") else v
+                             for k, v in n["kv"].items()}} for n in c["body"]]}
+
+
+def chunk_vs_plain(torch, label, engine, chunk, start, misses, slot=3):
+    """One chunked prefill (``chunk`` tokens at ``start`` into ``slot`` of a
+    per-slot int8 cache whose first ``start`` rows were written chunk by
+    chunk) through the kernels and through the plain versions on copies of
+    the same cache: the logits of its last row within LOGIT_ATOL (a miss is
+    appended to ``misses``).  Returns the counts of the kernel forward."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn.attention import KVChunk
+    from repro_torch.nn.module import Context
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    vocab = engine.model.vocab
+    toks = torch.randint(0, vocab, (1, start + chunk), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+    def forward(cache, c0):
+        return engine.model.apply(engine.params, toks[:, c0:c0 + chunk], Context(),
+                                  cache=cache, decode=True, chunk=KVChunk(slot, c0, chunk),
+                                  logit_pos=chunk - 1)
+
+    with torch.inference_mode():
+        cache = engine.new_cache(per_slot=True)
+        for c0 in range(0, start, chunk):
+            _, cache = forward(cache, c0)
+        copy = copy_cache(cache)
+        ops.reset_launch_counts()
+        got, _ = forward(cache, start)
+        counts = ops.launch_counts()
+        ops.FORCE = "plain"
+        try:
+            want, _ = forward(copy, start)
+        finally:
+            ops.FORCE = None
+    layers = engine.model.stack.n_layers
+    want_counts = dict({k: 0 for k in counts}, qchunk_attn=layers,
+                       wq_matmul=7 * layers + (0 if engine.model.tie_embeddings else 1))
+    check(counts == want_counts, f"{label} chunk launch counts {counts} != {want_counts}")
+    check(bool(torch.isfinite(got).all()), f"{label} chunk logits not finite")
+    err = (got - want).abs().max().item()
+    if err > LOGIT_ATOL:
+        misses.append(f"{label} chunk at start {start}: logits max err {err} > {LOGIT_ATOL}")
+    print(f"[archs] {label}: a chunked prefill (C={chunk} at start {start}, slot {slot}) "
+          f"logits {tuple(got.shape)} max_abs_err vs plain {err:.3e} (tol {LOGIT_ATOL}); "
+          f"launches {counts} == expected", flush=True)
+    return counts
+
+
+def decode_vs_plain(torch, label, engine, prompts, misses):
+    """The prompts prefilled through the kernels and, apart, through the
+    plain versions (``kv_code_flips``: printed, not held; a K/V value at a
+    truncation edge lands on either side as the f32 sums' order changes,
+    and every later layer carries the flip on).  Then one decode step from
+    copies of the kernels' cache, through each: its logits within
+    LOGIT_ATOL and the same greedy token wherever the plain top-2 margin
+    exceeds it (a miss is appended to ``misses``).  Returns the counts of
+    the kernel decode step."""
+    from repro_torch.kernels import ops
+
+    kl, kc = kv_code_flips(torch, f"archs: {label}", engine, prompts)
+    tok = torch.argmax(kl, dim=-1, keepdim=True).to(torch.int32)
+    base = copy_cache(kc)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = engine.decode(tok, kc)
+        counts = ops.launch_counts()
+        ops.FORCE = "plain"
+        try:
+            want, _ = engine.decode(tok, base)
+        finally:
+            ops.FORCE = None
+    check(bool(torch.isfinite(got).all()), f"{label} decode step logits not finite")
+    err = (got - want).abs().max().item()
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
+    same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
+    if err > LOGIT_ATOL or not same:
+        misses.append(f"{label} decode step: logits max err {err} (tol {LOGIT_ATOL}), greedy "
+                      f"tokens equal on the clear rows: {same}")
+    print(f"[archs] {label}: a decode step from the same cache: logits {tuple(got.shape)} "
+          f"max_abs_err vs plain {err:.3e} (tol {LOGIT_ATOL}); greedy tokens equal on the "
+          f"{int(clear.sum())}/{len(clear)} rows with a clear top-2 margin: {same}; launches "
+          f"{counts}", flush=True)
+    return counts
+
+
+def archs_end_to_end(torch, card):
+    """``[archs]``: the dense-family variants.  glm4-9b at its published width
+    and depth (40 layers, d_model 4096, 32/2 heads of 128, d_ff 13696, vocab
+    151552, QKV bias), seeded random weights, int8 weight-only and an int8
+    KV cache, served through ``launch.serve.main`` (``--policy chunked
+    --paged``, 8 requests, prompt 128, 32 new tokens, 8 slots, chunk 32):
+    every request ``ok``, launch counts exact; then, on the same weights, a
+    lockstep prefill and decode step and a chunked prefill held to the plain
+    versions, and a decode step profiled.  Then qwen2.5-14b (8 of 48 layers,
+    untied head), command-r-plus-104b (2 of 64 layers: LayerNorm, the
+    parallel block, a tied head over 256000) and internvl2-2b whole (one
+    forward over its 256-position stub prefix, then text only), each at
+    full width: a prefill and decode step and a chunked prefill held to
+    the plain versions, a few decode steps counted.  Each model is freed
+    before the next; peak memory is printed per model and must fit the
+    card.  Returns the launches of the counted runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.serve.scheduler import Scheduler
+
+    phase_t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    launches, misses = {}, []       # misses: comparisons past LOGIT_ATOL, failed at the end
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak(label, cfg):
+        got = torch.cuda.max_memory_allocated()
+        check(got < total, f"{label}: peak memory {got / GIB:.2f} GiB past the card's")
+        head = 4 * cfg.vocab_padded * cfg.d_model
+        print(f"[archs] {label}: peak memory {got / GIB:.2f} GiB of the card's "
+              f"{total / GIB:.2f} (torch.cuda.max_memory_allocated); "
+              + (f"the tied head's dequantized f32 table, a transient of every forward, "
+                 f"{head / GIB:.2f} GiB ({cfg.vocab_padded} x {cfg.d_model})"
+                 if cfg.tie_embeddings else "untied head through wq_matmul, no f32 table")
+              + f" | card {card}", flush=True)
+
+    # -- 1. glm4-9b at full width and depth through launch.serve ------------------
+    fresh()
+    cfg = get_config("glm4-9b")
+    n_layers, slots, plen, new, chunk = cfg.n_layers, 8, 128, 32, 32
+    print(f"[archs] glm4-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, qkv_bias {cfg.qkv_bias}: {cfg.param_count() / 1e9:.2f} B parameters, "
+          f"{4 * cfg.param_count() / 1e9:.1f} GB as float32; nothing cut", flush=True)
+    argv = ["--arch", "glm4-9b", "--policy", "chunked", "--paged", "--requests", "8",
+            "--slots", str(slots), "--prompt-len", str(plen), "--max-new", str(new),
+            "--chunk-size", str(chunk), "--arrival-spacing", "2", "--wq", "--qkv"]
+    stats = []
+    run = Scheduler.run
+
+    def counted_run(self, *a, **k):
+        out = run(self, *a, **k)
+        stats.append(out[1])
+        return out
+
+    Scheduler.run = counted_run
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        results = launch_serve.main(argv)
+    finally:
+        Scheduler.run = run
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = stats[0]
+    ticks, chunks = st.decode_steps, st.prefill_chunks
+    # warm-up: one mixed step (decode half + chunk half) and one decode step
+    want = dict({k: 0 for k in counts}, wq_matmul=7 * n_layers * (ticks + chunks + 3),
+                qpaged_decode_attn=n_layers * (ticks + 2),
+                qpaged_chunk_attn=n_layers * (chunks + 1))
+    check(counts == want, f"glm4-9b launch.serve launch counts {counts} != expected {want}")
+    check(chunks == 8 * -(-plen // chunk), f"glm4-9b: {chunks} chunks")
+    check(sorted(results) == list(range(8)), f"glm4-9b: results for {sorted(results)}")
+    for rid, r in results.items():
+        check(r.status == "ok" and len(r.tokens) == new
+              and all(0 <= t < cfg.vocab for t in r.tokens),
+              f"glm4-9b: request {rid} ended {r.status} with {len(r.tokens)} tokens")
+    add(counts)
+    summ = st.summary()
+    print(f"[archs] glm4-9b launch.serve {' '.join(argv[2:])}: 8 requests ok, {ticks} ticks, "
+          f"{chunks} chunks; launches {counts} == expected; steady {summ['steady_tok_s']:.1f} "
+          f"tok/s ({st.steady_s * 1e3 / ticks:.2f} ms a tick); ttft p50/p99 "
+          f"{summ['p50_ttft_steps']:.0f}/{summ['p99_ttft_steps']:.0f} ticks; main() "
+          f"{serve_s:.1f}s with init and int8 integerize | card {card}", flush=True)
+    peak("glm4-9b launch.serve", cfg)
+    del results, stats
+
+    # the same seeded weights on a lockstep engine: kernels against plain
+    fresh()
+    t0 = time.perf_counter()
+    model = cfg.build()
+    engine = ServeEngine(model=model, params=model.init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda"), max_len=plen + new,
+        batch_slots=slots, weight_quant=True, quantized_kv=True, device="cuda",
+        own_params=True)
+    torch.cuda.synchronize()
+    print(f"[archs] glm4-9b: init + int8 integerize leaf by leaf {time.perf_counter() - t0:.2f}s,"
+          f" peak {torch.cuda.max_memory_allocated() / GIB:.2f} GiB", flush=True)
+    prompts = torch.randint(0, cfg.vocab, (slots, plen), device="cuda", dtype=torch.int32,
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+    counts = decode_vs_plain(torch, "glm4-9b", engine, prompts, misses)
+    check(counts == lockstep_counts(cfg, n_layers, 1, 1), f"glm4-9b decode step: {counts}")
+    add(counts)
+    ops.reset_launch_counts()
+    out = engine.generate(prompts, 4)
+    counts = ops.launch_counts()
+    check(counts == lockstep_counts(cfg, n_layers, 4, 3), f"glm4-9b generate: {counts}")
+    check(tuple(out.shape) == (slots, 4), f"glm4-9b generate shape {tuple(out.shape)}")
+    add(counts)
+    add(chunk_vs_plain(torch, "glm4-9b", engine, chunk, 96, misses))
+
+    def decode_step(state):
+        cache, tok = state
+        logits, cache = engine.decode(tok, cache)
+        return cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+
+    with torch.inference_mode():
+        logits, cache = engine.prefill(prompts, engine.new_cache())
+    profile_steps(torch, f"glm4-9b decode step (B={slots}, 40 layers)", decode_step,
+                  (cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)), card,
+                  steps=4)
+    peak("glm4-9b lockstep", cfg)
+    del engine, model, cache, logits, prompts
+
+    # -- 2. the other three at full width, depth cut ------------------------------
+    for arch, cut in ARCH_CUTS:
+        fresh()
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if cut is None else dataclasses.replace(full, n_layers=cut)
+        model = cfg.build()
+        max_len = cfg.vis_seq + 64 + 8
+        engine = ServeEngine(model=model, params=model.init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda"), max_len=max_len,
+            batch_slots=slots, weight_quant=True, quantized_kv=True, device="cuda",
+            own_params=True)
+        torch.cuda.synchronize()
+        cut_note = ("nothing cut" if cut is None else
+                    f"cut to {cut} of {full.n_layers} layers (the width is the published one)")
+        print(f"[archs] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab}, norm {cfg.norm}, parallel {cfg.parallel_block}, tied "
+              f"{cfg.tie_embeddings}, vis_seq {cfg.vis_seq}; {cut_note}: "
+              f"{cfg.param_count() / 1e9:.2f} B parameters, {4 * cfg.param_count() / 1e9:.1f} "
+              f"GB as float32; init + int8 integerize {time.perf_counter() - t0:.2f}s",
+              flush=True)
+        prompts = torch.randint(0, cfg.vocab, (slots, 32), device="cuda", dtype=torch.int32,
+                                generator=torch.Generator(device="cuda").manual_seed(1))
+        if cfg.vis_seq:
+            # one forward over the stub vision prefix and the prompt, kernels vs plain
+            # one forward over the stub vision prefix and the prompt through the
+            # serving prefill step: into the int8 cache (counted), and into a
+            # float cache through the kernels and the plain versions (held;
+            # only the GEMMs' sums differ there)
+            emb = torch.randn(slots, cfg.vis_seq, cfg.d_model, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(3))
+            prefill = make_prefill_step(model)
+
+            def prefixed(cache):
+                with torch.inference_mode():
+                    return prefill(engine.params, prompts, cache, embeds=emb)
+
+            ops.reset_launch_counts()
+            got, cache = prefixed(engine.new_cache())
+            counts = ops.launch_counts()
+            check(counts == lockstep_counts(cfg, cfg.n_layers, 1, 0),
+                  f"{arch} prefixed forward: {counts}")
+            lens = {int(x) for x in torch.as_tensor(cache["body"][0]["kv"]["len"])
+                    .reshape(-1).tolist()}
+            check(lens == {cfg.vis_seq + 32} and bool(torch.isfinite(got).all()),
+                  f"{arch}: cache len {lens} after the prefix, or logits not finite")
+            add(counts)
+            del cache
+
+            def float_cache():
+                return model.init_cache(slots, max_len, quantized_kv=False, device="cuda")
+
+            got, _ = prefixed(float_cache())
+            ops.FORCE = "plain"
+            try:
+                want, _ = prefixed(float_cache())
+            finally:
+                ops.FORCE = None
+            err = (got - want).abs().max().item()
+            if err > LOGIT_ATOL:
+                misses.append(f"{arch} prefixed forward: max err {err} > {LOGIT_ATOL}")
+            print(f"[archs] {arch}: one forward over the {cfg.vis_seq}-position stub prefix "
+                  f"and a 32-token prompt: int8 cache len {cfg.vis_seq + 32}, launches "
+                  f"{counts}; over a float cache, last logits {tuple(got.shape)} max_abs_err "
+                  f"vs plain {err:.3e} (tol {LOGIT_ATOL}); serving below is text only",
+                  flush=True)
+            del emb, got, want
+        counts = decode_vs_plain(torch, arch, engine, prompts, misses)
+        check(counts == lockstep_counts(cfg, cfg.n_layers, 1, 1), f"{arch} decode: {counts}")
+        add(counts)
+        ops.reset_launch_counts()
+        out = engine.generate(prompts, 4)
+        counts = ops.launch_counts()
+        check(counts == lockstep_counts(cfg, cfg.n_layers, 4, 3), f"{arch} generate: {counts}")
+        check(bool(((out >= 0) & (out < cfg.vocab)).all()), f"{arch}: ids outside the vocab")
+        add(counts)
+        print(f"[archs] {arch}: generate {slots} x 4 tokens (prefill + 3 decode steps); "
+              f"launches {counts} == expected", flush=True)
+        add(chunk_vs_plain(torch, arch, engine, 32, 32, misses))
+        peak(arch, cfg)
+        del engine, model, prompts, out
+    fresh()
+    print(f"[time] archs phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
+    check(not misses, "archs: " + "; ".join(misses))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3196,7 +3767,14 @@ def main() -> int:
         gen, CUDA_PAGE_SIZE)
     check_split_instantiations(torch, ref, qpaged_decode_attn_cuda, qragged_attn_cuda,
                                qdecode_attn_cuda, gen)
+    t_arch = time.perf_counter()
+    arch_rows, arch_err = check_arch_kernels(torch, F, ref, SimpleNamespace(
+        wq=wq_matmul_cuda, qd=qdecode_attn_cuda, qpd=qpaged_decode_attn_cuda,
+        qc=qchunk_attn_cuda, qpc=qpaged_chunk_attn_cuda, qr=qragged_attn_cuda), gen,
+        CUDA_PAGE_SIZE)
+    check_grants("the archs' kernel shapes", ran=("wq_matmul",))
     t_int = time.perf_counter()
+    print(f"[time] the archs' kernel shapes {t_int - t_arch:.1f}s", flush=True)
     qmm_rows = check_qmm(torch, ref, qmm_cuda, gen)
     qmr_rows = check_qmm_requant(torch, ref, qmm_requant_cuda, gen)
     qconv_rows, _ = check_qconv1d(torch, F, ref, qconv1d_cuda, gen)
@@ -3212,10 +3790,14 @@ def main() -> int:
     train_launches = train_end_to_end(torch, card)
     t5 = time.perf_counter()
     print(f"[time] training phase {t5 - t4:.1f}s", flush=True)
+    arch_launches = archs_end_to_end(torch, card)
+    check_grants("the archs phase", ran=("wq_matmul",))
+    t6 = time.perf_counter()
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
-          f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | all "
-          f"{t5 - t0:.1f}s", flush=True)
-    launches = {k: launches.get(k, 0) + int_launches.get(k, 0) + train_launches.get(k, 0)
+          f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | archs "
+          f"{t6 - t5:.1f}s | all {t6 - t0:.1f}s", flush=True)
+    launches = {k: sum(part.get(k, 0) for part in (launches, int_launches, train_launches,
+                                                   arch_launches))
                 for k in int_launches}
 
     wq_main = wq_layers[8]
@@ -3330,6 +3912,15 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
             **({"beside": others} if others else {})})
+    arch_keys = ("arch", "m", "shape", "k", "n", "g", "hq", "hkv", "d", "s", "ranks", "err",
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    for entry in kernels:
+        if entry["name"] in arch_rows:
+            entry["archs"] = [{k: r[k] for k in arch_keys if k in r}
+                              for r in arch_rows[entry["name"]]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["err"] for r in arch_rows[entry["name"]]))
+    print(f"[kernel] the archs' shapes: worst max_abs_err {arch_err:.3e}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

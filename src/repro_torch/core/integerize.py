@@ -146,8 +146,39 @@ def model_rom_bytes(params) -> int:
     return total
 
 
+# Elements of a float leaf quantized at once: a 2-D leaf goes a slab of rows
+# at a time, a stacked one a layer slice (or a slab of them) at a time, so the
+# quantizer's float temporaries stay small beside the model (command-r's tied
+# table alone is 12.6 GB of float32).
+_SLAB_ELEMENTS = 1 << 26
+
+
+def _quantize_by_slabs(v: torch.Tensor, bits: int, per_channel: bool) -> QTensor:
+    """``qformat.quantize_tensor`` with the weight-only channel axes, over
+    slabs of ``v``'s leading axis: the exponents come from the slabs' maxima
+    (a max is exact in any order) and every slab is quantized with its part
+    of them, so the codes and exponents equal the whole leaf's bit for bit."""
+    rows = max(1, _SLAB_ELEMENTS // max(1, v[0].numel()))
+    stacked = per_channel and v.ndim > 2
+    if stacked:                 # exponents per leading index: reduce K only
+        m = torch.cat([qformat.max_abs(v[i:i + rows], v.ndim - 2, keepdim=True)
+                       for i in range(0, v.shape[0], rows)])
+    else:                       # the reduction spans the slabs: their maxima's max
+        axes = tuple(range(v.ndim - 1)) if per_channel else None
+        m = None
+        for i in range(0, v.shape[0], rows):
+            part = qformat.max_abs(v[i:i + rows], axes)
+            m = part if m is None else torch.maximum(m, part)
+    n = qformat.frac_bits_for(m, bits)
+    q = torch.empty(v.shape, dtype=qformat.storage_dtype(bits), device=v.device)
+    for i in range(0, v.shape[0], rows):
+        nb = n[i:i + rows] if stacked else n
+        q[i:i + rows] = qformat.quantize(v[i:i + rows], nb, bits)
+    return QTensor(q, n, bits, v.ndim - 1 if per_channel and not stacked else None)
+
+
 def integerize_weights_only(params, *, bits: int = 8, per_channel: bool = True,
-                            block_size: Optional[int] = None) -> Dict:
+                            block_size: Optional[int] = None, release: bool = False) -> Dict:
     """Weight-only integer conversion (embeddings included).
 
     ``bits`` 8/9/16 give :class:`QTensor` leaves.  ``bits`` 4/2 pack GEMM
@@ -157,7 +188,12 @@ def integerize_weights_only(params, *, bits: int = 8, per_channel: bool = True,
     (the gather and tied-logits paths index their rows).
     ``per_channel``: one exponent per output channel; stacked leaves (the
     layer axis in front) keep every leading index distinct, so each layer
-    gets its own Qm.n grid.
+    gets its own Qm.n grid.  Norm parameters and biases (the QKV biases,
+    LayerNorm's ``bias``) stay float, as in the reference.
+    ``release``: each quantized leaf also replaces its float leaf in
+    ``params`` itself as its codes appear, so a model that cannot be held
+    twice (glm4-9b: 35 GB of float32) frees its float copy leaf by leaf;
+    the caller's tree is changed.
     """
     packed = bits in (2, 4)
     policy = QuantPolicy.serve_int8()
@@ -177,13 +213,10 @@ def integerize_weights_only(params, *, bits: int = 8, per_channel: bool = True,
                 if packed and k == "kernel":
                     out[k] = qformat.quantize_tensor_packed(
                         v, bits, block_size=block_size, per_channel=per_channel)
-                    continue
-                if per_channel:
-                    ca = (tuple(range(v.ndim - 2)) + (v.ndim - 1,)
-                          if v.ndim > 2 else v.ndim - 1)
                 else:
-                    ca = None
-                out[k] = qformat.quantize_tensor(v, bits, channel_axis=ca)
+                    out[k] = _quantize_by_slabs(v, bits, per_channel)
+                if release:
+                    node[k] = out[k]
             else:
                 out[k] = v
         return out

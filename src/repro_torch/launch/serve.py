@@ -3,6 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --policy chunked --chunk-size 32 --wq --qkv [--device cpu]
 
+--arch takes every ported id (``models/registry.py``): smollm-135m,
+glm4-9b, qwen2.5-14b, command-r-plus-104b, internvl2-2b (its text backbone:
+serving is text-only, as in the reference), and each one's ``<id>-smoke``.
+A full-size model's float32 init must fit the card (glm4-9b: 35 GB; --wq
+then holds 8.8 GB of int8 weights).
+
 --wq   int8 weight-only storage (the ``wq_matmul`` kernel); ``--wq int4`` /
        ``int4-block`` packs two lanes per byte (the ``wq4_matmul`` kernel),
        ``int2`` / ``int2-block`` four (unpacked and multiplied); ``-block``
@@ -184,7 +190,7 @@ def main(argv=None):
                          "request in its favor")
     ap.add_argument("--audit", action="store_true",
                     help="run the invariant auditor every tick and arm the NaN/Inf logit "
-                         "sentinel (one device-to-host copy per tick)")
+                         "sentinel (one device-to-host copy per tick, two with --paged)")
     ap.add_argument("--fault-plan", default="",
                     help="deterministic fault injection: inline JSON (starting '{') or a "
                          "JSON file (serve/faults.py FaultPlan.from_spec)")
@@ -219,8 +225,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     model = cfg.build()
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen, device)
-    engine = ServeEngine(model=model, params=params,
+    # the float params are handed over: --wq frees them leaf by leaf
+    engine = ServeEngine(model=model, params=model.init(gen, device), own_params=True,
                          max_len=args.prompt_len + args.max_new,
                          batch_slots=args.slots, quantized_kv=args.qkv,
                          weight_quant=args.wq, weight_block=args.wq_block,

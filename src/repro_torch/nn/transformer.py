@@ -1,10 +1,12 @@
 """Transformer block and layer stack (``repro/nn/transformer.py``).
 
-The slice's :class:`Block` is the pre-norm "a" layout: RMSNorm -> attention
--> residual, RMSNorm -> gated FFN -> residual.  :class:`Stack` keeps the
-reference's stacked parameter layout (one leading layer axis per body
-position when ``n_periods > 1``) and loops over the layer axis where the
-reference runs ``lax.scan``.
+The port's :class:`Block` is the pre-norm "a" layout: norm -> attention ->
+residual, norm -> gated FFN -> residual, with RMSNorm or LayerNorm;
+``parallel=True`` gives the command-r block, in which attention and the FFN
+both read the one normed input (``x + attn(norm1(x)) + ffn(norm1(x))``, no
+``norm2``).  :class:`Stack` keeps the reference's stacked parameter layout
+(one leading layer axis per body position when ``n_periods > 1``) and loops
+over the layer axis where the reference runs ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -15,14 +17,15 @@ import torch
 
 from repro_torch.nn.attention import (Attention, KVChunk, RaggedBatch, init_kv_cache,
                                       init_paged_kv_cache, ragged_len)
-from repro_torch.nn.layers import RMSNorm
+from repro_torch.nn.layers import LayerNorm, RMSNorm
 from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import Context, Params, tree_unstack
 
 
 @dataclasses.dataclass(frozen=True)
 class Block:
-    """One residual layer: norm + attention + norm + gated FFN."""
+    """One residual layer: norm + attention + norm + gated FFN (one norm
+    before both, side by side, when ``parallel``)."""
 
     d_model: int
     n_heads: int
@@ -34,7 +37,14 @@ class Block:
     use_rope: bool = True
     causal: bool = True
     activation: str = "silu"
+    norm: str = "rms"              # rms | ln
+    parallel: bool = False         # command-r parallel attention + FFN
     name: str = "block"
+
+    def _norm(self, name: str):
+        if self.norm == "ln":
+            return LayerNorm(self.d_model, name=name)
+        return RMSNorm(self.d_model, name=name)
 
     def _mixer(self) -> Attention:
         return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
@@ -45,10 +55,12 @@ class Block:
         return GatedMLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
 
     def init(self, gen: torch.Generator, device) -> Params:
-        return {"norm1": RMSNorm(self.d_model, name="norm1").init(gen, device),
-                "mixer": self._mixer().init(gen, device),
-                "norm2": RMSNorm(self.d_model, name="norm2").init(gen, device),
-                "ffn": self._ffn().init(gen, device)}
+        p: Params = {"norm1": self._norm("norm1").init(gen, device),
+                     "mixer": self._mixer().init(gen, device)}
+        if not self.parallel:
+            p["norm2"] = self._norm("norm2").init(gen, device)
+        p["ffn"] = self._ffn().init(gen, device)
+        return p
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool, device,
                    layers: Optional[int] = None, per_slot_len: bool = False,
@@ -79,14 +91,18 @@ class Block:
         comes; the reference's recurrent mixers, which refuse it, wait for
         the port's other-architectures slice."""
         ctx = ctx.scope(self.name)
-        h = RMSNorm(self.d_model, name="norm1").apply(params["norm1"], x, ctx)
+        h = self._norm("norm1").apply(params["norm1"], x, ctx)
         mix, kv = self._mixer().apply(params["mixer"], h, ctx,
                                       cache=None if cache is None else cache["kv"],
                                       decode=decode, chunk=chunk, ragged=ragged)
+        new_cache = None if kv is None else {"kv": kv}
+        if self.parallel:
+            # command-r: y = x + attn(norm(x)) + ffn(norm(x))
+            return x + mix + self._ffn().apply(params["ffn"], h, ctx), new_cache
         x = x + mix
-        h2 = RMSNorm(self.d_model, name="norm2").apply(params["norm2"], x, ctx)
+        h2 = self._norm("norm2").apply(params["norm2"], x, ctx)
         x = x + self._ffn().apply(params["ffn"], h2, ctx)
-        return x, (None if kv is None else {"kv": kv})
+        return x, new_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +127,16 @@ class Stack:
             return {"body": [blk.init(gen, device) for blk in self.body]}
         body = []
         for blk in self.body:
-            layers = [blk.init(gen, device) for _ in range(self.n_periods)]
-            body.append(_stack_trees(layers))
+            # each layer is drawn in turn and copied into its slice of the
+            # stacked leaves, so the float model is never held twice
+            # (glm4-9b's is 35 GB)
+            first = blk.init(gen, device)
+            stacked = _map_tree(lambda t: t.new_empty((self.n_periods, *t.shape)), first)
+            _fill_layer(stacked, first, 0)
+            del first
+            for i in range(1, self.n_periods):
+                _fill_layer(stacked, blk.init(gen, device), i)
+            body.append(stacked)
         return {"body": body}
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool,
@@ -162,9 +186,16 @@ class Stack:
                             for pos, c in enumerate(cache["body"])]}
 
 
-def _stack_trees(trees):
-    """Stack a list of identically-shaped param trees along a new axis 0."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _fill_layer(stacked, layer, i: int) -> None:
+    """Copy one layer's param tree into slice ``i`` of the stacked tree."""
+    if isinstance(stacked, dict):
+        for k, v in stacked.items():
+            _fill_layer(v, layer[k], i)
+    else:
+        stacked[i].copy_(layer)

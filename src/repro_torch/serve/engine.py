@@ -74,16 +74,18 @@ def sample_tokens(logits: torch.Tensor, gen: Optional[torch.Generator], vocab: i
 
 
 def make_prefill_step(model) -> Callable:
-    """(params, tokens (B, P), cache, logit_pos=None) -> (logits, cache').
+    """(params, tokens (B, P), cache, embeds=None, logit_pos=None) -> (logits, cache').
 
     Last-position logits (B, V) by default; ``logit_pos`` returns (B, 1, V)
     at that position, slicing the hidden states before the LM head (a
     slot-targeted prefill over a padded prompt bucket passes its true last
-    position).
+    position).  ``embeds`` (B, S_vis, D) is a VLM's vision prefix, written
+    into the cache ahead of the prompt.
     """
-    def prefill(params, tokens, cache, logit_pos: Optional[int] = None):
-        logits, cache = model.apply(params, tokens, Context(), cache=cache, decode=True,
-                                    logit_pos=logit_pos)
+    def prefill(params, tokens, cache, embeds: Optional[torch.Tensor] = None,
+                logit_pos: Optional[int] = None):
+        logits, cache = model.apply(params, tokens, Context(), embeds=embeds, cache=cache,
+                                    decode=True, logit_pos=logit_pos)
         return (logits if logit_pos is not None else logits[:, -1]), cache
 
     return prefill
@@ -200,6 +202,11 @@ class ServeEngine:
     ``"int4-block"``/``"int2-block"`` packed with one scale per
     ``weight_block`` K rows.
 
+    ``own_params=True`` hands the caller's tree over: with ``weight_quant``
+    it is integerized in place (the caller's containers then hold the
+    codes), freeing each float leaf as its codes appear, for a model that
+    cannot be held twice (glm4-9b: 35 GB of float32, 8.8 GB of int8 codes).
+
     ``paged_kv`` makes the scheduler's cache (``new_cache(per_slot=True)``)
     a pool of ``kv_pool_pages`` pages of ``page_size`` rows shared by every
     slot plus a per-slot page table, instead of (slots, max_len) slabs;
@@ -220,6 +227,7 @@ class ServeEngine:
     paged_kv: bool = False
     page_size: Optional[int] = None
     kv_pool_pages: Optional[int] = None
+    own_params: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -229,10 +237,15 @@ class ServeEngine:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
         if self.paged_kv and self.kv_pool_pages is not None and self.kv_pool_pages < 1:
             raise ValueError(f"kv_pool_pages must be >= 1, got {self.kv_pool_pages}")
+        kw = _weight_quant_kwargs(self.weight_quant, self.weight_block) \
+            if self.weight_quant else None
+        if kw is not None and self.own_params:
+            # the caller's tree is converted in place where its leaves lie, so
+            # each float leaf is freed as its codes appear
+            self.params = integerize_weights_only(self.params, release=True, **kw)
         self.params = tree_to(self.params, self.device)
-        if self.weight_quant:
-            self.params = integerize_weights_only(
-                self.params, **_weight_quant_kwargs(self.weight_quant, self.weight_block))
+        if kw is not None and not self.own_params:
+            self.params = integerize_weights_only(self.params, **kw)
 
     @property
     def vocab(self) -> int:

@@ -55,10 +55,10 @@ Without an ``eos_id`` no token value is needed mid-run, so the loop reads
 nothing back from the device and harvests every token at the end; with one,
 each tick reads its (B, 1) tokens back.  A swap-out copies the victim's
 pages to the host, the one other read-back, as in the reference.
-``audit=True`` adds one read-back per tick: the step's health flags, with
-the device page table and lens of the previous tick's end (snapshotted on
-the device then, audited against the host state of that moment), so a
-table breach raises one tick later than in the reference, with its message.
+``audit=True`` adds one read-back per tick, the step's health flags, and
+with a paged cache a second one at the tick's end: the device page table
+and lens, audited against the host state of that moment, so a table breach
+raises in its own tick, with the reference's message.
 The reference's recurrent and cross-attention state waits for the other
 architectures slice of the port (ROADMAP.md) and raises
 ``NotImplementedError``.
@@ -190,9 +190,9 @@ class ServeStats:
     nan_evictions: int = 0      # failed: slots the NaN/Inf sentinel evicted (audit)
     fault_events: int = 0       # injected FaultPlan denials and poisons that fired
     audited_ticks: int = 0      # ticks the invariant auditor ran clean
-    audit_reads: int = 0        # audit: device-to-host copies of health flags and
-    #                             table snapshots (one per stepped tick, one at the
-    #                             end; not in the reference)
+    audit_reads: int = 0        # audit: device-to-host copies: the health flags of
+    #                             each stepped tick and, paged, its end-of-tick
+    #                             table and lens (not in the reference)
 
     @property
     def completion_rate(self) -> float:
@@ -322,7 +322,8 @@ class Scheduler:
     ``audit=True`` runs the invariant auditor every tick and arms the
     NaN/Inf logit sentinel: a slot whose logits turn non-finite ends
     ``"failed"`` instead of streaming garbage.  It costs one device-to-host
-    copy per tick, so it is opt-in.
+    copy per tick (two with a paged cache: the table and lens at the tick's
+    end), so it is opt-in.
     """
 
     def __init__(self, engine, *, eos_id: Optional[int] = None, pad_id: int = 0,
@@ -669,7 +670,6 @@ class Scheduler:
         active_host, active_dev = None, None
         zero_poison = torch.zeros(nslots + (self.prefill_lanes if self.ragged else 0),
                                   dtype=torch.float32, device=dev) if self.audit else None
-        table_audit = None                  # audit: the last tick's table snapshot
         alloc = PageAllocator(eng.kv_num_pages) if self.paged else None
         index = PrefixIndex(ps) if self.prefix_sharing else None
         planner = self._admission
@@ -977,37 +977,19 @@ class Scheduler:
                                      next_start=start0))
             return True
 
-        def audit_tables(snap: Tuple, host: np.ndarray) -> None:
-            """``check_page_tables`` on a table snapshot read back as ``host``,
-            against the host state recorded with it."""
-            shape, rows, refs, exact, mins = snap[1:]
-            n = shape[0] * shape[1]
-            check_page_tables(host[:n].reshape(shape), host[n:n + shape[0]], rows,
-                              lambda p: refs.get(p, 0), exact_lens=exact, min_lens=mins,
-                              page_size=ps)
-
         def read_back(flags: torch.Tensor):
-            """Audit's one device-to-host copy of a tick: the (B, 1) tokens in
-            EOS mode, the step's health flags and the last tick's table
-            snapshot, which is audited here.  Returns (tokens or None, flags)."""
-            nonlocal table_audit
+            """Audit's mid-tick device-to-host copy: the (B, 1) tokens in EOS
+            mode and the step's health flags.  Returns (tokens or None, flags)."""
             parts = ([tok.reshape(-1)] if use_eos else []) + [flags.to(torch.int32)]
-            if table_audit is not None:
-                parts.append(table_audit[0])
             host = torch.cat(parts).cpu().numpy()
             stats.audit_reads += 1
             k = nslots if use_eos else 0
             ok = host[k:k + flags.shape[0]] != 0
-            if table_audit is not None:
-                audit_tables(table_audit, host[k + flags.shape[0]:])
-                table_audit = None
             return (host[:nslots].reshape(nslots, 1) if use_eos else None), ok
 
         def audit_tick() -> None:
-            """The invariant auditor at the end of a tick: the allocator and
-            swap area now; the device table and lens snapshotted now (one small
-            device copy) and read back with the next tick's health flags."""
-            nonlocal table_audit
+            """The invariant auditor at the end of a tick: the allocator, the
+            device table and lens (read back now) and the swap area."""
             holders: Dict[Any, List[int]] = {("slot", j_): pgs for j_, pgs in slot_pages.items()}
             for p_ in preempted:
                 holders[("parked", p_.slot.req.rid)] = p_.kept
@@ -1015,18 +997,19 @@ class Scheduler:
                 check_allocator(alloc, holders)
                 kv = find_paged_kv(cache)
                 if kv is not None:
+                    shape = tuple(kv["page_table"].shape)
+                    host = torch.cat([kv["page_table"].reshape(-1), kv["len"]]).cpu().numpy()
+                    stats.audit_reads += 1
+                    n = shape[0] * shape[1]
                     # live decode slots pin their len (plen + emitted - 1 rows
                     # written); a lane only bounds it from below: the mixed
                     # step's masked junk appends may run it past the cursor
                     exact = {j_: s_.plen + s_.emitted - 1 for j_, s_ in enumerate(slots)
                              if s_ is not None}
                     mins = {p_.slot: p_.next_start for p_ in lanes}
-                    table_audit = (
-                        torch.cat([kv["page_table"].reshape(-1), kv["len"]]),
-                        tuple(kv["page_table"].shape),
-                        {j_: list(pgs) for j_, pgs in slot_pages.items()},
-                        {p: alloc.refcount(p) for pgs in slot_pages.values() for p in pgs},
-                        exact, mins)
+                    check_page_tables(host[:n].reshape(shape), host[n:n + shape[0]], slot_pages,
+                                      alloc.refcount, exact_lens=exact, min_lens=mins,
+                                      page_size=ps)
             check_swap(swap, [(p_.slot.req.rid, p_.data) for p_ in preempted])
             stats.audited_ticks += 1
 
@@ -1293,9 +1276,6 @@ class Scheduler:
                 admit_live(*a)
             if self.audit:
                 audit_tick()
-        if table_audit is not None:         # the last tick's table snapshot
-            stats.audit_reads += 1
-            audit_tables(table_audit, table_audit[0].cpu().numpy())
         _sync(dev)
         stats.steady_s = time.perf_counter() - t0
 

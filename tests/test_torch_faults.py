@@ -398,8 +398,9 @@ def test_nan_sentinel_evicts_exactly_the_poisoned_slot(runs, vocab):
         if r.rid != v:
             assert got[r.rid].tokens == base[r.rid].tokens
     assert st.audited_ticks > 0 and st.failed == 1
-    # one device-to-host copy per stepped tick, one more for the last snapshot
-    assert st.audit_reads == st.decode_steps + 1
+    # two device-to-host copies per stepped tick: the health flags mid-tick,
+    # the page table and lens at its end
+    assert st.audit_reads == 2 * st.decode_steps
 
 
 def test_nan_plan_requires_audit(engines, vocab):
@@ -431,6 +432,85 @@ def test_nan_sentinel_at_temperature_raises_no_sampler_error(smoke, vocab, ragge
             assert got[r.rid].status == "ok" and len(got[r.rid].tokens) == r.max_new
         assert all(0 <= x < vocab for x in got[r.rid].tokens)
     assert len(got[failed[0]].tokens) < reqs[failed[0]].max_new
+
+
+# --------------------------------------------------------------------------
+# The page-table breach drill (audit=True)
+# --------------------------------------------------------------------------
+
+def _corrupt_tables(cache, slot, page, in_place):
+    """Entry 0 of ``slot``'s row set to ``page`` in every page table of
+    ``cache`` (the port's one table in place, the reference's stacked tables
+    as new arrays)."""
+    if isinstance(cache, dict):
+        if "page_table" in cache:
+            pt = cache["page_table"]
+            if in_place:
+                pt[..., slot, 0] = page
+                return cache
+            return dict(cache, page_table=pt.at[..., slot, 0].set(page))
+        return {k: _corrupt_tables(v, slot, page, in_place) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(_corrupt_tables(v, slot, page, in_place) for v in cache)
+    return cache
+
+
+def _first_table(cache):
+    if isinstance(cache, dict):
+        if "page_table" in cache:
+            return np.asarray(cache["page_table"]).reshape(-1, cache["page_table"].shape[-1])
+        cache = list(cache.values())
+    for v in cache if isinstance(cache, (list, tuple)) else ():
+        found = _first_table(v)
+        if found is not None:
+            return found
+    return None
+
+
+@pytest.mark.parametrize("ragged,breach_tick", [(False, 3), (False, 6), (True, 3)],
+                         ids=["mixed-tick", "decode-tick", "ragged-tick"])
+def test_page_table_breach_raises_in_its_own_tick(engines, vocab, ragged, breach_tick):
+    """A live slot's device page table is corrupted by the step of one tick
+    (entry 0 of slot 0 moved one page on); under ``audit=True`` both
+    schedulers raise ``AuditError`` with the same message at the end of that
+    tick."""
+    from repro.serve.audit import AuditError as JAuditError
+    from repro_torch.serve.audit import AuditError
+
+    reqs = _workload(vocab, n_requests=3, max_new=16, spacing=0)
+    je, te = engines(paged_kv=True, page_size=8)
+    kw = {"ragged": True, "prefill_lanes": 2} if ragged else {}
+    raised = []
+    for eng, rq, err, in_place in ((te, reqs, AuditError, True),
+                                   (je, _j_requests(reqs), JAuditError, False)):
+        sched = eng.scheduler(chunk_size=8, audit=True, **kw)
+        box = {"t": None, "done": False}
+
+        def corrupting(step, box=box, in_place=in_place):
+            def wrapped(*a, **k):
+                out = step(*a, **k)
+                if box["done"] or box["t"] is None or box["t"] < breach_tick:
+                    return out
+                box["done"] = True
+                page = int(_first_table(out[-1])[0, 0])
+                assert page >= 0, "slot 0 is not live at the breach tick"
+                cache = _corrupt_tables(out[-1], 0, (page + 1) % eng.kv_num_pages, in_place)
+                return (*out[:-1], cache)
+            return wrapped
+
+        for name in ("_masked_decode", "_masked_mixed", "_masked_ragged"):
+            if hasattr(sched, name):
+                setattr(sched, name, corrupting(getattr(sched, name)))
+
+        def on_tick(t, box=box):
+            box["t"] = t
+
+        with pytest.raises(err) as info:
+            sched.run(rq, warmup=False, on_tick=on_tick)
+        assert box["done"]
+        raised.append((box["t"], str(info.value)))
+    assert raised[0] == raised[1] and raised[0][0] == breach_tick
+    assert raised[0][1].startswith("slot 0: device table row")
 
 
 # --------------------------------------------------------------------------
