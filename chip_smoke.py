@@ -126,6 +126,18 @@ Phases, each printed as it completes; any failure exits non-zero:
      64) and internvl2-2b (whole, one forward over its 256-position stub
      prefix) at full width, each held to the plain versions with launch
      counts exact, each freed before the next.
+  12. ``[recurrent]`` (``recurrent_end_to_end``): rwkv6-7b (32 layers,
+     d_model 4096, 7.25 B parameters) and mamba-130m (24 layers, d_model
+     768) whole, seeded, int8 weights, served through ``launch.serve.main``
+     (``--policy chunked``, mamba also ``scheduler``; 8 requests of 128 + 32
+     tokens, 8 slots, chunk 32): every request ``ok``, ``wq_matmul`` counts
+     exact (8 a layer for rwkv, 6 for mamba, per forward); on the same
+     weights a decode step's and a chunk's logits held to the plain
+     versions from one shared state, a mixed tick's inactive slots'
+     recurrent rows bit for bit, an audited run clean with one read-back a
+     tick, the decode step and mixed tick profiled (``wq_matmul``'s share),
+     the scans' per-token kernels counted; in the kernel phase,
+     ``wq_matmul`` at the two archs' eight (K, N) at M = 8 and 32.
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -2111,7 +2123,7 @@ def train_end_to_end(torch, card):
                                  "cuda")
         step_fn = make_train_step(model, opt, 3e-3, policy=pol)
         profile_steps(torch, f"smollm-135m {label} training step (AdamW, B=8, S=128)",
-                      lambda st, f=step_fn: f(st, batch)[0], state, card, steps=4, grad=True)
+                      lambda st, f=step_fn: f(st, batch)[0], state, card, grad=True)
         del state
 
     # -- (c) the card's gradient against the CPU's -----------------------------
@@ -2240,13 +2252,16 @@ def paged_engine(env, pool=None):
                        device="cuda", paged_kv=True, kv_pool_pages=pool)
 
 
-def profile_steps(torch, label, step, state, card, steps: int = 8, grad: bool = False):
+def profile_steps(torch, label, step, state, card, steps: int = 2, grad: bool = False):
     """Where a step's time goes: the host-device synchronizations one step
     makes (``torch.cuda.set_sync_debug_mode``), wall time per step without
     the profiler, then device time per step by kernel under
     ``torch.profiler`` and the device's idle share of the unprofiled wall
     time.  ``step(state)`` returns the next state.  Serving steps run under
     ``torch.inference_mode``; a training step (``grad``) runs outside it.
+    ``steps`` steps are timed and ``steps`` profiled, 2 by default: the
+    trace's events, not the steps, cost most of a profile's time (the
+    script must stay well inside its 1200 s).
     Returns the wall and device busy ms per step and the per-kernel rows, or
     None when the profiler recorded no device time."""
     import contextlib
@@ -2282,7 +2297,8 @@ def profile_steps(torch, label, step, state, card, steps: int = 8, grad: bool = 
             run(state)
             torch.cuda.synchronize()
     rows = []
-    for e in prof.key_averages():
+    averages = prof.key_averages()      # one pass over the trace's events
+    for e in averages:
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue    # host-side ops also report their kernels' time
         t = getattr(e, "self_device_time_total", None)
@@ -2303,7 +2319,7 @@ def profile_steps(torch, label, step, state, card, steps: int = 8, grad: bool = 
     for t, n, key in sorted(rows, reverse=True)[:8]:
         print(f"[profile]   {t:9.1f} us/step  {n:5.0f} launches/step  {key[:90]}", flush=True)
     host = sorted(((e.self_cpu_time_total / steps, e.count / steps, e.key)
-                   for e in prof.key_averages()
+                   for e in averages
                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU),
                   reverse=True)
     print(f"[profile] {label}: host self time by op under the profiler (top 6)", flush=True)
@@ -2916,12 +2932,11 @@ def hardened_end_to_end(torch, card, env):
         snapshot(c).cpu()
         return c, nxt
 
-    # 4 steps a window, not 8: these profiles took half the phase's time
     profile_steps(torch, f"audited paged decode tick (B={slots}, ps={pt.engine.page_size})",
-                  audited_decode_tick, (pt.copy(pt.cache), pt.tok), card, steps=4)
+                  audited_decode_tick, (pt.copy(pt.cache), pt.tok), card)
     profile_steps(torch, f"audited paged mixed tick (B={slots}, C={env.chunk}, start 96, "
                          f"ps={pt.engine.page_size})", audited_mixed_tick,
-                  (pt.copy(pt.cache), pt.tok), card, steps=4)
+                  (pt.copy(pt.cache), pt.tok), card)
     marks.append(("profiles", time.perf_counter()))
     print("[time] hardened phase by part: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}s" for i, (name, t) in enumerate(marks[1:])), flush=True)
@@ -3586,8 +3601,7 @@ def archs_end_to_end(torch, card):
     with torch.inference_mode():
         logits, cache = engine.prefill(prompts, engine.new_cache())
     profile_steps(torch, f"glm4-9b decode step (B={slots}, 40 layers)", decode_step,
-                  (cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)), card,
-                  steps=4)
+                  (cache, torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)), card)
     peak("glm4-9b lockstep", cfg)
     del engine, model, cache, logits, prompts
 
@@ -3676,6 +3690,326 @@ def archs_end_to_end(torch, card):
     fresh()
     print(f"[time] archs phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
     check(not misses, "archs: " + "; ".join(misses))
+    return launches
+
+
+# The recurrent archs' projections through wq_matmul, (label, K, N, calls a layer):
+# mamba-130m's in/x/out_proj and gated FFN, rwkv6-7b's five time-mix and
+# three channel-mix projections (dt_proj, 48 -> 1536, stays float).
+REC_GEMMS = (("mamba in_proj", 768, 3072, 1), ("mamba x_proj", 1536, 80, 1),
+             ("mamba out_proj", 1536, 768, 1), ("mamba gate/in", 768, 2048, 2),
+             ("mamba ffn out", 2048, 768, 1),
+             ("rwkv wr/wk/wv/wg/wo, cm wr", 4096, 4096, 6), ("rwkv cm wk", 4096, 14336, 1),
+             ("rwkv cm wv", 14336, 4096, 1))
+REC_LAYER_GEMMS = {"mamba-130m": 6, "rwkv6-7b": 8}   # wq_matmul launches a layer
+
+
+def check_recurrent_kernels(torch, ref, wq_cuda, gen):
+    """``wq_matmul`` at the recurrent archs' (K, N), M = 8 (a decode step of
+    8 slots) and 32 (a chunk), against its plain version and timed beside
+    it and ``torch.matmul`` on the dequantized weight; one layer's calls
+    summed per arch.  Returns the rows and the worst error."""
+    rows = [wq_case(torch, ref, wq_cuda, gen, m, label, k, n, per)
+            for label, k, n, per in REC_GEMMS for m in (8, 32)]
+    for short, arch in (("mamba", "mamba-130m"), ("rwkv", "rwkv6-7b")):
+        for m in (8, 32):
+            layer = layer_sum([r for r in rows if r["m"] == m and r["shape"].startswith(short)])
+            rows.append(dict(layer, m=m, shape=f"{arch} layer", err=0.0, k=0, n=0, per_layer=0))
+            print(f"[kernel] wq_matmul one {arch} layer ({REC_LAYER_GEMMS[arch]} "
+                  f"calls, M={m}): kernel {layer['ms'] * 1e3:.2f} us | plain "
+                  f"{layer['plain_ms'] * 1e3:.2f} us | library {layer['library_ms'] * 1e3:.2f} us "
+                  f"| bound {layer['bound_ms'] * 1e3:.2f} us ({layer['bound_by']})", flush=True)
+    return rows, max(r["err"] for r in rows)
+
+
+def device_kernels(torch, fn) -> int:
+    """Device kernels ``fn()`` launches, counted by ``torch.profiler`` (0 when
+    the profiler records no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA))
+
+
+def recurrent_arch(torch, card, arch, launches, misses, policies):
+    """One recurrent arch at its published width and depth, int8 weights:
+    ``launch.serve.main`` under each of ``policies`` (8 requests of 128 + 32
+    tokens, 8 slots, chunk 32) with exact ``wq_matmul`` counts and every
+    request ``ok``; then on a lockstep engine of the same seeded weights a
+    decode step's and a chunk's logits held to the plain versions on one
+    shared state, a mixed tick leaving its inactive slots' recurrent rows
+    bit for bit, an audited run clean, the decode step and the mixed tick
+    profiled, and the scans' per-token launches counted.  Returns the
+    engine's state bytes per slot."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn.attention import KVChunk, host_tensor
+    from repro_torch.nn.module import Context
+    from repro_torch.serve import Request, ServeEngine, state_bytes_per_slot
+    from repro_torch.serve.scheduler import Scheduler
+
+    cfg = get_config(arch)
+    per_fwd = REC_LAYER_GEMMS[arch] * cfg.n_layers
+    slots, plen, new, chunk = 8, 128, 32, 32
+    total = torch.cuda.get_device_properties(0).total_memory
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak(label):
+        got = torch.cuda.max_memory_allocated()
+        check(got < total, f"{label}: peak memory {got / GIB:.2f} GiB past the card's")
+        print(f"[recurrent] {label}: peak memory {got / GIB:.2f} GiB of {total / GIB:.2f} "
+              f"(torch.cuda.max_memory_allocated) | card {card}", flush=True)
+
+    print(f"[recurrent] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, layout "
+          f"{cfg.layout!r}, ffn {cfg.ffn_kind}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, {4 * cfg.param_count() / 1e9:.1f} GB "
+          f"as float32; nothing cut; {per_fwd} wq_matmul a forward", flush=True)
+    for policy in policies:
+        fresh()
+        argv = ["--arch", arch, "--policy", policy, "--requests", "8", "--slots",
+                str(slots), "--prompt-len", str(plen), "--max-new", str(new), "--chunk-size",
+                str(chunk), "--arrival-spacing", "2", "--wq"]
+        stats = []
+        run = Scheduler.run
+
+        def counted_run(self, *a, **k):
+            out = run(self, *a, **k)
+            stats.append(out[1])
+            return out
+
+        Scheduler.run = counted_run
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            results = launch_serve.main(argv)
+        finally:
+            Scheduler.run = run
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        st = stats[0]
+        ticks, chunks = st.decode_steps, st.prefill_chunks
+        if policy == "chunked":
+            # warm-up: one mixed step (two forwards) and one decode step
+            forwards = ticks + chunks + 3
+            check(chunks == 8 * -(-plen // chunk), f"{arch}: {chunks} chunks")
+        else:
+            # one-shot: a prefill per admission, one decode a tick; warm-up: one
+            # prefill (one prompt length) and one decode step
+            forwards = ticks + 8 + 2
+        want = dict({k: 0 for k in counts}, wq_matmul=per_fwd * forwards)
+        check(counts == want, f"{arch} launch.serve --policy {policy}: launch counts {counts} "
+                              f"!= expected {want}")
+        check(sorted(results) == list(range(8)), f"{arch}: results for {sorted(results)}")
+        for rid, r in results.items():
+            check(r.status == "ok" and len(r.tokens) == new
+                  and all(0 <= t < cfg.vocab for t in r.tokens),
+                  f"{arch}: request {rid} ended {r.status} with {len(r.tokens)} tokens")
+        check(st.state_kinds == "recurrent", f"{arch}: state kinds {st.state_kinds!r}")
+        add(counts)
+        summ = st.summary()
+        print(f"[recurrent] {arch} launch.serve {' '.join(argv[2:])}: 8 requests ok, {ticks} "
+              f"ticks, {chunks} chunks; launches {counts} == expected; steady "
+              f"{summ['steady_tok_s']:.1f} tok/s ({st.steady_s * 1e3 / ticks:.2f} ms a tick); "
+              f"ttft p50/p99 {summ['p50_ttft_steps']:.0f}/{summ['p99_ttft_steps']:.0f} ticks; "
+              f"cache {st.peak_cache_bytes} B; main() {serve_s:.1f}s with init and int8 "
+              f"integerize | card {card}", flush=True)
+        peak(f"{arch} launch.serve --policy {policy}")
+        del results, stats
+        part(f"launch.serve {policy}")
+
+    # -- the same seeded weights on a lockstep engine -----------------------------
+    fresh()
+    model = cfg.build()
+    engine = ServeEngine(model=model, params=model.init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda"), max_len=plen + new,
+        batch_slots=slots, weight_quant=True, device="cuda", own_params=True)
+    prompts = torch.randint(0, cfg.vocab, (slots, plen), device="cuda", dtype=torch.int32,
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+    bytes_per_slot = state_bytes_per_slot(engine.new_cache(per_slot=True), slots)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits, shared = engine.prefill(prompts, engine.new_cache(per_slot=True))
+        counts = ops.launch_counts()
+    check(counts["wq_matmul"] == per_fwd, f"{arch} prefill: {counts}")
+    add(counts)
+    part("lockstep init and prefill")
+    tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+    ctok = torch.randint(0, cfg.vocab, (1, chunk), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+
+    def held(label, fn):
+        """``fn(cache)`` (logits, cache) through the kernels and the plain
+        versions from the one shared state: logits within LOGIT_ATOL, the same
+        greedy token where the plain top-2 margin is clear."""
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            got, _ = fn(shared)
+            counts = ops.launch_counts()
+            ops.FORCE = "plain"
+            try:
+                want, _ = fn(shared)
+            finally:
+                ops.FORCE = None
+        check(bool(torch.isfinite(got).all()), f"{arch} {label}: logits not finite")
+        check(counts == dict({k: 0 for k in counts}, wq_matmul=per_fwd),
+              f"{arch} {label}: launch counts {counts}")
+        err = (got - want).abs().max().item()
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > LOGIT_ATOL
+        same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
+        if err > LOGIT_ATOL or not same:
+            misses.append(f"{arch} {label}: logits max err {err} (tol {LOGIT_ATOL}), greedy "
+                          f"equal on the clear rows: {same}")
+        print(f"[recurrent] {arch} {label} from one shared state: logits {tuple(got.shape)} "
+              f"max_abs_err vs plain {err:.3e} (tol {LOGIT_ATOL}); greedy equal on "
+              f"{int(clear.sum())}/{clear.numel()} clear rows: {same}; launches {counts}",
+              flush=True)
+        add(counts)
+
+    held("decode step (B=8)", lambda c: engine.decode(tok, c))
+    held(f"chunk (C={chunk} into slot 3)", lambda c: model.apply(
+        engine.params, ctok, Context(), cache=c, decode=True,
+        chunk=KVChunk(slot=3, start=0, length=chunk), logit_pos=chunk - 1))
+
+    # -- a mixed tick: inactive rows bit for bit ------------------------------------
+    sched = engine.scheduler(chunk_size=chunk)
+    active = np.array([1, 1, 0, 1, 0, 1, 1, 0], dtype=np.bool_)
+    lane = 4
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        _, _, _, after = sched._masked_mixed(tok, shared, None, host_tensor(active, "cuda"),
+                                             ctok, lane, 0, chunk)
+        counts = ops.launch_counts()
+    check(counts["wq_matmul"] == 2 * per_fwd, f"{arch} mixed tick: {counts}")
+    add(counts)
+    kept = moved = 0
+    for pos, node in enumerate(shared["body"]):
+        for key in node:
+            for leaf, old in ((after["body"][pos][key][k], node[key][k]) for k in node[key]):
+                for j in range(slots):
+                    a, b = leaf[:, j], old[:, j]
+                    if not active[j] and j != lane:
+                        check(torch.equal(a, b), f"{arch} mixed tick: inactive slot {j}'s "
+                                                 f"{key} row changed")
+                        kept += 1
+                    elif not torch.equal(a, b):
+                        moved += 1
+    check(moved > 0, f"{arch} mixed tick: no live row moved")
+    print(f"[recurrent] {arch} mixed tick (active {active.astype(int).tolist()}, chunk into slot "
+          f"{lane}): {kept} inactive (slot, leaf) rows bit-identical, {moved} live rows "
+          f"advanced", flush=True)
+
+    part("kernels vs plain, mixed tick")
+
+    # -- an audited run, clean -------------------------------------------------------
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=64, dtype=np.int32),
+                    max_new=16, arrival=2 * i) for i in range(6)]
+    ops.reset_launch_counts()
+    res, st = engine.scheduler(chunk_size=chunk, audit=True).run(reqs)
+    counts = ops.launch_counts()
+    check(all(res[r.rid].status == "ok" for r in reqs), f"{arch} audited run: "
+          f"{[res[r.rid].status for r in reqs]}")
+    check(st.audited_ticks == st.decode_steps and st.audit_reads == st.decode_steps,
+          f"{arch} audited run: {st.audited_ticks} audited / {st.audit_reads} reads of "
+          f"{st.decode_steps} ticks")
+    check(counts == dict({k: 0 for k in counts},
+                         wq_matmul=per_fwd * (st.decode_steps + st.prefill_chunks + 3)),
+          f"{arch} audited run: launch counts {counts}")
+    add(counts)
+    print(f"[recurrent] {arch} audited run (6 requests of 64 + 16, chunk {chunk}): every tick "
+          f"audited clean ({st.audited_ticks}), one read-back a tick ({st.audit_reads}); "
+          f"launches {counts} == expected", flush=True)
+
+    part("audited run")
+
+    # -- profiles, and the scans' per-token launches -------------------------------
+    def decode_step(state):
+        cache, t = state
+        lg, cache = engine.decode(t, cache)
+        return cache, torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
+
+    act = host_tensor(np.arange(slots) != lane, "cuda")
+
+    def mixed_tick(state):
+        cache, t = state
+        t, _, _, cache = sched._masked_mixed(t, cache, None, act, ctok, lane, 0, chunk)
+        return cache, t
+
+    for label, step in (("decode step", decode_step), ("mixed tick", mixed_tick)):
+        prof = profile_steps(torch, f"{arch} {label} (B={slots}" +
+                             (f", C={chunk})" if label == "mixed tick" else ")"), step,
+                             (shared, tok), card)
+        if prof is not None:
+            wq = sum(r[0] for r in prof["rows"] if "wq_matmul_kernel" in r[2]) / 1e3
+            print(f"[recurrent] {arch} {label}: wq_matmul {wq:.3f} ms of {prof['busy_ms']:.3f} "
+                  f"ms device busy ({wq / prof['busy_ms']:.3f})", flush=True)
+
+    def chunk_forward(c_len):
+        toks = ctok[:, :c_len]
+        return lambda: model.apply(engine.params, toks, Context(), cache=shared, decode=True,
+                                   chunk=KVChunk(slot=lane, start=0, length=c_len),
+                                   logit_pos=c_len - 1)
+
+    # the per-token loops make a chunk forward's kernel count linear in C: two
+    # short chunks give its slope, and the C=32 count follows from it
+    with torch.inference_mode():
+        k2 = device_kernels(torch, chunk_forward(2))
+        k1 = device_kernels(torch, chunk_forward(1))
+    if k2 and k1:
+        per_tok = k2 - k1
+        k_chunk = k1 + per_tok * (chunk - 1)
+        print(f"[recurrent] {arch} chunk forward: {k2} kernels at C=2, {k1} at C=1: the scans' "
+              f"per-token loops add {per_tok} kernels a token, {per_tok * chunk} of the "
+              f"{k_chunk} of a {chunk}-token chunk", flush=True)
+    peak(f"{arch} lockstep checks")
+    part("profiles")
+    print(f"[recurrent] {arch}: state bytes per slot {bytes_per_slot} (constant in max_len)",
+          flush=True)
+    print(f"[time] {arch} by part: " + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()),
+          flush=True)
+    del engine, model, shared, sched, logits
+    fresh()
+    return bytes_per_slot
+
+
+def recurrent_end_to_end(torch, card):
+    """``[recurrent]``: rwkv6-7b (32 layers, d_model 4096, 64 heads of 64,
+    d_ff 14336, vocab 65536: 7.25 B parameters) and mamba-130m (24 layers,
+    d_model 768, d_inner 1536, d_state 16, d_conv 4, dt_rank 48, vocab
+    50280) whole, seeded random weights, int8 weight-only, served through
+    ``launch.serve.main`` (``--policy chunked``; mamba also ``scheduler``,
+    the one-shot admission) and held as ``recurrent_arch`` says.  Returns
+    the launches of the counted runs."""
+    phase_t0 = time.perf_counter()
+    launches, misses = {}, []
+    recurrent_arch(torch, card, "rwkv6-7b", launches, misses, ("chunked",))
+    recurrent_arch(torch, card, "mamba-130m", launches, misses, ("chunked", "scheduler"))
+    print(f"[time] recurrent phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
+    check(not misses, "recurrent: " + "; ".join(misses))
     return launches
 
 
@@ -3773,8 +4107,12 @@ def main() -> int:
         qc=qchunk_attn_cuda, qpc=qpaged_chunk_attn_cuda, qr=qragged_attn_cuda), gen,
         CUDA_PAGE_SIZE)
     check_grants("the archs' kernel shapes", ran=("wq_matmul",))
+    t_rec = time.perf_counter()
+    rec_rows, rec_err = check_recurrent_kernels(torch, ref, wq_matmul_cuda, gen)
+    check_grants("the recurrent archs' kernel shapes", ran=("wq_matmul",))
     t_int = time.perf_counter()
-    print(f"[time] the archs' kernel shapes {t_int - t_arch:.1f}s", flush=True)
+    print(f"[time] the archs' kernel shapes {t_rec - t_arch:.1f}s, the recurrent archs' "
+          f"{t_int - t_rec:.1f}s", flush=True)
     qmm_rows = check_qmm(torch, ref, qmm_cuda, gen)
     qmr_rows = check_qmm_requant(torch, ref, qmm_requant_cuda, gen)
     qconv_rows, _ = check_qconv1d(torch, F, ref, qconv1d_cuda, gen)
@@ -3793,11 +4131,14 @@ def main() -> int:
     arch_launches = archs_end_to_end(torch, card)
     check_grants("the archs phase", ran=("wq_matmul",))
     t6 = time.perf_counter()
+    rec_launches = recurrent_end_to_end(torch, card)
+    check_grants("the recurrent phase", ran=("wq_matmul",))
+    t7 = time.perf_counter()
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
           f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | archs "
-          f"{t6 - t5:.1f}s | all {t6 - t0:.1f}s", flush=True)
+          f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | all {t7 - t0:.1f}s", flush=True)
     launches = {k: sum(part.get(k, 0) for part in (launches, int_launches, train_launches,
-                                                   arch_launches))
+                                                   arch_launches, rec_launches))
                 for k in int_launches}
 
     wq_main = wq_layers[8]
@@ -3921,6 +4262,12 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        max(r["err"] for r in arch_rows[entry["name"]]))
     print(f"[kernel] the archs' shapes: worst max_abs_err {arch_err:.3e}", flush=True)
+    wq_entry = next(e for e in kernels if e["name"] == "wq_matmul")
+    wq_entry["recurrent"] = [{k: r[k] for k in ("m", "shape", "k", "n", "err", "ms", "plain_ms",
+                                                "library_ms", "bound_ms", "bound_by")}
+                             for r in rec_rows]
+    wq_entry["max_abs_err"] = max(wq_entry["max_abs_err"], rec_err)
+    print(f"[kernel] the recurrent archs' shapes: worst max_abs_err {rec_err:.3e}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

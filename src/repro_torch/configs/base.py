@@ -1,15 +1,19 @@
 """ArchConfig: declarative architecture -> model (``repro/configs/base.py``).
 
-The port builds the dense attention family: layout ``"a"`` with a gated
+The port builds the dense attention family (layout ``"a"`` with a gated
 FFN, RMSNorm or LayerNorm, the sequential or the parallel (command-r) block,
 a tied or an untied LM head, and a vision prefix of ``vis_seq`` stub patch
-embeddings (internvl).  Other layouts and FFN kinds (recurrent mixers, MoE,
-EncDec) wait for later slices.  ``smoke()`` derives the same reduced config
-as the reference, so converted JAX parameters fit it.
+embeddings: internvl) and the recurrent family: a layout over ``"m"``
+(Mamba) and ``"r"`` (RWKV-6 time-mix, with ``ffn_kind="rwkv"``, the RWKV-6
+channel-mix).  The layout is a period string repeated ``n_layers /
+len(layout)`` times.  MoE and EncDec wait for later slices.  ``smoke()``
+derives the same reduced config as the reference, so converted JAX
+parameters fit it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from repro_torch.models.lm import CausalLM
 from repro_torch.nn.transformer import Block, Stack
@@ -22,7 +26,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                    # dense | vlm (others wait for later slices)
+    family: str                    # dense | vlm | ssm (others wait for later slices)
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,14 +34,14 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: int = 128
-    layout: str = "a"
+    layout: str = "a"              # period string over {a, m, r}
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     use_rope: bool = True
     norm: str = "rms"              # rms | ln
     parallel_block: bool = False   # command-r: x + attn(norm(x)) + ffn(norm(x))
     activation: str = "silu"
-    ffn_kind: str = "gated"
+    ffn_kind: str = "gated"        # gated | rwkv
     tie_embeddings: bool = True
     vis_seq: int = 0               # stub vision-prefix length (vlm)
     notes: str = ""
@@ -46,23 +50,33 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         return pad_vocab(self.vocab)
 
+    def _block(self, mixer_ch: str) -> Block:
+        return Block(d_model=self.d_model, n_heads=self.n_heads,
+                     n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+                     d_ff=self.d_ff, qkv_bias=self.qkv_bias,
+                     rope_theta=self.rope_theta, use_rope=self.use_rope,
+                     activation=self.activation, norm=self.norm,
+                     parallel=self.parallel_block, mixer=_MIXERS[mixer_ch],
+                     ffn=self.ffn_kind)
+
     def build(self) -> CausalLM:
         """The float32 CausalLM of this config."""
-        if self.layout != "a" or self.ffn_kind != "gated":
+        if any(ch not in _MIXERS for ch in self.layout) or \
+                self.ffn_kind not in ("gated", "rwkv"):
             raise NotImplementedError(
                 f"{self.arch_id}: layout {self.layout!r} / ffn {self.ffn_kind!r} arrive "
-                "with later slices of the port (ROADMAP.md queue 1)")
+                "with later slices of the port: MoE and hybrid (item 1d), EncDec (item "
+                "1c) (ROADMAP.md queue 1)")
         if self.norm not in ("rms", "ln"):
             raise ValueError(f"{self.arch_id}: norm {self.norm!r}")
-        block = Block(d_model=self.d_model, n_heads=self.n_heads,
-                      n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-                      d_ff=self.d_ff, qkv_bias=self.qkv_bias,
-                      rope_theta=self.rope_theta, use_rope=self.use_rope,
-                      activation=self.activation, norm=self.norm,
-                      parallel=self.parallel_block)
+        period = len(self.layout)
+        if self.n_layers % period:
+            raise ValueError(f"{self.arch_id}: {self.n_layers} layers do not repeat the "
+                             f"{period}-layer period {self.layout!r}")
         return CausalLM(vocab=self.vocab, vocab_padded=self.vocab_padded,
                         d_model=self.d_model,
-                        stack=Stack(body=(block,), n_periods=self.n_layers),
+                        stack=Stack(body=tuple(self._block(ch) for ch in self.layout),
+                                    n_periods=self.n_layers // period),
                         norm=self.norm, tie_embeddings=self.tie_embeddings)
 
     def smoke(self) -> "ArchConfig":
@@ -77,10 +91,26 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytic total parameter count (embedding included, true vocab;
-        norms and biases left out), the reference's formula for the dense
-        attention layout."""
+        norms, biases and the recurrent mixers' small leaves left out), the
+        reference's formula."""
         d, f = self.d_model, self.d_ff
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
-        qd, kvd = self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
-        per_layer = d * (qd + 2 * kvd) + qd * d + (3 if self.ffn_kind == "gated" else 2) * d * f
-        return total + self.n_layers * per_layer
+        period = len(self.layout)
+        for i in range(self.n_layers):
+            ch = self.layout[i % period]
+            if ch == "a":
+                qd, kvd = self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
+                total += d * (qd + 2 * kvd) + qd * d
+            elif ch == "m":
+                di, dtr = 2 * d, max(1, math.ceil(d / 16))
+                total += d * 2 * di + di * (dtr + 32) + dtr * di + di * d
+            elif ch == "r":
+                total += 5 * d * d
+            if ch == "r":
+                total += 2 * d * f + d * d
+            else:
+                total += (3 if self.ffn_kind == "gated" else 2) * d * f
+        return total
+
+
+_MIXERS = {"a": "attn", "m": "mamba", "r": "rwkv"}

@@ -5,9 +5,13 @@
 
 --arch takes every ported id (``models/registry.py``): smollm-135m,
 glm4-9b, qwen2.5-14b, command-r-plus-104b, internvl2-2b (its text backbone:
-serving is text-only, as in the reference), and each one's ``<id>-smoke``.
-A full-size model's float32 init must fit the card (glm4-9b: 35 GB; --wq
-then holds 8.8 GB of int8 weights).
+serving is text-only, as in the reference), the recurrent mamba-130m and
+rwkv6-7b, and each one's ``<id>-smoke``.  A full-size model's float32 init
+must fit the card (glm4-9b: 35 GB, rwkv6-7b: 29 GB; --wq then holds 8.8 /
+7.5 GB of int8 weights).  A recurrent model serves through the restart,
+scheduler and chunked policies; --paged and --policy ragged raise the
+reference's errors, and --qkv has no KV cache to quantize there (the flag
+is taken and changes nothing, as in the reference).
 
 --wq   int8 weight-only storage (the ``wq_matmul`` kernel); ``--wq int4`` /
        ``int4-block`` packs two lanes per byte (the ``wq4_matmul`` kernel),
@@ -112,6 +116,8 @@ def report(name: str, stats) -> None:
         extra += (f" | completion {s['completion_rate']:.2f} (rej {s['rejections']}, "
                   f"timeout {s['timeouts']}, cancel {s['cancellations']}, failed "
                   f"{s['failed']})")
+    if s.get("state_kinds"):
+        extra += f" | state {s['state_kinds']}"
     if s.get("audited_ticks"):
         extra += f" | audited {s['audited_ticks']} ticks clean"
     if s.get("fault_events"):

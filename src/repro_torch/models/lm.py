@@ -56,7 +56,10 @@ class CausalLM:
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool = False,
                    device, per_slot_len: bool = False, page_size: Optional[int] = None,
                    num_pages: Optional[int] = None) -> Dict[str, Any]:
-        """Serving cache: dense, or paged with ``page_size`` (serve.engine)."""
+        """Serving cache (serve.engine): per attention layer a dense KV slab,
+        or paged with ``page_size``; per Mamba or RWKV-6 layer its zeroed
+        recurrent state, which every path (prefill, decode, ``chunk``)
+        passes through and returns new."""
         return self.stack.init_cache(batch, max_len, quantized_kv=quantized_kv, device=device,
                                      per_slot_len=per_slot_len, page_size=page_size,
                                      num_pages=num_pages)

@@ -1,12 +1,20 @@
 """Transformer block and layer stack (``repro/nn/transformer.py``).
 
-The port's :class:`Block` is the pre-norm "a" layout: norm -> attention ->
-residual, norm -> gated FFN -> residual, with RMSNorm or LayerNorm;
-``parallel=True`` gives the command-r block, in which attention and the FFN
-both read the one normed input (``x + attn(norm1(x)) + ffn(norm1(x))``, no
-``norm2``).  :class:`Stack` keeps the reference's stacked parameter layout
-(one leading layer axis per body position when ``n_periods > 1``) and loops
-over the layer axis where the reference runs ``lax.scan``.
+The port's :class:`Block` is a pre-norm layer: norm -> mixer (attention,
+Mamba or RWKV-6 time-mix) -> residual, norm -> FFN (gated, or the RWKV-6
+channel-mix) -> residual, with RMSNorm or LayerNorm; ``parallel=True``
+gives the command-r block, in which attention and the FFN both read the one
+normed input (``x + attn(norm1(x)) + ffn(norm1(x))``, no ``norm2``).
+:class:`Stack` keeps the reference's stacked parameter layout (one leading
+layer axis per body position when ``n_periods > 1``) and loops over the
+layer axis where the reference runs ``lax.scan``.
+
+A block's cache node holds ``"kv"`` (attention: written in place, only its
+``len`` comes back new) or the recurrent state, ``"ssm"`` (the mixer's) and
+with the channel-mix ``"cm"`` (its token shift).  Recurrent leaves of a
+stacked node carry the layer axis in front (``serve/slot_state.py``
+``REC_BASE_RANK``); each step returns new recurrent tensors and leaves the
+old ones as they were.
 """
 from __future__ import annotations
 
@@ -20,12 +28,17 @@ from repro_torch.nn.attention import (Attention, KVChunk, RaggedBatch, init_kv_c
 from repro_torch.nn.layers import LayerNorm, RMSNorm
 from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import Context, Params, tree_unstack
+from repro_torch.nn.ssm import Mamba, RWKV6ChannelMix, RWKV6TimeMix
+
+# block cache keys of recurrent state: the mixer's and the channel-mix's
+RECURRENT_KEYS = ("ssm", "cm")
 
 
 @dataclasses.dataclass(frozen=True)
 class Block:
-    """One residual layer: norm + attention + norm + gated FFN (one norm
-    before both, side by side, when ``parallel``)."""
+    """One residual layer: norm + mixer (``"attn"``, ``"mamba"`` or
+    ``"rwkv"``) + norm + FFN (``"gated"`` or ``"rwkv"``; one norm before
+    both, side by side, when ``parallel``)."""
 
     d_model: int
     n_heads: int
@@ -39,6 +52,8 @@ class Block:
     activation: str = "silu"
     norm: str = "rms"              # rms | ln
     parallel: bool = False         # command-r parallel attention + FFN
+    mixer: str = "attn"            # attn | mamba | rwkv
+    ffn: str = "gated"             # gated | rwkv
     name: str = "block"
 
     def _norm(self, name: str):
@@ -46,13 +61,23 @@ class Block:
             return LayerNorm(self.d_model, name=name)
         return RMSNorm(self.d_model, name=name)
 
-    def _mixer(self) -> Attention:
-        return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
-                         use_qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
-                         use_rope=self.use_rope, causal=self.causal, name="attn")
+    def _mixer(self):
+        if self.mixer == "attn":
+            return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
+                             use_qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+                             use_rope=self.use_rope, causal=self.causal, name="attn")
+        if self.mixer == "mamba":
+            return Mamba(self.d_model, name="mamba")
+        if self.mixer == "rwkv":
+            return RWKV6TimeMix(self.d_model, head_dim=self.head_dim or 64, name="timemix")
+        raise ValueError(self.mixer)
 
-    def _ffn(self) -> GatedMLP:
-        return GatedMLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
+    def _ffn(self):
+        if self.ffn == "gated":
+            return GatedMLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
+        if self.ffn == "rwkv":
+            return RWKV6ChannelMix(self.d_model, self.d_ff, name="chanmix")
+        raise ValueError(self.ffn)
 
     def init(self, gen: torch.Generator, device) -> Params:
         p: Params = {"norm1": self._norm("norm1").init(gen, device),
@@ -66,8 +91,16 @@ class Block:
                    layers: Optional[int] = None, per_slot_len: bool = False,
                    page_size: Optional[int] = None,
                    num_pages: Optional[int] = None) -> Dict[str, Any]:
-        """A dense KV slab, or with ``page_size`` a paged pool of
-        ``num_pages`` pages (default: dense parity, batch * max_pages)."""
+        """Attention: a dense KV slab, or with ``page_size`` a paged pool of
+        ``num_pages`` pages (default: dense parity, batch * max_pages).
+        Recurrent mixers: their zeroed per-slot state (batch rows are slot
+        rows, so one node serves lockstep and continuous batching; KV
+        options do not apply)."""
+        if self.mixer != "attn":
+            c = {"ssm": self._mixer().init_state(batch, device, layers)}
+            if self.ffn == "rwkv":
+                c["cm"] = self._ffn().init_state(batch, device, layers)
+            return c
         if page_size is None:
             return {"kv": init_kv_cache(batch, max_len, self.n_kv_heads, self.head_dim,
                                         quantized=quantized_kv, device=device, layers=layers,
@@ -87,22 +120,43 @@ class Block:
               chunk: Optional[KVChunk] = None,
               ragged: Optional[RaggedBatch] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-        """The block's mixer is attention, so it takes ``ragged`` as it
-        comes; the reference's recurrent mixers, which refuse it, wait for
-        the port's other-architectures slice."""
+        """Run the block; the new cache node holds the new ``kv`` (attention)
+        or recurrent state (``ssm``, and ``cm`` for the channel-mix).
+        Recurrent mixers refuse ``ragged``, as in the reference."""
         ctx = ctx.scope(self.name)
         h = self._norm("norm1").apply(params["norm1"], x, ctx)
-        mix, kv = self._mixer().apply(params["mixer"], h, ctx,
-                                      cache=None if cache is None else cache["kv"],
-                                      decode=decode, chunk=chunk, ragged=ragged)
-        new_cache = None if kv is None else {"kv": kv}
+        new_cache: Dict[str, Any] = {}
+        if self.mixer == "attn":
+            mix, kv = self._mixer().apply(params["mixer"], h, ctx,
+                                          cache=None if cache is None else cache["kv"],
+                                          decode=decode, chunk=chunk, ragged=ragged)
+            if kv is not None:
+                new_cache["kv"] = kv
+        else:
+            if ragged is not None:
+                raise NotImplementedError(
+                    "the ragged step routes tokens by per-row cache positions; recurrent "
+                    "state has no position axis — serve recurrent mixers through the "
+                    "chunked path")
+            mix, st = self._mixer().apply(params["mixer"], h, ctx,
+                                          state=None if cache is None else cache["ssm"],
+                                          chunk=chunk)
+            if st is not None:
+                new_cache["ssm"] = st
         if self.parallel:
             # command-r: y = x + attn(norm(x)) + ffn(norm(x))
-            return x + mix + self._ffn().apply(params["ffn"], h, ctx), new_cache
+            return x + mix + self._ffn().apply(params["ffn"], h, ctx), new_cache or None
         x = x + mix
         h2 = self._norm("norm2").apply(params["norm2"], x, ctx)
-        x = x + self._ffn().apply(params["ffn"], h2, ctx)
-        return x, new_cache
+        if self.ffn == "rwkv":
+            f, cm = self._ffn().apply(params["ffn"], h2, ctx,
+                                      state=None if cache is None else cache.get("cm"),
+                                      chunk=chunk)
+            if cm is not None:
+                new_cache["cm"] = cm
+        else:
+            f = self._ffn().apply(params["ffn"], h2, ctx)
+        return x + f, new_cache or None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +211,7 @@ class Stack:
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         ctx = ctx.scope(self.name)
         lens = {}
+        states: Dict[int, list] = {pos: [] for pos in range(len(self.body))}
         body = params["body"]
         if self.stacked:
             body = [tree_unstack(p, self.n_periods) for p in body]
@@ -166,24 +221,53 @@ class Stack:
                 if self.stacked:
                     p = p[period]
                     if c is not None:
-                        c = {"kv": dict(c["kv"], k=c["kv"]["k"][period],
-                                        v=c["kv"]["v"][period])}
+                        c = _layer_cache(c, period)
                 bctx = ctx.scope(f"p{pos}" if self.stacked else f"l{pos}")
                 x, nc = blk.apply(p, x, bctx, cache=c, decode=decode, chunk=chunk,
                                   ragged=ragged)
                 if nc is not None:
-                    lens[pos] = nc["kv"]["len"]
+                    if "kv" in nc:
+                        lens[pos] = nc["kv"]["len"]
+                    states[pos].append({k: v for k, v in nc.items() if k in RECURRENT_KEYS})
         if cache is None:
             return x, None
         if ragged is not None:
             # the ragged layers leave ``len`` alone; it rises once per tick
             lens = {pos: ragged_len(ln, ragged) for pos, ln in lens.items()}
-        # every layer wrote its k/v rows in place; only the length advances
-        # (each layer of a period got the same ``len`` and computed the same
-        # new one).  A paged cache's per-layer pools are views of the
+        # every attention layer wrote its k/v rows in place; only the length
+        # advances (each layer of a period got the same ``len`` and computed
+        # the same new one).  A paged cache's per-layer pools are views of the
         # stacked (L, P, ps, Hkv, D) pools; its one table serves every layer.
-        return x, {"body": [{"kv": dict(c["kv"], len=lens[pos])}
-                            for pos, c in enumerate(cache["body"])]}
+        # Recurrent layers returned new state, stacked back along the layer axis.
+        out = []
+        for pos, c in enumerate(cache["body"]):
+            node = dict(c)
+            if "kv" in c:
+                node["kv"] = dict(c["kv"], len=lens[pos])
+            for key in RECURRENT_KEYS:
+                if key in c:
+                    node[key] = _stack_states([st[key] for st in states[pos]]) \
+                        if self.stacked else states[pos][0][key]
+            out.append(node)
+        return x, {"body": out}
+
+
+def _layer_cache(node: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s view of a stacked cache node: the KV slabs' slices (the
+    length and a paged table serve every layer) and the recurrent leaves'."""
+    out = {}
+    for key, sub in node.items():
+        if key == "kv":
+            out[key] = dict(sub, k=sub["k"][i], v=sub["v"][i])
+        else:
+            out[key] = {k: None if v is None else v[i] for k, v in sub.items()}
+    return out
+
+
+def _stack_states(layers: list) -> Dict[str, Any]:
+    """Per-layer recurrent states stacked along a new leading layer axis."""
+    return {k: None if layers[0][k] is None else torch.stack([st[k] for st in layers])
+            for k in layers[0]}
 
 
 def _map_tree(fn, tree):

@@ -23,17 +23,22 @@ Invariants:
   1`` write frontier and fits its mapped extent; a mid-prefill slot's
   ``len`` never falls behind its chunk cursor;
 * SwapArea byte conservation: the area holds exactly the parked requests'
-  pages, and its byte counter matches their sizes.
+  pages, and its byte counter matches their sizes;
+* recurrent rows (Mamba, RWKV-6 state): a slot that holds no request and no
+  prefill lane has all-zero rows in every recurrent leaf
+  (:func:`check_recurrent_rows`).  The scheduler computes each (leaf, slot)
+  row's max |x| on the device and reads that small array back with the
+  tick's health flags, so the check costs no read-back of its own.
 
-The reference's auditors of recurrent rows and cross-attention lengths wait
-for the other architectures slice of the port, with those state kinds.  The
-NaN/Inf logit sentinel is the scheduler's half (the steps return per-row
-health flags under ``audit=True``).
+The reference's auditor of cross-attention lengths waits for the other
+architectures slice of the port.  The NaN/Inf logit sentinel is the
+scheduler's half (the steps return per-row health flags under
+``audit=True``).
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -150,3 +155,32 @@ def check_swap(swap: Optional[SwapArea], parked: Sequence[Tuple[int, Any]]) -> N
     if swap.bytes_held != expect:
         raise AuditError(f"SwapArea bytes_held {swap.bytes_held} != parked page bytes "
                          f"{expect} — byte-conservation breach")
+
+
+def check_recurrent_rows(cache, live: Set[int]) -> None:
+    """Dead slots' recurrent-state rows must be exactly zero.
+
+    ``live``: the slots holding a request or reserved by a prefill lane
+    (their rows carry real state, partial for a mid-prefill lane).  Every
+    other slot's row in every recurrent leaf (Mamba ``h``/``conv``, RWKV-6
+    ``s``/``shift``) must be all zeros, the inert state admission assumes.
+    A nonzero dead row means a masked batched step advanced it (a hole in
+    the ``merge_inactive`` barrier) or an eviction missed a leaf; the next
+    request admitted there would inherit foreign state."""
+    from repro_torch.serve.slot_state import recurrent_row_max
+
+    keys, maxes = recurrent_row_max(cache)
+    if maxes is not None:
+        check_recurrent_row_max(keys, maxes.cpu().numpy(), live)
+
+
+def check_recurrent_row_max(keys: Sequence[str], maxes: np.ndarray, live: Set[int]) -> None:
+    """:func:`check_recurrent_rows` on its read-back: ``maxes[i, j]`` is max
+    |x| over slot ``j``'s row of leaf ``keys[i]`` (leaves in traversal order,
+    ``slot_state.recurrent_row_max``).  A NaN entry is nonzero."""
+    for key, row in zip(keys, maxes):
+        for j, m in enumerate(row):
+            if j not in live and m != 0:
+                raise AuditError(f"recurrent leaf {key!r}: dead slot {j} holds nonzero "
+                                 f"state (max |x| = {float(m)}) — leaked through the "
+                                 f"inactive-merge barrier or missed by eviction")

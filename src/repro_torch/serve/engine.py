@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.integerize import integerize_weights_only
 from repro_torch.nn.attention import KVChunk, RaggedBatch
-from repro_torch.nn.module import Context, resolve_device, tree_leaves, tree_to
+from repro_torch.nn.module import Context, resolve_device, tree_to
 
 # Default page size of a paged cache on the card.  qpaged_decode_attn walks
 # positions, not pages, so the page size barely moves it: chip_smoke.py's
@@ -122,9 +122,11 @@ def make_decode_step(model, *, temperature: float = 0.0, with_health: bool = Fal
     return decode
 
 
-def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = False) -> Callable:
+def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = False,
+                    merge: Optional[Callable] = None) -> Callable:
     """The chunked-prefill tick: every slot decodes one token, then one
-    C-token prompt chunk is written in place into its slot's KV rows.
+    C-token prompt chunk is written in place into its slot's KV rows (or
+    into its recurrent state row).
 
     (params, tok (B, 1), cache, gen, chunk_tok (1, C), slot, start, length)
       -> (next (B, 1), first (1, 1), cache')
@@ -138,15 +140,26 @@ def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = Fals
     ``with_health=True`` (audit mode) takes a trailing (B,) ``poison`` for
     the decode rows (see :func:`make_decode_step`) and returns (next, first,
     decode healthy (B,), first healthy (1,), cache').
+
+    ``merge`` (recurrent-state models): ``merge(old, new, active) -> cache``
+    runs between the decode half and the chunk half with the step's
+    trailing ``active`` ((B,) bool on the device): a recurrence has no
+    position axis to hide a masked step behind, so every inactive slot's
+    rows go back to their values before the decode half, and the chunk
+    half then reads its slot's row unadvanced
+    (``serve/slot_state.py`` ``merge_inactive``).
     """
     decode = make_decode_step(model, temperature=temperature, with_health=with_health)
 
     def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int,
-              poison=None):
+              poison=None, active=None):
+        old = cache
         if with_health:
             nxt, dec_ok, cache = decode(params, tok, cache, gen, poison)
         else:
             nxt, cache = decode(params, tok, cache, gen)
+        if merge is not None and active is not None:
+            cache = merge(old, cache, active)
         logits, cache = model.apply(params, chunk_tok, Context(), cache=cache, decode=True,
                                     chunk=KVChunk(slot=slot, start=start, length=length),
                                     logit_pos=length - 1)
@@ -283,18 +296,22 @@ class ServeEngine:
     def cache_bytes(self, *, per_slot: bool = False) -> int:
         """Bytes of one serving cache, counted as the reference stores it:
         the K/V slabs or pools (without the pools' spare rows) plus, per
-        layer, an int32 for each exponent, the length (one per slot for the
-        scheduler's ``per_slot`` cache) and, paged, the page table."""
+        attention layer, an int32 for each exponent, the length (one per
+        slot for the scheduler's ``per_slot`` cache) and, paged, the page
+        table; and every recurrent leaf whole."""
+        from repro_torch.serve.slot_state import _bytes_where, _is_kv, _is_recurrent
+
         shapes = self.model.init_cache(self.batch_slots, self.max_len,
                                        quantized_kv=self.quantized_kv, device="meta",
                                        per_slot_len=per_slot, **self._paged_kw(per_slot))
-        kv = sum(t.numel() * t.element_size() for t in tree_leaves(shapes)
-                 if isinstance(t, torch.Tensor) and t.ndim >= 4)
+        kv = _bytes_where(shapes, _is_kv, keys=("k", "v"))
         per_layer_ints = (2 if self.quantized_kv else 0) \
             + (self.batch_slots if per_slot else 1)
         if self._paged_kw(per_slot):
             per_layer_ints += self.batch_slots * self.kv_max_pages
-        return kv + 4 * per_layer_ints * self.model.stack.n_layers
+        stack = self.model.stack
+        attn_layers = stack.n_periods * sum(b.mixer == "attn" for b in stack.body)
+        return kv + 4 * per_layer_ints * attn_layers + _bytes_where(shapes, _is_recurrent)
 
     def scheduler(self, **kwargs):
         """A continuous-batching :class:`Scheduler` over this engine."""

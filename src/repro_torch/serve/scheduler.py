@@ -59,7 +59,14 @@ pages to the host, the one other read-back, as in the reference.
 with a paged cache a second one at the tick's end: the device page table
 and lens, audited against the host state of that moment, so a table breach
 raises in its own tick, with the reference's message.
-The reference's recurrent and cross-attention state waits for the other
+Recurrent-state models (Mamba, RWKV-6) serve through the one-shot and
+chunked loops, as in the reference: every batched step runs under the
+inactive-slot merge (``slot_state.merge_inactive``), which puts the rows of
+slots that did not take part back as they were, and the audited tick checks
+that dead slots' recurrent rows are zero from a (leaves, B) array of row
+maxima read back with the health flags.  Ragged ticks, paged caches, swap
+preemption and one-shot prompt buckets are refused for them with the
+reference's messages.  Cross-attention (EncDec) state waits for the other
 architectures slice of the port (ROADMAP.md) and raises
 ``NotImplementedError``.
 
@@ -82,16 +89,18 @@ import torch
 from repro_torch.nn.attention import host_tensor
 from repro_torch.serve.admission import (AdmissionPlanner, Preempted, PrefillLane,
                                          pick_preemption_victim)
-from repro_torch.serve.audit import check_allocator, check_page_tables, check_swap
+from repro_torch.serve.audit import (check_allocator, check_page_tables,
+                                     check_recurrent_row_max, check_swap)
 from repro_torch.serve.engine import (make_decode_step, make_mixed_step, make_prefill_step,
                                       make_ragged_step, sample_tokens)
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.lanes import RaggedTick, assemble_ragged_tick
 from repro_torch.serve.paging import PageAllocator, PrefixIndex, SwapArea, _tree_bytes
 from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, evict_cache_slot,
-                                          find_paged_kv, gather_cache_pages,
-                                          scatter_cache_pages, set_cache_page_entry,
-                                          set_cache_page_row, set_cache_slot_len, state_kinds)
+                                          find_paged_kv, gather_cache_pages, merge_inactive,
+                                          recurrent_row_max, scatter_cache_pages,
+                                          set_cache_page_entry, set_cache_page_row,
+                                          set_cache_slot_len, state_kinds)
 
 
 @dataclasses.dataclass
@@ -193,6 +202,8 @@ class ServeStats:
     audit_reads: int = 0        # audit: device-to-host copies: the health flags of
     #                             each stepped tick and, paged, its end-of-tick
     #                             table and lens (not in the reference)
+    state_kinds: str = ""       # the served model's slot-state kinds, "+"-joined
+    #                             ("kv", "recurrent"); empty for restart batching
 
     @property
     def completion_rate(self) -> float:
@@ -268,6 +279,7 @@ class ServeStats:
             "fault_events": self.fault_events,
             "audited_ticks": self.audited_ticks,
             "audit_reads": self.audit_reads,
+            "state_kinds": self.state_kinds,
         }
 
 
@@ -334,7 +346,9 @@ class Scheduler:
                  ragged: bool = False, prefill_lanes: int = 1,
                  max_queue: Optional[int] = None, reject_policy: str = "reject",
                  swap_bytes: Optional[int] = None, audit: bool = False):
-        state_kinds(engine.model)       # raises for recurrent / cross-attention models
+        kinds = state_kinds(engine.model)       # raises for cross-attention models
+        self.state_kinds: Tuple[str, ...] = kinds
+        self._has_recurrent = "recurrent" in kinds
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if reject_policy not in ("reject", "shed_oldest"):
@@ -360,6 +374,31 @@ class Scheduler:
             raise ValueError("paged KV (engine.paged_kv) requires chunked admission: pass "
                              "chunk_size=... (one-shot admission block-copies a dense "
                              "scratch cache, which has no paged analog)")
+        if self._has_recurrent:
+            if ragged:
+                raise ValueError(
+                    "ragged=True cannot serve recurrent-state (SSM/RWKV) layers: the ragged "
+                    "forward interleaves many slots' tokens in one flattened batch, and a "
+                    "recurrence must consume its slot's tokens in order — use the mixed "
+                    "step (chunk_size=... without ragged)")
+            if self.paged and "kv" not in kinds:
+                raise ValueError(
+                    "paged KV (engine.paged_kv) on a pure recurrent-state model: there is "
+                    "no KV cache to page — recurrent state is a fixed-size per-slot row "
+                    "(drop paged_kv; its bytes do not grow with sequence length)")
+            if oversubscribe and preempt_policy == "swap":
+                raise ValueError(
+                    "preempt_policy='swap' cannot serve recurrent-state layers: swap parks "
+                    "only KV pool pages, the victim's recurrence rows would be zeroed by "
+                    "eviction and resume would continue from corrupt state — use "
+                    "preempt_policy='recompute' (re-prefill rebuilds the recurrence "
+                    "exactly)")
+            if prompt_bucket is not None and chunk_size is None:
+                raise ValueError(
+                    "prompt_bucket cannot serve recurrent-state layers under one-shot "
+                    "admission: bucket padding would run pad tokens through the "
+                    "recurrence and corrupt the admitted state (KV slots mask on len; a "
+                    "recurrence cannot) — drop prompt_bucket or use chunk_size=...")
         if token_budget is not None:
             if chunk_size is None:
                 raise ValueError("token_budget requires chunked admission (chunk_size=...)")
@@ -399,8 +438,11 @@ class Scheduler:
         model, health = engine.model, self.audit
         self._decode = make_decode_step(model, temperature=engine.temperature,
                                         with_health=health)
+        # recurrent state: the inactive slots' rows are put back after each
+        # batched step (between the mixed step's decode and chunk halves)
+        self._merge = merge_inactive if self._has_recurrent else None
         self._mixed = make_mixed_step(model, temperature=engine.temperature,
-                                      with_health=health)
+                                      with_health=health, merge=self._merge)
         self._ragged = make_ragged_step(model, temperature=engine.temperature,
                                         with_health=health)
         self._prefill = make_prefill_step(model)
@@ -421,14 +463,15 @@ class Scheduler:
     def _masked_decode(self, tok, cache, gen, active, poison=None):
         out = self._decode(self.engine.params, tok, cache, gen, *self._poison(poison))
         flags = out[1] if self.audit else None
-        return torch.where(active[:, None], out[0], self.pad_id), flags, out[-1]
+        new = out[-1] if self._merge is None else self._merge(cache, out[-1], active)
+        return torch.where(active[:, None], out[0], self.pad_id), flags, new
 
     def _masked_mixed(self, tok, cache, gen, active, chunk_tok, slot, start, length,
                       poison=None):
         """(tokens (B, 1), masked; first (1, 1); flags (B + 1,), the decode
         rows' then the first token's; cache)."""
         out = self._mixed(self.engine.params, tok, cache, gen, chunk_tok, slot, start, length,
-                          *self._poison(poison))
+                          *self._poison(poison), active=active)
         flags = torch.cat([out[2], out[3]]) if self.audit else None
         return torch.where(active[:, None], out[0], self.pad_id), out[1], flags, out[-1]
 
@@ -641,7 +684,7 @@ class Scheduler:
     def _run(self, requests, *, seed, warmup, time_ticks, cancels, preempts, fault, on_tick):
         eng = self.engine
         nslots, C, dev, ps = eng.batch_slots, self.chunk_size, eng.device, eng.page_size
-        stats = ServeStats()
+        stats = ServeStats(state_kinds="+".join(self.state_kinds))
         requests, plen_of = self._validate(requests, stats)
         orig_plen = dict(plen_of)   # recompute preemption moves plen_of
         if warmup:
@@ -979,12 +1022,24 @@ class Scheduler:
 
         def read_back(flags: torch.Tensor):
             """Audit's mid-tick device-to-host copy: the (B, 1) tokens in EOS
-            mode and the step's health flags.  Returns (tokens or None, flags)."""
+            mode, the step's health flags and, with recurrent state, the
+            (leaves, B) row maxima of the cache the step left (float32 bits
+            carried as int32).  Returns (tokens or None, flags); the row
+            maxima and the slots dead at this moment go to ``rec_read``."""
+            keys, rmax = recurrent_row_max(cache) if self._has_recurrent else ([], None)
             parts = ([tok.reshape(-1)] if use_eos else []) + [flags.to(torch.int32)]
+            if rmax is not None:
+                parts.append(rmax.reshape(-1).view(torch.int32))
             host = torch.cat(parts).cpu().numpy()
             stats.audit_reads += 1
             k = nslots if use_eos else 0
             ok = host[k:k + flags.shape[0]] != 0
+            if rmax is not None:
+                lanes_now = {p_.slot for p_ in lanes}
+                rec_read.update(keys=keys, dead={j_ for j_ in range(nslots)
+                                                 if slots[j_] is None and j_ not in lanes_now},
+                                maxes=host[k + flags.shape[0]:].view(np.float32)
+                                .reshape(len(keys), nslots))
             return (host[:nslots].reshape(nslots, 1) if use_eos else None), ok
 
         def audit_tick() -> None:
@@ -1011,8 +1066,19 @@ class Scheduler:
                                       alloc.refcount, exact_lens=exact, min_lens=mins,
                                       page_size=ps)
             check_swap(swap, [(p_.slot.req.rid, p_.data) for p_ in preempted])
+            if rec_read:
+                # dead slots' recurrent rows must be zero.  The rows were read
+                # with the step's flags; a slot dead now but live then was
+                # evicted since, which zeroes its rows in every leaf of the
+                # same walk, so the slots dead at both moments are the ones
+                # whose rows the read can still speak for
+                live = {j_ for j_, s_ in enumerate(slots) if s_ is not None}
+                live |= {p_.slot for p_ in lanes}
+                live |= set(range(nslots)) - rec_read["dead"]
+                check_recurrent_row_max(rec_read["keys"], rec_read["maxes"], live)
             stats.audited_ticks += 1
 
+        rec_read: Dict[str, Any] = {}       # audit: this tick's recurrent row maxima
         t0 = time.perf_counter()
         while pending or queue or lanes or preempted or any(s is not None for s in slots):
             if on_tick is not None:
@@ -1158,7 +1224,7 @@ class Scheduler:
             stats.peak_live_slots = max(stats.peak_live_slots, sum(active) + len(lanes))
             if active != active_host:       # rebuild the device mask only on change
                 active_host = active
-                active_dev = torch.tensor(active, dtype=torch.bool, device=dev)
+                active_dev = host_tensor(np.asarray(active, dtype=np.bool_), dev)
             poison, tok_host, ok_host = zero_poison, None, None
             if self.audit and poison_plan and t >= poison_plan[0][0] \
                     and slots[poison_plan[0][1]] is not None:

@@ -1,46 +1,102 @@
-"""Per-slot decode-state adapters (``repro/serve/slot_state.py``), for dense
-and paged KV caches.
+"""Per-slot decode-state adapters (``repro/serve/slot_state.py``): dense
+and paged KV caches and recurrent (Mamba, RWKV-6) state.
 
 The continuous-batching scheduler manages *slots*; the walkers below apply
 one slot lifecycle event (admit a batch-1 prefilled cache, evict, install or
-grow a page-table row, copy a page, park or restore pages) to every
-per-layer KV node of a cache tree, so the scheduler never looks inside the
-model.  The port serves attention models: recurrent (SSM/RWKV) and
-cross-attention state wait for the other architectures slice of the port;
-a cache node or a model of those kinds raises.  A paged cache node keeps one table and one
-``len`` for all the layers it stacks, so each event writes them once.
+grow a page-table row, copy a page, park or restore pages, keep inactive
+rows across a batched step) to every state node of a cache tree, so the
+scheduler never looks inside the model.  A paged cache node keeps one table
+and one ``len`` for all the layers it stacks, so each event writes them
+once.  A recurrent node (Mamba ``{"h", "conv"}``, RWKV-6 ``{"s", "shift"}``
+and the channel-mix's ``{"shift"}``, under block-cache keys ``"ssm"`` and
+``"cm"``) is a fixed-size row per slot: admission writes the row, eviction
+zeroes it (the inert state every recurrence starts from), and a batched
+step's inactive rows are put back by :func:`merge_inactive`.  Its events
+return new tensors and leave the old ones as they were.  Cross-attention
+state (EncDec) waits for the other architectures slice of the port and
+raises.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.nn.attention import (copy_kv_page, gather_pool_pages, reset_kv_slot,
                                       scatter_pool_pages, set_kv_slot_len, set_page_entry,
                                       set_page_row, write_kv_slot)
 
-# leaf keys of the reference's recurrent ({"h", "conv"}, {"s", "shift"}) and
-# cross-attention ({"xk", "xv", "xlen"}) state nodes
-_OTHER_STATE_KEYS = {"h", "conv", "s", "shift", "xk", "xv", "xlen"}
+#: Unstacked rank of each recurrent-state leaf (``nn/ssm.py`` ``init_state``):
+#: ``h`` (B, d_inner, N), ``conv`` (B, K-1, d_inner), ``s`` (B, H, N, N),
+#: ``shift`` (B, 1, D).  A leaf one rank higher carries the stacked layer
+#: axis in front and its slot axis is axis 1.
+REC_BASE_RANK: Dict[str, int] = {"h": 3, "conv": 3, "s": 4, "shift": 3}
+
+# leaf keys of the reference's cross-attention ({"xk", "xv", "xlen"}) nodes
+_CROSS_KEYS = {"xk", "xv", "xlen"}
 
 
 def _is_kv(node) -> bool:
     return isinstance(node, dict) and "k" in node and "len" in node
 
 
-def _walk(big, small, fn):
-    """``fn(big_kv, small_kv)`` on every KV node of ``big`` (``small`` is a
-    structurally identical tree, or None); the rest is rebuilt as is."""
+def _is_recurrent(node) -> bool:
+    return isinstance(node, dict) and bool(node) and set(node) <= set(REC_BASE_RANK)
+
+
+def _rec_slot_axis(key: str, leaf: torch.Tensor) -> int:
+    """Slot axis of one recurrent leaf: 1 under a stacked layer axis."""
+    return 1 if leaf.ndim == REC_BASE_RANK[key] + 1 else 0
+
+
+def _walk(big, small, fn, rec_fn: Optional[Callable] = None):
+    """``fn(big_kv, small_kv)`` on every KV node of ``big`` and ``rec_fn(big,
+    small)`` on every recurrent node (None leaves them as they are);
+    ``small`` is a structurally identical tree, or None.  The rest is
+    rebuilt as is."""
     if _is_kv(big):
         return fn(big, small)
+    if _is_recurrent(big):
+        return big if rec_fn is None else rec_fn(big, small)
     if isinstance(big, dict):
-        if _OTHER_STATE_KEYS & set(big):
-            raise NotImplementedError("recurrent and cross-attention slot state waits for "
-                                      "the other architectures slice of the port")
-        return {k: _walk(v, None if small is None else small[k], fn) for k, v in big.items()}
+        if _CROSS_KEYS & set(big):
+            raise NotImplementedError("cross-attention slot state waits for the other "
+                                      "architectures slice of the port")
+        return {k: _walk(v, None if small is None else small[k], fn, rec_fn)
+                for k, v in big.items()}
     if isinstance(big, (list, tuple)):
-        return type(big)(_walk(v, None if small is None else small[i], fn)
+        return type(big)(_walk(v, None if small is None else small[i], fn, rec_fn)
                          for i, v in enumerate(big))
     return big
+
+
+def _zero_recurrent_slot(state: Dict[str, Any], slot: int) -> Dict[str, Any]:
+    """A copy of a recurrent node with ``slot``'s row zeroed in every leaf:
+    the inert state admission starts from, so an evicted slot is
+    indistinguishable from a never-used one (the auditor's dead-slot
+    invariant, ``serve/audit.py`` ``check_recurrent_rows``)."""
+    out = {}
+    for k, v in state.items():
+        if v is not None:
+            v = v.clone()
+            v.select(_rec_slot_axis(k, v), slot).zero_()
+        out[k] = v
+    return out
+
+
+def _scatter_recurrent_slot(big: Dict[str, Any], small: Dict[str, Any],
+                            slot: int) -> Dict[str, Any]:
+    """A copy of a recurrent node with a batch-1 state written into ``slot``
+    (one-shot admission; chunked admission writes through the mixers'
+    ``chunk`` path instead)."""
+    out = {}
+    for k, v in big.items():
+        if v is not None:
+            ax = _rec_slot_axis(k, v)
+            v = v.clone()
+            v.select(ax, slot).copy_(small[k].select(ax, 0))
+        out[k] = v
+    return out
 
 
 def _walk_paged(cache, fn):
@@ -68,19 +124,83 @@ def find_paged_kv(cache):
 
 def admit_cache_slot(big_cache, small_cache, slot: int, length: int):
     """Copy a batch-1 prefilled cache into ``slot`` of the per-slot cache
-    (one-shot admission) and set the slot's live length to ``length``."""
+    (one-shot admission): KV nodes copy their rows and set the slot's live
+    length to ``length``; recurrent nodes take the batch-1 row (the whole
+    recurrence fits it, so ``length`` does not apply)."""
     def op(b, s):
         if "page_table" in b:
             raise ValueError("one-shot admission copies a dense batch-1 cache; paged "
                              "caches admit through chunks")
         return write_kv_slot(b, s, slot, length)
-    return _walk(big_cache, small_cache, op)
+    return _walk(big_cache, small_cache, op,
+                 lambda b, s: _scatter_recurrent_slot(b, s, slot))
 
 
 def evict_cache_slot(cache, slot: int):
-    """O(1) eviction of ``slot``: its live length goes to 0, rows stay; a
-    paged slot's table row is unmapped."""
-    return _walk(cache, None, lambda kv, _: reset_kv_slot(kv, slot))
+    """Eviction of ``slot`` across every state kind: a KV slot's live length
+    goes to 0 and its rows stay (a paged slot's table row is unmapped); a
+    recurrent slot's rows are zeroed (a recurrence has no length to hide
+    stale rows behind, and the next occupant must start from zeros)."""
+    return _walk(cache, None, lambda kv, _: reset_kv_slot(kv, slot),
+                 lambda st, _: _zero_recurrent_slot(st, slot))
+
+
+def merge_inactive(old_cache, new_cache, active: torch.Tensor):
+    """Keep the inactive slots' recurrent rows at their values before a
+    batched step: ``where(active, new, old)`` per slot row of every
+    recurrent leaf.  KV state tolerates a batched step running every row
+    (junk appends land at rows >= ``len``), but one masked step through a
+    dead or mid-prefill slot would advance its recurrence with a pad token.
+    The rows are selected, not blended, so a non-finite value in a
+    discarded row cannot leak.  ``active`` is a (B,) bool device tensor; KV
+    nodes pass through as they are."""
+    def merge(o: Dict[str, Any], n: Dict[str, Any]) -> Dict[str, Any]:
+        out = {}
+        for k, v in n.items():
+            if v is not None:
+                ax = _rec_slot_axis(k, v)
+                shape = [1] * v.ndim
+                shape[ax] = v.shape[ax]
+                v = torch.where(active.reshape(shape), v, o[k])
+            out[k] = v
+        return out
+    return _walk(new_cache, old_cache, lambda kv, _: kv, lambda n, o: merge(o, n))
+
+
+def find_recurrent_nodes(cache) -> List[Dict[str, Any]]:
+    """Every recurrent-state node of a cache tree, dict keys walked sorted:
+    the reference walks its (jitted, so key-sorted) trees in that order."""
+    out: List[Dict[str, Any]] = []
+
+    def rec(node):
+        if _is_recurrent(node):
+            out.append(node)
+        elif isinstance(node, dict) and not _is_kv(node):
+            for k in sorted(node):
+                rec(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                rec(v)
+
+    rec(cache)
+    return out
+
+
+def recurrent_row_max(cache) -> Tuple[List[str], Optional[torch.Tensor]]:
+    """The auditor's device half: (the leaf keys, a (leaves, B) float32
+    tensor of max |x| over each leaf's slot rows), leaves in the reference's
+    order (nodes and their keys sorted), so its first breach is this one's;
+    or ([], None) for a cache without recurrent state.  A NaN in a row makes
+    its entry NaN."""
+    keys, rows = [], []
+    for node in find_recurrent_nodes(cache):
+        for k in sorted(node):
+            v = node[k]
+            if v is not None:
+                ax = _rec_slot_axis(k, v)
+                keys.append(k)
+                rows.append(torch.amax(torch.abs(v), dim=[d for d in range(v.ndim) if d != ax]))
+    return keys, (torch.stack(rows).to(torch.float32) if rows else None)
 
 
 def set_cache_page_row(cache, slot: int, row):
@@ -129,13 +249,51 @@ def set_cache_slot_len(cache, slot: int, length: int):
 
 
 def state_kinds(model) -> Tuple[str, ...]:
-    """The per-slot state kinds ``model`` serves with: ``("kv",)`` for the
-    attention models the port builds."""
-    if hasattr(model, "encode") or any(getattr(b, "mixer", "attn") != "attn"
-                                       for b in model.stack.body):
-        raise NotImplementedError("recurrent and cross-attention models wait for the other "
-                                  "architectures slice of the port")
-    return ("kv",)
+    """The per-slot state kinds ``model`` serves with, in the reference's
+    order: ``"kv"`` for attention mixers, ``"recurrent"`` for Mamba and
+    RWKV-6 mixers.  An EncDec model (``"cross"``) waits for the other
+    architectures slice of the port and raises."""
+    if hasattr(model, "encode"):
+        raise NotImplementedError("cross-attention models wait for the other architectures "
+                                  "slice of the port")
+    mixers = {getattr(b, "mixer", "attn") for b in model.stack.body}
+    kinds = []
+    if "attn" in mixers:
+        kinds.append("kv")
+    if mixers & {"mamba", "rwkv"}:
+        kinds.append("recurrent")
+    return tuple(kinds)
+
+
+def _bytes_where(cache, pred, keys=None) -> int:
+    """Storage bytes of the tensor leaves of the cache nodes matching
+    ``pred`` (only those under ``keys``, if given)."""
+    total = 0
+
+    def rec(node):
+        nonlocal total
+        if pred(node):
+            total += sum(v.numel() * v.element_size() for k, v in node.items()
+                         if isinstance(v, torch.Tensor) and (keys is None or k in keys))
+        elif isinstance(node, dict) and not (_is_kv(node) or _is_recurrent(node)):
+            for v in node.values():
+                rec(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                rec(v)
+
+    rec(cache)
+    return total
+
+
+def state_bytes_per_slot(cache, slots: int) -> Dict[str, int]:
+    """Per-slot device bytes of each state kind in ``cache`` (a ``device="meta"``
+    cache will do): recurrent rows are constant in sequence length, KV
+    slabs grow with ``max_len``."""
+    n = max(slots, 1)
+    return {"kv": _bytes_where(cache, _is_kv) // n,
+            "recurrent": _bytes_where(cache, _is_recurrent) // n,
+            "cross": 0}
 
 
 class SlotState:
@@ -183,6 +341,22 @@ class PagedKVState(DenseKVState):
         state; nothing more here."""
 
 
+class RecurrentState(SlotState):
+    """Fixed-size recurrence rows (Mamba, RWKV-6): constant bytes per slot.
+    Admission writes the whole row (a one-shot scatter, or the mixers'
+    ``chunk`` path), eviction zeroes it, batched steps run under
+    :func:`merge_inactive`; preemption is recompute only."""
+
+    kind = "recurrent"
+
+    def audit_check(self, cache, live: Dict[int, int]) -> None:
+        """Dead slots' rows must be exactly zero (inert)."""
+        from repro_torch.serve.audit import check_recurrent_rows
+
+        check_recurrent_rows(cache, set(live))
+
+
 def adapters_for(model, *, paged: bool = False) -> Tuple[Any, ...]:
     """The adapter set a scheduler composes for ``model``."""
-    return tuple(PagedKVState() if paged else DenseKVState() for _ in state_kinds(model))
+    return tuple((PagedKVState() if paged else DenseKVState()) if kind == "kv"
+                 else RecurrentState() for kind in state_kinds(model))

@@ -8,9 +8,9 @@ greedy tokens and tick timeline, the hardened counters, and the printed
 sampled (temperature 0.7) NaN drill the port alone can run, the CLI's
 hardening flags and ``bench_chaos``.
 
-Not mirrored: the SSM NaN drill (``test_faults.py:308``, recurrent state
-waits for the other architectures slice) and the TPU page-size guard
-(``test_faults.py:441``, a sublane rule of compiled Pallas)."""
+The SSM NaN drill (``test_faults.py:308``) runs on mamba-130m-smoke.  Not
+mirrored: the TPU page-size guard (``test_faults.py:441``, a sublane rule
+of compiled Pallas)."""
 import contextlib
 import dataclasses
 import importlib.util
@@ -401,6 +401,47 @@ def test_nan_sentinel_evicts_exactly_the_poisoned_slot(runs, vocab):
     # two device-to-host copies per stepped tick: the health flags mid-tick,
     # the page table and lens at its end
     assert st.audit_reads == 2 * st.decode_steps
+
+
+def test_nan_sentinel_on_ssm_state():
+    """NaN injection against a recurrent (mamba) slot: the sentinel evicts
+    exactly the poisoned slot, its zeroed rows pass every tick's recurrent
+    audit, the survivors stream what they stream without the fault, and
+    statuses, tokens, timelines and counters equal the reference's."""
+    jm = j_get_config("mamba-130m-smoke").build(dtype=jnp.float32, remat="off")
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = get_config("mamba-130m-smoke").build()
+    tp = params_from_numpy(to_numpy(jp), "cpu")
+    vocab = get_config("mamba-130m-smoke").vocab
+    reqs = _workload(vocab, n_requests=3, plen=8, max_new=10, spacing=0)
+    out = {}
+    for name, eng, rq, plan_cls in (
+            ("port", ServeEngine(model=tm, params=tp, max_len=24, batch_slots=3, device="cpu"),
+             reqs, FaultPlan),
+            ("ref", JServeEngine(model=jm, params=jp, max_len=24, batch_slots=3),
+             _j_requests(reqs), JFaultPlan)):
+        sched = lambda: eng.scheduler(chunk_size=4, audit=True)  # noqa: E731
+        base = _captured(lambda: sched().run(rq, warmup=False))
+        got = _captured(lambda: sched().run(rq, warmup=False,
+                                            fault_plan=plan_cls(nan={5: 1})))
+        out[name] = (base, got)
+    for i in (0, 1):
+        (g, gs, ), gl = out["port"][i]
+        (w, ws, ), wl = out["ref"][i]
+        assert_same(((g, gs, gl), (w, ws, wl)))
+    (base, base_st), _ = out["port"][0]
+    (got, st), _ = out["port"][1]
+    assert base_st.state_kinds == st.state_kinds == "recurrent"
+    assert base_st.audited_ticks > 0 and st.audit_reads == st.decode_steps
+    failed = [r for r in got if got[r].status == "failed"]
+    assert len(failed) == 1 and st.nan_evictions == 1
+    v = failed[0]
+    assert got[v].tokens == base[v].tokens[:len(got[v].tokens)]
+    assert len(got[v].tokens) < len(base[v].tokens)
+    for r in reqs:
+        if r.rid != v:
+            assert got[r.rid].tokens == base[r.rid].tokens
+    assert st.audited_ticks > 0 and st.failed == 1
 
 
 def test_nan_plan_requires_audit(engines, vocab):

@@ -355,8 +355,12 @@ def test_state_kinds_and_adapters_name_their_slices(smoke):
 
     with pytest.raises(NotImplementedError, match="other architectures"):
         slot_state.state_kinds(EncDec())
-    with pytest.raises(NotImplementedError, match="other architectures"):
-        slot_state.evict_cache_slot({"body": [{"ssm": {"h": torch.zeros(1), "conv": None}}]}, 0)
+    # an ssm node: eviction zeroes the slot's row in a copy, as the reference does
+    h = torch.ones(3, 2, 2)
+    out = slot_state.evict_cache_slot({"body": [{"ssm": {"h": h, "conv": None}}]}, 1)
+    got = out["body"][0]["ssm"]
+    assert got["conv"] is None and bool((h == 1).all())
+    assert got["h"][1].abs().sum() == 0 and bool((got["h"][[0, 2]] == 1).all())
     with pytest.raises(ValueError, match="dense KV cache"):
         slot_state.set_cache_page_row({"k": 0, "len": 0}, 0, [0])
 

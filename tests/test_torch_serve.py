@@ -171,12 +171,14 @@ def test_registry_serves_smollm_and_names_the_waiting_slice():
     # the dense-family archs, at full and smoke size
     for arch, layers, d_model in (("glm4-9b", 40, 4096), ("qwen2.5-14b", 48, 5120),
                                   ("command-r-plus-104b", 64, 12288),
-                                  ("internvl2-2b", 24, 2048)):
+                                  ("internvl2-2b", 24, 2048),
+                                  # the recurrent archs
+                                  ("mamba-130m", 24, 768), ("rwkv6-7b", 32, 4096)):
         full, small = get_config(arch), get_config(arch + "-smoke")
         assert (full.arch_id, full.n_layers, full.d_model) == (arch, layers, d_model)
         assert (small.arch_id, small.n_layers, small.d_model) == (arch + "-smoke", 2, 64)
-    with pytest.raises(KeyError, match="other-architectures slice, recurrent state"):
-        get_config("mamba-130m")
+    with pytest.raises(KeyError, match="other-architectures slice, EncDec \\(item 1c\\)"):
+        get_config("whisper-tiny")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-17")
 
