@@ -138,6 +138,20 @@ Phases, each printed as it completes; any failure exits non-zero:
      tick, the decode step and mixed tick profiled (``wq_matmul``'s share),
      the scans' per-token kernels counted; in the kernel phase,
      ``wq_matmul`` at the two archs' eight (K, N) at M = 8 and 32.
+  13. ``[encdec]`` (``encdec_end_to_end``): whisper-tiny whole (4 + 4
+     layers, d_model 384, 6 heads over 6 KV heads of 64, 1500 encoder
+     frames), seeded float32 weights and int8 KV, served through the
+     ``Scheduler`` with ``Request.enc`` (8 requests of 32 + 64 tokens, the
+     encoder outputs of 1500 seeded stub frames, 8 slots, chunk 32):
+     chunked dense and paged, ragged (2 lanes) dense and paged, audited
+     (one read-back a tick), without the cross-attention cache, and runs at
+     1000 and 500 encoder frames; attention-kernel counts exact and no
+     ``wq_matmul``, every request ``ok``, streams held to the chunked run's;
+     on one shared state a decode step and a chunk held to the plain
+     versions, cached cross-attention to the re-projected one over reused
+     slots, cross bytes per slot, peak memory, a decode step and a mixed
+     tick profiled; in the kernel phase, the five attention kernels at G = 1
+     (B=8, D=64, S = 96 and 2048).
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -1525,9 +1539,6 @@ def check_arch_kernels(torch, F, ref, kern, gen, page_size):
     2 lanes x 32), all over post-norm codes.  Chunk and ragged writes must
     equal the plain versions' bytes.  Returns the rows by kernel and the
     worst error."""
-    from repro_torch.core import qformat
-    from repro_torch.kernels.attn_split import chunk_ranks, chunk_tiles, split_ranks
-
     out = {"wq_matmul": [wq_case(torch, ref, kern.wq, gen, m, label, k, n, per)
                          for label, k, n, per in ARCH_GEMMS for m in ((8,) if per == 0
                                                                       else (8, 32))]}
@@ -1541,14 +1552,36 @@ def check_arch_kernels(torch, F, ref, kern, gen, page_size):
               f"({layer['bound_by']})", flush=True)
     worst = max(r["err"] for r in out["wq_matmul"])
 
-    b, s, c, start, d, ps = ARCH_B, ARCH_S, ARCH_C, ARCH_START, 128, page_size
-    lens = [160, 1, 100, 159, 17, 64, 128, 129]
+    for name in ATTN_KERNELS:
+        out[name] = []
+    for arch, hq, hkv in ARCH_HEADS:
+        attention_cells(torch, F, ref, kern, gen, out, arch, hq, hkv, d=128, s=ARCH_S,
+                        start=ARCH_START, lens=[160, 1, 100, 159, 17, 64, 128, 129],
+                        ps=page_size)
+    worst = max([worst] + [r["err"] for rows in out.values() for r in rows])
+    return out, worst
+
+
+ATTN_KERNELS = ("qdecode_attn", "qpaged_decode_attn", "qchunk_attn", "qpaged_chunk_attn",
+                "qragged_attn")
+
+
+def attention_cells(torch, F, ref, kern, gen, out, arch, hq, hkv, d, s, start, lens, ps):
+    """The five attention kernels (``kern.qd``, ``qpd``, ``qc``, ``qpc``,
+    ``qr``) at one cell: B = 8 slots of Hq query heads over Hkv KV heads of
+    ``d`` over a served cache of ``s`` rows with live lengths ``lens`` (paged
+    at ``ps`` through a fragmented table), a C = 32 chunk at ``start`` and
+    the ragged tick (8 decode rows, 2 lanes x 32), all over post-norm
+    codes.  Each is held to its plain version (chunk and ragged writes byte
+    for byte) and timed beside it, a library call and its bound; the rows
+    are appended to ``out[kernel]``, labelled ``arch``."""
+    from repro_torch.core import qformat
+    from repro_torch.kernels.attn_split import chunk_ranks, chunk_tiles, split_ranks
+
+    b, c = ARCH_B, ARCH_C
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     live = sum(lens)
     pairs = c * start + c * (c + 1) // 2
-    for name in ("qdecode_attn", "qpaged_decode_attn", "qchunk_attn", "qpaged_chunk_attn",
-                 "qragged_attn"):
-        out[name] = []
 
     def add(name, arch, g, hq, hkv, ranks, err, calls, plain_calls, lib_calls, bnd):
         iters = max(len(calls), 64)
@@ -1564,163 +1597,160 @@ def check_arch_kernels(torch, F, ref, kern, gen, page_size):
               f"plain {plain * 1e3:.2f} us | library {lib * 1e3:.2f} us | bound "
               f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
 
-    for arch, hq, hkv in ARCH_HEADS:
-        g = hq // hkv
-        # -- the dense decode, over post-norm codes ------------------------------
-        q = torch.randn(b, hq, d, generator=gen, device="cuda")
-        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * b * s * hkv * d)))
-        caches = [tuple(pool_codes(torch, gen, (b, s, hkv, d)) for _ in range(2))
-                  for _ in range(copies)]
-        err = max_err(kern.qd(q, *caches[0], 3, 3, kv_len),
-                      ref.qdecode_attn_ref(q, *caches[0], 3, 3, kv_len))
-        check(err <= ATTN_ATOL, f"qdecode_attn {arch}: max err {err} > {ATTN_ATOL}")
-        mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
-        qs = q[:, :, None, :]
-        deq = [tuple(x.to(torch.float32).mul(0.125).repeat_interleave(g, dim=2)
-                     .permute(0, 2, 1, 3).contiguous() for x in kv) for kv in caches[:4]]
-        add("qdecode_attn", arch, g, hq, hkv, split_ranks(s, b, hkv, d), err,
-            [lambda kv=kv: kern.qd(q, kv[0], kv[1], 3, 3, kv_len) for kv in caches],
-            [lambda kv=kv: ref.qdecode_attn_ref(q, kv[0], kv[1], 3, 3, kv_len)
-             for kv in caches],
-            [lambda kv=kv: F.scaled_dot_product_attention(qs, kv[0], kv[1], attn_mask=mask)
-             for kv in deq],
-            bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * b, 4.0 * live * hq * d))
-        del deq
+    g = hq // hkv
+    # -- the dense decode, over post-norm codes ------------------------------
+    q = torch.randn(b, hq, d, generator=gen, device="cuda")
+    copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * b * s * hkv * d)))
+    caches = [tuple(pool_codes(torch, gen, (b, s, hkv, d)) for _ in range(2))
+              for _ in range(copies)]
+    err = max_err(kern.qd(q, *caches[0], 3, 3, kv_len),
+                  ref.qdecode_attn_ref(q, *caches[0], 3, 3, kv_len))
+    check(err <= ATTN_ATOL, f"qdecode_attn {arch}: max err {err} > {ATTN_ATOL}")
+    mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    deq = [tuple(x.to(torch.float32).mul(0.125).repeat_interleave(g, dim=2)
+                 .permute(0, 2, 1, 3).contiguous() for x in kv) for kv in caches[:4]]
+    add("qdecode_attn", arch, g, hq, hkv, split_ranks(s, b, hkv, d), err,
+        [lambda kv=kv: kern.qd(q, kv[0], kv[1], 3, 3, kv_len) for kv in caches],
+        [lambda kv=kv: ref.qdecode_attn_ref(q, kv[0], kv[1], 3, 3, kv_len)
+         for kv in caches],
+        [lambda kv=kv: F.scaled_dot_product_attention(qs, kv[0], kv[1], attn_mask=mask)
+         for kv in deq],
+        bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * b, 4.0 * live * hq * d))
+    del deq
 
-        # -- the dense chunk into slot 5 at start 96 ------------------------------
-        slot = 5
-        qc = torch.randn(c, hq, d, generator=gen, device="cuda")
-        kc, vc = (1.5 * torch.randn(c, hkv, d, generator=gen, device="cuda") for _ in range(2))
-        kc.view(-1)[::31] = 20.0
-        vc.view(-1)[::37] = -20.0
-        kk, vk, kp, vp = (x.clone() for x in (*caches[0], *caches[0]))
-        err = max_err(kern.qc(qc, kc, vc, kk, vk, 3, 3, slot, start),
-                      ref.qchunk_attn_ref(qc, kc, vc, kp, vp, 3, 3, slot, start))
-        check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp),
-              f"qchunk_attn {arch}: max err {err} (tol {ATTN_ATOL}) or caches differ")
-        end = start + c
-        cmask = torch.arange(end, device="cuda")[None, :] <= \
-            start + torch.arange(c, device="cuda")[:, None]
-        qcs = qc.permute(1, 0, 2)[None]
-        cdeq = [tuple(qformat.dequantize(x[slot, :end], 3).repeat_interleave(g, dim=1)
-                      .permute(1, 0, 2)[None].contiguous() for x in (kp, vp)) for _ in range(4)]
+    # -- the dense chunk into slot 5 at ``start`` -------------------------------
+    slot = 5
+    qc = torch.randn(c, hq, d, generator=gen, device="cuda")
+    kc, vc = (1.5 * torch.randn(c, hkv, d, generator=gen, device="cuda") for _ in range(2))
+    kc.view(-1)[::31] = 20.0
+    vc.view(-1)[::37] = -20.0
+    kk, vk, kp, vp = (x.clone() for x in (*caches[0], *caches[0]))
+    err = max_err(kern.qc(qc, kc, vc, kk, vk, 3, 3, slot, start),
+                  ref.qchunk_attn_ref(qc, kc, vc, kp, vp, 3, 3, slot, start))
+    check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp),
+          f"qchunk_attn {arch}: max err {err} (tol {ATTN_ATOL}) or caches differ")
+    end = start + c
+    cmask = torch.arange(end, device="cuda")[None, :] <= \
+        start + torch.arange(c, device="cuda")[:, None]
+    qcs = qc.permute(1, 0, 2)[None]
+    cdeq = [tuple(qformat.dequantize(x[slot, :end], 3).repeat_interleave(g, dim=1)
+                  .permute(1, 0, 2)[None].contiguous() for x in (kp, vp)) for _ in range(4)]
 
-        def chunk_lib(kv, kq=kk, vq=vk):
-            kq[slot, start:end] = qformat.quantize(kc, 3, 8)
-            vq[slot, start:end] = qformat.quantize(vc, 3, 8)
-            return F.scaled_dot_product_attention(qcs, kv[0], kv[1], attn_mask=cmask)
+    def chunk_lib(kv, kq=kk, vq=vk):
+        kq[slot, start:end] = qformat.quantize(kc, 3, 8)
+        vq[slot, start:end] = qformat.quantize(vc, 3, 8)
+        return F.scaled_dot_product_attention(qcs, kv[0], kv[1], attn_mask=cmask)
 
-        calls = [(kv, j) for kv in caches for j in range(b)]
-        add("qchunk_attn", arch, g, hq, hkv, chunk_ranks(s, chunk_tiles(c, g)[0], hkv, d), err,
-            [lambda kv=kv, j=j: kern.qc(qc, kc, vc, kv[0], kv[1], 3, 3, j, start)
-             for kv, j in calls],
-            [lambda kv=kv, j=j: ref.qchunk_attn_ref(qc, kc, vc, kv[0], kv[1], 3, 3, j, start)
-             for kv, j in calls[:16]],
-            [lambda kv=kv: chunk_lib(kv) for kv in cdeq],
-            chunk_bounds(2 * start * hkv * d + 2 * c * hkv * d
-                         + 4 * (2 * c * hq * d + 2 * c * hkv * d), pairs, hq, d))
-        del caches, cdeq
+    calls = [(kv, j) for kv in caches for j in range(b)]
+    add("qchunk_attn", arch, g, hq, hkv, chunk_ranks(s, chunk_tiles(c, g)[0], hkv, d), err,
+        [lambda kv=kv, j=j: kern.qc(qc, kc, vc, kv[0], kv[1], 3, 3, j, start)
+         for kv, j in calls],
+        [lambda kv=kv, j=j: ref.qchunk_attn_ref(qc, kc, vc, kv[0], kv[1], 3, 3, j, start)
+         for kv, j in calls[:16]],
+        [lambda kv=kv: chunk_lib(kv) for kv in cdeq],
+        chunk_bounds(2 * start * hkv * d + 2 * c * hkv * d
+                     + 4 * (2 * c * hq * d + 2 * c * hkv * d), pairs, hq, d))
+    del caches, cdeq
 
-        # -- the paged decode and chunk through a fragmented table ---------------
-        table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
-        copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * n_pool * ps * hkv * d)))
-        pools = [tuple(pool_codes(torch, gen, (n_pool, ps, hkv, d)) for _ in range(2))
-                 for _ in range(copies)]
-        err = max_err(kern.qpd(q, *pools[0], 3, 3, table, kv_len),
-                      ref.qpaged_decode_attn_ref(q, *pools[0], 3, 3, table, kv_len))
-        check(err <= ATTN_ATOL, f"qpaged_decode_attn {arch}: max err {err} > {ATTN_ATOL}")
-        idx = table.clamp(min=0).reshape(-1).to(torch.int64)
-        pmask = (torch.arange(mp * ps, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+    # -- the paged decode and chunk through a fragmented table ---------------
+    table, n_pool, mp = paged_layout(torch, gen, b, s, ps)
+    copies = max(1, math.ceil(L2_ROTATE_BYTES / (2 * n_pool * ps * hkv * d)))
+    pools = [tuple(pool_codes(torch, gen, (n_pool, ps, hkv, d)) for _ in range(2))
+             for _ in range(copies)]
+    err = max_err(kern.qpd(q, *pools[0], 3, 3, table, kv_len),
+                  ref.qpaged_decode_attn_ref(q, *pools[0], 3, 3, table, kv_len))
+    check(err <= ATTN_ATOL, f"qpaged_decode_attn {arch}: max err {err} > {ATTN_ATOL}")
+    idx = table.clamp(min=0).reshape(-1).to(torch.int64)
+    pmask = (torch.arange(mp * ps, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
 
-        def paged_lib(kv):
-            kk_, vv_ = (x.index_select(0, idx).reshape(b, mp * ps, hkv, d).to(torch.float32)
-                        .mul(0.125).repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
-            return F.scaled_dot_product_attention(qs, kk_, vv_, attn_mask=pmask)
+    def paged_lib(kv):
+        kk_, vv_ = (x.index_select(0, idx).reshape(b, mp * ps, hkv, d).to(torch.float32)
+                    .mul(0.125).repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
+        return F.scaled_dot_product_attention(qs, kk_, vv_, attn_mask=pmask)
 
-        pages = sum(-(-n // ps) for n in lens)
-        add("qpaged_decode_attn", arch, g, hq, hkv, split_ranks(mp * ps, b, hkv, d), err,
-            [lambda kv=kv: kern.qpd(q, kv[0], kv[1], 3, 3, table, kv_len) for kv in pools],
-            [lambda kv=kv: ref.qpaged_decode_attn_ref(q, kv[0], kv[1], 3, 3, table, kv_len)
-             for kv in pools],
-            [lambda kv=kv: paged_lib(kv) for kv in pools[:4]],
-            bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * pages + 4 * b,
-                  4.0 * live * hq * d))
-        prow = table[1].contiguous()                   # slot 1: a shared two-page prefix
-        kk, vk, kp, vp = (x.clone() for x in (*pools[0], *pools[0]))
-        err = max_err(kern.qpc(qc, kc, vc, kk, vk, 3, 3, prow, start),
-                      ref.qpaged_chunk_attn_ref(qc, kc, vc, kp, vp, 3, 3, prow, start))
-        check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp),
-              f"qpaged_chunk_attn {arch}: max err {err} (tol {ATTN_ATOL}) or pools differ")
-        rows_w = torch.tensor([int(prow[(start + i) // ps]) * ps + (start + i) % ps
-                               for i in range(c)], dtype=torch.int64, device="cuda")
-        ridx = prow.clamp(min=0).to(torch.int64)
-        rmask = torch.arange(mp * ps, device="cuda")[None, :] <= \
-            start + torch.arange(c, device="cuda")[:, None]
+    pages = sum(-(-n // ps) for n in lens)
+    add("qpaged_decode_attn", arch, g, hq, hkv, split_ranks(mp * ps, b, hkv, d), err,
+        [lambda kv=kv: kern.qpd(q, kv[0], kv[1], 3, 3, table, kv_len) for kv in pools],
+        [lambda kv=kv: ref.qpaged_decode_attn_ref(q, kv[0], kv[1], 3, 3, table, kv_len)
+         for kv in pools],
+        [lambda kv=kv: paged_lib(kv) for kv in pools[:4]],
+        bound(2 * 4 * b * hq * d + 2 * live * hkv * d + 4 * pages + 4 * b,
+              4.0 * live * hq * d))
+    prow = table[1].contiguous()                   # slot 1: a shared two-page prefix
+    kk, vk, kp, vp = (x.clone() for x in (*pools[0], *pools[0]))
+    err = max_err(kern.qpc(qc, kc, vc, kk, vk, 3, 3, prow, start),
+                  ref.qpaged_chunk_attn_ref(qc, kc, vc, kp, vp, 3, 3, prow, start))
+    check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp),
+          f"qpaged_chunk_attn {arch}: max err {err} (tol {ATTN_ATOL}) or pools differ")
+    rows_w = torch.tensor([int(prow[(start + i) // ps]) * ps + (start + i) % ps
+                           for i in range(c)], dtype=torch.int64, device="cuda")
+    ridx = prow.clamp(min=0).to(torch.int64)
+    rmask = torch.arange(mp * ps, device="cuda")[None, :] <= \
+        start + torch.arange(c, device="cuda")[:, None]
 
-        def paged_chunk_lib(kv):
-            kv[0].view(-1, hkv, d)[rows_w] = qformat.quantize(kc, 3, 8)
-            kv[1].view(-1, hkv, d)[rows_w] = qformat.quantize(vc, 3, 8)
-            kk_, vv_ = (x.index_select(0, ridx).reshape(mp * ps, hkv, d).to(torch.float32)
-                        .mul(0.125).repeat_interleave(g, dim=1).permute(1, 0, 2)[None]
-                        for x in kv)
-            return F.scaled_dot_product_attention(qcs, kk_, vv_, attn_mask=rmask)
+    def paged_chunk_lib(kv):
+        kv[0].view(-1, hkv, d)[rows_w] = qformat.quantize(kc, 3, 8)
+        kv[1].view(-1, hkv, d)[rows_w] = qformat.quantize(vc, 3, 8)
+        kk_, vv_ = (x.index_select(0, ridx).reshape(mp * ps, hkv, d).to(torch.float32)
+                    .mul(0.125).repeat_interleave(g, dim=1).permute(1, 0, 2)[None]
+                    for x in kv)
+        return F.scaled_dot_product_attention(qcs, kk_, vv_, attn_mask=rmask)
 
-        add("qpaged_chunk_attn", arch, g, hq, hkv,
-            chunk_ranks(mp * ps, chunk_tiles(c, g)[0], hkv, d), err,
-            [lambda kv=kv: kern.qpc(qc, kc, vc, kv[0], kv[1], 3, 3, prow, start)
-             for kv in pools],
-            [lambda kv=kv: ref.qpaged_chunk_attn_ref(qc, kc, vc, kv[0], kv[1], 3, 3, prow,
-                                                     start) for kv in pools[:4]],
-            [lambda kv=kv: paged_chunk_lib(kv) for kv in pools[:4]],
-            chunk_bounds(2 * start * hkv * d + 2 * c * hkv * d
-                         + 4 * (2 * c * hq * d + 2 * c * hkv * d) + 4 * mp, pairs, hq, d))
+    add("qpaged_chunk_attn", arch, g, hq, hkv,
+        chunk_ranks(mp * ps, chunk_tiles(c, g)[0], hkv, d), err,
+        [lambda kv=kv: kern.qpc(qc, kc, vc, kv[0], kv[1], 3, 3, prow, start)
+         for kv in pools],
+        [lambda kv=kv: ref.qpaged_chunk_attn_ref(qc, kc, vc, kv[0], kv[1], 3, 3, prow,
+                                                 start) for kv in pools[:4]],
+        [lambda kv=kv: paged_chunk_lib(kv) for kv in pools[:4]],
+        chunk_bounds(2 * start * hkv * d + 2 * c * hkv * d
+                     + 4 * (2 * c * hq * d + 2 * c * hkv * d) + 4 * mp, pairs, hq, d))
 
-        # -- the ragged tick: 8 decode rows (the lane slots' inert), 2 lanes ------
-        lane_slots = (2, 6)
-        slots = list(range(b)) + [lane_slots[0]] * c + [lane_slots[1]] * c
-        pos = [n - 1 for n in lens] + list(range(start, start + c)) * 2
-        for j in lane_slots:
-            pos[j] = -1
-        t = len(pos)
-        sl, po = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (slots, pos))
-        qt = torch.randn(t, hq, d, generator=gen, device="cuda")
-        kn, vn = (1.5 * torch.randn(t, hkv, d, generator=gen, device="cuda") for _ in range(2))
-        kk, vk, kp, vp = (x.clone() for x in (*pools[0], *pools[0]))
-        got = kern.qr(qt, kn, vn, kk, vk, 3, 3, table, sl, po)
-        want = ref.qragged_attn_ref(qt, kn, vn, kp, vp, 3, 3, table, sl, po)
-        valid = po >= 0
-        err = max_err(got[valid], want[valid])
-        check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp)
-              and not bool(got[~valid].any()),
-              f"qragged_attn {arch}: max err {err} (tol {ATTN_ATOL}), pools or inert rows differ")
-        tab = table.cpu().tolist()
-        wrote = [(u, tab[a][p // ps] * ps + p % ps) for u, (a, p) in enumerate(zip(slots, pos))
-                 if p >= 0]
-        w_tok = torch.tensor([u for u, _ in wrote], dtype=torch.int64, device="cuda")
-        w_row = torch.tensor([r for _, r in wrote], dtype=torch.int64, device="cuda")
-        gidx = table[sl.to(torch.int64)].clamp(min=0).to(torch.int64)
-        vis = torch.arange(mp * ps, device="cuda")[None, :] <= po[:, None]
-        vis[:, 0] |= ~vis.any(dim=1)     # inert rows attend row 0: their output is unused
-        qq, gmask = qt[:, :, None, :], vis[:, None, None, :]
-        kq, vq = qformat.quantize(kn[w_tok], 3, 8), qformat.quantize(vn[w_tok], 3, 8)
+    # -- the ragged tick: 8 decode rows (the lane slots' inert), 2 lanes ------
+    lane_slots = (2, 6)
+    slots = list(range(b)) + [lane_slots[0]] * c + [lane_slots[1]] * c
+    pos = [n - 1 for n in lens] + list(range(start, start + c)) * 2
+    for j in lane_slots:
+        pos[j] = -1
+    t = len(pos)
+    sl, po = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (slots, pos))
+    qt = torch.randn(t, hq, d, generator=gen, device="cuda")
+    kn, vn = (1.5 * torch.randn(t, hkv, d, generator=gen, device="cuda") for _ in range(2))
+    kk, vk, kp, vp = (x.clone() for x in (*pools[0], *pools[0]))
+    got = kern.qr(qt, kn, vn, kk, vk, 3, 3, table, sl, po)
+    want = ref.qragged_attn_ref(qt, kn, vn, kp, vp, 3, 3, table, sl, po)
+    valid = po >= 0
+    err = max_err(got[valid], want[valid])
+    check(err <= ATTN_ATOL and torch.equal(kk, kp) and torch.equal(vk, vp)
+          and not bool(got[~valid].any()),
+          f"qragged_attn {arch}: max err {err} (tol {ATTN_ATOL}), pools or inert rows differ")
+    tab = table.cpu().tolist()
+    wrote = [(u, tab[a][p // ps] * ps + p % ps) for u, (a, p) in enumerate(zip(slots, pos))
+             if p >= 0]
+    w_tok = torch.tensor([u for u, _ in wrote], dtype=torch.int64, device="cuda")
+    w_row = torch.tensor([r for _, r in wrote], dtype=torch.int64, device="cuda")
+    gidx = table[sl.to(torch.int64)].clamp(min=0).to(torch.int64)
+    vis = torch.arange(mp * ps, device="cuda")[None, :] <= po[:, None]
+    vis[:, 0] |= ~vis.any(dim=1)     # inert rows attend row 0: their output is unused
+    qq, gmask = qt[:, :, None, :], vis[:, None, None, :]
+    kq, vq = qformat.quantize(kn[w_tok], 3, 8), qformat.quantize(vn[w_tok], 3, 8)
 
-        def ragged_lib(kv):
-            kv[0].view(-1, hkv, d)[w_row] = kq
-            kv[1].view(-1, hkv, d)[w_row] = vq
-            kk_, vv_ = (x[gidx].reshape(t, mp * ps, hkv, d).to(torch.float32).mul(0.125)
-                        .repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
-            return F.scaled_dot_product_attention(qq, kk_, vv_, attn_mask=gmask)
+    def ragged_lib(kv):
+        kv[0].view(-1, hkv, d)[w_row] = kq
+        kv[1].view(-1, hkv, d)[w_row] = vq
+        kk_, vv_ = (x[gidx].reshape(t, mp * ps, hkv, d).to(torch.float32).mul(0.125)
+                    .repeat_interleave(g, dim=2).permute(0, 2, 1, 3) for x in kv)
+        return F.scaled_dot_product_attention(qq, kk_, vv_, attn_mask=gmask)
 
-        add("qragged_attn", arch, g, hq, hkv, split_ranks(mp * ps, t, hkv, d), err,
-            [lambda kv=kv: kern.qr(qt, kn, vn, kv[0], kv[1], 3, 3, table, sl, po)
-             for kv in pools],
-            [lambda kv=kv: ref.qragged_attn_ref(qt, kn, vn, kv[0], kv[1], 3, 3, table, sl, po)
-             for kv in pools[:4]],
-            [lambda kv=kv: ragged_lib(kv) for kv in pools[:4]],
-            ragged_tick_bound(tab, ps, slots, pos, hq, hkv, d))
-        del pools
-        worst = max([worst] + [r["err"] for rows in out.values() for r in rows])
-    return out, worst
+    add("qragged_attn", arch, g, hq, hkv, split_ranks(mp * ps, t, hkv, d), err,
+        [lambda kv=kv: kern.qr(qt, kn, vn, kv[0], kv[1], 3, 3, table, sl, po)
+         for kv in pools],
+        [lambda kv=kv: ref.qragged_attn_ref(qt, kn, vn, kv[0], kv[1], 3, 3, table, sl, po)
+         for kv in pools[:4]],
+        [lambda kv=kv: ragged_lib(kv) for kv in pools[:4]],
+        ragged_tick_bound(tab, ps, slots, pos, hq, hkv, d))
+    del pools
 
 
 def integer_forward(torch, label, model, params, x, pol):
@@ -2211,10 +2241,11 @@ def kv_code_flips(torch, label, engine, prompts):
     return kl, kc
 
 
-def greedy_check(torch, label, got, want, reqs, engine, vocab) -> None:
+def greedy_check(torch, label, got, want, reqs, engine, vocab, enc_of=None) -> None:
     """Tokens equal to ``want``'s; where a stream diverges, the prompt and
     ``want``'s tokens before the divergence are prefilled (plain lockstep
-    path) and the top-2 margin there must be within LOGIT_ATOL."""
+    path, with the request's encoder output from ``enc_of`` for an EncDec
+    model) and the top-2 margin there must be within LOGIT_ATOL."""
     import numpy as np
 
     by_rid = {r.rid: r for r in reqs}
@@ -2230,8 +2261,8 @@ def greedy_check(torch, label, got, want, reqs, engine, vocab) -> None:
         seq = np.concatenate([np.asarray(by_rid[rid].prompt, np.int32).reshape(-1),
                               np.asarray(w[:i], np.int32)])[None]
         with torch.inference_mode():
-            logits, _ = engine.prefill(torch.from_numpy(seq).cuda(),
-                                       engine.new_cache(batch=1))
+            logits, _ = engine.prefill(torch.from_numpy(seq).cuda(), engine.new_cache(batch=1),
+                                       *(() if enc_of is None else (enc_of[rid],)))
         top2 = torch.topk(logits[0, :vocab], 2).values
         margin = (top2[0] - top2[1]).item()
         check(margin <= LOGIT_ATOL, f"{label}: request {rid} diverges at token {i} where "
@@ -4013,6 +4044,287 @@ def recurrent_end_to_end(torch, card):
     return launches
 
 
+ENCDEC_SLOTS, ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_CHUNK = 8, 32, 64, 32
+# whisper-tiny's kernel cells: the served cache (prompt 32 + 64 new, the chunk
+# at start 0) and a long one (the chunk at start 1984); 8 live lengths each
+ENCDEC_CELLS = ((96, 0, [96, 1, 33, 95, 64, 17, 40, 90]),
+                (2048, 1984, [2048, 1, 1000, 2047, 17, 640, 1500, 129]))
+CROSS_ATOL = 1e-4          # cached vs re-projected cross-attention: f32 sums in another order
+
+
+def check_encdec_kernels(torch, F, ref, kern, gen, page_size):
+    """The five attention kernels at whisper-tiny's shapes: G = 1 (6 query
+    heads over 6 KV heads of 64), B = 8, over ``ENCDEC_CELLS`` (S = 96 and
+    2048; paged at ``page_size``), through ``attention_cells``.  Returns the
+    rows by kernel and the worst error."""
+    out = {name: [] for name in ATTN_KERNELS}
+    for s, start, lens in ENCDEC_CELLS:
+        attention_cells(torch, F, ref, kern, gen, out, "whisper-tiny", 6, 6, 64, s=s,
+                        start=start, lens=lens, ps=page_size)
+    return out, max(r["err"] for rows in out.values() for r in rows)
+
+
+def encdec_end_to_end(torch, card):
+    """``[encdec]``: whisper-tiny whole (4 encoder + 4 decoder layers, d_model
+    384, 6 heads of 64 over 6 KV heads, d_ff 1536, vocab 51865, 1500 encoder
+    frames, 32768 learned decoder positions), seeded random float32 weights,
+    int8 KV.  8 requests of 32 + 64 tokens (arrivals 2 ticks apart, 8 slots,
+    chunk 32), each with the encoder output of 1500 seeded stub frames,
+    served through the ``Scheduler``: chunked (dense and paged), ragged
+    with 2 lanes (dense and paged), audited, and without the cross-attention
+    cache; then, one encoder shape per run as in the reference, 2 requests
+    at 1000 frames and 2 at 500.  Every run's attention-kernel counts are
+    exact from its schedule, no ``wq_matmul``, every request ``ok``, each
+    stream the chunked run's (or diverging only at a top-2 margin within
+    LOGIT_ATOL).  On one shared state a decode step's and a chunk's logits
+    are held to the plain versions, and cached cross-attention to the
+    re-projected one over slots rewritten with shorter encoder outputs;
+    the cross bytes per slot, peak memory and the profiles of a decode step
+    and a mixed tick are printed.  Returns the launches of the counted
+    runs."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn.attention import KVChunk, host_tensor
+    from repro_torch.nn.module import Context, param_count
+    from repro_torch.serve import Request, ServeEngine, state_bytes_per_slot
+
+    phase_t0 = time.perf_counter()
+    cfg = get_config("whisper-tiny")
+    slots, plen, new, chunk = ENCDEC_SLOTS, ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_CHUNK
+    shorter = (2 * cfg.enc_seq // 3, cfg.enc_seq // 3)        # 1000 and 500 frames
+    n_layers = cfg.n_layers
+    launches, misses = {}, []
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = cfg.build()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    print(f"[encdec] whisper-tiny: {cfg.enc_layers} encoder + {n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim} (G = 1), d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.enc_seq} encoder "
+          f"frames, {model.max_target_len} learned decoder positions: "
+          f"{param_count(params) / 1e6:.2f} M parameters in the tree "
+          f"({cfg.param_count() / 1e6:.2f} M by the reference's formula); float32 weights, "
+          f"int8 KV; nothing cut", flush=True)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    fgen = torch.Generator(device="cuda").manual_seed(7)
+
+    def encoded(n, frames):
+        """Encoder outputs (n, frames, D) of seeded stub frame embeddings."""
+        with torch.inference_mode():
+            emb = torch.randn((n, frames, cfg.d_model), generator=fgen, device="cuda")
+            return model.encode(params, emb, Context())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encoded(slots, cfg.enc_seq)
+    torch.cuda.synchronize()
+    check(enc.shape == (slots, cfg.enc_seq, cfg.d_model) and bool(torch.isfinite(enc).all()),
+          f"encdec: encoder output {tuple(enc.shape)} not finite or misshapen")
+    print(f"[encdec] model.encode of {slots} x {cfg.enc_seq} stub frames: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call) | card {card}", flush=True)
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab, size=(slots, plen), dtype=np.int32)
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=new, arrival=2 * i, enc=enc[i:i + 1])
+            for i in range(slots)]
+    enc_of = {r.rid: r.enc for r in reqs}
+
+    def engine(**kw):
+        return ServeEngine(model=model, params=params, max_len=plen + new, batch_slots=slots,
+                           quantized_kv=True, device="cuda", **kw)
+
+    dense, paged, uncached = engine(), engine(paged_kv=True), engine(cross_attn_cache=False)
+    chunked = lambda t, c: {"qdecode_attn": n_layers * (t + 2),
+                            "qchunk_attn": n_layers * (c + 1)}
+    paged_chunked = lambda t, c: {"qpaged_decode_attn": n_layers * (t + 2),
+                                  "qpaged_chunk_attn": n_layers * (c + 1)}
+    ragged = lambda t, c: {"qragged_attn": n_layers * (t + 1)}
+
+    def counted(label, eng, want_of, run_reqs=reqs, **kw):
+        """One counted run: exact launch counts, every request ``ok``."""
+        sched = eng.scheduler(chunk_size=chunk, **kw)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, st = sched.run(run_reqs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = dict({k: 0 for k in counts}, **want_of(st.decode_steps, st.prefill_chunks))
+        check(counts == want, f"encdec {label}: launch counts {counts} != expected {want}")
+        check(st.prefill_chunks == len(run_reqs) * -(-plen // chunk),
+              f"encdec {label}: {st.prefill_chunks} chunks")
+        check_served(f"encdec {label}", res, run_reqs, cfg.vocab)
+        kinds = "kv+cross" if eng.cross_attn_cache else "kv"
+        check(st.state_kinds == kinds, f"encdec {label}: state kinds {st.state_kinds!r}")
+        add(counts)
+        summ = st.summary()
+        print(f"[encdec] {label}: {len(run_reqs)} requests ok, {st.decode_steps} ticks, "
+              f"{st.prefill_chunks} chunks; launches {counts} == expected; steady "
+              f"{summ['steady_tok_s']:.1f} tok/s ({st.steady_s * 1e3 / st.decode_steps:.2f} ms "
+              f"a tick); ttft p50/p99 {summ['p50_ttft_steps']:.0f}/{summ['p99_ttft_steps']:.0f} "
+              f"ticks; state {st.state_kinds}; cache {st.peak_cache_bytes} B; run() "
+              f"{secs:.2f}s with warm-up | card {card}", flush=True)
+        return res, st
+
+    base, _ = counted("chunked (dense)", dense, chunked)
+    for label, eng, want_of, kw in (
+            ("chunked (paged, ps 16)", paged, paged_chunked, {}),
+            ("ragged (2 lanes, dense)", dense, ragged, {"ragged": True, "prefill_lanes": 2}),
+            ("ragged (2 lanes, paged)", paged, ragged, {"ragged": True, "prefill_lanes": 2}),
+            ("chunked without the cross-attention cache", uncached, chunked, {})):
+        res, _ = counted(label, eng, want_of, **kw)
+        greedy_check(torch, f"encdec {label} vs chunked (dense)", res, base, reqs, dense,
+                     cfg.vocab, enc_of)
+    res, st = counted("chunked, audited", dense, chunked, audit=True)
+    check(st.audited_ticks == st.decode_steps and st.audit_reads == st.decode_steps,
+          f"encdec audited run: {st.audited_ticks} audited / {st.audit_reads} reads of "
+          f"{st.decode_steps} ticks")
+    greedy_check(torch, "encdec audited vs chunked (dense)", res, base, reqs, dense, cfg.vocab,
+                 enc_of)
+    print(f"[encdec] audited run: every tick audited clean ({st.audited_ticks}), one "
+          f"read-back a tick ({st.audit_reads}): the cross lengths ride the health flags' copy",
+          flush=True)
+    for frames in shorter:
+        short = encoded(2, frames)
+        run_reqs = [Request(rid=100 + i, prompt=prompts[i], max_new=new, arrival=2 * i,
+                            enc=short[i:i + 1]) for i in range(2)]
+        res, _ = counted(f"chunked at {frames} encoder frames", dense, chunked, run_reqs)
+        want, _ = uncached.scheduler(chunk_size=chunk).run(run_reqs, warmup=False)
+        greedy_check(torch, f"encdec {frames} frames: cached vs re-projected", res, want,
+                     run_reqs, dense, cfg.vocab, {r.rid: r.enc for r in run_reqs})
+    t_runs = time.perf_counter()
+
+    # -- one shared state: 8 slots, each with its cross rows and a 32-token prompt ---
+    def clone(c):
+        return {"body": [dict(n, kv={k: v.clone() if hasattr(v, "clone") else v
+                                     for k, v in n["kv"].items()}) for n in c["body"]]}
+
+    with torch.inference_mode():
+        shared = dense.new_cache(per_slot=True)
+        ops.reset_launch_counts()
+        for j in range(slots):
+            shared = model.write_cross_kv(params, shared, enc[j:j + 1], j, Context())
+            _, shared = model.apply(params, torch.from_numpy(prompts[j:j + 1]).cuda(), Context(),
+                                    cache=shared, decode=True, chunk=KVChunk(j, 0, plen),
+                                    logit_pos=plen - 1, enc=enc[j:j + 1])
+        counts = ops.launch_counts()
+    check(counts == dict({k: 0 for k in counts}, qchunk_attn=n_layers * slots),
+          f"encdec shared state: launch counts {counts}")
+    add(counts)
+    tok = torch.randint(0, cfg.vocab, (slots, 1), device="cuda", dtype=torch.int32,
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    ctok = torch.randint(0, cfg.vocab, (1, chunk), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+
+    def held(label, fn, want_counts):
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            got, _ = fn(clone(shared))
+            counts = ops.launch_counts()
+            ops.FORCE = "plain"
+            try:
+                want, _ = fn(clone(shared))
+            finally:
+                ops.FORCE = None
+        check(bool(torch.isfinite(got).all()), f"encdec {label}: logits not finite")
+        check(counts == dict({k: 0 for k in counts}, **want_counts),
+              f"encdec {label}: launch counts {counts}")
+        err = (got - want).abs().max().item()
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > LOGIT_ATOL
+        same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
+        if err > LOGIT_ATOL or not same:
+            misses.append(f"{label}: logits max err {err} (tol {LOGIT_ATOL}), greedy equal on "
+                          f"the clear rows: {same}")
+        print(f"[encdec] {label} from one shared state: logits {tuple(got.shape)} max_abs_err "
+              f"vs plain {err:.3e} (tol {LOGIT_ATOL}); greedy equal on {int(clear.sum())}/"
+              f"{clear.numel()} clear rows: {same}; launches {counts}", flush=True)
+        add(counts)
+
+    held("decode step (B=8)", lambda c: dense.decode(tok, c, enc),
+         {"qdecode_attn": n_layers})
+    held(f"chunk (C={chunk} at {plen} into slot 3)", lambda c: model.apply(
+        params, ctok, Context(), cache=c, decode=True, chunk=KVChunk(3, plen, chunk),
+        logit_pos=chunk - 1, enc=enc[3:4]), {"qchunk_attn": n_layers})
+
+    # -- cached vs re-projected cross-attention, slots 6 and 7 reused shorter ------
+    lens = [cfg.enc_seq] * (slots - 2) + list(shorter)
+    short = {n: encoded(1, n) for n in shorter}
+    with torch.inference_mode():
+        state = clone(shared)
+        for j, n in zip((6, 7), shorter):
+            state = model.write_cross_kv(params, state, short[n], j, Context())
+        xlen = state["body"][0]["xkv"]["xlen"]
+        check(xlen.tolist() == [lens] * n_layers, f"encdec: xlen {xlen.tolist()}")
+        got, _ = dense.decode(tok, clone(state), enc)
+        worst = 0.0
+        for n in sorted(set(lens)):
+            rows = [j for j, x in enumerate(lens) if x == n]
+            e = enc[:, :n].clone()
+            for j in rows:
+                if n != cfg.enc_seq:
+                    e[j] = short[n][0]
+            plain_state = {"body": [{"kv": n_["kv"]} for n_ in clone(state)["body"]]}
+            want, _ = dense.decode(tok, plain_state, e)
+            worst = max(worst, (got[rows] - want[rows]).abs().max().item())
+    check(worst <= CROSS_ATOL, f"encdec: cached vs re-projected cross-attention logits max "
+                               f"err {worst} > {CROSS_ATOL}")
+    print(f"[encdec] cached vs re-projected cross-attention, one decode step over encoder "
+          f"lengths {lens} (slots 6 and 7 rewritten shorter over {cfg.enc_seq}-row ones): logits "
+          f"max_abs_err {worst:.3e} (tol {CROSS_ATOL})", flush=True)
+
+    # -- bytes and memory ---------------------------------------------------------------
+    per_slot = state_bytes_per_slot(dense.new_cache(per_slot=True), slots)
+    predicted = 2 * n_layers * cfg.enc_seq * cfg.n_kv_heads * cfg.head_dim * 4 + 4 * n_layers
+    check(per_slot["cross"] == predicted, f"encdec: cross bytes per slot {per_slot['cross']} != "
+                                          f"predicted {predicted}")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < total, f"encdec: peak memory {peak / GIB:.2f} GiB past the card's")
+    print(f"[encdec] state bytes per slot {per_slot} (cross: 2 x {n_layers} layers x "
+          f"{cfg.enc_seq} x {cfg.n_kv_heads} x {cfg.head_dim} float32 + {n_layers} xlen = "
+          f"{predicted}); cache_bytes per-slot {dense.cache_bytes(per_slot=True)} B; peak "
+          f"memory {peak / GIB:.2f} GiB of {total / GIB:.2f} (torch.cuda.max_memory_allocated) "
+          f"| card {card}", flush=True)
+
+    # -- profiles ----------------------------------------------------------------------
+    sched = dense.scheduler(chunk_size=chunk)
+    lane = 4
+    act = host_tensor(np.arange(slots) != lane, "cuda")
+
+    def decode_step(st):
+        c, t = st
+        lg, c = dense.decode(t, c, enc)
+        return c, torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
+
+    def mixed_tick(st):
+        c, t = st
+        t, _, _, c = sched._masked_mixed(t, c, None, act, ctok, lane, 0, chunk, None, enc)
+        return c, t
+
+    for label, step in (("decode step", decode_step), ("mixed tick", mixed_tick)):
+        prof = profile_steps(torch, f"whisper-tiny {label} (B={slots}" +
+                             (f", C={chunk})" if label == "mixed tick" else ")"), step,
+                             (clone(shared), tok), card)
+        if prof is not None:
+            attn = sum(r[0] for r in prof["rows"] if "attn" in r[2] or "chunk" in r[2]) / 1e3
+            print(f"[encdec] whisper-tiny {label}: the attention kernels {attn:.3f} ms of "
+                  f"{prof['busy_ms']:.3f} ms device busy", flush=True)
+    print(f"[time] encdec phase {time.perf_counter() - phase_t0:.1f}s (runs "
+          f"{t_runs - phase_t0:.1f}s)", flush=True)
+    check(not misses, "encdec: " + "; ".join(misses))
+    del model, params, dense, paged, uncached, shared, state, sched
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4110,9 +4422,13 @@ def main() -> int:
     t_rec = time.perf_counter()
     rec_rows, rec_err = check_recurrent_kernels(torch, ref, wq_matmul_cuda, gen)
     check_grants("the recurrent archs' kernel shapes", ran=("wq_matmul",))
+    t_enc = time.perf_counter()
+    enc_rows, enc_err = check_encdec_kernels(torch, F, ref, SimpleNamespace(
+        qd=qdecode_attn_cuda, qpd=qpaged_decode_attn_cuda, qc=qchunk_attn_cuda,
+        qpc=qpaged_chunk_attn_cuda, qr=qragged_attn_cuda), gen, CUDA_PAGE_SIZE)
     t_int = time.perf_counter()
     print(f"[time] the archs' kernel shapes {t_rec - t_arch:.1f}s, the recurrent archs' "
-          f"{t_int - t_rec:.1f}s", flush=True)
+          f"{t_enc - t_rec:.1f}s, whisper-tiny's {t_int - t_enc:.1f}s", flush=True)
     qmm_rows = check_qmm(torch, ref, qmm_cuda, gen)
     qmr_rows = check_qmm_requant(torch, ref, qmm_requant_cuda, gen)
     qconv_rows, _ = check_qconv1d(torch, F, ref, qconv1d_cuda, gen)
@@ -4134,11 +4450,14 @@ def main() -> int:
     rec_launches = recurrent_end_to_end(torch, card)
     check_grants("the recurrent phase", ran=("wq_matmul",))
     t7 = time.perf_counter()
+    enc_launches = encdec_end_to_end(torch, card)
+    t8 = time.perf_counter()
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
           f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | archs "
-          f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | all {t7 - t0:.1f}s", flush=True)
+          f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | encdec {t8 - t7:.1f}s | all "
+          f"{t8 - t0:.1f}s", flush=True)
     launches = {k: sum(part.get(k, 0) for part in (launches, int_launches, train_launches,
-                                                   arch_launches, rec_launches))
+                                                   arch_launches, rec_launches, enc_launches))
                 for k in int_launches}
 
     wq_main = wq_layers[8]
@@ -4262,6 +4581,14 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        max(r["err"] for r in arch_rows[entry["name"]]))
     print(f"[kernel] the archs' shapes: worst max_abs_err {arch_err:.3e}", flush=True)
+    for entry in kernels:
+        if entry["name"] in enc_rows:
+            entry["whisper-tiny"] = [{k: r[k] for k in arch_keys if k in r}
+                                     for r in enc_rows[entry["name"]]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["err"] for r in enc_rows[entry["name"]]))
+    print(f"[kernel] whisper-tiny's shapes (G = 1): worst max_abs_err {enc_err:.3e}",
+          flush=True)
     wq_entry = next(e for e in kernels if e["name"] == "wq_matmul")
     wq_entry["recurrent"] = [{k: r[k] for k in ("m", "shape", "k", "n", "err", "ms", "plain_ms",
                                                 "library_ms", "bound_ms", "bound_by")}

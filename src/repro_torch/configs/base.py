@@ -6,17 +6,24 @@ a tied or an untied LM head, and a vision prefix of ``vis_seq`` stub patch
 embeddings: internvl) and the recurrent family: a layout over ``"m"``
 (Mamba) and ``"r"`` (RWKV-6 time-mix, with ``ffn_kind="rwkv"``, the RWKV-6
 channel-mix).  The layout is a period string repeated ``n_layers /
-len(layout)`` times.  MoE and EncDec wait for later slices.  ``smoke()``
-derives the same reduced config as the reference, so converted JAX
-parameters fit it.
+len(layout)`` times.  A config with ``enc_layers`` builds an
+:class:`~repro_torch.models.lm.EncDecLM` (whisper): a non-causal encoder
+stack and a causal decoder stack with cross-attention, both with the
+classic MLP FFN.  MoE and hybrid layouts wait for a later slice.
+``smoke()`` derives the same reduced config as the reference, so converted
+JAX parameters fit it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
-from repro_torch.models.lm import CausalLM
+from repro_torch.models.lm import CausalLM, EncDecLM
 from repro_torch.nn.transformer import Block, Stack
+
+# the decoder's learned position table: the reference sizes it by
+# SHAPES["decode_32k"].seq_len
+MAX_TARGET_LEN = 32768
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -26,7 +33,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                    # dense | vlm | ssm (others wait for later slices)
+    family: str                    # dense | vlm | ssm | audio (moe, hybrid wait)
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,14 +48,20 @@ class ArchConfig:
     norm: str = "rms"              # rms | ln
     parallel_block: bool = False   # command-r: x + attn(norm(x)) + ffn(norm(x))
     activation: str = "silu"
-    ffn_kind: str = "gated"        # gated | rwkv
+    ffn_kind: str = "gated"        # gated | mlp | rwkv
     tie_embeddings: bool = True
+    enc_layers: int = 0            # enc-dec (audio): encoder depth
+    enc_seq: int = 1500            # stub frontend output length (whisper frames)
     vis_seq: int = 0               # stub vision-prefix length (vlm)
     notes: str = ""
 
     @property
     def vocab_padded(self) -> int:
         return pad_vocab(self.vocab)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
 
     def _block(self, mixer_ch: str) -> Block:
         return Block(d_model=self.d_model, n_heads=self.n_heads,
@@ -59,16 +72,19 @@ class ArchConfig:
                      parallel=self.parallel_block, mixer=_MIXERS[mixer_ch],
                      ffn=self.ffn_kind)
 
-    def build(self) -> CausalLM:
-        """The float32 CausalLM of this config."""
+    def build(self):
+        """The float32 model of this config: an ``EncDecLM`` when it has
+        ``enc_layers``, else a ``CausalLM``."""
+        if self.norm not in ("rms", "ln"):
+            raise ValueError(f"{self.arch_id}: norm {self.norm!r}")
+        if self.is_encdec:
+            return self._build_encdec()
         if any(ch not in _MIXERS for ch in self.layout) or \
                 self.ffn_kind not in ("gated", "rwkv"):
             raise NotImplementedError(
                 f"{self.arch_id}: layout {self.layout!r} / ffn {self.ffn_kind!r} arrive "
-                "with later slices of the port: MoE and hybrid (item 1d), EncDec (item "
-                "1c) (ROADMAP.md queue 1)")
-        if self.norm not in ("rms", "ln"):
-            raise ValueError(f"{self.arch_id}: norm {self.norm!r}")
+                "with a later slice of the port: MoE and hybrid (item 1d) (ROADMAP.md "
+                "queue 1)")
         period = len(self.layout)
         if self.n_layers % period:
             raise ValueError(f"{self.arch_id}: {self.n_layers} layers do not repeat the "
@@ -79,6 +95,21 @@ class ArchConfig:
                                     n_periods=self.n_layers // period),
                         norm=self.norm, tie_embeddings=self.tie_embeddings)
 
+    def _build_encdec(self) -> EncDecLM:
+        """Whisper's pair of stacks: a non-causal encoder block and a causal
+        decoder block with cross-attention, RoPE off and the GELU MLP in
+        both (``repro/configs/base.py`` ``build``)."""
+        kw = dict(d_model=self.d_model, n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+                  head_dim=self.head_dim, d_ff=self.d_ff, use_rope=False, ffn="mlp",
+                  activation="gelu", norm=self.norm)
+        return EncDecLM(vocab=self.vocab, vocab_padded=self.vocab_padded,
+                        d_model=self.d_model,
+                        encoder=Stack(body=(Block(causal=False, **kw),),
+                                      n_periods=self.enc_layers),
+                        decoder=Stack(body=(Block(causal=True, cross=True, **kw),),
+                                      n_periods=self.n_layers),
+                        max_target_len=MAX_TARGET_LEN, norm=self.norm, enc_len=self.enc_seq)
+
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU tests (the reference's sizes)."""
         n_heads = 4
@@ -87,7 +118,9 @@ class ArchConfig:
             self, arch_id=self.arch_id + "-smoke",
             n_layers=len(self.layout) * (2 if len(self.layout) == 1 else 1),
             d_model=64, n_heads=n_heads, n_kv_heads=n_kv, head_dim=16,
-            d_ff=128, vocab=503, vis_seq=min(self.vis_seq, 8) if self.vis_seq else 0)
+            d_ff=128, vocab=503, vis_seq=min(self.vis_seq, 8) if self.vis_seq else 0,
+            enc_layers=min(self.enc_layers, 2) if self.enc_layers else 0,
+            enc_seq=16 if self.enc_layers else self.enc_seq)
 
     def param_count(self) -> int:
         """Analytic total parameter count (embedding included, true vocab;
@@ -110,6 +143,8 @@ class ArchConfig:
                 total += 2 * d * f + d * d
             else:
                 total += (3 if self.ffn_kind == "gated" else 2) * d * f
+        if self.is_encdec:
+            total += self.enc_layers * (4 * d * d + 2 * d * f)
         return total
 
 

@@ -3,7 +3,9 @@ back.
 
 The port never imports ``repro``: a caller flattens the reference's tree
 into nested dicts/lists of numpy arrays (stacked layers keep their leading
-axis) and hands it here.  Optimizer states and whole training states
+axis) and hands it here.  Every model's tree carries across leaf by leaf,
+an EncDec one's too (``embed``, ``pos_embed``, ``encoder``, ``enc_norm``,
+``decoder`` with each block's ``norm_x`` and ``xattn``, ``final_norm``).  Optimizer states and whole training states
 convert the same way: the optimizers keep the reference's state trees
 (``{"m"}``, ``{"m", "v", "t"}`` with ``t`` a 0-d int32 array), so
 :func:`params_from_numpy` carries ``m``, ``v`` and ``t`` across as they

@@ -11,7 +11,14 @@ must fit the card (glm4-9b: 35 GB, rwkv6-7b: 29 GB; --wq then holds 8.8 /
 7.5 GB of int8 weights).  A recurrent model serves through the restart,
 scheduler and chunked policies; --paged and --policy ragged raise the
 reference's errors, and --qkv has no KV cache to quantize there (the flag
-is taken and changes nothing, as in the reference).
+is taken and changes nothing, as in the reference).  whisper-tiny resolves,
+but as in the reference this launcher cannot serve it: its workload
+carries no encoder output, so the chunked and ragged policies raise the
+scheduler's "needs the request's encoder output (Request.enc)", scheduler
+raises "requires chunked admission", and restart and lockstep raise the
+port's refusal of a missing encoder output (the reference crashes there);
+--wq is refused when the engine is built.  EncDec serves through
+``ServeEngine`` and its ``Scheduler`` with ``Request.enc``.
 
 --wq   int8 weight-only storage (the ``wq_matmul`` kernel); ``--wq int4`` /
        ``int4-block`` packs two lanes per byte (the ``wq4_matmul`` kernel),

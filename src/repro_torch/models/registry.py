@@ -2,10 +2,10 @@
 
 The port serves the dense attention family: smollm-135m, glm4-9b,
 qwen2.5-14b (untied head), command-r-plus-104b (LayerNorm, parallel block)
-and internvl2-2b (a stub vision prefix); and the recurrent family:
-mamba-130m (Mamba mixers) and rwkv6-7b (RWKV-6 time- and channel-mix).  The
-reference's other ids raise ``KeyError`` naming the part of the
-other-architectures slice they wait for.
+and internvl2-2b (a stub vision prefix); the recurrent family: mamba-130m
+(Mamba mixers) and rwkv6-7b (RWKV-6 time- and channel-mix); and the
+encoder-decoder whisper-tiny.  The reference's other ids raise ``KeyError``
+naming the part of the other-architectures slice they wait for.
 """
 from __future__ import annotations
 
@@ -20,12 +20,12 @@ _MODULES = {
     "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "mamba-130m": "repro_torch.configs.mamba_130m",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 # Reference archs not ported yet, by the part of the other-architectures
 # slice (ROADMAP.md queue 1, item 1) that brings them.
 _WAITING = {
-    "whisper-tiny": "EncDec (item 1c)",
     "phi3.5-moe-42b-a6.6b": "MoE and hybrid (item 1d)",
     "kimi-k2-1t-a32b": "MoE and hybrid (item 1d)",
     "jamba-v0.1-52b": "MoE and hybrid (item 1d)",

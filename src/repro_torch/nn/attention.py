@@ -32,6 +32,13 @@ through ``ops.qragged_attn`` (a dense slab as a pool of B pages under the
 identity table), float caches through :func:`append_kv_ragged` and
 :func:`ragged_attention`.  Its layers leave ``len`` as it was;
 ``Stack.apply`` raises it once per tick (:func:`ragged_len`).
+
+Cross-attention (the EncDec decoder, whisper) reads keys and values
+projected from the encoder's output: with ``kv_source`` they are projected
+on every call; with ``cross_cache`` (:func:`init_cross_cache`, written once
+per admission by ``EncDecLM.write_cross_kv``) they are read from the slot's
+cached rows, masked past its ``xlen``.  Both are plain float32 attention
+without RoPE, as in the reference.
 """
 from __future__ import annotations
 
@@ -209,6 +216,22 @@ def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int, *,
         cache["k_n"] = cache_n
         cache["v_n"] = cache_n
     return cache
+
+
+def init_cross_cache(slots: int, enc_len: int, n_kv_heads: int, head_dim: int, *, device,
+                     layers: Optional[int] = None) -> Dict[str, Any]:
+    """A zeroed per-slot cross-attention cache (EncDec serving): ``xk`` /
+    ``xv`` (slots, enc_len, Hkv, D) float32 hold each slot's encoder K/V
+    rows, projected once at admission, and ``xlen`` (slots,) int32 the
+    slot's live encoder length (0: evicted; rows past it are masked).
+    ``layers`` adds a leading stacked-layer axis to all three, as the
+    reference's scanned decoder stores them.  Deliberately not the ``{"k",
+    "len"}`` pair of a KV cache, so the KV walkers pass it by."""
+    lead = (layers,) if layers else ()
+    shape = lead + (slots, enc_len, n_kv_heads, head_dim)
+    return {"xk": torch.zeros(shape, dtype=torch.float32, device=device),
+            "xv": torch.zeros(shape, dtype=torch.float32, device=device),
+            "xlen": torch.zeros(lead + (slots,), dtype=torch.int32, device=device)}
 
 
 def host_ints(values, device, dtype=torch.int32) -> torch.Tensor:
@@ -697,13 +720,61 @@ class Attention:
     def init(self, gen: torch.Generator, device) -> Params:
         return {nm: layer.init(gen, device) for nm, layer in self._projs().items()}
 
+    def project_kv(self, params: Params, kv_in: torch.Tensor, ctx: Context,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``kv_in`` (B, S, d_model) projected to K and V (B, S, Hkv, D) as
+        ``apply`` projects them: what ``EncDecLM.write_cross_kv`` writes into
+        a slot's cross-attention cache once per admission."""
+        return self._kv(params, kv_in, ctx.scope(self.name))
+
+    def _kv(self, params: Params, kv_in: torch.Tensor, ctx: Context):
+        projs = self._projs()
+        b, skv, _ = kv_in.shape
+        k = projs["wk"].apply(params["wk"], kv_in, ctx)
+        v = projs["wv"].apply(params["wv"], kv_in, ctx)
+        return (k.reshape(b, skv, self.n_kv_heads, self.head_dim),
+                v.reshape(b, skv, self.n_kv_heads, self.head_dim))
+
+    def _cross(self, params: Params, x: torch.Tensor, ctx: Context, *,
+               kv_source: Optional[torch.Tensor], cross_cache: Optional[Dict[str, Any]],
+               chunk: Optional[KVChunk]) -> torch.Tensor:
+        """Cross-attention of ``x`` (B, S, d_model), non-causal and without
+        RoPE: over ``kv_source`` (B, S_enc, d_model) projected here, or over
+        the cached rows of ``cross_cache``.  A chunk reads its slot's rows up
+        to that slot's ``xlen``; otherwise every row is one slot's single
+        token (decode, or a ragged tick's tokens as a batch) over its own
+        slot's rows, masked per row by ``xlen``.  ``xlen`` stays on the
+        device: the mask reads it there."""
+        projs = self._projs()
+        b, s, _ = x.shape
+        q = projs["wq"].apply(params["wq"], x, ctx).reshape(b, s, self.n_heads, self.head_dim)
+        if cross_cache is None:
+            k, v = self._kv(params, kv_source, ctx)
+            out = flash_attention(q, k, v, 0, k.shape[1], False)
+        elif chunk is not None:
+            sl = chunk.slot
+            out = flash_attention(q, cross_cache["xk"][sl:sl + 1], cross_cache["xv"][sl:sl + 1],
+                                  0, cross_cache["xlen"][sl], False)
+        else:
+            if s != 1:
+                raise NotImplementedError("cached cross-attention expects single-token rows "
+                                          "(decode / tokens-as-batch) or a chunk")
+            out = decode_attention(q, cross_cache["xk"], cross_cache["xv"], cross_cache["xlen"])
+        return projs["wo"].apply(params["wo"], out.reshape(b, s, self.n_heads * self.head_dim),
+                                 ctx)
+
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
               decode: bool = False,
               chunk: Optional[KVChunk] = None,
               ragged: Optional[RaggedBatch] = None,
+              kv_source: Optional[torch.Tensor] = None,
+              cross_cache: Optional[Dict[str, Any]] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         """Attend over ``x`` (B, S, d_model).
+
+        ``kv_source`` or ``cross_cache`` makes it cross-attention
+        (:meth:`_cross`), which returns no cache.
 
         With ``cache``: ``ragged`` runs a ragged tick's (1, T) batch, each
         token writing its own row of its own slot and attending that slot
@@ -715,6 +786,9 @@ class Attention:
         over it, causal from the length before the write.
         """
         ctx = ctx.scope(self.name)
+        if kv_source is not None or cross_cache is not None:
+            return self._cross(params, x, ctx, kv_source=kv_source, cross_cache=cross_cache,
+                               chunk=chunk), None
         projs = self._projs()
         b, s, _ = x.shape
         q = projs["wq"].apply(params["wq"], x, ctx).reshape(b, s, self.n_heads, self.head_dim)

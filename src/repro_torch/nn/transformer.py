@@ -5,6 +5,12 @@ Mamba or RWKV-6 time-mix) -> residual, norm -> FFN (gated, or the RWKV-6
 channel-mix) -> residual, with RMSNorm or LayerNorm; ``parallel=True``
 gives the command-r block, in which attention and the FFN both read the one
 normed input (``x + attn(norm1(x)) + ffn(norm1(x))``, no ``norm2``).
+``cross=True`` (the whisper decoder) adds a cross-attention sub-layer after
+the mixer: ``x + xattn(norm_x(x))`` over the encoder's output, projected
+every call from ``enc`` or read from the block's ``"xkv"`` cache node
+(``nn/attention.py`` ``init_cross_cache``), which only
+``EncDecLM.write_cross_kv`` writes: the layers read it and hand it back as
+it was.
 :class:`Stack` keeps the reference's stacked parameter layout (one leading
 layer axis per body position when ``n_periods > 1``) and loops over the
 layer axis where the reference runs ``lax.scan``.
@@ -23,10 +29,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.nn.attention import (Attention, KVChunk, RaggedBatch, init_kv_cache,
-                                      init_paged_kv_cache, ragged_len)
+from repro_torch.nn.attention import (Attention, KVChunk, RaggedBatch, init_cross_cache,
+                                      init_kv_cache, init_paged_kv_cache, ragged_len)
 from repro_torch.nn.layers import LayerNorm, RMSNorm
-from repro_torch.nn.mlp import GatedMLP
+from repro_torch.nn.mlp import MLP, GatedMLP
 from repro_torch.nn.module import Context, Params, tree_unstack
 from repro_torch.nn.ssm import Mamba, RWKV6ChannelMix, RWKV6TimeMix
 
@@ -37,8 +43,9 @@ RECURRENT_KEYS = ("ssm", "cm")
 @dataclasses.dataclass(frozen=True)
 class Block:
     """One residual layer: norm + mixer (``"attn"``, ``"mamba"`` or
-    ``"rwkv"``) + norm + FFN (``"gated"`` or ``"rwkv"``; one norm before
-    both, side by side, when ``parallel``)."""
+    ``"rwkv"``) + norm + FFN (``"gated"``, ``"mlp"`` or ``"rwkv"``; one norm
+    before both, side by side, when ``parallel``), with cross-attention
+    between them when ``cross``."""
 
     d_model: int
     n_heads: int
@@ -53,7 +60,8 @@ class Block:
     norm: str = "rms"              # rms | ln
     parallel: bool = False         # command-r parallel attention + FFN
     mixer: str = "attn"            # attn | mamba | rwkv
-    ffn: str = "gated"             # gated | rwkv
+    ffn: str = "gated"             # gated | mlp | rwkv
+    cross: bool = False            # whisper decoder cross-attention
     name: str = "block"
 
     def _norm(self, name: str):
@@ -75,9 +83,15 @@ class Block:
     def _ffn(self):
         if self.ffn == "gated":
             return GatedMLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
+        if self.ffn == "mlp":
+            return MLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
         if self.ffn == "rwkv":
             return RWKV6ChannelMix(self.d_model, self.d_ff, name="chanmix")
         raise ValueError(self.ffn)
+
+    def _xattn(self) -> Attention:
+        return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
+                         use_rope=False, causal=False, name="xattn")
 
     def init(self, gen: torch.Generator, device) -> Params:
         p: Params = {"norm1": self._norm("norm1").init(gen, device),
@@ -85,17 +99,31 @@ class Block:
         if not self.parallel:
             p["norm2"] = self._norm("norm2").init(gen, device)
         p["ffn"] = self._ffn().init(gen, device)
+        if self.cross:
+            p["norm_x"] = self._norm("norm_x").init(gen, device)
+            p["xattn"] = self._xattn().init(gen, device)
         return p
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool, device,
                    layers: Optional[int] = None, per_slot_len: bool = False,
-                   page_size: Optional[int] = None,
-                   num_pages: Optional[int] = None) -> Dict[str, Any]:
+                   page_size: Optional[int] = None, num_pages: Optional[int] = None,
+                   enc_len: Optional[int] = None) -> Dict[str, Any]:
         """Attention: a dense KV slab, or with ``page_size`` a paged pool of
-        ``num_pages`` pages (default: dense parity, batch * max_pages).
-        Recurrent mixers: their zeroed per-slot state (batch rows are slot
-        rows, so one node serves lockstep and continuous batching; KV
-        options do not apply)."""
+        ``num_pages`` pages (default: dense parity, batch * max_pages), and
+        for a cross-attention block of a per-slot cache with ``enc_len`` an
+        ``"xkv"`` node of ``enc_len`` encoder rows a slot.  Recurrent mixers:
+        their zeroed per-slot state (batch rows are slot rows, so one node
+        serves lockstep and continuous batching; KV options do not apply)."""
+        c = self._self_cache(batch, max_len, quantized_kv=quantized_kv, device=device,
+                             layers=layers, per_slot_len=per_slot_len, page_size=page_size,
+                             num_pages=num_pages)
+        if self.cross and per_slot_len and enc_len is not None:
+            c["xkv"] = init_cross_cache(batch, enc_len, self.n_kv_heads, self.head_dim,
+                                        device=device, layers=layers)
+        return c
+
+    def _self_cache(self, batch, max_len, *, quantized_kv, device, layers, per_slot_len,
+                    page_size, num_pages) -> Dict[str, Any]:
         if self.mixer != "attn":
             c = {"ssm": self._mixer().init_state(batch, device, layers)}
             if self.ffn == "rwkv":
@@ -116,13 +144,16 @@ class Block:
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
+              enc: Optional[torch.Tensor] = None,
               decode: bool = False,
               chunk: Optional[KVChunk] = None,
               ragged: Optional[RaggedBatch] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         """Run the block; the new cache node holds the new ``kv`` (attention)
         or recurrent state (``ssm``, and ``cm`` for the channel-mix).
-        Recurrent mixers refuse ``ragged``, as in the reference."""
+        Recurrent mixers refuse ``ragged``, as in the reference.  ``enc``
+        (B, S_enc, d_model) is the encoder output a cross-attention block
+        attends when its cache has no ``"xkv"`` node."""
         ctx = ctx.scope(self.name)
         h = self._norm("norm1").apply(params["norm1"], x, ctx)
         new_cache: Dict[str, Any] = {}
@@ -147,6 +178,9 @@ class Block:
             # command-r: y = x + attn(norm(x)) + ffn(norm(x))
             return x + mix + self._ffn().apply(params["ffn"], h, ctx), new_cache or None
         x = x + mix
+        if self.cross:
+            x = x + self._cross(params, x, ctx, None if cache is None else cache.get("xkv"),
+                                enc, chunk, ragged)
         h2 = self._norm("norm2").apply(params["norm2"], x, ctx)
         if self.ffn == "rwkv":
             f, cm = self._ffn().apply(params["ffn"], h2, ctx,
@@ -157,6 +191,29 @@ class Block:
         else:
             f = self._ffn().apply(params["ffn"], h2, ctx)
         return x + f, new_cache or None
+
+    def _cross(self, params: Params, x: torch.Tensor, ctx: Context, xkv, enc, chunk,
+               ragged) -> torch.Tensor:
+        """The cross-attention sub-layer's output.  A ragged tick's (1, T)
+        batch mixes tokens of several slots, so its tokens run as a (T, 1)
+        batch, each over its own slot's rows (cached rows, or encoder rows
+        re-projected per token); pad rows take slot 0's and are never
+        sampled.  The slots are gathered with ``index_select`` on the
+        device."""
+        hx = self._norm("norm_x").apply(params["norm_x"], x, ctx)
+        xattn = self._xattn()
+        if ragged is None:
+            if xkv is not None:
+                return xattn.apply(params["xattn"], hx, ctx, cross_cache=xkv, chunk=chunk)[0]
+            return xattn.apply(params["xattn"], hx, ctx, kv_source=enc)[0]
+        slots = torch.clamp(ragged.slots, min=0).to(torch.int64)
+        hx_t = hx.transpose(0, 1)                                  # (T, 1, d)
+        if xkv is not None:
+            sub = {k: v.index_select(0, slots) for k, v in xkv.items()}
+            out = xattn.apply(params["xattn"], hx_t, ctx, cross_cache=sub)[0]
+        else:
+            out = xattn.apply(params["xattn"], hx_t, ctx, kv_source=enc.index_select(0, slots))[0]
+        return out.transpose(0, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,16 +252,18 @@ class Stack:
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool,
                    device, per_slot_len: bool = False, page_size: Optional[int] = None,
-                   num_pages: Optional[int] = None) -> Dict[str, Any]:
+                   num_pages: Optional[int] = None,
+                   enc_len: Optional[int] = None) -> Dict[str, Any]:
         layers = self.n_periods if self.stacked else None
         return {"body": [blk.init_cache(batch, max_len, quantized_kv=quantized_kv,
                                         device=device, layers=layers,
                                         per_slot_len=per_slot_len, page_size=page_size,
-                                        num_pages=num_pages)
+                                        num_pages=num_pages, enc_len=enc_len)
                          for blk in self.body]}
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
+              enc: Optional[torch.Tensor] = None,
               decode: bool = False,
               chunk: Optional[KVChunk] = None,
               ragged: Optional[RaggedBatch] = None,
@@ -223,7 +282,7 @@ class Stack:
                     if c is not None:
                         c = _layer_cache(c, period)
                 bctx = ctx.scope(f"p{pos}" if self.stacked else f"l{pos}")
-                x, nc = blk.apply(p, x, bctx, cache=c, decode=decode, chunk=chunk,
+                x, nc = blk.apply(p, x, bctx, cache=c, enc=enc, decode=decode, chunk=chunk,
                                   ragged=ragged)
                 if nc is not None:
                     if "kv" in nc:
@@ -239,6 +298,7 @@ class Stack:
         # the same new one).  A paged cache's per-layer pools are views of the
         # stacked (L, P, ps, Hkv, D) pools; its one table serves every layer.
         # Recurrent layers returned new state, stacked back along the layer axis.
+        # A cross-attention node ("xkv") was only read: it goes back as it was.
         out = []
         for pos, c in enumerate(cache["body"]):
             node = dict(c)

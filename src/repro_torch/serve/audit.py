@@ -28,12 +28,14 @@ Invariants:
   prefill lane has all-zero rows in every recurrent leaf
   (:func:`check_recurrent_rows`).  The scheduler computes each (leaf, slot)
   row's max |x| on the device and reads that small array back with the
-  tick's health flags, so the check costs no read-back of its own.
+  tick's health flags, so the check costs no read-back of its own;
+* cross-attention lengths (EncDec): a live or lane-reserved slot's cached
+  ``xlen`` equals its request's encoder length, every other slot's is 0,
+  and a stacked node's layers agree (:func:`check_cross_lens`).  The
+  scheduler reads the ``xlen`` rows back with the health flags too.
 
-The reference's auditor of cross-attention lengths waits for the other
-architectures slice of the port.  The NaN/Inf logit sentinel is the
-scheduler's half (the steps return per-row health flags under
-``audit=True``).
+The NaN/Inf logit sentinel is the scheduler's half (the steps return
+per-row health flags under ``audit=True``).
 """
 from __future__ import annotations
 
@@ -184,3 +186,36 @@ def check_recurrent_row_max(keys: Sequence[str], maxes: np.ndarray, live: Set[in
                 raise AuditError(f"recurrent leaf {key!r}: dead slot {j} holds nonzero "
                                  f"state (max |x| = {float(m)}) — leaked through the "
                                  f"inactive-merge barrier or missed by eviction")
+
+
+def check_cross_lens(cache, want: Mapping[int, int]) -> None:
+    """Cached cross-attention lengths against the scheduler's live slots.
+
+    ``want`` maps every live or lane-reserved slot to its request's encoder
+    length; every other slot must read 0.  The cached ``xk``/``xv`` rows are
+    masked by ``xlen`` as KV rows are by ``len``, so a wrong value truncates
+    the encoder context or attends a previous occupant's stale rows."""
+    from repro_torch.serve.slot_state import cross_lens
+
+    counts, rows = cross_lens(cache)
+    if rows is not None:
+        check_cross_len_rows(counts, rows.cpu().numpy(), want)
+
+
+def check_cross_len_rows(counts: Sequence[int], rows: np.ndarray,
+                         want: Mapping[int, int]) -> None:
+    """:func:`check_cross_lens` on its read-back: ``rows`` stacks every
+    cross node's ``xlen`` rows (``counts[i]`` of them for node i, one per
+    stacked layer; ``slot_state.cross_lens``)."""
+    at = 0
+    for n in counts:
+        xl = rows[at:at + n]
+        at += n
+        if n > 1 and np.any(xl != xl[0]):
+            raise AuditError(f"cross-attention xlen disagrees across stacked layers: "
+                             f"{xl.tolist()}")
+        for j, got in enumerate(xl[0]):
+            exp = int(want.get(j, 0))
+            if int(got) != exp:
+                raise AuditError(f"slot {j}: cached cross-attention xlen {int(got)} != "
+                                 f"expected {exp} ({'live' if j in want else 'dead'} slot)")

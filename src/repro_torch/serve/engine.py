@@ -9,6 +9,15 @@ KV cache as int8 on the paper's Qm.n grid (the ``qdecode_attn`` and
 takes ``qragged_attn`` over either).  PyTorch runs
 eagerly, so the reference's jitted steps are plain functions over the
 engine's params here; the cache is updated in place.
+
+An EncDec model (whisper) takes its encoder output ``enc`` in every step:
+(B, S_enc, D), one row per slot (the chunk half of the mixed step slices
+its slot's row).  With ``cross_attn_cache`` (the default) the scheduler's
+per-slot cache also holds each slot's projected cross-attention K/V, which
+the steps read in place of re-projecting ``enc``.  Its weights stay float:
+the reference cannot serve EncDec with int8 weights (its learned position
+table becomes a ``QTensor`` that its decoder cannot index), so
+``weight_quant`` is refused at construction.
 """
 from __future__ import annotations
 
@@ -73,19 +82,26 @@ def sample_tokens(logits: torch.Tensor, gen: Optional[torch.Generator], vocab: i
     return nxt[..., None].to(torch.int32)
 
 
+def enc_kwargs(enc: Optional[torch.Tensor]) -> dict:
+    """The ``enc`` keyword of an EncDec model's apply, absent for the rest."""
+    return {} if enc is None else {"enc": enc}
+
+
 def make_prefill_step(model) -> Callable:
-    """(params, tokens (B, P), cache, embeds=None, logit_pos=None) -> (logits, cache').
+    """(params, tokens (B, P), cache, embeds=None, logit_pos=None, enc=None)
+    -> (logits, cache').
 
     Last-position logits (B, V) by default; ``logit_pos`` returns (B, 1, V)
     at that position, slicing the hidden states before the LM head (a
     slot-targeted prefill over a padded prompt bucket passes its true last
     position).  ``embeds`` (B, S_vis, D) is a VLM's vision prefix, written
-    into the cache ahead of the prompt.
+    into the cache ahead of the prompt; ``enc`` an EncDec model's encoder
+    output.
     """
     def prefill(params, tokens, cache, embeds: Optional[torch.Tensor] = None,
-                logit_pos: Optional[int] = None):
+                logit_pos: Optional[int] = None, enc: Optional[torch.Tensor] = None):
         logits, cache = model.apply(params, tokens, Context(), embeds=embeds, cache=cache,
-                                    decode=True, logit_pos=logit_pos)
+                                    decode=True, logit_pos=logit_pos, **enc_kwargs(enc))
         return (logits if logit_pos is not None else logits[:, -1]), cache
 
     return prefill
@@ -110,10 +126,12 @@ def make_decode_step(model, *, temperature: float = 0.0, with_health: bool = Fal
     ``poison``, a (B,) float32 tensor added to the last-position logits
     (zeros are an exact no-op, a NaN is the fault plan's injection), and
     returns (next, healthy (B,) bool, cache'): ``healthy[b]`` is False iff
-    row b's logits hold a NaN or an Inf.
+    row b's logits hold a NaN or an Inf.  ``enc`` (B, S_enc, D): an EncDec
+    model's encoder output, one row per slot.
     """
-    def decode(params, token, cache, gen, poison=None):
-        logits, cache = model.apply(params, token, Context(), cache=cache, decode=True)
+    def decode(params, token, cache, gen, poison=None, *, enc=None):
+        logits, cache = model.apply(params, token, Context(), cache=cache, decode=True,
+                                    **enc_kwargs(enc))
         if not with_health:
             return sample_tokens(logits[:, -1], gen, model.vocab, temperature), cache
         row, ok = _health(logits[:, -1], poison)
@@ -148,21 +166,26 @@ def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = Fals
     rows go back to their values before the decode half, and the chunk
     half then reads its slot's row unadvanced
     (``serve/slot_state.py`` ``merge_inactive``).
+
+    ``enc`` (EncDec serving): the per-slot encoder outputs (B, S_enc, D).
+    The decode half cross-attends each slot to its own row; the batch-1
+    chunk half takes the target slot's row.
     """
     decode = make_decode_step(model, temperature=temperature, with_health=with_health)
 
     def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int,
-              poison=None, active=None):
+              poison=None, active=None, enc=None):
         old = cache
         if with_health:
-            nxt, dec_ok, cache = decode(params, tok, cache, gen, poison)
+            nxt, dec_ok, cache = decode(params, tok, cache, gen, poison, enc=enc)
         else:
-            nxt, cache = decode(params, tok, cache, gen)
+            nxt, cache = decode(params, tok, cache, gen, enc=enc)
         if merge is not None and active is not None:
             cache = merge(old, cache, active)
         logits, cache = model.apply(params, chunk_tok, Context(), cache=cache, decode=True,
                                     chunk=KVChunk(slot=slot, start=start, length=length),
-                                    logit_pos=length - 1)
+                                    logit_pos=length - 1,
+                                    **enc_kwargs(None if enc is None else enc[slot:slot + 1]))
         if not with_health:
             return nxt, sample_tokens(logits[:, 0], gen, model.vocab, temperature), cache
         row, first_ok = _health(logits[:, 0])
@@ -190,13 +213,15 @@ def make_ragged_step(model, *, temperature: float = 0.0, with_health: bool = Fal
 
     ``with_health=True`` (audit mode) takes a trailing (R,) ``poison`` over
     the sampled rows and returns (next (R, 1), healthy (R,), cache').
+    ``enc`` (EncDec serving): the per-slot encoder outputs (B, S_enc, D);
+    each token cross-attends its own slot's (``nn/transformer.py``).
     """
     def ragged_step(params, tok, cache, gen, chunk_tok, slot_ids, positions, logit_rows,
-                    poison=None):
+                    poison=None, enc=None):
         flat = torch.cat([tok[:, 0], chunk_tok.reshape(-1)])[None, :]
         logits, cache = model.apply(params, flat, Context(), cache=cache, decode=True,
                                     ragged=RaggedBatch(slots=slot_ids, positions=positions),
-                                    logit_rows=logit_rows)
+                                    logit_rows=logit_rows, **enc_kwargs(enc))
         if not with_health:
             return sample_tokens(logits[0], gen, model.vocab, temperature), cache
         rows, ok = _health(logits[0], poison)
@@ -226,6 +251,10 @@ class ServeEngine:
     lockstep ``generate()`` stays dense.  ``kv_pool_pages=None`` is dense
     parity (slots * ceil(max_len / page_size)); ``page_size=None`` resolves
     to ``CUDA_PAGE_SIZE`` on the card and ``CPU_PAGE_SIZE`` elsewhere.
+
+    ``cross_attn_cache`` (EncDec models): the scheduler's cache carries each
+    slot's projected cross-attention K/V, written once per admission; False
+    re-projects the encoder output every step.
     """
 
     model: Any
@@ -241,8 +270,15 @@ class ServeEngine:
     page_size: Optional[int] = None
     kv_pool_pages: Optional[int] = None
     own_params: bool = False
+    cross_attn_cache: bool = True
 
     def __post_init__(self):
+        if self.weight_quant and self.encdec:
+            raise ValueError(
+                f"weight_quant={self.weight_quant!r} on an EncDec model: the reference "
+                "cannot serve it (integerize_weights_only turns the learned position table "
+                "pos_embed/table into a QTensor and its first decode step fails indexing "
+                "it); serve EncDec with float weights (quantized_kv is supported)")
         self.device = resolve_device(self.device)
         if self.page_size is None:
             self.page_size = CUDA_PAGE_SIZE if self.device.type == "cuda" else CPU_PAGE_SIZE
@@ -266,6 +302,11 @@ class ServeEngine:
         return self.model.vocab
 
     @property
+    def encdec(self) -> bool:
+        """Whether the model is an EncDec one (it has an ``encode``)."""
+        return hasattr(self.model, "encode")
+
+    @property
     def kv_max_pages(self) -> int:
         """Page-table width: the per-slot logical length ceiling in pages."""
         return -(-self.max_len // self.page_size)
@@ -277,10 +318,11 @@ class ServeEngine:
             return self.kv_pool_pages
         return self.batch_slots * self.kv_max_pages
 
-    def _paged_kw(self, per_slot: bool) -> dict:
+    def _cache_kw(self, per_slot: bool) -> dict:
+        kw = {"cross_attn_cache": self.cross_attn_cache} if self.encdec else {}
         if self.paged_kv and per_slot:
-            return {"page_size": self.page_size, "num_pages": self.kv_num_pages}
-        return {}
+            kw.update(page_size=self.page_size, num_pages=self.kv_num_pages)
+        return kw
 
     def new_cache(self, *, per_slot: bool = False, batch: Optional[int] = None):
         """A fresh serving cache for this engine's geometry.
@@ -291,27 +333,29 @@ class ServeEngine:
         """
         return self.model.init_cache(batch or self.batch_slots, self.max_len,
                                      quantized_kv=self.quantized_kv, device=self.device,
-                                     per_slot_len=per_slot, **self._paged_kw(per_slot))
+                                     per_slot_len=per_slot, **self._cache_kw(per_slot))
 
     def cache_bytes(self, *, per_slot: bool = False) -> int:
         """Bytes of one serving cache, counted as the reference stores it:
         the K/V slabs or pools (without the pools' spare rows) plus, per
         attention layer, an int32 for each exponent, the length (one per
         slot for the scheduler's ``per_slot`` cache) and, paged, the page
-        table; and every recurrent leaf whole."""
-        from repro_torch.serve.slot_state import _bytes_where, _is_kv, _is_recurrent
+        table; and every recurrent and cross-attention leaf whole."""
+        from repro_torch.serve.slot_state import (_bytes_where, _is_kv, _is_recurrent,
+                                                  _is_xkv)
 
         shapes = self.model.init_cache(self.batch_slots, self.max_len,
                                        quantized_kv=self.quantized_kv, device="meta",
-                                       per_slot_len=per_slot, **self._paged_kw(per_slot))
+                                       per_slot_len=per_slot, **self._cache_kw(per_slot))
         kv = _bytes_where(shapes, _is_kv, keys=("k", "v"))
         per_layer_ints = (2 if self.quantized_kv else 0) \
             + (self.batch_slots if per_slot else 1)
-        if self._paged_kw(per_slot):
+        if self.paged_kv and per_slot:
             per_layer_ints += self.batch_slots * self.kv_max_pages
-        stack = self.model.stack
+        stack = self.model.decoder if self.encdec else self.model.stack
         attn_layers = stack.n_periods * sum(b.mixer == "attn" for b in stack.body)
-        return kv + 4 * per_layer_ints * attn_layers + _bytes_where(shapes, _is_recurrent)
+        return (kv + 4 * per_layer_ints * attn_layers + _bytes_where(shapes, _is_recurrent)
+                + _bytes_where(shapes, _is_xkv))
 
     def scheduler(self, **kwargs):
         """A continuous-batching :class:`Scheduler` over this engine."""
@@ -319,33 +363,43 @@ class ServeEngine:
 
         return Scheduler(self, **kwargs)
 
-    def prefill(self, prompts: torch.Tensor, cache):
-        """Prompt (B, P) into ``cache`` -> (last-position logits (B, V), cache)."""
+    def prefill(self, prompts: torch.Tensor, cache, enc: Optional[torch.Tensor] = None):
+        """Prompt (B, P) into ``cache`` -> (last-position logits (B, V), cache);
+        ``enc`` (B, S_enc, D) for an EncDec model."""
         logits, cache = self.model.apply(self.params, prompts, Context(), cache=cache,
-                                         decode=True, logit_pos=prompts.shape[1] - 1)
+                                         decode=True, logit_pos=prompts.shape[1] - 1,
+                                         **enc_kwargs(enc))
         return logits[:, 0], cache
 
-    def decode(self, token: torch.Tensor, cache):
+    def decode(self, token: torch.Tensor, cache, enc: Optional[torch.Tensor] = None):
         """One token (B, 1) per slot -> (logits (B, V), cache)."""
         logits, cache = self.model.apply(self.params, token, Context(), cache=cache,
-                                         decode=True)
+                                         decode=True, **enc_kwargs(enc))
         return logits[:, -1], cache
 
     @torch.inference_mode()
-    def generate(self, prompts, max_new_tokens: int, *, seed: int = 0) -> torch.Tensor:
-        """prompts (batch_slots, P) int -> (batch_slots, max_new_tokens) int32."""
+    def generate(self, prompts, max_new_tokens: int, *, seed: int = 0,
+                 enc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """prompts (batch_slots, P) int -> (batch_slots, max_new_tokens) int32.
+        An EncDec model needs ``enc``, its encoder output (batch_slots,
+        S_enc, D): the lockstep cache carries no cross-attention rows."""
+        if self.encdec and enc is None:
+            raise ValueError("generate() on an EncDec model needs enc, the encoder output "
+                             "(batch_slots, S_enc, D) its decoder cross-attends")
         if isinstance(prompts, torch.Tensor):
             prompts = prompts.to(self.device)
         else:
             prompts = torch.tensor(np.asarray(prompts), device=self.device)
+        if enc is not None:
+            enc = torch.as_tensor(enc, device=self.device)
         gen = None
         if self.temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        logits, cache = self.prefill(prompts, self.new_cache())
+        logits, cache = self.prefill(prompts, self.new_cache(), enc)
         tok = sample_tokens(logits, gen, self.vocab, self.temperature)
         out = [tok]
         for _ in range(max_new_tokens - 1):
-            logits, cache = self.decode(tok, cache)
+            logits, cache = self.decode(tok, cache, enc)
             tok = sample_tokens(logits, gen, self.vocab, self.temperature)
             out.append(tok)
         return torch.cat(out, dim=1)

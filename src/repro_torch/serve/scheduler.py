@@ -66,9 +66,15 @@ slots that did not take part back as they were, and the audited tick checks
 that dead slots' recurrent rows are zero from a (leaves, B) array of row
 maxima read back with the health flags.  Ragged ticks, paged caches, swap
 preemption and one-shot prompt buckets are refused for them with the
-reference's messages.  Cross-attention (EncDec) state waits for the other
-architectures slice of the port (ROADMAP.md) and raises
-``NotImplementedError``.
+reference's messages.  EncDec models (whisper) serve through the chunked
+and ragged loops only, as in the reference, every request carrying its
+encoder output (``Request.enc``): the scheduler keeps a per-slot (slots,
+S_enc, D) encoder buffer, written in place at admission and resume, and
+hands it to every step.  With ``engine.cross_attn_cache`` (the default)
+admission and resume also project the request's cross-attention K/V once
+into the slot's rows (``EncDecLM.write_cross_kv``), and the audited tick
+reads every layer's ``xlen`` back with the health flags
+(``audit.check_cross_len_rows``).
 
 One deliberate difference: when a one-shot admission finishes at once
 (first token EOS, or ``max_new == 1``), the freed slot is refilled in the
@@ -87,20 +93,21 @@ import numpy as np
 import torch
 
 from repro_torch.nn.attention import host_tensor
+from repro_torch.nn.module import Context
 from repro_torch.serve.admission import (AdmissionPlanner, Preempted, PrefillLane,
                                          pick_preemption_victim)
-from repro_torch.serve.audit import (check_allocator, check_page_tables,
+from repro_torch.serve.audit import (check_allocator, check_cross_len_rows, check_page_tables,
                                      check_recurrent_row_max, check_swap)
-from repro_torch.serve.engine import (make_decode_step, make_mixed_step, make_prefill_step,
-                                      make_ragged_step, sample_tokens)
+from repro_torch.serve.engine import (enc_kwargs, make_decode_step, make_mixed_step,
+                                      make_prefill_step, make_ragged_step, sample_tokens)
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.lanes import RaggedTick, assemble_ragged_tick
 from repro_torch.serve.paging import PageAllocator, PrefixIndex, SwapArea, _tree_bytes
-from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, evict_cache_slot,
-                                          find_paged_kv, gather_cache_pages, merge_inactive,
-                                          recurrent_row_max, scatter_cache_pages,
-                                          set_cache_page_entry, set_cache_page_row,
-                                          set_cache_slot_len, state_kinds)
+from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, cross_lens,
+                                          evict_cache_slot, find_paged_kv, gather_cache_pages,
+                                          merge_inactive, recurrent_row_max,
+                                          scatter_cache_pages, set_cache_page_entry,
+                                          set_cache_page_row, set_cache_slot_len, state_kinds)
 
 
 @dataclasses.dataclass
@@ -108,8 +115,8 @@ class Request:
     """One generation request; ``arrival`` is the decode-step tick at which
     it becomes visible (0 = available at start).  ``deadline_steps``: a
     request unfinished that many ticks after arrival ends ``"timeout"`` with
-    its tokens so far.  ``enc`` (EncDec serving) waits for the other
-    architectures slice and must stay None."""
+    its tokens so far.  ``enc`` (EncDec serving): this request's encoder
+    output, (S_enc, D) or (1, S_enc, D); None for a causal model."""
 
     rid: int
     prompt: Any                 # (P,) int token ids
@@ -203,7 +210,8 @@ class ServeStats:
     #                             each stepped tick and, paged, its end-of-tick
     #                             table and lens (not in the reference)
     state_kinds: str = ""       # the served model's slot-state kinds, "+"-joined
-    #                             ("kv", "recurrent"); empty for restart batching
+    #                             ("kv", "recurrent", "kv+cross"); empty for
+    #                             restart batching
 
     @property
     def completion_rate(self) -> float:
@@ -297,10 +305,6 @@ class _Slot:
     #                              token; the row moves when a swap resumes elsewhere
 
 
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for {where} of the port")
-
-
 class Scheduler:
     """Continuous batching over a ``ServeEngine``'s model and params.
 
@@ -346,9 +350,13 @@ class Scheduler:
                  ragged: bool = False, prefill_lanes: int = 1,
                  max_queue: Optional[int] = None, reject_policy: str = "reject",
                  swap_bytes: Optional[int] = None, audit: bool = False):
-        kinds = state_kinds(engine.model)       # raises for cross-attention models
-        self.state_kinds: Tuple[str, ...] = kinds
+        self.encdec = engine.encdec
+        kinds = list(state_kinds(engine.model))
+        if "cross" in kinds and not engine.cross_attn_cache:
+            kinds.remove("cross")   # the engine re-projects enc every step
+        self.state_kinds: Tuple[str, ...] = tuple(kinds)
         self._has_recurrent = "recurrent" in kinds
+        self._cross_cached = "cross" in kinds
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if reject_policy not in ("reject", "shed_oldest"):
@@ -374,6 +382,12 @@ class Scheduler:
             raise ValueError("paged KV (engine.paged_kv) requires chunked admission: pass "
                              "chunk_size=... (one-shot admission block-copies a dense "
                              "scratch cache, which has no paged analog)")
+        if self.encdec and chunk_size is None:
+            raise ValueError(
+                "EncDec serving requires chunked admission: pass chunk_size=... (e.g. "
+                "Scheduler(engine, chunk_size=32)) — the one-shot slot prefill block-copies "
+                "a scratch cache without the request's encoder output or its "
+                "cross-attention K/V, so the slot would decode without encoder context")
         if self._has_recurrent:
             if ragged:
                 raise ValueError(
@@ -460,22 +474,24 @@ class Scheduler:
     def _poison(self, poison) -> tuple:
         return (poison,) if self.audit else ()
 
-    def _masked_decode(self, tok, cache, gen, active, poison=None):
-        out = self._decode(self.engine.params, tok, cache, gen, *self._poison(poison))
+    def _masked_decode(self, tok, cache, gen, active, poison=None, enc=None):
+        out = self._decode(self.engine.params, tok, cache, gen, *self._poison(poison),
+                           **enc_kwargs(enc))
         flags = out[1] if self.audit else None
         new = out[-1] if self._merge is None else self._merge(cache, out[-1], active)
         return torch.where(active[:, None], out[0], self.pad_id), flags, new
 
     def _masked_mixed(self, tok, cache, gen, active, chunk_tok, slot, start, length,
-                      poison=None):
+                      poison=None, enc=None):
         """(tokens (B, 1), masked; first (1, 1); flags (B + 1,), the decode
         rows' then the first token's; cache)."""
         out = self._mixed(self.engine.params, tok, cache, gen, chunk_tok, slot, start, length,
-                          *self._poison(poison), active=active)
+                          *self._poison(poison), active=active, **enc_kwargs(enc))
         flags = torch.cat([out[2], out[3]]) if self.audit else None
         return torch.where(active[:, None], out[0], self.pad_id), out[1], flags, out[-1]
 
-    def _masked_ragged(self, tok, cache, gen, active, meta: RaggedTick, poison=None):
+    def _masked_ragged(self, tok, cache, gen, active, meta: RaggedTick, poison=None,
+                       enc=None):
         """One ragged tick from its host metadata, sent up as one int32 array
         through pinned memory without blocking.  Returns (the slots' decode
         tokens (B, 1), masked; the lanes' first tokens (L, 1); flags (B + L,);
@@ -488,10 +504,46 @@ class Scheduler:
         sids, poss = dev[:t], dev[t:2 * t]
         lrows, ctok = dev[2 * t:2 * t + nslots + lanes], dev[2 * t + nslots + lanes:]
         out = self._ragged(self.engine.params, tok, cache, gen, ctok.view(lanes, c), sids,
-                           poss, lrows, *self._poison(poison))
+                           poss, lrows, *self._poison(poison), **enc_kwargs(enc))
         flags = out[1] if self.audit else None
         return (torch.where(active[:, None], out[0][:nslots], self.pad_id), out[0][nslots:],
                 flags, out[-1])
+
+    def _write_xkv(self, cache, enc_row: torch.Tensor, slot: int):
+        """Project one request's cross-attention K/V into ``slot``'s rows of
+        the cache, in place (``EncDecLM.write_cross_kv``)."""
+        return self.engine.model.write_cross_kv(self.engine.params, cache, enc_row, slot,
+                                                Context())
+
+    def _encoder_rows(self, requests: Sequence[Request]) -> Dict[int, torch.Tensor]:
+        """Each request's encoder output as a (1, S_enc, D) tensor on the
+        engine's device, checked as the reference checks them: one shape for
+        the run, and with the cross-attention cache at most ``enc_len``
+        rows."""
+        dev = self.engine.device
+        enc_of: Dict[int, torch.Tensor] = {}
+        for r in requests:
+            row = r.enc.to(dev) if isinstance(r.enc, torch.Tensor) \
+                else host_tensor(np.array(r.enc), dev)
+            if row.ndim == 2:
+                row = row[None]
+            if row.ndim != 3 or row.shape[0] != 1:
+                raise ValueError(f"request {r.rid}: enc must be (S_enc, D) or (1, S_enc, D), "
+                                 f"got {tuple(row.shape)}")
+            enc_of[r.rid] = row
+        shapes = {tuple(v.shape) for v in enc_of.values()}
+        if len(shapes) > 1:
+            raise ValueError(f"all requests must share one encoder shape per run (one jitted "
+                             f"step signature), got {sorted(shapes)}")
+        if self._cross_cached and shapes:
+            el = int(self.engine.model.enc_len)
+            (one,) = shapes
+            if one[1] > el:
+                raise ValueError(f"encoder output length {one[1]} exceeds the model's "
+                                 f"cross-attention cache capacity enc_len={el}: the cached "
+                                 f"xk/xv rows would truncate the encoder context — raise "
+                                 f"enc_len or shorten the encoder output")
+        return enc_of
 
     def _slot_prefill(self, tokens, plen: int, gen):
         """(1, P) prompt -> (first token (1, 1), batch-1 cache), the LM head
@@ -529,7 +581,8 @@ class Scheduler:
         return torch.Generator(device=self.engine.device).manual_seed(seed)
 
     # ---- warm-up ---------------------------------------------------------------
-    def warmup(self, prompt_lens: Sequence[int], *, seed: int = 0) -> float:
+    def warmup(self, prompt_lens: Sequence[int], *, seed: int = 0,
+               enc: Optional[torch.Tensor] = None) -> float:
         """Run every step the run will take once against throwaway state (the
         first calls build the kernels and warm the allocator), so the
         measured loop is steady state.  Returns the seconds it took.
@@ -540,6 +593,9 @@ class Scheduler:
         then run one decode step and evict slot 0.  Ragged admission runs one
         ragged tick of inert rows at the run's fixed T instead, then evicts
         slot 0.  Under ``audit`` the steps take all-zero poison vectors.
+        ``enc`` (EncDec serving) is the run's per-slot encoder buffer: the
+        steps take a zeroed one of its shape, whose slot 0 row (with the
+        cross-attention cache) is projected into the throwaway cache first.
         """
         eng = self.engine
         t0 = time.perf_counter()
@@ -552,6 +608,10 @@ class Scheduler:
         pz = torch.zeros(eng.batch_slots + lanes, dtype=torch.float32, device=eng.device) \
             if self.audit else None
         with torch.inference_mode():
+            if enc is not None:
+                enc = torch.zeros_like(enc)
+                if self._cross_cached:
+                    cache = self._write_xkv(cache, enc[:1], 0)
             if self.chunk_size is not None:
                 if self.paged:
                     n = min(self._admission.pages_needed(self.chunk_size, 1), eng.kv_num_pages)
@@ -568,7 +628,7 @@ class Scheduler:
                                       ctok=np.full((lanes, c), self.pad_id, np.int32),
                                       lrows=np.zeros(b + lanes, np.int32), ran=[], stalled=0)
                     tok, firsts, _, cache = self._masked_ragged(tok, cache, gen, active, meta,
-                                                                pz)
+                                                                pz, enc)
                     tok = self._set_tok(tok, firsts[:1], 0)
                     cache = evict_cache_slot(cache, 0)
                     _sync(eng.device)
@@ -576,7 +636,7 @@ class Scheduler:
                 ctok = torch.full((1, self.chunk_size), self.pad_id, dtype=torch.int32,
                                   device=eng.device)
                 tok, first, _, cache = self._masked_mixed(tok, cache, gen, active, ctok, 0, 0,
-                                                          self.chunk_size, pz)
+                                                          self.chunk_size, pz, enc)
                 tok = self._set_tok(tok, first, 0)
             else:
                 for p in sorted({self._bucket(int(p)) for p in prompt_lens}):
@@ -585,7 +645,7 @@ class Scheduler:
                     first, small = self._slot_prefill(toks, p, gen)
                     cache = admit_cache_slot(cache, small, 0, p)
                     tok = self._set_tok(tok, first, 0)
-            tok, _, cache = self._masked_decode(tok, cache, gen, active, pz)
+            tok, _, cache = self._masked_decode(tok, cache, gen, active, pz, enc)
             cache = evict_cache_slot(cache, 0)
         _sync(eng.device)
         return time.perf_counter() - t0
@@ -646,9 +706,13 @@ class Scheduler:
             if r.deadline_steps is not None and r.deadline_steps < 1:
                 raise ValueError(f"request {r.rid}: deadline_steps must be >= 1, got "
                                  f"{r.deadline_steps}")
-            if r.enc is not None:
-                raise _later(f"request {r.rid}: Request.enc (EncDec serving)",
-                             "the other architectures slice")
+            if self.encdec and r.enc is None:
+                raise ValueError(f"request {r.rid}: EncDec serving needs the request's "
+                                 f"encoder output (Request.enc) — decoding without it drops "
+                                 f"the encoder context entirely")
+            if not self.encdec and r.enc is not None:
+                raise ValueError(f"request {r.rid}: Request.enc given but the model has no "
+                                 f"encoder")
             if C is not None:
                 rows = -(-plen // C) * C   # the last (padded) chunk's extent
                 # a paged slot is bounded by its table (max_len rounded up to pages)
@@ -687,8 +751,15 @@ class Scheduler:
         stats = ServeStats(state_kinds="+".join(self.state_kinds))
         requests, plen_of = self._validate(requests, stats)
         orig_plen = dict(plen_of)   # recompute preemption moves plen_of
+        enc_of = self._encoder_rows(requests) if self.encdec else {}
+        # the per-slot encoder buffer: row j is the encoder output of the
+        # request in slot j, written in place at admission and resume
+        enc_buf = torch.zeros((nslots,) + tuple(next(iter(enc_of.values())).shape[1:]),
+                              dtype=next(iter(enc_of.values())).dtype, device=dev) \
+            if enc_of else None
         if warmup:
-            stats.compile_s = self.warmup([plen_of[r.rid] for r in requests], seed=seed)
+            stats.compile_s = self.warmup([plen_of[r.rid] for r in requests], seed=seed,
+                                          enc=enc_buf)
 
         use_eos = self.eos_id is not None
         # pending: not yet arrived; queue: arrived and waiting (what max_queue bounds)
@@ -724,6 +795,15 @@ class Scheduler:
         swap = SwapArea(capacity_bytes=self.swap_bytes) \
             if self.oversubscribe and self.preempt_policy == "swap" else None
         t = 0
+
+        def install_enc(j: int, rid: int) -> None:
+            """Slot j's encoder row and, with the cross-attention cache, its
+            projected K/V rows: once per admission or resume."""
+            nonlocal cache
+            if enc_buf is not None:
+                enc_buf[j:j + 1].copy_(enc_of[rid])
+                if self._cross_cached:
+                    cache = self._write_xkv(cache, enc_of[rid], j)
 
         def digests_of(r: Request) -> Optional[List[bytes]]:
             """Prompt page digests, hashed once per request."""
@@ -937,6 +1017,7 @@ class Scheduler:
                 cache = set_cache_page_row(cache, j, planner.page_row(row))
                 cache = set_cache_slot_len(cache, j, p.live_len)
                 tok = self._set_tok(tok, p.last_tok, j)
+                install_enc(j, rid)
                 if index is not None and rid in prompt_keys:
                     index.insert_keys(prompt_keys[rid], row[:p.slot.plen // ps])
                 slots[j] = p.slot
@@ -1015,6 +1096,7 @@ class Scheduler:
                     cache = set_cache_slot_len(cache, free[0], start0)
                 stats.peak_pages_in_use = alloc.peak_in_use
             queue.popleft()
+            install_enc(free[0], r.rid)
             lanes.append(PrefillLane(req=r, slot=free[0],
                                      prompt=np.asarray(r.prompt, np.int32).reshape(-1),
                                      next_start=start0))
@@ -1022,24 +1104,37 @@ class Scheduler:
 
         def read_back(flags: torch.Tensor):
             """Audit's mid-tick device-to-host copy: the (B, 1) tokens in EOS
-            mode, the step's health flags and, with recurrent state, the
-            (leaves, B) row maxima of the cache the step left (float32 bits
-            carried as int32).  Returns (tokens or None, flags); the row
-            maxima and the slots dead at this moment go to ``rec_read``."""
+            mode, the step's health flags, with recurrent state the (leaves,
+            B) row maxima of the cache the step left (float32 bits carried as
+            int32) and with a cross-attention cache every layer's ``xlen``.
+            Returns (tokens or None, flags); the row maxima and the slots dead
+            at this moment go to ``rec_read``, the lengths and the slots'
+            expected ones at this moment to ``cross_read``."""
             keys, rmax = recurrent_row_max(cache) if self._has_recurrent else ([], None)
+            counts, xlens = cross_lens(cache) if self._cross_cached else ([], None)
             parts = ([tok.reshape(-1)] if use_eos else []) + [flags.to(torch.int32)]
             if rmax is not None:
                 parts.append(rmax.reshape(-1).view(torch.int32))
+            if xlens is not None:
+                parts.append(xlens.reshape(-1))
             host = torch.cat(parts).cpu().numpy()
             stats.audit_reads += 1
             k = nslots if use_eos else 0
-            ok = host[k:k + flags.shape[0]] != 0
+            at = k + flags.shape[0]
+            ok = host[k:at] != 0
+            lanes_now = {p_.slot for p_ in lanes}
             if rmax is not None:
-                lanes_now = {p_.slot for p_ in lanes}
                 rec_read.update(keys=keys, dead={j_ for j_ in range(nslots)
                                                  if slots[j_] is None and j_ not in lanes_now},
-                                maxes=host[k + flags.shape[0]:].view(np.float32)
+                                maxes=host[at:at + rmax.numel()].view(np.float32)
                                 .reshape(len(keys), nslots))
+                at += rmax.numel()
+            if xlens is not None:
+                want = {j_: int(enc_of[s_.req.rid].shape[1]) for j_, s_ in enumerate(slots)
+                        if s_ is not None}
+                want.update({p_.slot: int(enc_of[p_.req.rid].shape[1]) for p_ in lanes})
+                cross_read.update(counts=counts, want=want,
+                                  rows=host[at:at + xlens.numel()].reshape(xlens.shape))
             return (host[:nslots].reshape(nslots, 1) if use_eos else None), ok
 
         def audit_tick() -> None:
@@ -1076,9 +1171,16 @@ class Scheduler:
                 live |= {p_.slot for p_ in lanes}
                 live |= set(range(nslots)) - rec_read["dead"]
                 check_recurrent_row_max(rec_read["keys"], rec_read["maxes"], live)
+            if cross_read:
+                # cached cross-attention lengths, as read with the step's
+                # flags, against the slots live or in a lane at that moment:
+                # an eviction since then sets xlen to 0 in every layer
+                check_cross_len_rows(cross_read["counts"], cross_read["rows"],
+                                     cross_read["want"])
             stats.audited_ticks += 1
 
         rec_read: Dict[str, Any] = {}       # audit: this tick's recurrent row maxima
+        cross_read: Dict[str, Any] = {}     # audit: this tick's cross-attention lengths
         t0 = time.perf_counter()
         while pending or queue or lanes or preempted or any(s is not None for s in slots):
             if on_tick is not None:
@@ -1247,7 +1349,7 @@ class Scheduler:
                         if alloc is not None else None))
                 stats.stalled_chunks += rt.stalled  # decode never waits
                 tok, firsts, flags, cache = self._masked_ragged(tok, cache, gen, active_dev,
-                                                                rt, poison)
+                                                                rt, poison, enc_buf)
                 ran = rt.ran
             elif chunk_job is not None:
                 start = chunk_job.next_start
@@ -1260,11 +1362,12 @@ class Scheduler:
                                                  alloc)
                 tok, first, flags, cache = self._masked_mixed(
                     tok, cache, gen, active_dev, torch.from_numpy(ctok).to(dev), chunk_job.slot,
-                    start, clen, poison)
+                    start, clen, poison, enc_buf)
                 # lane 0 and flag row B: the ragged tick's layout with one lane
                 ran, firsts = [(0, clen)], first
             else:
-                tok, flags, cache = self._masked_decode(tok, cache, gen, active_dev, poison)
+                tok, flags, cache = self._masked_decode(tok, cache, gen, active_dev, poison,
+                                                        enc_buf)
                 ran = []
             if self.audit:
                 tok_host, ok_host = read_back(flags)
@@ -1373,7 +1476,12 @@ def run_restart_batching(engine, requests: Sequence[Request], *, seed: int = 0,
     """Serve via lockstep ``generate()`` restarts: gather whatever has
     arrived (<= batch_slots), run the whole batch for the longest request's
     horizon, restart.  Late arrivals wait for the restart; short requests
-    pad out the batch."""
+    pad out the batch.  An EncDec model is refused: the restarts carry no
+    encoder output (the reference crashes on the None one)."""
+    if hasattr(engine.model, "encode"):
+        raise ValueError("run_restart_batching cannot serve an EncDec model: its lockstep "
+                         "generate() restarts carry no per-request encoder output "
+                         "(Request.enc); serve it through Scheduler(chunk_size=...)")
     reqs = sorted(requests, key=lambda r: (r.arrival, r.rid))
     plens = {int(np.asarray(r.prompt).reshape(-1).shape[0]) for r in reqs}
     if len(plens) != 1:

@@ -1,5 +1,6 @@
 """Per-slot decode-state adapters (``repro/serve/slot_state.py``): dense
-and paged KV caches and recurrent (Mamba, RWKV-6) state.
+and paged KV caches, recurrent (Mamba, RWKV-6) state and EncDec
+cross-attention state.
 
 The continuous-batching scheduler manages *slots*; the walkers below apply
 one slot lifecycle event (admit a batch-1 prefilled cache, evict, install or
@@ -12,9 +13,13 @@ and the channel-mix's ``{"shift"}``, under block-cache keys ``"ssm"`` and
 ``"cm"``) is a fixed-size row per slot: admission writes the row, eviction
 zeroes it (the inert state every recurrence starts from), and a batched
 step's inactive rows are put back by :func:`merge_inactive`.  Its events
-return new tensors and leave the old ones as they were.  Cross-attention
-state (EncDec) waits for the other architectures slice of the port and
-raises.
+return new tensors and leave the old ones as they were.  A cross-attention
+node (``{"xk", "xv", "xlen"}`` under block-cache key ``"xkv"``,
+``nn/attention.py`` ``init_cross_cache``) holds each slot's projected
+encoder K/V rows, written once at admission by ``EncDecLM.write_cross_kv``:
+eviction sets the slot's ``xlen`` to 0 and leaves the rows for the next
+admission to overwrite; a one-shot admission and the inactive merge pass it
+by.
 """
 from __future__ import annotations
 
@@ -32,12 +37,14 @@ from repro_torch.nn.attention import (copy_kv_page, gather_pool_pages, reset_kv_
 #: axis in front and its slot axis is axis 1.
 REC_BASE_RANK: Dict[str, int] = {"h": 3, "conv": 3, "s": 4, "shift": 3}
 
-# leaf keys of the reference's cross-attention ({"xk", "xv", "xlen"}) nodes
-_CROSS_KEYS = {"xk", "xv", "xlen"}
 
 
 def _is_kv(node) -> bool:
     return isinstance(node, dict) and "k" in node and "len" in node
+
+
+def _is_xkv(node) -> bool:
+    return isinstance(node, dict) and "xk" in node and "xlen" in node
 
 
 def _is_recurrent(node) -> bool:
@@ -49,23 +56,23 @@ def _rec_slot_axis(key: str, leaf: torch.Tensor) -> int:
     return 1 if leaf.ndim == REC_BASE_RANK[key] + 1 else 0
 
 
-def _walk(big, small, fn, rec_fn: Optional[Callable] = None):
-    """``fn(big_kv, small_kv)`` on every KV node of ``big`` and ``rec_fn(big,
-    small)`` on every recurrent node (None leaves them as they are);
-    ``small`` is a structurally identical tree, or None.  The rest is
-    rebuilt as is."""
+def _walk(big, small, fn, rec_fn: Optional[Callable] = None,
+          xkv_fn: Optional[Callable] = None):
+    """``fn(big_kv, small_kv)`` on every KV node of ``big``, ``rec_fn(big,
+    small)`` on every recurrent node and ``xkv_fn(big)`` on every
+    cross-attention node (None leaves them as they are); ``small`` is a
+    structurally identical tree, or None.  The rest is rebuilt as is."""
     if _is_kv(big):
         return fn(big, small)
+    if _is_xkv(big):
+        return big if xkv_fn is None else xkv_fn(big)
     if _is_recurrent(big):
         return big if rec_fn is None else rec_fn(big, small)
     if isinstance(big, dict):
-        if _CROSS_KEYS & set(big):
-            raise NotImplementedError("cross-attention slot state waits for the other "
-                                      "architectures slice of the port")
-        return {k: _walk(v, None if small is None else small[k], fn, rec_fn)
+        return {k: _walk(v, None if small is None else small[k], fn, rec_fn, xkv_fn)
                 for k, v in big.items()}
     if isinstance(big, (list, tuple)):
-        return type(big)(_walk(v, None if small is None else small[i], fn, rec_fn)
+        return type(big)(_walk(v, None if small is None else small[i], fn, rec_fn, xkv_fn)
                          for i, v in enumerate(big))
     return big
 
@@ -97,6 +104,16 @@ def _scatter_recurrent_slot(big: Dict[str, Any], small: Dict[str, Any],
             v.select(ax, slot).copy_(small[k].select(ax, 0))
         out[k] = v
     return out
+
+
+def _reset_xkv_slot(node: Dict[str, Any], slot: int) -> Dict[str, Any]:
+    """Evict one slot of a cross-attention node: a copy with ``xlen[...,
+    slot] = 0`` in every stacked layer (``fill_``, no host sync).  The
+    projected rows stay for the next admission to overwrite: consumers mask
+    on ``xlen``, as on a KV ``len``, so eviction is O(1)."""
+    xlen = node["xlen"].clone()
+    xlen[..., slot].fill_(0)
+    return dict(node, xlen=xlen)
 
 
 def _walk_paged(cache, fn):
@@ -140,9 +157,11 @@ def evict_cache_slot(cache, slot: int):
     """Eviction of ``slot`` across every state kind: a KV slot's live length
     goes to 0 and its rows stay (a paged slot's table row is unmapped); a
     recurrent slot's rows are zeroed (a recurrence has no length to hide
-    stale rows behind, and the next occupant must start from zeros)."""
+    stale rows behind, and the next occupant must start from zeros); a
+    cross-attention slot's ``xlen`` goes to 0."""
     return _walk(cache, None, lambda kv, _: reset_kv_slot(kv, slot),
-                 lambda st, _: _zero_recurrent_slot(st, slot))
+                 lambda st, _: _zero_recurrent_slot(st, slot),
+                 lambda node: _reset_xkv_slot(node, slot))
 
 
 def merge_inactive(old_cache, new_cache, active: torch.Tensor):
@@ -153,7 +172,7 @@ def merge_inactive(old_cache, new_cache, active: torch.Tensor):
     dead or mid-prefill slot would advance its recurrence with a pad token.
     The rows are selected, not blended, so a non-finite value in a
     discarded row cannot leak.  ``active`` is a (B,) bool device tensor; KV
-    nodes pass through as they are."""
+    and cross-attention nodes pass through as they are."""
     def merge(o: Dict[str, Any], n: Dict[str, Any]) -> Dict[str, Any]:
         out = {}
         for k, v in n.items():
@@ -175,7 +194,7 @@ def find_recurrent_nodes(cache) -> List[Dict[str, Any]]:
     def rec(node):
         if _is_recurrent(node):
             out.append(node)
-        elif isinstance(node, dict) and not _is_kv(node):
+        elif isinstance(node, dict) and not (_is_kv(node) or _is_xkv(node)):
             for k in sorted(node):
                 rec(node[k])
         elif isinstance(node, (list, tuple)):
@@ -184,6 +203,33 @@ def find_recurrent_nodes(cache) -> List[Dict[str, Any]]:
 
     rec(cache)
     return out
+
+
+def find_cross_nodes(cache) -> List[Dict[str, Any]]:
+    """Every cross-attention node of a cache tree, in traversal order."""
+    out: List[Dict[str, Any]] = []
+
+    def rec(node):
+        if _is_xkv(node):
+            out.append(node)
+        elif isinstance(node, dict) and not _is_kv(node):
+            for v in node.values():
+                rec(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                rec(v)
+
+    rec(cache)
+    return out
+
+
+def cross_lens(cache) -> Tuple[List[int], Optional[torch.Tensor]]:
+    """The auditor's device half for cross-attention: (the row count of each
+    cross node, their ``xlen`` rows stacked, (rows, slots) int32; a stacked
+    node gives one row per layer), or ([], None) for a cache without
+    cross-attention."""
+    rows = [node["xlen"].reshape(-1, node["xlen"].shape[-1]) for node in find_cross_nodes(cache)]
+    return [r.shape[0] for r in rows], (torch.cat(rows) if rows else None)
 
 
 def recurrent_row_max(cache) -> Tuple[List[str], Optional[torch.Tensor]]:
@@ -251,17 +297,18 @@ def set_cache_slot_len(cache, slot: int, length: int):
 def state_kinds(model) -> Tuple[str, ...]:
     """The per-slot state kinds ``model`` serves with, in the reference's
     order: ``"kv"`` for attention mixers, ``"recurrent"`` for Mamba and
-    RWKV-6 mixers.  An EncDec model (``"cross"``) waits for the other
-    architectures slice of the port and raises."""
-    if hasattr(model, "encode"):
-        raise NotImplementedError("cross-attention models wait for the other architectures "
-                                  "slice of the port")
-    mixers = {getattr(b, "mixer", "attn") for b in model.stack.body}
+    RWKV-6 mixers, ``"cross"`` for an EncDec decoder with a sized
+    cross-attention cache (``enc_len`` set)."""
+    stack = model.decoder if hasattr(model, "encode") else model.stack
+    mixers = {getattr(b, "mixer", "attn") for b in stack.body}
     kinds = []
     if "attn" in mixers:
         kinds.append("kv")
     if mixers & {"mamba", "rwkv"}:
         kinds.append("recurrent")
+    if hasattr(model, "encode") and getattr(model, "enc_len", None) \
+            and any(getattr(b, "cross", False) for b in stack.body):
+        kinds.append("cross")
     return tuple(kinds)
 
 
@@ -275,7 +322,8 @@ def _bytes_where(cache, pred, keys=None) -> int:
         if pred(node):
             total += sum(v.numel() * v.element_size() for k, v in node.items()
                          if isinstance(v, torch.Tensor) and (keys is None or k in keys))
-        elif isinstance(node, dict) and not (_is_kv(node) or _is_recurrent(node)):
+        elif isinstance(node, dict) and not (_is_kv(node) or _is_xkv(node)
+                                             or _is_recurrent(node)):
             for v in node.values():
                 rec(v)
         elif isinstance(node, (list, tuple)):
@@ -289,11 +337,11 @@ def _bytes_where(cache, pred, keys=None) -> int:
 def state_bytes_per_slot(cache, slots: int) -> Dict[str, int]:
     """Per-slot device bytes of each state kind in ``cache`` (a ``device="meta"``
     cache will do): recurrent rows are constant in sequence length, KV
-    slabs grow with ``max_len``."""
+    slabs grow with ``max_len``, cross-attention rows with ``enc_len``."""
     n = max(slots, 1)
     return {"kv": _bytes_where(cache, _is_kv) // n,
             "recurrent": _bytes_where(cache, _is_recurrent) // n,
-            "cross": 0}
+            "cross": _bytes_where(cache, _is_xkv) // n}
 
 
 class SlotState:
@@ -356,7 +404,33 @@ class RecurrentState(SlotState):
         check_recurrent_rows(cache, set(live))
 
 
-def adapters_for(model, *, paged: bool = False) -> Tuple[Any, ...]:
-    """The adapter set a scheduler composes for ``model``."""
-    return tuple((PagedKVState() if paged else DenseKVState()) if kind == "kv"
-                 else RecurrentState() for kind in state_kinds(model))
+class CrossAttnState(SlotState):
+    """Per-slot projected cross-attention K/V (EncDec serving): written once
+    per admission (``EncDecLM.write_cross_kv``) and read by every step, in
+    place of re-projecting the encoder output each tick.  Eviction sets
+    ``xlen`` to 0; the rows are overwritten by the next admission."""
+
+    kind = "cross"
+
+    def audit_check(self, cache, live: Dict[int, int]) -> None:
+        """Live slots' ``xlen`` must equal their encoder length; dead 0."""
+        from repro_torch.serve.audit import check_cross_lens
+
+        check_cross_lens(cache, live)
+
+
+def adapters_for(model, *, paged: bool = False,
+                 cross_attn_cache: bool = True) -> Tuple[Any, ...]:
+    """The adapter set a scheduler composes for ``model``: ``paged`` picks
+    :class:`PagedKVState` for the ``"kv"`` kind, and ``cross_attn_cache=False``
+    drops :class:`CrossAttnState` (the engine re-projects the encoder output
+    every step)."""
+    out: List[Any] = []
+    for kind in state_kinds(model):
+        if kind == "kv":
+            out.append(PagedKVState() if paged else DenseKVState())
+        elif kind == "recurrent":
+            out.append(RecurrentState())
+        elif cross_attn_cache:
+            out.append(CrossAttnState())
+    return tuple(out)

@@ -5,8 +5,8 @@ prefill_lanes=L)`` against repro's on the same requests, the cases of
 both report are held equal; each case also keeps the assertions of the
 reference test it mirrors.
 
-Not mirrored: the EncDec case (``test_ragged.py:130-150``) waits for the
-port's other-architectures slice; the jit-compile count
+The EncDec case (``test_ragged.py:132``) is mirrored in
+``test_torch_encdec_serve.py``.  Not mirrored: the jit-compile count
 (``test_ragged.py:157-178``) is JAX's, and its CPU stand-in here holds every
 tick's step inputs to one shape.  The interpret-mode end-to-end runs have
 no CPU counterpart: the port's kernel runs on the card only, where

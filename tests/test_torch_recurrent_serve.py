@@ -4,8 +4,10 @@ port's ``Scheduler`` and repro's on the reference's parameters carried over
 by ``repro_torch.convert``, the greedy streams and tick timelines held
 equal to the reference's own run:
 
-* ``state_kinds`` by family (the jamba and whisper lines wait for the other
-  architectures slice) and the ``state_kinds`` field of ``ServeStats``;
+* ``state_kinds`` by family (the jamba line waits for the MoE and hybrid
+  part of the other-architectures slice; whisper's is in
+  ``test_torch_encdec_serve.py``) and the ``state_kinds`` field of
+  ``ServeStats``;
 * per-slot state bytes constant in ``max_len`` and the cache bytes the
   report line prints;
 * mamba serving equal to lockstep ``generate()``, float and int8 weights;

@@ -290,10 +290,12 @@ def test_scheduler_options_of_later_slices_raise(engines, kw, err, where):
     ({"fault_plan": FaultPlan(nan={1: 0})}, {}, ValueError, "requires Scheduler"),
     ({"on_tick": lambda t: None}, {}, None, "ok"),
     ({}, {"deadline_steps": 0}, ValueError, "must be >= 1"),
-    ({}, {"enc": np.zeros((2, 4))}, NotImplementedError, "other architectures")])
+    ({}, {"enc": np.zeros((2, 4))}, ValueError, "the model has no encoder")])
 def test_run_inputs_of_later_slices_raise(engines, run_kw, req_kw, err, where):
     """Hardened serving's inputs run (``cancels``, ``on_tick``) or raise the
-    reference's validation errors; EncDec's still name their slice."""
+    reference's validation errors; an encoder output given to a causal
+    model raises the reference's ``ValueError``
+    (``src/repro/serve/scheduler.py:988``)."""
     _, te = engines()
     reqs = [Request(0, np.arange(4), 6, **req_kw)]
     if err is None:
@@ -347,14 +349,15 @@ def test_state_kinds_and_adapters_name_their_slices(smoke):
     assert [a.kind for a in slot_state.adapters_for(tm)] == ["kv"]
     assert [a.kind for a in slot_state.adapters_for(tm, paged=True)] == ["kv-paged"]
 
-    class EncDec:
-        stack = tm.stack
+    # the EncDec decoder serves KV and cross-attention state
+    from repro_torch.models.registry import get_config
 
-        def encode(self):
-            pass
-
-    with pytest.raises(NotImplementedError, match="other architectures"):
-        slot_state.state_kinds(EncDec())
+    whisper = get_config("whisper-tiny-smoke").build()
+    assert slot_state.state_kinds(whisper) == ("kv", "cross")
+    assert [a.kind for a in slot_state.adapters_for(whisper)] == ["kv", "cross"]
+    assert [a.kind for a in slot_state.adapters_for(whisper, paged=True)] == \
+        ["kv-paged", "cross"]
+    assert [a.kind for a in slot_state.adapters_for(whisper, cross_attn_cache=False)] == ["kv"]
     # an ssm node: eviction zeroes the slot's row in a copy, as the reference does
     h = torch.ones(3, 2, 2)
     out = slot_state.evict_cache_slot({"body": [{"ssm": {"h": h, "conv": None}}]}, 1)

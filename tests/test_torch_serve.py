@@ -173,12 +173,16 @@ def test_registry_serves_smollm_and_names_the_waiting_slice():
                                   ("command-r-plus-104b", 64, 12288),
                                   ("internvl2-2b", 24, 2048),
                                   # the recurrent archs
-                                  ("mamba-130m", 24, 768), ("rwkv6-7b", 32, 4096)):
+                                  ("mamba-130m", 24, 768), ("rwkv6-7b", 32, 4096),
+                                  # the encoder-decoder
+                                  ("whisper-tiny", 4, 384)):
         full, small = get_config(arch), get_config(arch + "-smoke")
         assert (full.arch_id, full.n_layers, full.d_model) == (arch, layers, d_model)
         assert (small.arch_id, small.n_layers, small.d_model) == (arch + "-smoke", 2, 64)
-    with pytest.raises(KeyError, match="other-architectures slice, EncDec \\(item 1c\\)"):
-        get_config("whisper-tiny")
+    assert (get_config("whisper-tiny").enc_layers, get_config("whisper-tiny-smoke").enc_seq) \
+        == (4, 16)
+    with pytest.raises(KeyError, match="other-architectures slice, MoE and hybrid \\(item 1d\\)"):
+        get_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-17")
 
