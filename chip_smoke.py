@@ -152,6 +152,26 @@ Phases, each printed as it completes; any failure exits non-zero:
      slots, cross bytes per slot, peak memory, a decode step and a mixed
      tick profiled; in the kernel phase, the five attention kernels at G = 1
      (B=8, D=64, S = 96 and 2048).
+  14. ``[moe]`` (``moe_end_to_end``): phi3.5-moe-42b-a6.6b at its published
+     width (d_model 4096, 32/8 heads of 128, 16 experts of 6400, top-2,
+     LayerNorm, untied head over 32064), 8 of its 32 layers (10.66 B
+     parameters: the whole model's 168 GB of float32 init cannot be held),
+     seeded, int8 weights and KV, served through ``launch.serve.main`` (8
+     requests of 32 + 64 tokens, arrival spacing 2, 8 slots, chunk 32):
+     ``chunked --paged``, ``ragged`` and ``chunked --audit``; on the last
+     run's engine a decode step and a chunk held to the plain versions on
+     one shared cache, with the tokens whose expert choice differs between
+     the two paths counted (a miss is held again under the kernel path's
+     routing), and a decode step and a mixed tick profiled; jamba-v0.1-52b's
+     first period (8 of 32 layers) at full width served ``chunked`` and held
+     and profiled the same way; kimi-k2-1t-a32b at smoke width (its dense
+     prelude layer and shared expert) served ``chunked``.  Launch counts
+     exact in every run, every request ``ok``, peak memory printed.  In the
+     kernel phase (``check_moe_kernels``): the five attention kernels at G =
+     4 (Hq = 32, Hkv = 8, D = 128, B = 8; S = 160 and 2048), ``wq_matmul`` at
+     phi's projections and head and jamba's Mamba and dense-FFN shapes (M =
+     8 and 32), and one phi layer's expert products (the int8 stacks
+     dequantized whole, as the reference does) against their byte bound.
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -4325,6 +4345,482 @@ def encdec_end_to_end(torch, card):
     return launches
 
 
+# The MoE and hybrid archs' shapes (``[moe]``): G = 4 at D = 128 (phi3.5-moe and
+# jamba: 32 query heads over 8 KV heads of 128) over the served cache (S = 160,
+# the chunk at start 96) and a long one (S = 2048, start 1984); phi's projections
+# and untied head, jamba's Mamba projections (dt_proj, 256 -> 8192, stays float)
+# and dense FFN, (label, K, N, calls a layer).
+MOE_CELLS = ((160, 96, [160, 1, 100, 159, 17, 64, 128, 129]),
+             (2048, 1984, [2048, 1, 1000, 2047, 17, 640, 1500, 129]))
+MOE_GEMMS = (("phi wq/wo", 4096, 4096, 2), ("phi wk/wv", 4096, 1024, 2),
+             ("phi lm_head", 4096, 32064, 0), ("jamba in_proj", 4096, 16384, 1),
+             ("jamba x_proj", 8192, 288, 1), ("jamba out_proj", 8192, 4096, 1),
+             ("jamba gate/in", 4096, 14336, 2), ("jamba ffn out", 14336, 4096, 1))
+MOE_CUTS = (("phi3.5-moe-42b-a6.6b", 8), ("jamba-v0.1-52b", 8))    # (arch, layers served)
+MOE_SLOTS, MOE_PROMPT, MOE_NEW, MOE_CHUNK = 8, 32, 64, 32
+
+
+def events_ms(torch, fn, iters):
+    """Device ms per call of ``fn`` between CUDA events (for calls of
+    milliseconds that allocate, where a graph would pin their transients)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def moe_expert_case(torch, gen, card):
+    """One phi3.5-moe layer's experts (E = 16, D = 4096, F = 6400, top-2)
+    through ``MoE.experts`` on int8 stacks (per (expert, column) scales) at
+    a decode step's capacity (B = 8: C = 2) and a chunk's (C = 32: 5): the
+    three stacks dequantized whole to float32 and multiplied, as the
+    reference does, timed against the bound of reading the codes once and
+    against the same products on stacks dequantized ahead (``torch.bmm``,
+    what a float32 model pays).  Returns the rows."""
+    from repro_torch.core.qformat import QTensor
+    from repro_torch.nn.module import Context
+    from repro_torch.nn.moe import MoE
+
+    e, d, f = 16, 4096, 6400
+    moe = MoE(d, f, e, 2)
+    params = {"experts": {}}
+    for name, shape in (("w_gate", (e, d, f)), ("w_in", (e, d, f)), ("w_out", (e, f, d))):
+        q = torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        n = torch.randint(8, 12, (e, 1, shape[2]), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        params["experts"][name] = {"kernel": QTensor(q, n, 8)}
+    codes = 3 * e * d * f
+    rows = []
+    with torch.inference_mode():
+        deq = {k: v["kernel"].dequantize() for k, v in params["experts"].items()}
+        for cap in (2, 5):
+            xe = torch.randn(e, cap, d, generator=gen, device="cuda")
+            got = moe.experts(params, xe, Context())
+
+            def library():
+                h = torch.nn.functional.silu(torch.bmm(xe, deq["w_gate"])) \
+                    * torch.bmm(xe, deq["w_in"])
+                return torch.bmm(h, deq["w_out"])
+
+            err = (got - library()).abs().max().item()
+            tol = WQ_RTOL * library().abs().max().item()
+            check(err <= tol, f"MoE experts C={cap}: max err {err} vs the f32 bmm (tol {tol})")
+            ms = events_ms(torch, lambda: moe.experts(params, xe, Context()), 5)
+            lib = events_ms(torch, library, 5)
+            nbytes = codes + 4 * 3 * e * f + 2 * 4 * e * cap * d
+            b_ms, b_by = bound(nbytes, 3 * 2.0 * e * cap * d * f)
+            design = (codes + 2 * 4 * codes) / HBM_BYTES_S * 1e3
+            rows.append(dict(cap=cap, err=err, ms=ms, library_ms=lib, bound_ms=b_ms,
+                             bound_by=b_by, design_bytes_ms=design))
+            print(f"[kernel] MoE experts, one phi3.5-moe layer (E={e}, D={d}, F={f}, C={cap}): "
+                  f"dequantize-and-product {ms * 1e3:.2f} us | bmm on stacks dequantized ahead "
+                  f"{lib * 1e3:.2f} us | bound {b_ms * 1e3:.2f} us ({b_by}: the int8 codes "
+                  f"read once, {codes / 1e9:.3f} GB) | the design's bytes (codes read, f32 "
+                  f"written and read back) {design * 1e3:.2f} us | max_abs_err {err:.3e} | "
+                  f"card {card}", flush=True)
+    del deq, params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_moe_kernels(torch, F, ref, kern, gen, page_size, card):
+    """The kernels at the MoE and hybrid archs' shapes, against their plain
+    versions and timed beside them: ``wq_matmul`` at ``MOE_GEMMS`` (M = 8
+    and 32; phi's head at M = 8), the five attention kernels at G = 4
+    (Hq = 32, Hkv = 8, D = 128, B = 8) over ``MOE_CELLS`` (paged at
+    ``page_size``), one phi layer's expert products (``moe_expert_case``)
+    and the routing softmax at E = 16 and 384 (``routing_softmax_cost``:
+    in a process that has profiled before, it read fewer kernels than the
+    call makes).  Returns the rows by kernel, the expert
+    rows, the worst error and the softmax's cost by E."""
+    out = {"wq_matmul": [wq_case(torch, ref, kern.wq, gen, m, label, k, n, per)
+                         for label, k, n, per in MOE_GEMMS
+                         for m in ((8,) if per == 0 else (8, 32))]}
+    for short, label in (("phi w", "phi3.5-moe attention layer"),
+                         ("jamba", "jamba Mamba layer + dense FFN")):
+        for m in (8, 32):
+            rows = [r for r in out["wq_matmul"] if r["m"] == m and r["shape"].startswith(short)]
+            calls = sum(r["per_layer"] for r in rows)
+            layer = layer_sum(rows)
+            out["wq_matmul"].append(dict(layer, m=m, shape=label, err=0.0))
+            print(f"[kernel] wq_matmul {label} ({calls} calls, M={m}): kernel "
+                  f"{layer['ms'] * 1e3:.2f} us | plain {layer['plain_ms'] * 1e3:.2f} us | library "
+                  f"{layer['library_ms'] * 1e3:.2f} us | bound {layer['bound_ms'] * 1e3:.2f} us "
+                  f"({layer['bound_by']})", flush=True)
+    for name in ATTN_KERNELS:
+        out[name] = []
+    for s, start, lens in MOE_CELLS:
+        attention_cells(torch, F, ref, kern, gen, out, "phi3.5-moe/jamba", 32, 8, d=128, s=s,
+                        start=start, lens=lens, ps=page_size)
+    experts = moe_expert_case(torch, gen, card)
+    softmax = {}
+    for e in (16, 384):     # phi's and jamba's experts; kimi-k2's
+        softmax[e] = routing_softmax_cost(torch, 8, e)
+        if softmax[e] is not None:
+            print(f"[kernel] MoE routing softmax (softmax_f32 at 8 x {e}: XLA's CPU exp and a "
+                  f"left-to-right row sum, op by op): {softmax[e][0]:.0f} kernels, "
+                  f"{softmax[e][1]:.1f} us device a call | card {card}", flush=True)
+    worst = max(r["err"] for rows in out.values() for r in rows)
+    return out, experts, worst, softmax
+
+
+def wq_per_forward(model) -> int:
+    """``wq_matmul`` launches of one forward: 4 an attention layer, 3 a Mamba
+    one (dt_proj stays float), 3 a dense gated FFN or a shared expert (the
+    routed experts and the router take none), 1 an untied head."""
+    stack = model.stack
+    total = 0
+    for blk in stack.blocks:
+        total += 4 if blk.mixer == "attn" else 3
+        total += 3 if blk.ffn != "moe" or blk.n_shared_experts else 0
+    return total + (0 if model.tie_embeddings else 1)
+
+
+def clone_tree(tree):
+    """A copy of a cache tree with every tensor cloned."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [clone_tree(v) for v in tree]
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def moe_serve(torch, card, arch, cfg, argv, expected, launches, engines):
+    """``launch.serve.main(argv)`` for ``arch`` served at ``cfg`` (the
+    launcher's ``get_config`` answers it), its engine kept in ``engines``:
+    every request ``ok``, launch counts ``expected(stats)``, the report's
+    state kinds and peak memory printed.  Returns the stats."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.scheduler import Scheduler
+
+    stats, run, made = [], Scheduler.run, []
+    real_cfg, real_engine = launch_serve.get_config, launch_serve.ServeEngine
+
+    def counted_run(self, *a, **k):
+        out = run(self, *a, **k)
+        stats.append(out[1])
+        return out
+
+    def kept_engine(**kw):
+        made.append(real_engine(**kw))
+        return made[-1]
+
+    engines.clear()             # the previous run's engine goes before this one's init
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    Scheduler.run = counted_run
+    launch_serve.get_config = lambda a: cfg if a == arch else real_cfg(a)
+    launch_serve.ServeEngine = kept_engine
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        results = launch_serve.main(argv)
+    finally:
+        Scheduler.run = run
+        launch_serve.get_config, launch_serve.ServeEngine = real_cfg, real_engine
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = stats[0]
+    want = dict({k: 0 for k in counts}, **expected(st))
+    label = f"{arch} launch.serve {' '.join(argv[2:])}"
+    check(counts == want, f"{label}: launch counts {counts} != expected {want}")
+    n_req = int(argv[argv.index("--requests") + 1])
+    check(sorted(results) == list(range(n_req)), f"{label}: results for {sorted(results)}")
+    for rid, r in results.items():
+        check(r.status == "ok" and len(r.tokens) == int(argv[argv.index("--max-new") + 1])
+              and all(0 <= t < cfg.vocab for t in r.tokens),
+              f"{label}: request {rid} ended {r.status} with {len(r.tokens)} tokens")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    summ = st.summary()
+    peak = torch.cuda.max_memory_allocated() / GIB
+    print(f"[moe] {label}: {n_req} requests ok, {st.decode_steps} ticks, {st.prefill_chunks} "
+          f"chunks, state {st.state_kinds}; launches {counts} == expected; steady "
+          f"{summ['steady_tok_s']:.1f} tok/s ({st.steady_s * 1e3 / st.decode_steps:.2f} ms a "
+          f"tick); ttft p50/p99 {summ['p50_ttft_steps']:.0f}/{summ['p99_ttft_steps']:.0f} "
+          f"ticks; audited ticks {st.audited_ticks}; main() {secs:.1f}s with init and int8 "
+          f"integerize; peak memory {peak:.2f} GiB (torch.cuda.max_memory_allocated) | card "
+          f"{card}", flush=True)
+    check(peak * GIB < torch.cuda.get_device_properties(0).total_memory,
+          f"{label}: peak memory {peak:.2f} GiB past the card's")
+    engines[:] = made[-1:]
+    return st
+
+
+def moe_held(torch, label, engine, misses, per, attn):
+    """A decode step (B = 8) and a chunk (C = 32 into slot 3 at start 32) on
+    one shared cache through the kernels and through the plain versions:
+    logits within LOGIT_ATOL and the same greedy token where the plain top-2
+    margin is clear.  The expert choices of the two paths are recorded
+    (``MoE.route``) and the tokens whose expert set differs counted; if
+    the logits miss, the plain path is run again under the kernel path's
+    routing and held to the same limit.  Each kernel run's launches are
+    exact: ``per`` ``wq_matmul`` and ``attn`` attention launches.  Returns
+    the kernel runs' counts, the lockstep cache and the next token."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn.attention import KVChunk
+    from repro_torch.nn.module import Context
+    from repro_torch.nn.moe import MoE
+
+    model, params = engine.model, engine.params
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, model.vocab, (MOE_SLOTS, MOE_PROMPT), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    ctok = torch.randint(0, model.vocab, (1, 2 * MOE_CHUNK), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    with torch.inference_mode():
+        logits, lock = engine.prefill(prompts, engine.new_cache())
+        slot_cache = model.init_cache(MOE_SLOTS, MOE_PROMPT + MOE_NEW,
+                                      quantized_kv=engine.quantized_kv, device="cuda",
+                                      per_slot_len=True)
+        _, slot_cache = model.apply(params, ctok[:, :MOE_CHUNK], Context(), cache=slot_cache,
+                                    decode=True, chunk=KVChunk(3, 0, MOE_CHUNK),
+                                    logit_pos=MOE_CHUNK - 1)
+    tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+    counts_all = {}
+    real_route = MoE.route
+    for name, fn, base, kernel in (
+            ("decode step (B=8)", lambda c: engine.decode(tok, c), lock, "qdecode_attn"),
+            (f"chunk (C={MOE_CHUNK} into slot 3 at start {MOE_CHUNK})",
+             lambda c: model.apply(params, ctok[:, MOE_CHUNK:], Context(), cache=c,
+                                   decode=True, chunk=KVChunk(3, MOE_CHUNK, MOE_CHUNK),
+                                   logit_pos=MOE_CHUNK - 1), slot_cache, "qchunk_attn")):
+        routes = {"kernels": [], "plain": []}
+
+        def run(path, replay=None):
+            def route(self, probs_sel, cap):
+                out = replay.pop(0) if replay is not None else real_route(self, probs_sel, cap)
+                routes[path].append(out)
+                return out
+            MoE.route = route
+            try:
+                with torch.inference_mode():
+                    return fn(clone_tree(base))[0]
+            finally:
+                MoE.route = real_route
+
+        ops.reset_launch_counts()
+        got = run("kernels")
+        counts = ops.launch_counts()
+        check(counts == dict({k: 0 for k in counts}, wq_matmul=per, **{kernel: attn}),
+              f"{label} {name}: launch counts {counts}")
+        ops.FORCE = "plain"
+        try:
+            want = run("plain")
+            diff = sum(int((a[0].sort(-1).values != b[0].sort(-1).values).any(-1).sum())
+                       for a, b in zip(routes["kernels"], routes["plain"]))
+            tokens = sum(a[0].shape[0] for a in routes["kernels"])
+            err = (got - want).abs().max().item()
+            replayed = None
+            if err > LOGIT_ATOL and diff:
+                replay = list(routes["kernels"])
+                routes["plain"] = []
+                want = run("plain", replay)
+                replayed = err
+                err = (got - want).abs().max().item()
+        finally:
+            ops.FORCE = None
+        check(bool(torch.isfinite(got).all()), f"{label} {name}: logits not finite")
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > LOGIT_ATOL
+        same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
+        if err > LOGIT_ATOL or not same:
+            misses.append(f"{label} {name}: logits max err {err} (tol {LOGIT_ATOL}), greedy "
+                          f"equal on the clear rows: {same}")
+        print(f"[moe] {label} {name} from one shared cache: logits {tuple(got.shape)} "
+              f"max_abs_err vs plain {err:.3e} (tol {LOGIT_ATOL})"
+              + (f" under the kernel path's routing ({replayed:.3e} under its own)"
+                 if replayed is not None else "")
+              + f"; tokens whose expert choice differs between the paths {diff} of {tokens} "
+              f"({len(routes['kernels'])} MoE layers); greedy equal on {int(clear.sum())}/"
+              f"{clear.numel()} clear rows: {same}; launches {counts}", flush=True)
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+    return counts_all, lock, tok
+
+
+def moe_profiles(torch, label, engine, card, cache, tok, softmax):
+    """A decode step (B = 8) and a mixed tick (C = 32, slot 4 prefilling)
+    profiled, with ``wq_matmul``'s and the attention kernels' shares and
+    the routing softmax's (``softmax``: its kernels and device us a call,
+    from ``routing_softmax_cost``)."""
+    import numpy as np
+
+    from repro_torch.nn.attention import host_tensor
+
+    sched = engine.scheduler(chunk_size=MOE_CHUNK)
+    lane = 4
+    act = host_tensor(np.arange(MOE_SLOTS) != lane, "cuda")
+    ctok = torch.randint(0, engine.model.vocab, (1, MOE_CHUNK), device="cuda",
+                         dtype=torch.int32, generator=torch.Generator(device="cuda").manual_seed(9))
+    pcache = engine.new_cache(per_slot=True)
+
+    def decode_step(state):
+        c, t = state
+        lg, c = engine.decode(t, c)
+        return c, torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
+
+    def mixed_tick(state):
+        c, t = state
+        t, _, _, c = sched._masked_mixed(t, c, None, act, ctok, lane, 0, MOE_CHUNK)
+        return c, t
+
+    kernels = {}
+    for name, step, state in (("decode step", decode_step, (cache, tok)),
+                              ("mixed tick", mixed_tick, (pcache, tok))):
+        prof = profile_steps(torch, f"{label} {name} (B={MOE_SLOTS}"
+                             + (f", C={MOE_CHUNK})" if name == "mixed tick" else ")"), step,
+                             state, card)
+        if prof is not None:
+            busy = prof["busy_ms"]
+            kernels[name] = sum(r[1] for r in prof["rows"])
+            wq = sum(r[0] for r in prof["rows"] if "wq_matmul_kernel" in r[2]) / 1e3
+            attn = sum(r[0] for r in prof["rows"] if "attn" in r[2] or "chunk" in r[2]) / 1e3
+            print(f"[moe] {label} {name}: wq_matmul {wq:.3f} ms, attention kernels {attn:.3f} "
+                  f"ms of {busy:.3f} ms device busy; the rest (expert dequantize and products, "
+                  f"routing, the Mamba scans) {busy - wq - attn:.3f} ms", flush=True)
+    if softmax is not None and "decode step" in kernels:
+        layers = sum(b.ffn == "moe" for b in engine.model.stack.blocks)
+        print(f"[moe] {label} routing softmax ({softmax[0]:.0f} kernels, {softmax[1]:.1f} us "
+              f"device a call at {MOE_SLOTS} x 16 in the kernel phase) x {layers} MoE layers: "
+              f"{softmax[0] * layers:.0f} of the decode step's {kernels['decode step']:.0f} "
+              f"kernels, {softmax[1] * layers / 1e3:.3f} ms of its device time | card {card}",
+              flush=True)
+
+
+def routing_softmax_cost(torch, t, e, calls: int = 4):
+    """The kernels one ``softmax_f32`` call launches at (t, e) and their
+    device us, averaged over ``calls`` calls under ``torch.profiler`` (host
+    and device activities, as ``profile_steps`` records them); None when it
+    recorded no device time.  The routing's softmax emulates XLA's CPU
+    exponential and row sum op by op, so its launches grow with the
+    experts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nn.moe import softmax_f32
+
+    x = torch.randn(t, e, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    with torch.inference_mode():
+        softmax_f32(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                softmax_f32(x)
+            torch.cuda.synchronize()
+    n = us = 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t_us = getattr(ev, "self_device_time_total", None)
+        if t_us is None:
+            t_us = getattr(ev, "self_cuda_time_total", 0)
+        if t_us > 0:
+            n, us = n + ev.count, us + t_us
+    return (n / calls, us / calls) if n else None
+
+
+def moe_end_to_end(torch, card, softmax):
+    """``[moe]``: phi3.5-moe-42b-a6.6b at its published width (d_model 4096,
+    32/8 heads of 128, 16 experts of 6400, top-2, LayerNorm, untied head over
+    32064), 8 of its 32 layers, seeded, int8 weights and KV, served through
+    ``launch.serve.main`` (8 requests of 32 + 64 tokens, arrival spacing 2, 8
+    slots, chunk 32): ``chunked --paged``, ``ragged`` and ``chunked --audit``;
+    then on the last run's engine a decode step and a chunk held to the plain
+    versions (expert choices of the two paths counted) and both profiled.
+    Then jamba-v0.1-52b's first period (8 of 32 layers: 7 Mamba, 1
+    attention, MoE at the odd ones) at full width served ``chunked`` and held
+    and profiled the same way, and kimi-k2-1t-a32b at its smoke width served
+    ``chunked`` (its dense prelude layer and shared expert).  Launch counts
+    are exact in every run.  Returns the launches of the counted runs."""
+    from repro_torch.models.registry import get_config
+
+    phase_t0 = time.perf_counter()
+    launches, misses, engines = {}, [], []
+    common = ["--requests", "8", "--slots", str(MOE_SLOTS), "--prompt-len", str(MOE_PROMPT),
+              "--max-new", str(MOE_NEW), "--chunk-size", str(MOE_CHUNK), "--arrival-spacing",
+              "2", "--wq", "--qkv"]
+    for arch, cut in MOE_CUTS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=cut)
+        model = cfg.build()
+        per, attn = wq_per_forward(model), model.stack.attention_layers
+        print(f"[moe] {arch}: {cut} of {full.n_layers} layers at the published width (d_model "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, "
+              f"{cfg.n_experts} experts of {cfg.d_ff}, top-{cfg.top_k}, layout {cfg.layout!r}, "
+              f"MoE every {cfg.moe_every} from {cfg.moe_offset}, norm {cfg.norm}, tied "
+              f"{cfg.tie_embeddings}, vocab {cfg.vocab}): {cfg.param_count() / 1e9:.2f} B "
+              f"parameters, {4 * cfg.param_count() / 1e9:.1f} GB as float32 at init; "
+              f"{per} wq_matmul and {attn} attention launches a forward", flush=True)
+        del model
+
+        def chunked(st, dense=True):
+            ticks, chunks = st.decode_steps, st.prefill_chunks
+            check(chunks == 8 * -(-MOE_PROMPT // MOE_CHUNK), f"{arch}: {chunks} chunks")
+            d, c = ("qdecode_attn", "qchunk_attn") if dense else \
+                ("qpaged_decode_attn", "qpaged_chunk_attn")
+            # warm-up: one mixed step (decode half + chunk half) and one decode step
+            return {"wq_matmul": per * (ticks + chunks + 3), d: attn * (ticks + 2),
+                    c: attn * (chunks + 1)}
+
+        if arch.startswith("phi"):
+            runs = ((["--policy", "chunked", "--paged"], lambda st: chunked(st, dense=False)),
+                    (["--policy", "ragged"],
+                     lambda st: {"wq_matmul": per * (st.decode_steps + 1),
+                                 "qragged_attn": attn * (st.decode_steps + 1)}),
+                    (["--policy", "chunked", "--audit"], chunked))
+        else:
+            runs = ((["--policy", "chunked"], chunked),)
+        for extra, expected in runs:
+            st = moe_serve(torch, card, arch, cfg, ["--arch", arch] + extra + common, expected,
+                           launches, engines)
+            check(st.state_kinds == ("kv+recurrent" if cfg.layout != "a" else "kv"),
+                  f"{arch}: state kinds {st.state_kinds!r}")
+            if "--audit" in extra:
+                check(st.audited_ticks == st.decode_steps == st.audit_reads,
+                      f"{arch} audited run: {st.audited_ticks} audited, {st.audit_reads} "
+                      f"reads, {st.decode_steps} ticks")
+        engine = engines.pop()
+        counts, cache, tok = moe_held(torch, arch, engine, misses, per, attn)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        moe_profiles(torch, arch, engine, card, cache, tok, softmax)
+        print(f"[moe] {arch}: peak memory {torch.cuda.max_memory_allocated() / GIB:.2f} GiB "
+              f"over its lockstep checks and profiles | card {card}", flush=True)
+        del engine, cache
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[time] {arch} {time.perf_counter() - t_arch:.1f}s", flush=True)
+
+    # -- kimi-k2 at smoke width: the dense prelude and the shared expert -----------
+    cfg = get_config("kimi-k2-1t-a32b-smoke")
+    model = cfg.build()
+    per, attn = wq_per_forward(model), model.stack.attention_layers
+    check((per, attn) == (22, 3), f"kimi-k2-smoke: {per} wq_matmul, {attn} attention a forward")
+
+    def kimi_counts(st):
+        ticks, chunks = st.decode_steps, st.prefill_chunks
+        return {"wq_matmul": per * (ticks + chunks + 3), "qdecode_attn": attn * (ticks + 2),
+                "qchunk_attn": attn * (chunks + 1)}
+
+    moe_serve(torch, card, cfg.arch_id, cfg, ["--arch", cfg.arch_id, "--policy", "chunked"]
+              + common, kimi_counts, launches, engines)
+    engines.clear()
+    print(f"[time] moe phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
+    check(not misses, "moe: " + "; ".join(misses))
+    return launches
+
+
+
 def main() -> int:
     try:
         import torch
@@ -4426,9 +4922,16 @@ def main() -> int:
     enc_rows, enc_err = check_encdec_kernels(torch, F, ref, SimpleNamespace(
         qd=qdecode_attn_cuda, qpd=qpaged_decode_attn_cuda, qc=qchunk_attn_cuda,
         qpc=qpaged_chunk_attn_cuda, qr=qragged_attn_cuda), gen, CUDA_PAGE_SIZE)
+    t_moe = time.perf_counter()
+    moe_rows, _, moe_err, moe_softmax = check_moe_kernels(torch, F, ref, SimpleNamespace(
+        wq=wq_matmul_cuda, qd=qdecode_attn_cuda, qpd=qpaged_decode_attn_cuda,
+        qc=qchunk_attn_cuda, qpc=qpaged_chunk_attn_cuda, qr=qragged_attn_cuda), gen,
+        CUDA_PAGE_SIZE, card)
+    check_grants("the MoE and hybrid archs' kernel shapes", ran=("wq_matmul",))
     t_int = time.perf_counter()
     print(f"[time] the archs' kernel shapes {t_rec - t_arch:.1f}s, the recurrent archs' "
-          f"{t_enc - t_rec:.1f}s, whisper-tiny's {t_int - t_enc:.1f}s", flush=True)
+          f"{t_enc - t_rec:.1f}s, whisper-tiny's {t_moe - t_enc:.1f}s, the MoE and hybrid "
+          f"archs' {t_int - t_moe:.1f}s", flush=True)
     qmm_rows = check_qmm(torch, ref, qmm_cuda, gen)
     qmr_rows = check_qmm_requant(torch, ref, qmm_requant_cuda, gen)
     qconv_rows, _ = check_qconv1d(torch, F, ref, qconv1d_cuda, gen)
@@ -4452,12 +4955,16 @@ def main() -> int:
     t7 = time.perf_counter()
     enc_launches = encdec_end_to_end(torch, card)
     t8 = time.perf_counter()
+    moe_launches = moe_end_to_end(torch, card, moe_softmax[16])
+    check_grants("the moe phase", ran=("wq_matmul",))
+    t9 = time.perf_counter()
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
           f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | archs "
-          f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | encdec {t8 - t7:.1f}s | all "
-          f"{t8 - t0:.1f}s", flush=True)
+          f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | encdec {t8 - t7:.1f}s | moe "
+          f"{t9 - t8:.1f}s | all {t9 - t0:.1f}s", flush=True)
     launches = {k: sum(part.get(k, 0) for part in (launches, int_launches, train_launches,
-                                                   arch_launches, rec_launches, enc_launches))
+                                                   arch_launches, rec_launches, enc_launches,
+                                                   moe_launches))
                 for k in int_launches}
 
     wq_main = wq_layers[8]
@@ -4589,6 +5096,14 @@ def main() -> int:
                                        max(r["err"] for r in enc_rows[entry["name"]]))
     print(f"[kernel] whisper-tiny's shapes (G = 1): worst max_abs_err {enc_err:.3e}",
           flush=True)
+    for entry in kernels:
+        if entry["name"] in moe_rows:
+            entry["moe"] = [{k: r[k] for k in arch_keys if k in r}
+                            for r in moe_rows[entry["name"]]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["err"] for r in moe_rows[entry["name"]]))
+    print(f"[kernel] the MoE and hybrid archs' shapes (G = 4; phi3.5-moe's and jamba's "
+          f"GEMMs): worst max_abs_err {moe_err:.3e}", flush=True)
     wq_entry = next(e for e in kernels if e["name"] == "wq_matmul")
     wq_entry["recurrent"] = [{k: r[k] for k in ("m", "shape", "k", "n", "err", "ms", "plain_ms",
                                                 "library_ms", "bound_ms", "bound_by")}

@@ -9,9 +9,13 @@ channel-mix).  The layout is a period string repeated ``n_layers /
 len(layout)`` times.  A config with ``enc_layers`` builds an
 :class:`~repro_torch.models.lm.EncDecLM` (whisper): a non-causal encoder
 stack and a causal decoder stack with cross-attention, both with the
-classic MLP FFN.  MoE and hybrid layouts wait for a later slice.
-``smoke()`` derives the same reduced config as the reference, so converted
-JAX parameters fit it.
+classic MLP FFN.  MoE: ``moe_every=k, moe_offset=o`` puts an
+:class:`~repro_torch.nn.moe.MoE` FFN at the global layers i >= ``first_k_dense``
+with i = o (mod k) (phi3.5-moe every layer, jamba every other one over its
+``"mmmammmm"`` Mamba/attention period); the ``first_k_dense`` leading dense
+layers (kimi-k2, with its own ``d_ff_dense``) form the stack's unstacked
+``prelude``.  ``smoke()`` derives the same reduced config as the reference,
+so converted JAX parameters fit it.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                    # dense | vlm | ssm | audio (moe, hybrid wait)
+    family: str                    # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +46,13 @@ class ArchConfig:
     vocab: int
     head_dim: int = 128
     layout: str = "a"              # period string over {a, m, r}
+    n_experts: int = 0             # MoE
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_every: int = 0             # 0 = no MoE
+    moe_offset: int = 0
+    first_k_dense: int = 0         # leading dense layers, the unstacked prelude
+    d_ff_dense: int = 0            # dense-FFN width where it differs (kimi)
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     use_rope: bool = True
@@ -63,14 +74,24 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
-    def _block(self, mixer_ch: str) -> Block:
+    def _is_moe(self, layer_idx: int) -> bool:
+        return (self.moe_every > 0 and layer_idx >= self.first_k_dense
+                and layer_idx % self.moe_every == self.moe_offset)
+
+    def _block(self, layer_idx: int, mixer_ch: str) -> Block:
+        """Global layer ``layer_idx``'s block: an MoE FFN of ``d_ff`` experts
+        where :meth:`_is_moe`, else the config's FFN at ``d_ff_dense`` (or
+        ``d_ff``)."""
+        moe = self._is_moe(layer_idx)
         return Block(d_model=self.d_model, n_heads=self.n_heads,
                      n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-                     d_ff=self.d_ff, qkv_bias=self.qkv_bias,
+                     d_ff=self.d_ff if moe else (self.d_ff_dense or self.d_ff),
+                     qkv_bias=self.qkv_bias,
                      rope_theta=self.rope_theta, use_rope=self.use_rope,
                      activation=self.activation, norm=self.norm,
                      parallel=self.parallel_block, mixer=_MIXERS[mixer_ch],
-                     ffn=self.ffn_kind)
+                     ffn="moe" if moe else self.ffn_kind, n_experts=self.n_experts,
+                     top_k=self.top_k, n_shared_experts=self.n_shared_experts)
 
     def build(self):
         """The float32 model of this config: an ``EncDecLM`` when it has
@@ -79,21 +100,24 @@ class ArchConfig:
             raise ValueError(f"{self.arch_id}: norm {self.norm!r}")
         if self.is_encdec:
             return self._build_encdec()
-        if any(ch not in _MIXERS for ch in self.layout) or \
-                self.ffn_kind not in ("gated", "rwkv"):
-            raise NotImplementedError(
-                f"{self.arch_id}: layout {self.layout!r} / ffn {self.ffn_kind!r} arrive "
-                "with a later slice of the port: MoE and hybrid (item 1d) (ROADMAP.md "
-                "queue 1)")
-        period = len(self.layout)
-        if self.n_layers % period:
-            raise ValueError(f"{self.arch_id}: {self.n_layers} layers do not repeat the "
-                             f"{period}-layer period {self.layout!r}")
         return CausalLM(vocab=self.vocab, vocab_padded=self.vocab_padded,
-                        d_model=self.d_model,
-                        stack=Stack(body=tuple(self._block(ch) for ch in self.layout),
-                                    n_periods=self.n_layers // period),
+                        d_model=self.d_model, stack=self._stack(),
                         norm=self.norm, tie_embeddings=self.tie_embeddings)
+
+    def _stack(self) -> Stack:
+        """The ``first_k_dense`` prelude blocks, then the layout's period
+        repeated over the remaining layers (``repro/configs/base.py``)."""
+        period = len(self.layout)
+        if (self.n_layers - self.first_k_dense) % period:
+            raise ValueError(f"{self.arch_id}: {self.n_layers - self.first_k_dense} layers "
+                             f"do not repeat the {period}-layer period {self.layout!r}")
+        prelude = Stack(body=tuple(self._block(i, self.layout[i % period])
+                                   for i in range(self.first_k_dense)),
+                        n_periods=1, layer_scope="pre") if self.first_k_dense else None
+        body = tuple(self._block(self.first_k_dense + p, self.layout[p])
+                     for p in range(period))
+        return Stack(body=body, n_periods=(self.n_layers - self.first_k_dense) // period,
+                     prelude=prelude)
 
     def _build_encdec(self) -> EncDecLM:
         """Whisper's pair of stacks: a non-causal encoder block and a causal
@@ -114,11 +138,15 @@ class ArchConfig:
         """Reduced same-family config for CPU tests (the reference's sizes)."""
         n_heads = 4
         n_kv = min(self.n_kv_heads, 2) if self.n_kv_heads < self.n_heads else n_heads
+        period = len(self.layout)
         return dataclasses.replace(
             self, arch_id=self.arch_id + "-smoke",
-            n_layers=len(self.layout) * (2 if len(self.layout) == 1 else 1),
+            n_layers=self.first_k_dense + period * (2 if period == 1 else 1),
             d_model=64, n_heads=n_heads, n_kv_heads=n_kv, head_dim=16,
-            d_ff=128, vocab=503, vis_seq=min(self.vis_seq, 8) if self.vis_seq else 0,
+            d_ff=128, d_ff_dense=128 if self.d_ff_dense else 0, vocab=503,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            vis_seq=min(self.vis_seq, 8) if self.vis_seq else 0,
             enc_layers=min(self.enc_layers, 2) if self.enc_layers else 0,
             enc_seq=16 if self.enc_layers else self.enc_seq)
 
@@ -130,7 +158,8 @@ class ArchConfig:
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         period = len(self.layout)
         for i in range(self.n_layers):
-            ch = self.layout[i % period]
+            ch = self.layout[(i - self.first_k_dense) % period] \
+                if i >= self.first_k_dense else self.layout[i % period]
             if ch == "a":
                 qd, kvd = self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
                 total += d * (qd + 2 * kvd) + qd * d
@@ -139,13 +168,24 @@ class ArchConfig:
                 total += d * 2 * di + di * (dtr + 32) + dtr * di + di * d
             elif ch == "r":
                 total += 5 * d * d
-            if ch == "r":
+            if self._is_moe(i):
+                total += (self.n_experts + self.n_shared_experts) * 3 * d * f
+            elif ch == "r":
                 total += 2 * d * f + d * d
             else:
-                total += (3 if self.ffn_kind == "gated" else 2) * d * f
+                total += (3 if self.ffn_kind == "gated" else 2) * d * (self.d_ff_dense or f)
         if self.is_encdec:
             total += self.enc_layers * (4 * d * d + 2 * d * f)
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: an MoE layer's ``top_k`` (and
+        shared) experts of its ``n_experts``, the reference's formula."""
+        if not self.moe_every:
+            return self.param_count()
+        moe_layers = sum(self._is_moe(i) for i in range(self.n_layers))
+        return self.param_count() - moe_layers * (self.n_experts - self.top_k) * 3 \
+            * self.d_model * self.d_ff
 
 
 _MIXERS = {"a": "attn", "m": "mamba", "r": "rwkv"}

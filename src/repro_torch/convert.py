@@ -3,13 +3,16 @@ back.
 
 The port never imports ``repro``: a caller flattens the reference's tree
 into nested dicts/lists of numpy arrays (stacked layers keep their leading
-axis) and hands it here.  Every model's tree carries across leaf by leaf,
-an EncDec one's too (``embed``, ``pos_embed``, ``encoder``, ``enc_norm``,
-``decoder`` with each block's ``norm_x`` and ``xattn``, ``final_norm``).  Optimizer states and whole training states
-convert the same way: the optimizers keep the reference's state trees
-(``{"m"}``, ``{"m", "v", "t"}`` with ``t`` a 0-d int32 array), so
-:func:`params_from_numpy` carries ``m``, ``v`` and ``t`` across as they
-are.  :func:`params_to_numpy` gives the port's tree back as numpy arrays.  A quantized leaf arrives as any object with
+axis) and hands it here.  Every model's tree carries across leaf by leaf:
+an EncDec one's (``embed``, ``pos_embed``, ``encoder``, ``enc_norm``,
+``decoder`` with each block's ``norm_x`` and ``xattn``, ``final_norm``) and
+an MoE one's (``ffn/router``, the ``ffn/experts`` stacks, 4-D under a
+stacked body, ``ffn/shared``, the unstacked ``stack/prelude/[i]``) too.
+Optimizer states and whole training states convert the same way: the
+optimizers keep the reference's state trees (``{"m"}``, ``{"m", "v", "t"}``
+with ``t`` a 0-d int32 array), so :func:`params_from_numpy` carries ``m``,
+``v`` and ``t`` across as they are.  :func:`params_to_numpy` gives the
+port's tree back as numpy arrays.  A quantized leaf arrives as any object with
 ``q``/``n``/``width`` attributes (the reference's ``QTensor`` itself will
 do) or as a dict with those keys, optionally with ``channel_axis``; one
 that also has ``k`` and ``block_size`` (the reference's ``PackedQTensor``)

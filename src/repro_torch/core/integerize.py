@@ -187,8 +187,9 @@ def integerize_weights_only(params, *, bits: int = 8, per_channel: bool = True,
     ``table`` leaves stay unpacked :class:`QTensor` at the logical width
     (the gather and tied-logits paths index their rows).
     ``per_channel``: one exponent per output channel; stacked leaves (the
-    layer axis in front) keep every leading index distinct, so each layer
-    gets its own Qm.n grid.  Norm parameters and biases (the QKV biases,
+    layer axis in front, and the expert axis of an MoE stack: (L, E, K, N)
+    or (E, K, N)) keep every leading index distinct, so each layer and
+    expert gets its own Qm.n grid.  The MoE router stays float.  Norm parameters and biases (the QKV biases,
     LayerNorm's ``bias``) stay float, as in the reference.
     ``release``: each quantized leaf also replaces its float leaf in
     ``params`` itself as its codes appear, so a model that cannot be held

@@ -3,12 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --policy chunked --chunk-size 32 --wq --qkv [--device cpu]
 
---arch takes every ported id (``models/registry.py``): smollm-135m,
-glm4-9b, qwen2.5-14b, command-r-plus-104b, internvl2-2b (its text backbone:
-serving is text-only, as in the reference), the recurrent mamba-130m and
-rwkv6-7b, and each one's ``<id>-smoke``.  A full-size model's float32 init
-must fit the card (glm4-9b: 35 GB, rwkv6-7b: 29 GB; --wq then holds 8.8 /
-7.5 GB of int8 weights).  A recurrent model serves through the restart,
+--arch takes every id of the reference's registry (``models/registry.py``):
+smollm-135m, glm4-9b, qwen2.5-14b, command-r-plus-104b, internvl2-2b (its
+text backbone: serving is text-only, as in the reference), the recurrent
+mamba-130m and rwkv6-7b, whisper-tiny, the MoE phi3.5-moe-42b-a6.6b and
+kimi-k2-1t-a32b, the hybrid jamba-v0.1-52b, and each one's ``<id>-smoke``.
+A full-size model's float32 init must fit the card (glm4-9b: 35 GB,
+rwkv6-7b: 29 GB; --wq then holds 8.8 / 7.5 GB of int8 weights; phi3.5-moe
+whole is 168 GB, kimi-k2 4.1 TB: serve their -smoke configs or a cut
+depth).  An MoE model serves with --wq (int8) or float weights on every
+policy; --wq int4/int2 is refused when the engine is built (the reference
+fails on packed expert stacks).  jamba (Mamba and attention) serves as the
+recurrent models do, with --paged too; --policy ragged raises the
+reference's error.  A recurrent model serves through the restart,
 scheduler and chunked policies; --paged and --policy ragged raise the
 reference's errors, and --qkv has no KV cache to quantize there (the flag
 is taken and changes nothing, as in the reference).  whisper-tiny resolves,

@@ -1,7 +1,8 @@
 """Transformer block and layer stack (``repro/nn/transformer.py``).
 
 The port's :class:`Block` is a pre-norm layer: norm -> mixer (attention,
-Mamba or RWKV-6 time-mix) -> residual, norm -> FFN (gated, or the RWKV-6
+Mamba or RWKV-6 time-mix) -> residual, norm -> FFN (gated, the classic MLP,
+the routed experts of :class:`~repro_torch.nn.moe.MoE`, or the RWKV-6
 channel-mix) -> residual, with RMSNorm or LayerNorm; ``parallel=True``
 gives the command-r block, in which attention and the FFN both read the one
 normed input (``x + attn(norm1(x)) + ffn(norm1(x))``, no ``norm2``).
@@ -13,7 +14,10 @@ every call from ``enc`` or read from the block's ``"xkv"`` cache node
 it was.
 :class:`Stack` keeps the reference's stacked parameter layout (one leading
 layer axis per body position when ``n_periods > 1``) and loops over the
-layer axis where the reference runs ``lax.scan``.
+layer axis where the reference runs ``lax.scan``; its ``prelude`` (kimi-k2's
+dense first layer) is a stack of one period run before the body, each of
+its layers with its own unstacked parameters and cache node
+(``params["prelude"][i]``, ``cache["prelude"][i]``).
 
 A block's cache node holds ``"kv"`` (attention: written in place, only its
 ``len`` comes back new) or the recurrent state, ``"ssm"`` (the mixer's) and
@@ -34,6 +38,7 @@ from repro_torch.nn.attention import (Attention, KVChunk, RaggedBatch, init_cros
 from repro_torch.nn.layers import LayerNorm, RMSNorm
 from repro_torch.nn.mlp import MLP, GatedMLP
 from repro_torch.nn.module import Context, Params, tree_unstack
+from repro_torch.nn.moe import MoE
 from repro_torch.nn.ssm import Mamba, RWKV6ChannelMix, RWKV6TimeMix
 
 # block cache keys of recurrent state: the mixer's and the channel-mix's
@@ -43,9 +48,9 @@ RECURRENT_KEYS = ("ssm", "cm")
 @dataclasses.dataclass(frozen=True)
 class Block:
     """One residual layer: norm + mixer (``"attn"``, ``"mamba"`` or
-    ``"rwkv"``) + norm + FFN (``"gated"``, ``"mlp"`` or ``"rwkv"``; one norm
-    before both, side by side, when ``parallel``), with cross-attention
-    between them when ``cross``."""
+    ``"rwkv"``) + norm + FFN (``"gated"``, ``"mlp"``, ``"moe"`` or
+    ``"rwkv"``; one norm before both, side by side, when ``parallel``), with
+    cross-attention between them when ``cross``."""
 
     d_model: int
     n_heads: int
@@ -60,8 +65,11 @@ class Block:
     norm: str = "rms"              # rms | ln
     parallel: bool = False         # command-r parallel attention + FFN
     mixer: str = "attn"            # attn | mamba | rwkv
-    ffn: str = "gated"             # gated | mlp | rwkv
+    ffn: str = "gated"             # gated | mlp | moe | rwkv
     cross: bool = False            # whisper decoder cross-attention
+    n_experts: int = 0             # moe: routed experts of d_ff each
+    top_k: int = 0
+    n_shared_experts: int = 0
     name: str = "block"
 
     def _norm(self, name: str):
@@ -85,6 +93,10 @@ class Block:
             return GatedMLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
         if self.ffn == "mlp":
             return MLP(self.d_model, self.d_ff, activation=self.activation, name="ffn")
+        if self.ffn == "moe":
+            return MoE(self.d_model, self.d_ff, self.n_experts, self.top_k,
+                       n_shared_experts=self.n_shared_experts, activation=self.activation,
+                       name="moe")
         if self.ffn == "rwkv":
             return RWKV6ChannelMix(self.d_model, self.d_ff, name="chanmix")
         raise ValueError(self.ffn)
@@ -218,15 +230,32 @@ class Block:
 
 @dataclasses.dataclass(frozen=True)
 class Stack:
-    """``body`` (a period of blocks) repeated ``n_periods`` times."""
+    """The ``prelude`` stack's layers, then ``body`` (a period of blocks)
+    repeated ``n_periods`` times.  Unstacked layers are scoped
+    ``{layer_scope}{i}``: a prelude is ``Stack(blocks, 1, layer_scope="pre")``
+    and shares its parent's name, so its layers are ``stack/pre{i}`` as the
+    reference's are."""
 
     body: Tuple[Block, ...]
     n_periods: int
+    prelude: Optional["Stack"] = None
+    layer_scope: str = "l"
     name: str = "stack"
 
     @property
+    def blocks(self) -> Tuple[Block, ...]:
+        """Every layer's block in order: the prelude's, then the body's
+        period after period."""
+        return (self.prelude.blocks if self.prelude else ()) + self.body * self.n_periods
+
+    @property
     def n_layers(self) -> int:
-        return len(self.body) * self.n_periods
+        return len(self.blocks)
+
+    @property
+    def attention_layers(self) -> int:
+        """Layers with an attention mixer, each one KV cache layer."""
+        return sum(b.mixer == "attn" for b in self.blocks)
 
     @property
     def stacked(self) -> bool:
@@ -234,8 +263,12 @@ class Stack:
         return self.n_periods > 1
 
     def init(self, gen: torch.Generator, device) -> Params:
+        p: Params = {}
+        if self.prelude:
+            p["prelude"] = self.prelude.init(gen, device)["body"]
         if not self.stacked:
-            return {"body": [blk.init(gen, device) for blk in self.body]}
+            p["body"] = [blk.init(gen, device) for blk in self.body]
+            return p
         body = []
         for blk in self.body:
             # each layer is drawn in turn and copied into its slice of the
@@ -248,18 +281,21 @@ class Stack:
             for i in range(1, self.n_periods):
                 _fill_layer(stacked, blk.init(gen, device), i)
             body.append(stacked)
-        return {"body": body}
+        p["body"] = body
+        return p
 
     def init_cache(self, batch: int, max_len: int, *, quantized_kv: bool,
                    device, per_slot_len: bool = False, page_size: Optional[int] = None,
                    num_pages: Optional[int] = None,
                    enc_len: Optional[int] = None) -> Dict[str, Any]:
+        kw = dict(quantized_kv=quantized_kv, device=device, per_slot_len=per_slot_len,
+                  page_size=page_size, num_pages=num_pages, enc_len=enc_len)
+        c: Dict[str, Any] = {}
+        if self.prelude:
+            c["prelude"] = self.prelude.init_cache(batch, max_len, **kw)["body"]
         layers = self.n_periods if self.stacked else None
-        return {"body": [blk.init_cache(batch, max_len, quantized_kv=quantized_kv,
-                                        device=device, layers=layers,
-                                        per_slot_len=per_slot_len, page_size=page_size,
-                                        num_pages=num_pages, enc_len=enc_len)
-                         for blk in self.body]}
+        c["body"] = [blk.init_cache(batch, max_len, layers=layers, **kw) for blk in self.body]
+        return c
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               cache: Optional[Dict[str, Any]] = None,
@@ -268,6 +304,13 @@ class Stack:
               chunk: Optional[KVChunk] = None,
               ragged: Optional[RaggedBatch] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+        if self.prelude:
+            # the prelude takes this stack's context before it is scoped: its
+            # own name is this one's
+            x, pre = self.prelude.apply(
+                {"body": params["prelude"]}, x, ctx,
+                cache=None if cache is None else {"body": cache["prelude"]},
+                enc=enc, decode=decode, chunk=chunk, ragged=ragged)
         ctx = ctx.scope(self.name)
         lens = {}
         states: Dict[int, list] = {pos: [] for pos in range(len(self.body))}
@@ -281,7 +324,7 @@ class Stack:
                     p = p[period]
                     if c is not None:
                         c = _layer_cache(c, period)
-                bctx = ctx.scope(f"p{pos}" if self.stacked else f"l{pos}")
+                bctx = ctx.scope(f"p{pos}" if self.stacked else f"{self.layer_scope}{pos}")
                 x, nc = blk.apply(p, x, bctx, cache=c, enc=enc, decode=decode, chunk=chunk,
                                   ragged=ragged)
                 if nc is not None:
@@ -309,7 +352,10 @@ class Stack:
                     node[key] = _stack_states([st[key] for st in states[pos]]) \
                         if self.stacked else states[pos][0][key]
             out.append(node)
-        return x, {"body": out}
+        new = {"body": out}
+        if self.prelude:
+            new["prelude"] = pre["body"]
+        return x, new
 
 
 def _layer_cache(node: Dict[str, Any], i: int) -> Dict[str, Any]:

@@ -18,6 +18,11 @@ the steps read in place of re-projecting ``enc``.  Its weights stay float:
 the reference cannot serve EncDec with int8 weights (its learned position
 table becomes a ``QTensor`` that its decoder cannot index), so
 ``weight_quant`` is refused at construction.
+
+A model with MoE layers serves with int8 weights: each stacked expert
+weight is a ``QTensor`` that ``nn/moe.py`` dequantizes whole every forward,
+as the reference does.  Packed int4/int2 weights are refused at
+construction: the reference packs the expert stacks and then fails on them.
 """
 from __future__ import annotations
 
@@ -288,6 +293,12 @@ class ServeEngine:
             raise ValueError(f"kv_pool_pages must be >= 1, got {self.kv_pool_pages}")
         kw = _weight_quant_kwargs(self.weight_quant, self.weight_block) \
             if self.weight_quant else None
+        if kw and any(b.ffn == "moe" for b in self.model.stack.blocks):
+            raise ValueError(
+                f"weight_quant={self.weight_quant!r} on a model with MoE layers: the reference "
+                "cannot serve it (integerize_weights_only packs the stacked expert kernels "
+                "and MoE._expert_w, which knows QTensor but not PackedQTensor, fails on them "
+                "with AttributeError); serve MoE with int8 weights (weight_quant=True)")
         if kw is not None and self.own_params:
             # the caller's tree is converted in place where its leaves lie, so
             # each float leaf is freed as its codes appear
@@ -353,8 +364,8 @@ class ServeEngine:
         if self.paged_kv and per_slot:
             per_layer_ints += self.batch_slots * self.kv_max_pages
         stack = self.model.decoder if self.encdec else self.model.stack
-        attn_layers = stack.n_periods * sum(b.mixer == "attn" for b in stack.body)
-        return (kv + 4 * per_layer_ints * attn_layers + _bytes_where(shapes, _is_recurrent)
+        return (kv + 4 * per_layer_ints * stack.attention_layers
+                + _bytes_where(shapes, _is_recurrent)
                 + _bytes_where(shapes, _is_xkv))
 
     def scheduler(self, **kwargs):

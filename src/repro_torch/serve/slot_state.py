@@ -297,17 +297,19 @@ def set_cache_slot_len(cache, slot: int, length: int):
 def state_kinds(model) -> Tuple[str, ...]:
     """The per-slot state kinds ``model`` serves with, in the reference's
     order: ``"kv"`` for attention mixers, ``"recurrent"`` for Mamba and
-    RWKV-6 mixers, ``"cross"`` for an EncDec decoder with a sized
-    cross-attention cache (``enc_len`` set)."""
+    RWKV-6 mixers (a hybrid, jamba, has both), ``"cross"`` for an EncDec
+    decoder with a sized cross-attention cache (``enc_len`` set); the
+    stack's prelude blocks count with its body's."""
     stack = model.decoder if hasattr(model, "encode") else model.stack
-    mixers = {getattr(b, "mixer", "attn") for b in stack.body}
+    blocks = stack.blocks
+    mixers = {b.mixer for b in blocks}
     kinds = []
     if "attn" in mixers:
         kinds.append("kv")
     if mixers & {"mamba", "rwkv"}:
         kinds.append("recurrent")
     if hasattr(model, "encode") and getattr(model, "enc_len", None) \
-            and any(getattr(b, "cross", False) for b in stack.body):
+            and any(b.cross for b in blocks):
         kinds.append("cross")
     return tuple(kinds)
 

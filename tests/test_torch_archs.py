@@ -290,11 +290,13 @@ def test_param_count_and_tree_match_reference(arch):
     assert abs(real - cfg.param_count()) / real < 0.15
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
+                                  "jamba-v0.1-52b"])
 def test_get_config_field_for_field(arch):
     """Every field of the port's config equals the reference's, at full and
-    smoke size; the reference's fields the port has no use for yet (MoE,
-    EncDec) hold their defaults for these archs."""
+    smoke size (the MoE fields compared, not defaulted); the reference's
+    fields the port has no use for (EncDec's ``enc_seq`` aside) hold their
+    defaults for these archs."""
     defaults = {f.name: f.default for f in dataclasses.fields(JArchConfig)}
     for size in ("", "-smoke"):
         got, want = get_config(arch + size), j_get_config(arch + size)

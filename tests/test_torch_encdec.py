@@ -362,8 +362,9 @@ def test_positions_clip_to_the_table():
 
 @pytest.mark.parametrize("size", ["", "-smoke"])
 def test_config_field_for_field_and_param_count(size):
-    """Every field of the port's whisper config equals the reference's; the
-    reference's fields the port has no use for (MoE) hold their defaults;
+    """Every field of the port's whisper config equals the reference's (the
+    MoE fields at their defaults in both); the reference's fields the port
+    lacks hold their defaults;
     ``param_count()`` is the reference's (the encoder term included) and
     the tree holds the reference's leaves, shape for shape."""
     from repro.configs.base import ArchConfig as JArchConfig

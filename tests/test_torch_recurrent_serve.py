@@ -4,10 +4,9 @@ port's ``Scheduler`` and repro's on the reference's parameters carried over
 by ``repro_torch.convert``, the greedy streams and tick timelines held
 equal to the reference's own run:
 
-* ``state_kinds`` by family (the jamba line waits for the MoE and hybrid
-  part of the other-architectures slice; whisper's is in
-  ``test_torch_encdec_serve.py``) and the ``state_kinds`` field of
-  ``ServeStats``;
+* ``state_kinds`` by family (the hybrid jamba's ``("kv", "recurrent")``
+  included; whisper's is in ``test_torch_encdec_serve.py``) and the
+  ``state_kinds`` field of ``ServeStats``;
 * per-slot state bytes constant in ``max_len`` and the cache bytes the
   report line prints;
 * mamba serving equal to lockstep ``generate()``, float and int8 weights;
@@ -91,6 +90,7 @@ def test_state_kinds_by_family():
     assert state_kinds(smoke("mamba-130m")[2]) == ("recurrent",)
     assert state_kinds(smoke("rwkv6-7b")[2]) == ("recurrent",)
     assert [a.kind for a in slot_state.adapters_for(smoke("rwkv6-7b")[2])] == ["recurrent"]
+    assert state_kinds(smoke("jamba-v0.1-52b")[2]) == ("kv", "recurrent")
 
 
 def test_recurrent_bytes_per_slot_constant_in_length():

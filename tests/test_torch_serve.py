@@ -166,6 +166,19 @@ def test_launch_serve_names_the_next_slice_for_other_policies():
 
 
 def test_registry_serves_smollm_and_names_the_waiting_slice():
+    """Every id of the reference's registry resolves in the port, at full
+    and smoke size, to the reference's id and depth; an unknown id raises
+    ``KeyError``.  (No slice is left waiting: the name is kept.)"""
+    from repro.models.registry import get_config as j_get_config
+    from repro.models.registry import list_archs as j_list_archs
+    from repro_torch.models.registry import list_archs
+
+    assert sorted(list_archs()) == sorted(j_list_archs())
+    for arch in j_list_archs():
+        for size in ("", "-smoke"):
+            got, want = get_config(arch + size), j_get_config(arch + size)
+            assert (got.arch_id, got.n_layers, got.d_model) == \
+                (want.arch_id, want.n_layers, want.d_model)
     assert get_config("smollm-135m").n_layers == 30
     assert get_config("smollm-135m-smoke").d_model == 64
     # the dense-family archs, at full and smoke size
@@ -181,8 +194,9 @@ def test_registry_serves_smollm_and_names_the_waiting_slice():
         assert (small.arch_id, small.n_layers, small.d_model) == (arch + "-smoke", 2, 64)
     assert (get_config("whisper-tiny").enc_layers, get_config("whisper-tiny-smoke").enc_seq) \
         == (4, 16)
-    with pytest.raises(KeyError, match="other-architectures slice, MoE and hybrid \\(item 1d\\)"):
-        get_config("phi3.5-moe-42b-a6.6b")
+    assert (get_config("phi3.5-moe-42b-a6.6b").n_experts,
+            get_config("kimi-k2-1t-a32b-smoke").n_layers,
+            get_config("jamba-v0.1-52b-smoke").layout) == (16, 3, "mmmammmm")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-17")
 
