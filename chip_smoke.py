@@ -172,6 +172,18 @@ Phases, each printed as it completes; any failure exits non-zero:
      phi's projections and head and jamba's Mamba and dense-FFN shapes (M =
      8 and 32), and one phi layer's expert products (the int8 stacks
      dequantized whole, as the reference does) against their byte bound.
+  15. ``[dist]`` (``dist_end_to_end``): the data axis over torch.distributed:
+     world 1 over NCCL in this process and world 2 over gloo, ranks of this
+     script under ``torchrun --standalone`` (``--dist-rank``) with both on
+     the one card (NCCL takes one rank a card), each running ``launch.train.main --mesh
+     W,1`` (smollm-135m at full width, AdamW, B=8, S=128) float and
+     ``--qat`` and ``make_dp_shardmap_train_step`` with ``compress_bits`` 8
+     and 0, 4 steps each: the loss falls, every rank's parameters equal rank
+     0's after every step, the compressed mean within one grid step of the
+     exact one, world 1's losses those of the run without a group (rtol
+     1e-5); step wall and device ms, the gradient all-reduce's ms and
+     payload bytes and peak memory a rank printed.  GPipe is held on the
+     CPU tests only (no CUDA send/recv in gloo; NCCL needs a second card).
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -4821,6 +4833,453 @@ def moe_end_to_end(torch, card, softmax):
 
 
 
+# --------------------------------------------------------------------------
+# [dist]: the data axis over torch.distributed (world 1 here, world 2 under torchrun)
+# --------------------------------------------------------------------------
+
+DIST_STEPS = 4              # steps of each configuration
+DIST_PROFILED = 2           # the step profiled on rank 0 (kept out of the wall median)
+DIST_ARGS = ["--arch", "smollm-135m", "--batch", "8", "--seq", "128", "--steps",
+             str(DIST_STEPS), "--log-every", "100"]
+DIST_TIMEOUT = 300          # seconds a launch of the ranks may take
+
+
+def dist_start(world: int, backend: str, out: Path):
+    """Start ``torchrun --standalone --nproc-per-node world`` of this
+    script's rank program on ``backend``; the ranks start their timed work
+    once ``out/go`` exists (:func:`dist_wait` reads their results)."""
+    import os
+
+    out.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parent / "src"), env.get("PYTHONPATH")) if p)
+    # the machine's only interface may be loopback: name it for gloo and NCCL
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", str(Path(__file__).resolve()), "--dist-rank", backend,
+           str(out)]
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+
+
+def dist_ready(proc, world: int, out: Path) -> None:
+    """Wait until every rank has formed its group and waits for the word."""
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    while not all((out / f"ready{r}").exists() for r in range(world)):
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            print(dist_kill(proc)[-6000:], flush=True)
+            fail(f"[dist] the {world} ranks did not come up")
+        time.sleep(0.05)
+
+
+def dist_kill(proc) -> str:
+    """Kill and reap the launch and its ranks (one process group); its
+    remaining output."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    return proc.communicate()[0] or ""
+
+
+def dist_wait(proc, world: int, backend: str, out: Path) -> list:
+    """Give the ranks their word to start and return each rank's results.
+    The ranks are killed and reaped whatever happens; a rank that fails
+    fails the phase."""
+    (out / "go").touch()
+    log = ""
+    try:
+        log, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            log += dist_kill(proc)
+    if proc.returncode != 0:
+        print(log[-6000:], flush=True)
+        fail(f"[dist] {world} rank(s) over {backend} exited {proc.returncode}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def dist_rank(backend: str, out: str) -> int:
+    """The rank program of ``[dist]``, started by ``torchrun``: forms the
+    group on the card over ``backend`` and runs every configuration; writes
+    ``rank<r>.json`` into ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import init_process_group
+
+    t_start = time.time()
+    init_process_group(torch.device("cuda"), backend)
+    try:
+        # the parent may still be on the card: start the timed work on its word
+        Path(out, f"ready{dist.get_rank()}").touch()
+        go = Path(out, "go")
+        deadline = time.perf_counter() + DIST_TIMEOUT
+        while not go.exists():
+            check(time.perf_counter() < deadline, f"[dist] {go} never came")
+            time.sleep(0.05)
+        res = dist_rank_runs(torch, dist)
+        res["clock"] = {"start": t_start, "end": time.time()}
+        Path(out, f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_rank_runs(torch, dist) -> dict:
+    """On every rank: ``launch.train.main --mesh W,1`` float and ``--qat``
+    (``DIST_ARGS``), then ``make_dp_shardmap_train_step`` with
+    ``compress_bits`` 8 and 0 (AdamW 3e-3 on the same Markov batches), each
+    for ``DIST_STEPS`` steps: losses, step wall ms, the profiled step's
+    device busy ms and all-reduce calls, the gradient all-reduce alone,
+    its payload bytes, peak memory, a checksum of the parameters after
+    every step and the final parameters held to rank 0's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import markov_batch_fn
+    from repro_torch.dist.compress import (compressed_grad_allreduce, grad_allreduce_mean,
+                                           wire_bytes)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn.module import Context, tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_host_mesh(world, 1, "cuda")
+    group = mesh.get_group("data")
+
+    def checksum(params):
+        """Per leaf: the float64 sum of the values and the sum of their bit
+        patterns (device tensors; no read-back)."""
+        leaves = tree_leaves(params)
+        return torch.stack([torch.stack([t.double().sum() for t in leaves]),
+                            torch.stack([t.view(torch.int32).to(torch.int64).sum()
+                                         for t in leaves]).double()])
+
+    def agree(checks, params) -> dict:
+        """Whether every rank's checksums of every step and final parameters
+        equal rank 0's (a broadcast and ``torch.equal`` leaf by leaf)."""
+        same = True
+        for t in tree_leaves(params):
+            ref = t.clone()
+            dist.broadcast(ref, src=dist.get_global_rank(group, 0), group=group)
+            same = same and torch.equal(ref, t)
+        mine = torch.stack(checks).cpu().tolist()
+        every = [None] * world
+        dist.all_gather_object(every, (mine, same), group=group)
+        return {"steps_equal": all(e[0] == every[0][0] for e in every),
+                "final_equal": all(e[1] for e in every)}
+
+    parts = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def profiled(fn):
+        """``fn()`` under the profiler, tracing the card only (a host trace
+        of a QAT step's ops costs seconds to read back): (its result, device
+        busy ms, ``dist.all_reduce`` calls it made)."""
+        calls = [0]
+        real = dist.all_reduce
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return real(*a, **k)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce = counted
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = real
+        t1 = time.perf_counter()
+        # the raw device activities (kernels, copies, fills), summed without
+        # building the profiler's per-op tables (seconds for a QAT step)
+        busy_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA)
+        parts["profile_step"] = parts.get("profile_step", 0.0) + t1 - t0
+        parts["profile_read"] = parts.get("profile_read", 0.0) + time.perf_counter() - t1
+        # no device events: the profiler did not trace the card (not measured)
+        return out, (busy_ns / 1e6 if busy_ns else None), calls[0]
+
+    def collective_ms(fn, reps: int = 2) -> float:
+        """The best wall ms of ``reps`` calls of ``fn()`` (one gradient
+        all-reduce), every rank starting together."""
+        times = []
+        for _ in range(reps):
+            dist.barrier(group=group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(group),
+           "device": torch.cuda.get_device_name(torch.cuda.current_device()), "runs": {}}
+
+    # -- launch.train.main --mesh W,1, float and --qat ------------------------
+    for label, extra in (("float", []), ("qat", ["--qat"])):
+        t_run = time.perf_counter()
+        checks, records, prof = [], [], {}
+        made = launch_train.make_train_step
+
+        def watched(*a, made=made, checks=checks, prof=prof, **k):
+            step_fn = made(*a, **k)
+
+            def step(state, batch):
+                if len(checks) == DIST_PROFILED and rank == 0:
+                    (state, mets), prof["busy_ms"], prof["allreduces"] = profiled(
+                        lambda: step_fn(state, batch))
+                else:
+                    state, mets = step_fn(state, batch)
+                checks.append(checksum(state["params"]))
+                return state, mets
+            return step
+
+        launch_train.make_train_step = watched
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        try:
+            state = timed("main", lambda: launch_train.main(
+                DIST_ARGS + ["--mesh", f"{world},1"] + extra,
+                on_step=lambda s, m, dt, r=records: r.append((m["loss"], dt))))
+        finally:
+            launch_train.make_train_step = made
+        peak = torch.cuda.max_memory_allocated() - held
+        grads = state["params"]            # the gradient tree's shapes
+        res["runs"][label] = {
+            "losses": [r[0] for r in records],
+            "step_ms": [r[1] * 1e3 for r in records], **prof, "peak_bytes": peak,
+            "allreduce_ms": timed("collective", lambda: collective_ms(
+                lambda: grad_allreduce_mean(grads, group))),
+            "payload_bytes": wire_bytes(grads),
+            **timed("agree", lambda: agree(checks, state["params"])),
+            "seconds": time.perf_counter() - t_run}
+        del state, grads
+
+    # -- make_dp_shardmap_train_step, compress_bits 8 and 0 --------------------
+    cfg = get_config("smollm-135m")
+    model = cfg.build()
+    opt = adamw(weight_decay=0.01)
+    bf = markov_batch_fn(cfg.vocab, 8, 128, seed=0)
+    for bits in (8, 0):
+        t_run = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state = trainer.init_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0),
+                                         "cuda")
+        step_fn = trainer.make_dp_shardmap_train_step(model, opt, 3e-3, mesh,
+                                                      compress_bits=bits)
+        checks, losses, walls, prof = [], [], [], {}
+        for s in range(DIST_STEPS):
+            batch = bf(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s == DIST_PROFILED and rank == 0:
+                (state, mets), prof["busy_ms"], prof["allreduces"] = profiled(
+                    lambda: step_fn(state, batch))
+            else:
+                state, mets = step_fn(state, batch)
+            losses.append(mets["loss"].item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            checks.append(checksum(state["params"]))
+        peak = torch.cuda.max_memory_allocated() - held
+        run = {"losses": losses, "step_ms": walls, **prof, "peak_bytes": peak,
+               "payload_bytes": wire_bytes(state["params"], bits),
+               **agree(checks, state["params"])}
+        # this rank's gradient on its slice of batch 0: the exact mean, and
+        # the compressed one (within a grid step of it) and its all-reduce
+        local, _ = trainer._slices(bf(0), group)
+        (_, _), g = trainer.value_and_grad(
+            lambda p, b: model.loss(p, b, Context(train=True)), state["params"],
+            trainer.to_device(local, "cuda"))
+        exact = grad_allreduce_mean(g, group)
+        if bits:
+            err = state["err"]
+            run["allreduce_ms"] = collective_ms(
+                lambda: compressed_grad_allreduce(g, group, bits=bits, error_state=err))
+            mean, _ = compressed_grad_allreduce(g, group, bits=bits)
+            ma = torch.stack([t.abs().amax() for t in tree_leaves(g)])
+            dist.all_reduce(ma, op=dist.ReduceOp.MAX, group=group)
+            worst = torch.stack([(a - b).abs().amax() for a, b in
+                                 zip(tree_leaves(mean), tree_leaves(exact))]) / (ma / 2 ** (bits - 2))
+            run["worst_err_in_grid_steps"] = worst.max().item()
+        else:
+            run["allreduce_ms"] = collective_ms(lambda: grad_allreduce_mean(g, group))
+        run["seconds"] = time.perf_counter() - t_run
+        res["runs"][f"dp{bits}"] = run
+        del state, g, exact
+        torch.cuda.empty_cache()
+    res["parts"] = parts
+    return res
+
+
+def dist_world1(torch) -> dict:
+    """World 1 over NCCL in this process: the rank program of
+    :func:`dist_rank` on a group of one, formed from the variables that
+    ``torchrun --nproc-per-node 1`` would set (a free local port), so that
+    ``launch.train.main`` takes its distributed path; the variables are
+    restored and the group destroyed after."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_process_group(torch.device("cuda"), "nccl")
+        try:
+            return dist_rank_runs(torch, dist)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_end_to_end(torch, card) -> None:
+    """``[dist]``: the data axis on the one card.  NCCL takes one rank a
+    card, so world 1 runs over NCCL and world 2 over gloo (whose all-reduce
+    and broadcast take CUDA tensors) with both ranks on the card; GPipe's
+    point-to-point sends are in neither set here (gloo carries no CUDA
+    send/recv, NCCL needs a second card), so it is held on the CPU tests
+    only.  Each world runs ``launch.train.main --mesh W,1`` (smollm-135m at
+    full width, AdamW, B=8, S=128, float and ``--qat``) and
+    ``make_dp_shardmap_train_step`` with ``compress_bits`` 8 and 0, 4 steps
+    each: the loss falls, every rank's parameters equal rank 0's after every
+    step, the compressed mean is within one grid step of the exact mean,
+    and world 1's losses equal those of the run without a process group
+    (rtol 1e-5).  Prints step wall and device ms, the gradient all-reduce's
+    ms and payload bytes, and peak memory a rank (above what the process
+    held before), per configuration.  World 1 runs in this process
+    (:func:`dist_world1`); world 2 is ``torchrun --standalone
+    --nproc-per-node 2`` of this script (:func:`dist_rank`), whose ranks
+    start up meanwhile and wait, idle, until world 1 has ended."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import train as launch_train
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    summary = {}
+    try:
+        # world 2's ranks start up (torch, CUDA, gloo) while this process
+        # trains without a group and then runs world 1; they time nothing
+        # before dist_wait's word
+        out2 = tmp / "gloo2"
+        t2_clock = time.time()
+        proc = dist_start(2, "gloo", out2)
+        try:
+            plain = {}
+            for label, extra in (("float", []), ("qat", ["--qat"])):
+                losses = []
+                launch_train.main(DIST_ARGS + extra,
+                                  on_step=lambda s, m, dt, l=losses: l.append(m["loss"]))
+                plain[label] = losses
+            print(f"[dist] the runs without a process group: "
+                  f"{time.perf_counter() - phase_t0:.1f}s", flush=True)
+            dist_ready(proc, 2, out2)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            world1 = [dist_world1(torch)]
+            secs = {1: time.perf_counter() - t1}
+        except BaseException:
+            dist_kill(proc)
+            raise
+        t2 = time.perf_counter()
+        world2 = dist_wait(proc, 2, "gloo", out2)
+        secs[2] = time.perf_counter() - t2
+        clock = world2[0]["clock"]
+        print(f"[dist] world 2 over gloo: rank 0 came up {clock['start'] - t2_clock:.1f}s after "
+              f"the launch, waited for world 1, and ended "
+              f"{time.time() - clock['end']:.1f}s before the launch's end", flush=True)
+        for world, backend, ranks in ((1, "nccl", world1), (2, "gloo", world2)):
+            print(f"[dist] world {world} over {backend}: {secs[world]:.1f}s of every "
+                  f"configuration; rank 0's parts (s): " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in ranks[0]["parts"].items()), flush=True)
+            check(all(r["backend"] == backend for r in ranks),
+                  f"[dist] a rank's group is not on {backend}: {[r['backend'] for r in ranks]}")
+            for name, r0 in ranks[0]["runs"].items():
+                runs = [r["runs"][name] for r in ranks]
+                label = f"world {world} over {backend}, {name}"
+                losses = r0["losses"]
+                check(len(losses) == DIST_STEPS and all(np.isfinite(losses)), f"[dist] {label} losses {losses}")
+                check(losses[-1] < losses[0], f"[dist] {label}: the loss did not fall: {losses}")
+                check(all(r["steps_equal"] and r["final_equal"] for r in runs),
+                      f"[dist] {label}: the ranks' parameters differ")
+                if world == 1 and name in plain:
+                    check(np.allclose(losses, plain[name], rtol=1e-5, atol=0),
+                          f"[dist] {label}: losses {losses} against the run without a group "
+                          f"{plain[name]}")
+                if "worst_err_in_grid_steps" in r0:
+                    worst = max(r["worst_err_in_grid_steps"] for r in runs)
+                    check(worst <= 1.0, f"[dist] {label}: the compressed mean is {worst:.3f} "
+                                        "grid steps from the exact mean")
+                wall = float(np.median([t for i, t in enumerate(r0["step_ms"])
+                                        if i not in (0, DIST_PROFILED)]))
+                peak = max(r["peak_bytes"] for r in runs)
+                row = {"world": world, "backend": backend, "config": name, "losses": losses,
+                       "step_wall_ms": wall, "device_busy_ms": r0.get("busy_ms"),
+                       "allreduces_a_step": r0.get("allreduces"),
+                       "allreduce_ms": float(np.median([r["allreduce_ms"] for r in runs])),
+                       "payload_bytes": r0["payload_bytes"], "peak_gib_a_rank": peak / 2 ** 30,
+                       "worst_err_in_grid_steps": r0.get("worst_err_in_grid_steps"),
+                       "seconds": r0["seconds"]}
+                summary[f"{world}/{name}"] = row
+                busy = ("not measured" if row["device_busy_ms"] is None
+                        else f"{row['device_busy_ms']:.3f} ms")
+                print(f"[dist] {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step wall "
+                      f"{wall:.2f} ms (median of steps 1 and 3), device busy {busy} "
+                      f"(step {DIST_PROFILED} profiled on rank 0, {row['allreduces_a_step']:.0f} "
+                      f"all-reduce calls); gradient all-reduce alone {row['allreduce_ms']:.2f} ms, "
+                      f"{row['payload_bytes']} payload bytes a rank a step; peak memory "
+                      f"{row['peak_gib_a_rank']:.3f} GiB a rank; parameters equal on every rank "
+                      f"after every step" + (
+                          "" if row["worst_err_in_grid_steps"] is None else
+                          f"; compressed mean within {row['worst_err_in_grid_steps']:.3f} grid "
+                          f"steps of the exact mean") + f"; {row['seconds']:.1f}s; card {card}",
+                      flush=True)
+        check(all(np.allclose(summary[f"1/{k}"]["losses"], plain[k], rtol=1e-5)
+                  for k in plain), "[dist] world 1 does not follow the run without a group")
+        print(f"[dist] world 1 over nccl follows launch.train without a process group: float "
+              f"{plain['float']} and QAT {plain['qat']} losses within rtol 1e-5", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[dist] " + json.dumps({"dist": list(summary.values())}), flush=True)
+    print(f"[time] dist phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -4832,7 +5291,7 @@ def main() -> int:
     try:
         import torch.nn.functional as F
 
-        from repro_torch.kernels import _build, ref
+        from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels.fake_quant import fake_quant_cuda
         from repro_torch.kernels.qchunk_attn import qchunk_attn_cuda
         from repro_torch.kernels.qconv1d import qconv1d_cuda
@@ -4958,10 +5417,15 @@ def main() -> int:
     moe_launches = moe_end_to_end(torch, card, moe_softmax[16])
     check_grants("the moe phase", ran=("wq_matmul",))
     t9 = time.perf_counter()
+    ops.reset_launch_counts()
+    dist_end_to_end(torch, card)
+    check(ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0),
+          f"[dist] the data-parallel steps launched the port's kernels: {ops.launch_counts()}")
+    t10 = time.perf_counter()
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
           f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | archs "
           f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | encdec {t8 - t7:.1f}s | moe "
-          f"{t9 - t8:.1f}s | all {t9 - t0:.1f}s", flush=True)
+          f"{t9 - t8:.1f}s | dist {t10 - t9:.1f}s | all {t10 - t0:.1f}s", flush=True)
     launches = {k: sum(part.get(k, 0) for part in (launches, int_launches, train_launches,
                                                    arch_launches, rec_launches, enc_launches,
                                                    moe_launches))
@@ -5120,4 +5584,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

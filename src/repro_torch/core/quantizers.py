@@ -108,6 +108,19 @@ def dynamic_frac_bits(x: torch.Tensor, width: int, *,
     return qformat.frac_bits_for(qformat.max_abs(x, axes), width)
 
 
+def shared_frac_bits(x: torch.Tensor, width: int, group) -> torch.Tensor:
+    """:func:`dynamic_frac_bits` of a tensor whose slices lie on the ranks
+    of ``group``: Eq. 1-2 on the all-reduce MAX of the ranks' max|x|, so
+    every rank takes the exponent of the whole tensor (a group of one
+    rank holds the whole tensor and makes no collective)."""
+    import torch.distributed as dist
+
+    ma = qformat.max_abs(x.detach()).to(torch.float32)
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(ma, op=dist.ReduceOp.MAX, group=group)
+    return qformat.frac_bits_for(ma, width)
+
+
 def _broadcast_n(n: qformat.Exponent, x: torch.Tensor, channel_axis: Optional[int]):
     if channel_axis is None or not isinstance(n, torch.Tensor) or n.ndim == 0:
         return n

@@ -10,10 +10,20 @@
 * deterministic data: a batch is a pure function of (seed, step);
 * a straggler watchdog: a step slower than --straggler-factor x the running
   median is logged;
-* the metrics are read back once per step, after it, for the log line.
+* the metrics are read back once per step, after it, for the log line;
+* data parallelism: ``--mesh D,1`` under ``torchrun --nproc-per-node D``
+  (``--standalone`` on one host) forms the group (gloo with ``--device
+  cpu``, nccl on cards, or ``--backend``), builds the data mesh and runs
+  the step on it: every rank reads the same global batch and takes its
+  slice, rank 0 alone logs and checkpoints.  Elastic restore: a checkpoint
+  holds whole leaves, so a run may resume under another ``--mesh``;
 
-Runs on the GPU unless --device says otherwise.  ``--mesh`` other than
-``1,1`` (data x model parallelism) waits for the port's distribution slice.
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch smollm-135m-smoke --mesh 2,1 --device cpu --steps 20
+
+Runs on the GPU unless --device says otherwise.  ``--mesh D,M`` with M > 1
+(parameters sharded over a model axis) waits for the port's distribution
+slice.
 """
 from __future__ import annotations
 
@@ -23,9 +33,11 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.data.pipeline import DataPipeline, markov_batch_fn
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models.registry import get_config
 from repro_torch.nn.module import resolve_device
 from repro_torch.optim import adamw, multistep_lr, sgd
@@ -54,19 +66,51 @@ def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
+    ap.add_argument("--backend", default=None, choices=meshlib.BACKENDS,
+                    help="process-group backend under torchrun (default: nccl on cards, "
+                         "gloo on the CPU)")
     args = ap.parse_args(argv)
 
-    if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
-        raise SystemExit(f"--mesh {args.mesh}: data and model parallelism wait for the "
-                         "port's distribution slice (ROADMAP.md queue 1); use --mesh 1,1")
+    dm, tp = (int(x) for x in args.mesh.split(","))
+    if tp != 1:
+        raise SystemExit(f"--mesh {args.mesh}: a model axis (tensor parallelism) waits for "
+                         "the port's distribution slice (ROADMAP.md queue 1); use --mesh D,1")
+    distributed = meshlib.launched()
+    if dm > 1 and not distributed:
+        raise SystemExit(f"--mesh {args.mesh}: start {dm} ranks with "
+                         f"torchrun --standalone --nproc-per-node {dm} -m repro_torch.launch.train")
     device = resolve_device(args.device)
+    mesh, own_group = None, False
+    if distributed:
+        # a rank script may have formed the group already; main then uses it
+        if not dist.is_initialized():
+            meshlib.init_process_group(device, args.backend)
+            own_group = True
+        backend = dist.get_backend()
+        if args.backend and backend != args.backend:
+            raise SystemExit(f"--backend {args.backend}: the group is up on {backend}")
+        if dist.get_rank() == 0:
+            print(f"[dist] backend {backend}, world {dist.get_world_size()}, mesh "
+                  f"{args.mesh}", flush=True)
+        mesh = meshlib.make_host_mesh(dm, tp, device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        return _train(args, device, mesh, on_step)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh, on_step):
+    leader = not dist.is_initialized() or dist.get_rank() == 0
     cfg = get_config(args.arch)
     model = cfg.build()
     optimizer = (adamw(weight_decay=0.01) if args.optimizer == "adamw"
                  else sgd(momentum=0.9, weight_decay=5e-4))
     schedule = multistep_lr(args.lr, milestones=(args.steps * 2 // 3, args.steps * 5 // 6))
     policy = QuantPolicy.int8_qat() if args.qat else QuantPolicy.float32()
-    step_fn = make_train_step(model, optimizer, schedule, policy=policy,
+    step_fn = make_train_step(model, optimizer, schedule, policy=policy, mesh=mesh,
                               microbatch_split=args.microbatch)
     pipe = DataPipeline(markov_batch_fn(cfg.vocab, args.batch, args.seq, seed=args.seed))
     state = init_train_state(model, optimizer,
@@ -79,7 +123,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None
         if latest is not None:
             state = ckpt.restore(latest, state)
             pipe.restore({"step": latest})
-            print(f"[restore] resumed from step {latest}")
+            if leader:
+                print(f"[restore] resumed from step {latest}")
 
     times = []
     try:
@@ -93,9 +138,9 @@ def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None
             if len(times) > 20:
                 times.pop(0)
             med = statistics.median(times)
-            if dt > args.straggler_factor * med and len(times) > 5:
+            if leader and dt > args.straggler_factor * med and len(times) > 5:
                 print(f"[straggler] step {step}: {dt:.2f}s vs median {med:.2f}s")
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if leader and (step % args.log_every == 0 or step == args.steps - 1):
                 print(f"step {step:5d} loss {metrics['loss']:.4f} "
                       f"acc {metrics['accuracy']:.3f} lr {metrics['lr']:.2e} "
                       f"{dt * 1e3:.0f}ms")
@@ -108,7 +153,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None
     finally:
         if ckpt:
             ckpt.close()
-    print("done")
+    if leader:
+        print("done")
     return state
 
 

@@ -23,9 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import qformat
-from repro_torch.core.policy import QMode
+from repro_torch.core.policy import Granularity, QMode
 from repro_torch.core.qformat import PackedQTensor, QTensor
-from repro_torch.core.quantizers import quantize_activation, quantize_weight
+from repro_torch.core.quantizers import quantize_activation, quantize_weight, shared_frac_bits
 from repro_torch.nn.module import Context, Params
 
 
@@ -59,7 +59,11 @@ def _fq_in(x: torch.Tensor, ctx: Context, site: str) -> torch.Tensor:
         ctx.record(site, x)
     if pol.mode is QMode.CALIB:
         return x
-    return quantize_activation(x, pol, frozen_n=ctx.frozen(site))
+    frozen = ctx.frozen(site)
+    if frozen is None and ctx.group is not None and not (
+            pol.granularity is Granularity.PER_NETWORK and pol.network_frac_bits is not None):
+        frozen = shared_frac_bits(x, pol.act_bits, ctx.group)
+    return quantize_activation(x, pol, frozen_n=frozen)
 
 
 _fq_out = _fq_in

@@ -45,8 +45,8 @@ class Context:
     policy, the train flag, the random generator (``rng``, a
     ``torch.Generator``; torch's streams are not jax's), frozen activation
     exponents ``{site: n}``, the range statistics ``{site: max|x|}`` and the
-    auxiliary losses recorded this call, and the scope path (names line up
-    with the reference's quant sites)."""
+    auxiliary losses recorded this call, the scope path (names line up
+    with the reference's quant sites) and the data-parallel ``group``."""
 
     policy: QuantPolicy = dataclasses.field(default_factory=QuantPolicy.float32)
     train: bool = False
@@ -56,6 +56,10 @@ class Context:
     # Auxiliary losses accumulated additively (summed across sites and layers).
     losses: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     path: str = ""
+    # The data-parallel process group whose ranks hold slices of one batch:
+    # a live activation range is the group's (the reference's max over the
+    # whole batch under a data mesh).  None on one rank.
+    group: Any = None
 
     def scope(self, name: str) -> "Context":
         """Child context with ``name`` appended to the naming path; it shares

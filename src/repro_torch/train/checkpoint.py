@@ -12,6 +12,14 @@ directories only).  The ``keep`` newest checkpoints are retained.
 and writes on a background thread.  ``restore`` takes a target tree and
 loads each leaf onto the target leaf's device and dtype: a checkpoint
 written in float32 restores into bfloat16, or from the card onto the CPU.
+
+Elastic restore: a checkpoint holds whole leaves, whatever the world size
+that wrote it, so a run at any other world size reads it back bit for bit.
+Inside a ``torch.distributed`` group (the data-parallel ranks hold
+replicated trees) only rank 0 writes, and every rank waits at a barrier
+until the write is committed: after ``save``, and for ``save_async`` in the
+next ``wait`` (which ``save``, ``save_async`` and ``close`` call), so every
+rank must make the same calls.  Every rank reads.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.nn.module import tree_map, tree_unflatten
 
@@ -67,6 +76,9 @@ class CheckpointManager:
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._lock = threading.Lock()
         self._pending: Optional[Future] = None
+        self._grouped = dist.is_available() and dist.is_initialized()
+        self._writer = not self._grouped or dist.get_rank() == 0
+        self._unsynced = False   # a save_async whose barrier is still to come
 
     # ---- write -------------------------------------------------------------
     def save(self, step: int, tree) -> str:
@@ -74,20 +86,39 @@ class CheckpointManager:
         # drain an in-flight asynchronous write first: two writers on one
         # step's tmp directory would race
         self.wait()
-        return self._write(step, tree_map(_to_host, tree))
+        final = self._final(step)
+        if self._writer:
+            final = self._write(step, tree_map(_to_host, tree))
+        if self._grouped:
+            dist.barrier()
+        return final
 
     def save_async(self, step: int, tree) -> Future:
         """Snapshot ``tree`` to the host now and write it on a thread."""
         self.wait()
+        self._unsynced = self._grouped
+        if not self._writer:
+            done: Future = Future()
+            done.set_result(self._final(step))
+            return done
         host = tree_map(_to_host, tree)
         self._pending = self._pool.submit(self._write, step, host)
         return self._pending
 
     def wait(self) -> None:
-        """Wait for the asynchronous write, if any (re-raising its error)."""
-        if self._pending is not None:
-            pending, self._pending = self._pending, None
-            pending.result()
+        """Wait for the asynchronous write, if any (re-raising its error);
+        in a group, every rank then waits for rank 0's write."""
+        try:
+            if self._pending is not None:
+                pending, self._pending = self._pending, None
+                pending.result()
+        finally:
+            if self._unsynced:
+                self._unsynced = False
+                dist.barrier()
+
+    def _final(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:09d}")
 
     def close(self) -> None:
         """Finish the pending write and stop the writer thread."""
@@ -97,7 +128,7 @@ class CheckpointManager:
             self._pool.shutdown()
 
     def _write(self, step: int, host_tree) -> str:
-        final = os.path.join(self.directory, f"step_{step:09d}")
+        final = self._final(step)
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)

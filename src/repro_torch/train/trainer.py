@@ -11,10 +11,19 @@ state = {params, opt, step}:
   microbatches in a loop and divides, as the reference's scan does;
 * the batch moves to the parameters' device here (pinned and asynchronous
   on a card), and the step reads nothing back: ``state["step"]`` and every
-  metric stay device tensors.
+  metric stay device tensors;
+* under a data mesh (``mesh=``, a ``DeviceMesh`` whose axes other than
+  ``data`` are of size 1) every rank holds the whole parameter tree, takes
+  its slice of the batch and all-reduces the gradients: the numbers are
+  those of one device on the whole batch (the loss and gradients weighted
+  by each slice's share of the scored tokens, the QAT activation ranges
+  the group's).
 
-The explicit-collective data-parallel step (``make_dp_shardmap_train_step``)
-waits for the distribution slice.
+``make_dp_shardmap_train_step`` is the explicit-collective data-parallel
+step of the int8 gradient compression (``dist/compress.py``): each rank's
+loss over its own slice, activation ranges its own, the gradients'
+mean equal-weighted.  Parameters sharded over the mesh (the reference's
+``axis_rules=``) wait for the distribution slice.
 """
 from __future__ import annotations
 
@@ -22,14 +31,14 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.policy import QMode, QuantPolicy
+from repro_torch.dist import MODEL_AXIS_LATER, axis_group
+from repro_torch.dist.compress import compressed_grad_allreduce, grad_allreduce_mean
 from repro_torch.nn.module import Context, tree_device, tree_leaves, tree_map, tree_unflatten
 
 TrainState = Dict[str, Any]  # {"params": tree, "opt": tree, "step": int32 0-d tensor}
-
-_MESH_LATER = ("a mesh (mesh=/axis_rules=) waits for the port's distribution slice "
-               "(ROADMAP.md queue 1)")
 
 
 def init_train_state(model, optimizer, gen: torch.Generator, device=None) -> TrainState:
@@ -86,6 +95,63 @@ class _HostStep:
         self._tensor, self._value = new_step, self._value + 1
 
 
+def _data_group(mesh, axis_rules, policy: QuantPolicy, where: str):
+    """The data-parallel group of ``mesh`` (None without one)."""
+    if axis_rules is not None:
+        raise NotImplementedError(f"{where}: {MODEL_AXIS_LATER}")
+    if mesh is None:
+        return None
+    if policy.enabled and not (policy.power_of_two and policy.symmetric):
+        raise NotImplementedError(f"{where}: an affine policy's live ranges under a data mesh "
+                                  "wait for the port's distribution slice")
+    return axis_group(mesh, "data")
+
+
+def _slices(batch: Dict[str, Any], group, split: int = 1):
+    """This rank's part of a global batch and its weight in each of the
+    ``split`` microbatches: the rows of microbatch i that fall to this rank
+    (the reference's layout: microbatch i is split over the data axis), and
+    this rank's share of microbatch i's scored tokens (labels >= 0) times
+    the world size, so that the mean over ranks of the weighted slice
+    losses is microbatch i's loss (exactly 1.0 where the shares are
+    equal).  Without labels every slice weighs 1."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % (world * split):
+        raise ValueError(f"a batch of {rows} rows does not split over {world} ranks x "
+                         f"{split} microbatches")
+    per = rows // (world * split)
+
+    def part(v):
+        return v.reshape(split, world, per, *v.shape[1:])[:, rank].reshape(split * per,
+                                                                           *v.shape[1:])
+    local = {k: part(v) for k, v in batch.items()}
+    labels = batch.get("labels")
+    if labels is None:
+        return local, [None] * split
+    if not isinstance(labels, torch.Tensor):
+        labels = torch.from_numpy(np.ascontiguousarray(labels))
+    counts = (labels >= 0).reshape(split, world, -1).sum(-1).to(torch.float32)
+    shares = counts[:, rank] * world / torch.clamp(counts.sum(-1), min=1.0)
+    return local, list(shares)
+
+
+def _weighted(loss, mets, weight):
+    """``loss`` and every metric times ``weight`` (a 0-d tensor that may lie
+    on the CPU, where a card's kernel takes it as a scalar: no copy)."""
+    if weight is None:
+        return loss, mets
+    return loss * weight, {k: v * weight for k, v in mets.items()}
+
+
+def _group_mean(values: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The mean of each 0-d metric over ``group``: one all-reduce."""
+    stacked = torch.stack(list(values.values())).to(torch.float32)
+    dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=group)
+    stacked = stacked / dist.get_world_size(group)
+    return dict(zip(values, stacked.unbind()))
+
+
 def _f32(lr, device) -> torch.Tensor:
     if isinstance(lr, torch.Tensor):
         return lr.to(device=device, dtype=torch.float32)
@@ -102,23 +168,27 @@ def make_train_step(model, optimizer, lr_schedule, *,
     ``int8_weight_gather``: every GEMM weight goes through materialized
     int8 codes inside the step (STE backward; the float master is
     untouched).  ``loss_scale`` multiplies the loss before the backward and
-    divides the gradients after it."""
-    if mesh is not None or axis_rules is not None:
-        raise NotImplementedError(f"make_train_step: {_MESH_LATER}")
+    divides the gradients after it.  ``mesh``: a data mesh
+    (``launch.mesh.make_host_mesh(D, 1)``); every rank passes the same
+    global batch and ends the step with the same parameters."""
     policy = policy or QuantPolicy.float32()
+    group = _data_group(mesh, axis_rules, policy, "make_train_step")
     host_step = _HostStep()
 
-    def loss_fn(params, batch, rng):
+    def loss_fn(params, batch, rng, weight):
         if int8_weight_gather:
             from repro_torch.core.integerize import fake_int8_weights
 
             params = fake_int8_weights(params)
-        ctx = Context(policy=policy, train=True, rng=rng)
-        loss, mets = model.loss(params, batch, ctx)
+        ctx = Context(policy=policy, train=True, rng=rng, group=group)
+        loss, mets = _weighted(*model.loss(params, batch, ctx), weight)
         return loss * loss_scale, mets
 
     def train_step(state: TrainState, batch) -> tuple:
         params, opt, step = state["params"], state["opt"], state["step"]
+        weights = [None] * microbatch_split
+        if group is not None:
+            batch, weights = _slices(batch, group, microbatch_split)
         batch = to_device(batch, step.device)
         rng = torch.Generator(device=step.device).manual_seed(host_step.value(step))
         if microbatch_split > 1:
@@ -129,17 +199,21 @@ def make_train_step(model, optimizer, lr_schedule, *,
             for i in range(microbatch_split):
                 mb = {k: v.reshape(microbatch_split, v.shape[0] // microbatch_split,
                                    *v.shape[1:])[i] for k, v in batch.items()}
-                (l, mets), g = value_and_grad(loss_fn, params, mb, rng)
+                (l, mets), g = value_and_grad(loss_fn, params, mb, rng, weights[i])
                 grads = tree_map(torch.add, grads, g)
                 loss, acc = loss + l, acc + mets["accuracy"]
             grads = tree_map(lambda g: g / microbatch_split, grads)
             loss, acc = loss / microbatch_split, acc / microbatch_split
             mets = {"accuracy": acc}
         else:
-            (loss, mets), grads = value_and_grad(loss_fn, params, batch, rng)
+            (loss, mets), grads = value_and_grad(loss_fn, params, batch, rng, weights[0])
         if loss_scale != 1.0:
             grads = tree_map(lambda g: g / loss_scale, grads)
             loss = loss / loss_scale
+        if group is not None:
+            grads = grad_allreduce_mean(grads, group)
+            mean = _group_mean({"loss": loss, **mets}, group)
+            loss, mets = mean.pop("loss"), mean
         lr = lr_schedule(step) if callable(lr_schedule) else lr_schedule
         new_params, new_opt = optimizer.update(grads, opt, params, lr)
         new_step = step + 1
@@ -152,16 +226,22 @@ def make_train_step(model, optimizer, lr_schedule, *,
 
 def make_eval_step(model, *, policy: Optional[QuantPolicy] = None,
                    qstate=None, mesh=None, axis_rules=None) -> Callable:
-    """``(params, batch) -> {"loss", "nll", "aux", "accuracy"}`` without gradients."""
-    if mesh is not None or axis_rules is not None:
-        raise NotImplementedError(f"make_eval_step: {_MESH_LATER}")
+    """``(params, batch) -> {"loss", "nll", "aux", "accuracy"}`` without
+    gradients; under a data mesh each rank scores its slice and the
+    metrics are the whole batch's."""
     policy = policy or QuantPolicy.float32()
+    group = _data_group(mesh, axis_rules, policy, "make_eval_step")
 
     def eval_step(params, batch):
+        weight = None
+        if group is not None:
+            batch, (weight,) = _slices(batch, group)
         batch = to_device(batch, tree_device(params))
         with torch.no_grad():
-            ctx = Context(policy=policy, train=False, qstate=qstate)
-            loss, mets = model.loss(params, batch, ctx)
+            ctx = Context(policy=policy, train=False, qstate=qstate, group=group)
+            loss, mets = _weighted(*model.loss(params, batch, ctx), weight)
+        if group is not None:
+            return _group_mean({"loss": loss, **mets}, group)
         return {"loss": loss, **mets}
 
     return eval_step
@@ -191,3 +271,58 @@ def calibrate_model(model, params, batches, policy: QuantPolicy) -> Dict[str, to
             for k, v in ctx.stats.items():
                 acc[k] = torch.maximum(acc[k], v) if k in acc else v
     return ptq.ranges_to_qstate(acc, policy)
+
+
+# --------------------------------------------------------------------------
+# Explicit data-parallel step with int8 gradient compression
+# --------------------------------------------------------------------------
+
+
+def make_dp_shardmap_train_step(model, optimizer, lr_schedule, mesh, *,
+                                policy: Optional[QuantPolicy] = None,
+                                compress_bits: int = 0,
+                                axis_name: str = "data") -> Callable:
+    """Pure data parallelism over ``mesh[axis_name]`` with explicit
+    collectives, the reference's ``shard_map`` step: every rank holds the
+    whole parameter tree and optimizer state, passes the same global batch
+    and takes its slice along dim 0; its loss, gradients and QAT ranges are
+    its slice's.  The gradients are all-reduce-averaged, or with
+    ``compress_bits`` go through :func:`compressed_grad_allreduce`, and the
+    state then gains ``err``, this rank's own error-feedback residual (a
+    tree like the parameters).  ``loss`` and ``accuracy`` are the group's
+    means; every rank ends the step with the same parameters and optimizer
+    state."""
+    group = axis_group(mesh, axis_name)
+    policy = policy or QuantPolicy.float32()
+    host_step = _HostStep()
+
+    def loss_fn(params, batch, rng):
+        return model.loss(params, batch, Context(policy=policy, train=True, rng=rng))
+
+    def train_step(state: TrainState, batch) -> tuple:
+        params, opt, step = state["params"], state["opt"], state["step"]
+        batch, _ = _slices(batch, group)
+        batch = to_device(batch, step.device)
+        rng = torch.Generator(device=step.device).manual_seed(host_step.value(step))
+        (loss, mets), grads = value_and_grad(loss_fn, params, batch, rng)
+        new_err = None
+        if compress_bits:
+            err = state.get("err")
+            if err is None:
+                err = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                     device=p.device), params)
+            grads, new_err = compressed_grad_allreduce(grads, group, bits=compress_bits,
+                                                       error_state=err)
+        else:
+            grads = grad_allreduce_mean(grads, group)
+        metrics = _group_mean({"loss": loss, "accuracy": mets["accuracy"]}, group)
+        lr = lr_schedule(step) if callable(lr_schedule) else lr_schedule
+        new_params, new_opt = optimizer.update(grads, opt, params, lr)
+        new_step = step + 1
+        host_step.advance(new_step)
+        out = {"params": new_params, "opt": new_opt, "step": new_step}
+        if new_err is not None:
+            out["err"] = new_err
+        return out, metrics
+
+    return train_step

@@ -16,7 +16,7 @@ reference's parameters carried over by ``repro_torch.convert``:
 * ``make_eval_step``, ``calibrate_model`` and ``calibrate_tokens`` (equal
   qstate keys and exponents);
 * ``launch.train.main`` on the CPU: the loss falls, a restart resumes
-  exactly, ``--mesh 2,1`` is refused.
+  exactly, ``--mesh 1,2`` (a model axis) is refused.
 
 Tolerances: a float step's loss at rtol 1e-5 and every gradient leaf at
 rtol 1e-4 plus 1e-6 x the leaf's max |grad| (f32 sums in another order);
@@ -484,8 +484,10 @@ def test_qat_gradient_makes_no_tensor_from_host_data(lm):
 
 
 def test_train_step_refuses_a_mesh(lm):
+    """The sharding rules (``axis_rules=``) wait for the distribution
+    slice; a data mesh runs (``tests/test_torch_dist_train.py``)."""
     with pytest.raises(NotImplementedError, match="distribution slice"):
-        trainer.make_train_step(lm["tm"], sgd(), 0.01, mesh=object())
+        trainer.make_train_step(lm["tm"], sgd(), 0.01, axis_rules=object())
 
 
 # --------------------------------------------------------------------------
@@ -581,5 +583,8 @@ def test_launch_train_restart_resumes_exactly(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_mesh():
+    """A model axis (``--mesh D,M``, M > 1) waits for the distribution
+    slice; ``--mesh D,1`` runs under torchrun
+    (``tests/test_torch_dist_launch.py``)."""
     with pytest.raises(SystemExit, match="distribution slice"):
-        _main("--mesh", "2,1")
+        _main("--mesh", "1,2")
