@@ -184,6 +184,21 @@ Phases, each printed as it completes; any failure exits non-zero:
      1e-5); step wall and device ms, the gradient all-reduce's ms and
      payload bytes and peak memory a rank printed.  GPipe is held on the
      CPU tests only (no CUDA send/recv in gloo; NCCL needs a second card).
+  16. ``[shard]`` (``shard_end_to_end``): the model axis, world 4 over gloo
+     on the one card, mesh (2, 2), ranks of this script under ``torchrun``
+     (``--shard-rank``; gloo's CUDA gathers made of all-reduces), against
+     world 1 in this process: ``launch.train.main --mesh 2,2``
+     (smollm-135m at full width, AdamW, B=8, S=128, float and ``--qat``, 3
+     steps: step 0's loss at rtol 1e-5, replicated leaves equal on every
+     rank), the gradient through one SGD step (float every value at rtol
+     1e-4, QAT all but 1e-3), one ``int8_weight_gather`` step, and
+     phi3.5-moe (full width, one layer, int8 weights and KV) decoding one
+     step weight-stationary on each rank's rows of world 1's cache (rtol
+     2e-4, argmax equal, ``wq_matmul`` and ``qdecode_attn`` launched);
+     step wall and device ms, collective calls, bytes and ms by axis and
+     kind, and peak memory a rank printed.  The kernel phase holds
+     ``wq_matmul`` at the column blocks the decode gives it
+     (``check_shard_kernels``).
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -4864,13 +4879,13 @@ def dist_start(world: int, backend: str, out: Path):
                             text=True, start_new_session=True)
 
 
-def dist_ready(proc, world: int, out: Path) -> None:
+def dist_ready(proc, world: int, out: Path, tag: str = "[dist]") -> None:
     """Wait until every rank has formed its group and waits for the word."""
     deadline = time.perf_counter() + DIST_TIMEOUT
     while not all((out / f"ready{r}").exists() for r in range(world)):
         if proc.poll() is not None or time.perf_counter() > deadline:
             print(dist_kill(proc)[-6000:], flush=True)
-            fail(f"[dist] the {world} ranks did not come up")
+            fail(f"{tag} the {world} ranks did not come up")
         time.sleep(0.05)
 
 
@@ -4885,7 +4900,7 @@ def dist_kill(proc) -> str:
     return proc.communicate()[0] or ""
 
 
-def dist_wait(proc, world: int, backend: str, out: Path) -> list:
+def dist_wait(proc, world: int, backend: str, out: Path, tag: str = "[dist]") -> list:
     """Give the ranks their word to start and return each rank's results.
     The ranks are killed and reaped whatever happens; a rank that fails
     fails the phase."""
@@ -4900,7 +4915,7 @@ def dist_wait(proc, world: int, backend: str, out: Path) -> list:
             log += dist_kill(proc)
     if proc.returncode != 0:
         print(log[-6000:], flush=True)
-        fail(f"[dist] {world} rank(s) over {backend} exited {proc.returncode}")
+        fail(f"{tag} {world} rank(s) over {backend} exited {proc.returncode}")
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
 
 
@@ -5280,6 +5295,532 @@ def dist_end_to_end(torch, card) -> None:
     print(f"[time] dist phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
 
 
+SHARD_STEPS = 3             # steps of each launch.train run under --mesh 2,2
+SHARD_ARGS = ["--arch", "smollm-135m", "--batch", "8", "--seq", "128", "--steps",
+              str(SHARD_STEPS), "--log-every", "100"]
+SHARD_MOE = "phi3.5-moe-42b-a6.6b"
+SHARD_MOE_B, SHARD_MOE_PROMPT, SHARD_MOE_MAX = 4, 8, 16
+SHARD_GEMMS = (("phi wq/wo block", 4096, 2048), ("phi wk/wv block", 4096, 512),
+               ("phi lm_head block", 4096, 16032))      # N halved over model; M = 2 rows a rank
+SHARD_TIMEOUT = 300         # seconds a launch of the ranks may take
+SHARD_PARAM_RTOL, SHARD_PARAM_ATOL = 1e-4, 1e-6
+SHARD_QAT_FLIP_SHARE = 1e-3  # QAT's codes a sum in another order moves (tests' QAT_FLIP_SHARE)
+
+
+def check_shard_kernels(torch, ref, wq_cuda, gen):
+    """``wq_matmul`` at the column blocks the sharded decode gives it
+    (phi3.5-moe's projections with N halved over ``model``, K whole after
+    the ``data`` gather, M = 2: a data rank's rows of B = 4), against its
+    plain version and timed beside it."""
+    return [wq_case(torch, ref, wq_cuda, gen, 2, label, k, n) for label, k, n in SHARD_GEMMS]
+
+
+def shard_start(out: Path):
+    """``torchrun --standalone --nproc-per-node 4`` of this script's rank
+    program of ``[shard]`` over gloo on the card (:func:`shard_rank`)."""
+    import os
+
+    out.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parent / "src"), env.get("PYTHONPATH")) if p)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=4",
+           str(Path(__file__).resolve()), "--shard-rank", str(out)]
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+
+
+def shard_rank(out: str) -> int:
+    """The rank program of ``[shard]``: a gloo group of four ranks on the
+    card, mesh (2, 2); waits for ``out/go``, runs :func:`shard_rank_runs`
+    and writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import init_process_group
+
+    t_start = time.time()
+    init_process_group(torch.device("cuda"), "gloo")
+    try:
+        Path(out, f"ready{dist.get_rank()}").touch()
+        go = Path(out, "go")
+        deadline = time.perf_counter() + SHARD_TIMEOUT
+        while not go.exists():
+            check(time.perf_counter() < deadline, f"[shard] {go} never came")
+            time.sleep(0.05)
+        res = shard_rank_runs(torch, dist, Path(out))
+        res["clock"] = {"start": t_start, "end": time.time()}
+        Path(out, f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def busy_ms(torch, fn):
+    """(``fn()``, the device's busy ms while it ran, summed from the raw
+    profiler events; None where the profiler saw no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA)
+    return out, (busy_ns / 1e6 if busy_ns else None)
+
+
+def _keyed(d) -> dict:
+    return {f"{a}/{k}": v for (a, k), v in d.items()}
+
+
+def shard_rank_runs(torch, dist, out: Path) -> dict:
+    """On every rank of the (2, 2) mesh: ``launch.train.main --mesh 2,2``
+    float and ``--qat`` (``SHARD_ARGS``), then one float step with
+    ``int8_weight_gather``, then phi3.5-moe's weight-stationary decode.
+    Each run: its losses, step wall ms, collective calls / bytes / ms by
+    axis and kind (step 1 timed), the device's busy ms of one more step
+    (rank 0), peak memory; the params gathered whole and held to world 1's
+    (rank 0), and the replicated leaves' checksums."""
+    from repro_torch.core.qformat import QTensor
+    from repro_torch.data.pipeline import markov_batch_fn
+    from repro_torch.dist import shard_ops, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.nn.module import Context, tree_leaves, tree_to
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.train import trainer
+
+    rank = dist.get_rank()
+    mesh = make_host_mesh(2, 2, "cuda")
+    rules = sharding.make_axis_rules(mesh)
+    res = {"rank": rank, "backend": dist.get_backend(), "form": shard_ops.form(mesh, "cuda"),
+           "device": torch.cuda.get_device_name(torch.cuda.current_device()), "runs": {}}
+    cfg = get_config(SHARD_ARGS[1])
+    model = cfg.build()
+    whole_specs = sharding.param_pspecs(model.init(torch.Generator(), "meta"), mesh, rules)
+
+    def replicated_sums(params) -> list:
+        """Per replicated leaf: the sum of its bit patterns and of its values."""
+        return [[t.view(torch.int32).to(torch.int64).sum().item(), t.double().sum().item()]
+                for t, sp in sharding.leaves_with_specs(params, whole_specs)
+                if not sharding.sharded(sp)]
+
+    def against_world1(label, params) -> dict:
+        """The params gathered whole against world 1's (rank 0): values
+        beyond rtol/atol, the worst relative difference."""
+        whole = sharding.gather_tree(params, whole_specs, mesh)
+        if rank != 0:
+            return {}
+        w1 = torch.load(out / f"world1_{label}.pt", weights_only=False)
+        misses, worst, total = 0, 0.0, 0
+        for a, b in zip(tree_leaves(whole), tree_leaves(w1)):
+            b = b.to(a.device)
+            diff = (a - b).abs()
+            misses += int((diff > SHARD_PARAM_ATOL + SHARD_PARAM_RTOL * b.abs()).sum())
+            worst = max(worst, (diff / b.abs().clamp(min=1e-30)).max().item())
+            total += a.numel()
+        return {"param_misses": misses, "param_worst_rel": worst, "params": total}
+
+    for label, extra in (("float", []), ("qat", ["--qat"])):
+        t_run = time.perf_counter()
+        made = launch_train.make_train_step
+        got = {"counts": [], "walls": []}
+
+        def watched(*a, made=made, got=got, **k):
+            fn = made(*a, **k)
+
+            def step(state, batch):
+                # step 1 is the measured one: every collective timed, and on
+                # rank 0 the device's busy time; step 2's wall is clean
+                i = len(got["counts"])
+                shard_ops.reset_collective_counts()
+                shard_ops.time_collectives(i == 1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    if i == 1 and rank == 0:
+                        new, got["busy"] = busy_ms(torch, lambda: fn(state, batch))
+                    else:
+                        new = fn(state, batch)
+                    torch.cuda.synchronize()
+                finally:
+                    shard_ops.time_collectives(False)
+                got["walls"].append((time.perf_counter() - t0) * 1e3)
+                got["counts"].append(_keyed(shard_ops.collective_counts()))
+                if i == 1:
+                    got["coll_ms"] = _keyed(shard_ops.collective_ms())
+                return new
+            return step
+
+        losses = []
+        launch_train.make_train_step = watched
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        try:
+            state = launch_train.main(SHARD_ARGS + ["--mesh", "2,2"] + extra,
+                                      on_step=lambda s, m, dt: losses.append(m["loss"]))
+        finally:
+            launch_train.make_train_step = made
+        peak = torch.cuda.max_memory_allocated() - held
+        res["runs"][label] = {"losses": losses, "step_ms": got["walls"],
+                              "busy_ms": got.get("busy"),
+                              "counts": got["counts"][1], "coll_ms": got["coll_ms"],
+                              "peak_bytes": peak, "replicated": replicated_sums(state["params"]),
+                              **against_world1(label, state["params"]),
+                              "seconds": time.perf_counter() - t_run}
+        del state
+        torch.cuda.empty_cache()
+
+    # -- the sharded gradient: one SGD step (lr 1, no momentum) float and QAT --
+    t_run = time.perf_counter()
+    plain_sgd = sgd(momentum=0.0)
+    for label, policy in (("float", None), ("qat", QuantPolicy.int8_qat())):
+        state = trainer.shard_state(trainer.init_train_state(
+            model, plain_sgd, torch.Generator(device="cuda").manual_seed(0), "cuda"), mesh, rules)
+        state, mets = trainer.make_train_step(model, plain_sgd, 1.0, mesh=mesh, axis_rules=rules,
+                                              policy=policy)(
+            state, markov_batch_fn(cfg.vocab, 8, 128, seed=0)(0))
+        res["runs"][f"sgd_{label}"] = {"losses": [mets["loss"].item()],
+                                       **against_world1(f"sgd_{label}", state["params"])}
+        del state
+    res["runs"]["sgd_float"]["seconds"] = time.perf_counter() - t_run
+
+    # -- one float step with int8_weight_gather -------------------------------
+    t_run = time.perf_counter()
+    opt = adamw(weight_decay=0.01)
+    state = trainer.shard_state(trainer.init_train_state(
+        model, opt, torch.Generator(device="cuda").manual_seed(0), "cuda"), mesh, rules)
+    step_fn = trainer.make_train_step(model, opt, 3e-3, mesh=mesh, axis_rules=rules,
+                                      int8_weight_gather=True)
+    shard_ops.reset_collective_counts()
+    state, mets = step_fn(state, markov_batch_fn(cfg.vocab, 8, 128, seed=0)(0))
+    res["runs"]["int8_gather"] = {"losses": [mets["loss"].item()],
+                                  "counts": _keyed(shard_ops.collective_counts()),
+                                  "seconds": time.perf_counter() - t_run}
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # -- phi3.5-moe's weight-stationary decode --------------------------------
+    t_run = time.perf_counter()
+    moe_cfg = dataclasses.replace(get_config(SHARD_MOE), n_layers=1)
+    moe = moe_cfg.build()
+    io = torch.load(out / "phi_io.pt", weights_only=False)
+    host = torch.load(out / "phi.pt", mmap=True, weights_only=False)
+    specs = sharding.param_pspecs(host, mesh, rules, serve=True)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = tree_to(sharding.shard_tree(host, specs, mesh), "cuda")    # the shard alone
+    del host
+    rows = slice(shard_ops.axis_index(mesh, "data") * SHARD_MOE_B // 2,
+                 (shard_ops.axis_index(mesh, "data") + 1) * SHARD_MOE_B // 2)
+    cache = tree_to(sharding.shard_tree(io["cache"], sharding.cache_rows_pspecs(
+        io["cache"], mesh, rules), mesh), "cuda")
+    nxt = io["nxt"][rows].to("cuda")
+    ctx = Context(mesh=mesh, axis_rules=rules)
+
+    def decode():
+        return moe.apply(params, nxt, ctx, cache=copy_cache(cache), decode=True)[0]
+
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        shard_ops.reset_collective_counts()
+        logits = decode()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        counts = _keyed(shard_ops.collective_counts())
+        want = io["logits"][rows].to("cuda")
+        err = (logits - want).abs()
+        ok = bool((err <= 2e-4 + 2e-4 * want.abs()).all())
+        same_argmax = bool(torch.equal(logits[:, -1].argmax(-1), want[:, -1].argmax(-1)))
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    expert_bytes = _expert_shard_bytes(params)
+    res["runs"]["decode"] = {"max_abs_err": err.max().item(), "within": ok,
+                             "argmax_equal": same_argmax, "launches": launches,
+                             "counts": counts, "step_ms": walls,
+                             "expert_shard_bytes": expert_bytes,
+                             "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                             "seconds": time.perf_counter() - t_run}
+    return res
+
+
+def _expert_shard_bytes(params) -> int:
+    """Bytes of this rank's expert codes (every MoE layer's three stacks)."""
+    from repro_torch.core.qformat import QTensor
+
+    total = 0
+
+    def walk(node, under):
+        nonlocal total
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, under or k == "experts")
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, under)
+        elif under and isinstance(node, QTensor):
+            total += node.q.numel() * node.q.element_size()
+    walk(params, False)
+    return total
+
+
+def shard_world1(torch, out: Path) -> dict:
+    """World 1 of ``[shard]`` in this process, no process group: the same
+    ``launch.train.main`` runs (their params saved for the ranks), one
+    ``int8_weight_gather`` step, and phi3.5-moe cut to one layer built on
+    the host from seed 0, integerized there (int8 weights) and saved for
+    the ranks, then prefilled on the card (int8 KV) and decoded one step:
+    the cache, tokens and logits saved for the ranks."""
+    from repro_torch.core.integerize import integerize_weights_only
+    from repro_torch.data.pipeline import markov_batch_fn
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.nn.module import Context, tree_to
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.train import trainer
+
+    res = {}
+    for label, extra in (("float", []), ("qat", ["--qat"])):
+        losses = []
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        made = launch_train.make_train_step
+        got = {"walls": []}
+
+        def watched(*a, made=made, got=got, **k):
+            fn = made(*a, **k)
+
+            def step(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(got["walls"]) == 1:        # step 1 measured, as on the ranks
+                    new, got["busy"] = busy_ms(torch, lambda: fn(state, batch))
+                else:
+                    new = fn(state, batch)
+                torch.cuda.synchronize()
+                got["walls"].append((time.perf_counter() - t0) * 1e3)
+                return new
+            return step
+
+        launch_train.make_train_step = watched
+        try:
+            state = launch_train.main(SHARD_ARGS + extra,
+                                      on_step=lambda s, m, dt: losses.append(m["loss"]))
+        finally:
+            launch_train.make_train_step = made
+        peak = torch.cuda.max_memory_allocated() - held
+        torch.save(tree_to(state["params"], "cpu"), out / f"world1_{label}.pt")
+        res[label] = {"losses": losses, "step_ms": got["walls"], "busy_ms": got.get("busy"),
+                      "peak_bytes": peak}
+        del state
+    cfg = get_config(SHARD_ARGS[1])
+    model = cfg.build()
+    batch = markov_batch_fn(cfg.vocab, 8, 128, seed=0)(0)
+    plain_sgd = sgd(momentum=0.0)
+    for label, policy in (("float", None), ("qat", QuantPolicy.int8_qat())):
+        state = trainer.init_train_state(model, plain_sgd,
+                                         torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state, mets = trainer.make_train_step(model, plain_sgd, 1.0, policy=policy)(state, batch)
+        torch.save(tree_to(state["params"], "cpu"), out / f"world1_sgd_{label}.pt")
+        res[f"sgd_{label}"] = {"losses": [mets["loss"].item()]}
+    opt = adamw(weight_decay=0.01)
+    state = trainer.init_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0),
+                                     "cuda")
+    _, mets = trainer.make_train_step(model, opt, 3e-3, int8_weight_gather=True)(state, batch)
+    res["int8_gather"] = {"losses": [mets["loss"].item()]}
+    del state
+    torch.cuda.empty_cache()
+
+    # phi3.5-moe cut to one layer, made from the seed here and handed to the
+    # ranks through host memory: each rank moves only its shard to the card
+    t0 = time.perf_counter()
+    moe = dataclasses.replace(get_config(SHARD_MOE), n_layers=1).build()
+    params = integerize_weights_only(moe.init(torch.Generator(device="cuda").manual_seed(0),
+                                              "cuda"), release=True)
+    torch.save(tree_to(params, "cpu"), out / "phi.pt")
+    res["phi_host_s"] = time.perf_counter() - t0
+    toks = (torch.arange(SHARD_MOE_B * SHARD_MOE_PROMPT, dtype=torch.int32)
+            .reshape(SHARD_MOE_B, SHARD_MOE_PROMPT) % moe.vocab).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        cache = moe.init_cache(SHARD_MOE_B, SHARD_MOE_MAX, quantized_kv=True, device="cuda")
+        lg, cache = moe.apply(params, toks, Context(), cache=cache, decode=True)
+        nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+        saved = tree_to(copy_cache(cache), "cpu")
+        logits, _ = moe.apply(params, nxt, Context(), cache=cache, decode=True)
+        walls = []
+        for _ in range(3):
+            c = copy_cache(saved)
+            c = tree_to(c, "cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            moe.apply(params, nxt, Context(), cache=c, decode=True)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+    res["decode"] = {"step_ms": walls, "peak_bytes": torch.cuda.max_memory_allocated() - held}
+    torch.save({"cache": saved, "nxt": nxt.cpu(), "logits": logits.cpu(), "toks": toks.cpu()},
+               out / "phi_io.pt")
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def shard_end_to_end(torch, card) -> dict:
+    """``[shard]``: the model axis on the one card.  Four gloo ranks
+    (``torchrun --standalone --nproc-per-node 4`` of this script's
+    :func:`shard_rank`) share the card as a (2, 2) mesh, their gathers
+    made of all-reduces (gloo carries no CUDA all-gather): full-width
+    smollm-135m through ``launch.train.main --mesh 2,2`` (AdamW, B=8,
+    S=128, float and ``--qat``, 3 steps each), each held to world 1 in
+    this process: step 0's loss at rtol 1e-5, replicated leaves identical
+    on every rank, and the gathered params after 3 steps printed against
+    world 1's (AdamW's first update is lr * g / (|g| + eps): a gradient
+    near zero takes its sign from the order of its sums, so the params are
+    held through the gradient instead: one SGD step at lr 1 from the same
+    init, the gathered params p - g within rtol 1e-4 (atol 1e-6) of world
+    1's for every value, float, and for all but 1e-3 of them under QAT);
+    one float step with ``int8_weight_gather`` (the loss at rtol 1e-5).
+    Then phi3.5-moe at full width cut to one layer, int8 weights and int8
+    KV, made from the seed in this process and handed to the ranks through
+    host memory (each moves only its shard to the card): world 1 prefills
+    8 tokens at B=4 and decodes one step, the ranks decode the same step
+    on their rows of that cache through the weight-stationary dispatch
+    (logits within rtol 2e-4, argmax equal, ``wq_matmul`` and
+    ``qdecode_attn`` launched).  Prints step ms (wall and device),
+    collective ms and bytes by axis and kind, int8 against float32 gather
+    bytes, the decode's sums against its expert shards' bytes, and peak
+    memory a rank against world 1's; every check is made after every line
+    is printed.  Returns rank 0's decode launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    out = tmp / "shard4"
+    failed = []
+
+    def held(cond, msg):
+        if not cond:
+            print(f"[shard] FAILED CHECK: {msg}", flush=True)
+            failed.append(msg)
+
+    try:
+        t_launch = time.time()
+        proc = shard_start(out)
+        try:
+            world1 = shard_world1(torch, out)
+            print(f"[shard] world 1 (no group): {time.perf_counter() - phase_t0:.1f}s, of "
+                  f"which phi3.5-moe made, integerized and saved {world1['phi_host_s']:.1f}s",
+                  flush=True)
+            dist_ready(proc, 4, out, "[shard]")
+        except BaseException:
+            dist_kill(proc)
+            raise
+        t_ranks = time.perf_counter()
+        ranks = dist_wait(proc, 4, "gloo", out, "[shard]")
+        print(f"[shard] world 4 over gloo, mesh (2, 2): {time.perf_counter() - t_ranks:.1f}s "
+              f"after the word; rank 0 came up {ranks[0]['clock']['start'] - t_launch:.1f}s "
+              f"after the launch; collectives in the {ranks[0]['form']!r} form; rank 0's runs "
+              + ", ".join(f"{k} {v['seconds']:.1f}s" for k, v in ranks[0]["runs"].items()
+                          if "seconds" in v), flush=True)
+        held(all(r["backend"] == "gloo" for r in ranks), "a rank is not on gloo")
+        held(all(r["form"] == "all_reduce" for r in ranks),
+             "gloo on the card must take the all-reduce form")
+        for label in ("float", "qat"):
+            runs = [r["runs"][label] for r in ranks]
+            r0, w1 = runs[0], world1[label]
+            losses = r0["losses"]
+            coll = {k: [r0["counts"][k][0], r0["counts"][k][1],
+                        float(np.median([r["coll_ms"].get(k, 0.0) for r in runs]))]
+                    for k in r0["counts"]}
+            print(f"[shard] {label} (AdamW): loss {losses} (world 1 {w1['losses']}); gathered "
+                  f"params after {SHARD_STEPS} steps: {r0['param_misses']} of {r0['params']} "
+                  f"beyond rtol {SHARD_PARAM_RTOL} (atol {SHARD_PARAM_ATOL}) of world 1's, worst "
+                  f"rel {r0['param_worst_rel']:.3e}; step wall ms "
+                  f"{[round(t, 2) for t in r0['step_ms']]} (world 1 "
+                  f"{[round(t, 2) for t in w1['step_ms']]}; step 1 with every collective "
+                  f"synchronized and profiled on rank 0); device busy that step "
+                  + ("not measured" if r0["busy_ms"] is None else f"{r0['busy_ms']:.2f} ms")
+                  + " on rank 0 (world 1 "
+                  + ("not measured" if w1["busy_ms"] is None else f"{w1['busy_ms']:.2f} ms")
+                  + f"); peak memory a rank {max(r['peak_bytes'] for r in runs) / GIB:.3f} GiB "
+                  f"(world 1 {w1['peak_bytes'] / GIB:.3f} GiB); {r0['seconds']:.1f}s; card "
+                  f"{card}", flush=True)
+            print(f"[shard] {label} collectives a step (step 1, rank 0: calls, bytes handed in; "
+                  f"median ms over the ranks): " + json.dumps(coll), flush=True)
+            held(len(losses) == SHARD_STEPS and all(np.isfinite(losses)),
+                 f"{label} losses {losses}")
+            held(np.isclose(losses[0], w1["losses"][0], rtol=1e-5, atol=0),
+                 f"{label}: step 0's loss {losses[0]} against world 1's {w1['losses'][0]}")
+            held(all(r["replicated"] == r0["replicated"] for r in runs),
+                 f"{label}: a replicated leaf differs between the ranks")
+            g = ranks[0]["runs"][f"sgd_{label}"]
+            share = g["param_misses"] / g["params"]
+            print(f"[shard] {label} gradient (one SGD step at lr 1): loss {g['losses'][0]:.6f} "
+                  f"(world 1 {world1[f'sgd_{label}']['losses'][0]:.6f}); p - g gathered: "
+                  f"{g['param_misses']} of {g['params']} values beyond rtol {SHARD_PARAM_RTOL} "
+                  f"(atol {SHARD_PARAM_ATOL}), worst rel {g['param_worst_rel']:.3e}", flush=True)
+            held(np.isclose(g["losses"][0], world1[f"sgd_{label}"]["losses"][0], rtol=1e-5,
+                            atol=0), f"{label} SGD step: loss against world 1's")
+            held(share <= (SHARD_QAT_FLIP_SHARE if label == "qat" else 0.0),
+                 f"{label} SGD step: {g['param_misses']} of {g['params']} gathered params "
+                 f"beyond rtol {SHARD_PARAM_RTOL} of world 1's")
+        i8 = ranks[0]["runs"]["int8_gather"]
+        f32_gather = ranks[0]["runs"]["float"]["counts"].get("data/gather", [0, 0])[1]
+        i8_gather = i8["counts"].get("data/int8_gather", [0, 0])[1]
+        print(f"[shard] int8_weight_gather step: loss {i8['losses'][0]:.6f} (world 1 "
+              f"{world1['int8_gather']['losses'][0]:.6f}); weights over data: {i8_gather} bytes "
+              f"of int8 codes against {f32_gather} bytes of float32 in the float step (rank 0, "
+              f"the all-reduce form's buffers); every collective {json.dumps(i8['counts'])}; "
+              f"{i8['seconds']:.1f}s", flush=True)
+        held(np.isclose(i8["losses"][0], world1["int8_gather"]["losses"][0], rtol=1e-5, atol=0),
+             f"int8_weight_gather: loss {i8['losses'][0]} against world 1's "
+             f"{world1['int8_gather']['losses'][0]}")
+        held(0 < i8_gather < f32_gather, f"int8 gather bytes {i8_gather} against float32 "
+                                         f"{f32_gather}")
+        dec = [r["runs"]["decode"] for r in ranks]
+        launches = dec[0]["launches"]
+        psum = dec[0]["counts"].get("data/psum", [0, 0])
+        print(f"[shard] phi3.5-moe weight-stationary decode (1 layer, full width, int8 weights "
+              f"and KV, B={SHARD_MOE_B}): max_abs_err against world 1 "
+              f"{max(d['max_abs_err'] for d in dec):.3e}, within rtol/atol 2e-4 "
+              f"{all(d['within'] for d in dec)}, argmax equal "
+              f"{all(d['argmax_equal'] for d in dec)}; step wall ms "
+              f"{[round(t, 2) for t in dec[0]['step_ms']]} (world 1 "
+              f"{[round(t, 2) for t in world1['decode']['step_ms']]}); sums over data "
+              f"{psum[0]} calls, {psum[1]} bytes, against the expert shard's "
+              f"{dec[0]['expert_shard_bytes']} bytes of codes a rank (a gather over data would "
+              f"hand in those and assemble {2 * dec[0]['expert_shard_bytes']}); launches "
+              f"{launches}; peak memory a rank {max(d['peak_bytes'] for d in dec) / GIB:.3f} GiB "
+              f"(world 1 {world1['decode']['peak_bytes'] / GIB:.3f} GiB); every collective "
+              f"{json.dumps(dec[0]['counts'])}; {dec[0]['seconds']:.1f}s; card {card}",
+              flush=True)
+        held(all(d["within"] for d in dec), "decode logits beyond rtol/atol 2e-4 of world 1's")
+        held(all(d["argmax_equal"] for d in dec), "decode argmax differs from world 1's")
+        held(launches.get("wq_matmul", 0) > 0 and launches.get("qdecode_attn", 0) > 0,
+             f"the decode did not launch wq_matmul and qdecode_attn: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[time] shard phase {time.perf_counter() - phase_t0:.1f}s (budget 90 s)", flush=True)
+    check(not failed, f"[shard] {len(failed)} check(s) failed: {failed}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5387,6 +5928,7 @@ def main() -> int:
         qc=qchunk_attn_cuda, qpc=qpaged_chunk_attn_cuda, qr=qragged_attn_cuda), gen,
         CUDA_PAGE_SIZE, card)
     check_grants("the MoE and hybrid archs' kernel shapes", ran=("wq_matmul",))
+    shard_rows = check_shard_kernels(torch, ref, wq_matmul_cuda, gen)
     t_int = time.perf_counter()
     print(f"[time] the archs' kernel shapes {t_rec - t_arch:.1f}s, the recurrent archs' "
           f"{t_enc - t_rec:.1f}s, whisper-tiny's {t_moe - t_enc:.1f}s, the MoE and hybrid "
@@ -5422,13 +5964,17 @@ def main() -> int:
     check(ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0),
           f"[dist] the data-parallel steps launched the port's kernels: {ops.launch_counts()}")
     t10 = time.perf_counter()
+    shard_launches = shard_end_to_end(torch, card)
+    check_grants("the shard phase", ran=("wq_matmul",))
+    t11 = time.perf_counter()
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
           f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | archs "
           f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | encdec {t8 - t7:.1f}s | moe "
-          f"{t9 - t8:.1f}s | dist {t10 - t9:.1f}s | all {t10 - t0:.1f}s", flush=True)
+          f"{t9 - t8:.1f}s | dist {t10 - t9:.1f}s | shard {t11 - t10:.1f}s | all "
+          f"{t11 - t0:.1f}s", flush=True)
     launches = {k: sum(part.get(k, 0) for part in (launches, int_launches, train_launches,
                                                    arch_launches, rec_launches, enc_launches,
-                                                   moe_launches))
+                                                   moe_launches, shard_launches))
                 for k in int_launches}
 
     wq_main = wq_layers[8]
@@ -5573,6 +6119,10 @@ def main() -> int:
                                                 "library_ms", "bound_ms", "bound_by")}
                              for r in rec_rows]
     wq_entry["max_abs_err"] = max(wq_entry["max_abs_err"], rec_err)
+    wq_entry["shard"] = [{k: r[k] for k in ("m", "shape", "k", "n", "err", "ms", "plain_ms",
+                                            "library_ms", "bound_ms", "bound_by")}
+                         for r in shard_rows]
+    wq_entry["max_abs_err"] = max(wq_entry["max_abs_err"], max(r["err"] for r in shard_rows))
     print(f"[kernel] the recurrent archs' shapes: worst max_abs_err {rec_err:.3e}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -5586,4 +6136,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         sys.exit(dist_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(sys.argv[2]))
     sys.exit(main())

@@ -89,39 +89,95 @@ def integerize(params, policy: QuantPolicy, qstate: Optional[Dict] = None, *,
     return rec(params, "")
 
 
-def fake_int8_weights(params, *, mesh=None, rules=None) -> Dict:
+def fake_int8_weights(params, *, mesh=None, rules=None, specs=None) -> Dict:
     """int8-gather training: every GEMM ``kernel`` and embedding ``table``
     leaf that :func:`integerize_weights_only` would quantize passes through
     :func:`repro_torch.core.quantizers.ste_int8_weight` (materialized int8
     codes, one exponent per output channel and per stacked index; STE
-    backward).  The float master parameters stay untouched.  The reference
-    also pins the int8 codes to a mesh's sharding; ``mesh``/``rules`` wait
-    for the distribution slice."""
+    backward).  The float master parameters stay untouched.
+
+    Under a mesh (``mesh``, ``rules``, and ``specs``: ``param_pspecs`` of
+    the whole tree, which the shards' shapes cannot tell) ``params`` holds
+    this rank's shards and the quantizer crosses the wire in int8, as the
+    reference pins its codes to the master's sharding: each exponent from
+    the max over every rank that holds part of its reduction (an
+    all-reduce MAX), the local codes quantized with it, the **int8 codes**
+    gathered over ``data`` (a table, used whole, over every axis) and
+    dequantized after the gather.  The backward is the gathers' own (the
+    gradient's reduce-scatter over ``data``, this rank's block over
+    ``model``).  The codes equal one device's bit for bit."""
     from repro_torch.core.quantizers import ste_int8_weight
 
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("fake_int8_weights on a mesh waits for the port's "
-                                  "distribution slice (ROADMAP.md queue 1)")
+    if (mesh is None) != (rules is None) or (mesh is not None and specs is None):
+        raise ValueError("fake_int8_weights under a mesh takes mesh, rules and specs")
     policy = QuantPolicy.serve_int8()
 
-    def rec(node, path):
+    def rec(node, spec, path):
         if isinstance(node, (list, tuple)):
-            return [rec(v, f"{path}/{i}") for i, v in enumerate(node)]
+            return [rec(v, None if spec is None else spec[i], f"{path}/{i}")
+                    for i, v in enumerate(node)]
         if not isinstance(node, dict):
             return node
         out = {}
         for k, v in node.items():
             child_path = f"{path}/{k}" if path else k
+            child = None if spec is None else spec[k]
             if isinstance(v, (dict, list, tuple)):
-                out[k] = rec(v, child_path)
+                out[k] = rec(v, child, child_path)
             elif (k in _WEIGHT_LEAVES and not _is_skipped(child_path, policy)
                   and isinstance(v, torch.Tensor) and v.ndim >= 2):
-                out[k] = ste_int8_weight(v, tuple(range(v.ndim - 2)) + (v.ndim - 1,))
+                keep = tuple(range(v.ndim - 2)) + (v.ndim - 1,)
+                if child:
+                    out[k] = _gathered_int8(v, keep, child, mesh, whole=k == "table")
+                else:
+                    out[k] = ste_int8_weight(v, keep)
             else:
                 out[k] = v
         return out
 
-    return rec(params, "")
+    return rec(params, specs, "")
+
+
+class _GatheredSTE(torch.autograd.Function):
+    """The dequantized gathered codes forward; the gathers' backward."""
+
+    @staticmethod
+    def forward(ctx, x, deq, mesh, plan):
+        ctx.args = (mesh, plan)
+        return deq
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist import shard_ops
+
+        mesh, plan = ctx.args
+        for dim, axis, fsdp in reversed(plan):
+            g = (shard_ops.reduce_scatter(g, dim, mesh, axis) if fsdp
+                 else shard_ops.own_block(g, dim, mesh, axis).contiguous())
+        return g, None, None, None
+
+
+def _gathered_int8(v: torch.Tensor, keep: tuple, spec, mesh, whole: bool) -> torch.Tensor:
+    """One leaf of :func:`fake_int8_weights` under a mesh (see there)."""
+    from repro_torch.dist import shard_ops
+    from repro_torch.dist.sharding import _axes
+
+    reduced = tuple(a for a in range(v.ndim) if a not in keep)
+    entries = list(spec) + [None] * (v.ndim - len(spec))
+    m = qformat.max_abs(v.detach(), reduced, keepdim=True).to(torch.float32)
+    m = shard_ops.pmax(m, mesh, [a for d in reduced for a in _axes(entries[d])])
+    n = qformat.frac_bits_for(m, 8)
+    q, plan = qformat.quantize(v.detach(), n, 8), []
+    for d, e in enumerate(entries):
+        for axis in reversed(_axes(e)):
+            if axis != "data" and not whole:
+                continue
+            q = shard_ops.all_gather(q, d, mesh, axis, kind="int8_gather")
+            if n.shape[d] > 1:
+                n = shard_ops.all_gather(n, d, mesh, axis, kind="int8_gather")
+            plan.append((d, axis, axis == "data"))
+    deq = (q.to(torch.float32) * qformat.exp2(-n)).to(v.dtype)
+    return _GatheredSTE.apply(v, deq, mesh, plan)
 
 
 def quantize_input(x: torch.Tensor, qstate: Dict, site: str, width: int) -> QTensor:

@@ -5,11 +5,9 @@ One process a rank: ``torchrun`` starts them and sets ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR``/``MASTER_PORT`` in each.
 :func:`init_process_group` forms the group from that environment on an
 explicit backend, and :func:`make_host_mesh` lays the group out as a
-``(data, model)`` :class:`~torch.distributed.device_mesh.DeviceMesh`.
-
-Only the data axis is served here: ``model > 1`` (tensor parallelism over
-the reference's sharding rules) waits for the port's distribution slice.
-The reference's production mesh and its hardware table describe a TPU
+``(data, model)`` :class:`~torch.distributed.device_mesh.DeviceMesh`, rank
+(d, m) at ``d * model + m``: the ``model`` ranks of one data index are
+neighbours.  The reference's production mesh and its hardware table describe a TPU
 pod and have no counterpart on the card.
 """
 from __future__ import annotations
@@ -20,7 +18,6 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist import MODEL_AXIS_LATER
 from repro_torch.nn.module import resolve_device
 
 BACKENDS = ("nccl", "gloo")
@@ -65,8 +62,6 @@ def make_host_mesh(data: int = 1, model: int = 1, device=None):
     ``"cpu"``); the world size must be ``data * model``."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    if model != 1:
-        raise NotImplementedError(f"make_host_mesh: {MODEL_AXIS_LATER}")
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh: no process group is up (init_process_group)")
     world = dist.get_world_size()

@@ -11,19 +11,24 @@
 * a straggler watchdog: a step slower than --straggler-factor x the running
   median is logged;
 * the metrics are read back once per step, after it, for the log line;
-* data parallelism: ``--mesh D,1`` under ``torchrun --nproc-per-node D``
+* distribution: ``--mesh D,M`` under ``torchrun --nproc-per-node D*M``
   (``--standalone`` on one host) forms the group (gloo with ``--device
-  cpu``, nccl on cards, or ``--backend``), builds the data mesh and runs
-  the step on it: every rank reads the same global batch and takes its
-  slice, rank 0 alone logs and checkpoints.  Elastic restore: a checkpoint
-  holds whole leaves, so a run may resume under another ``--mesh``;
+  cpu``, nccl on cards, or ``--backend``) and builds the ``(data, model)``
+  mesh; every rank reads the same global batch and takes its slice, rank 0
+  alone logs and writes checkpoints.  ``--mesh D,1`` keeps every parameter
+  whole on each rank (the data mesh); with M > 1 the parameters and the
+  optimizer moments are sharded by ``dist.sharding``'s rules over
+  ``data`` (FSDP) and ``model`` (tensor and expert parallel).  Elastic
+  restore: a checkpoint holds whole leaves (gathered before rank 0
+  writes), so a run may resume under another ``--mesh``;
 
-    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
-        --arch smollm-135m-smoke --mesh 2,1 --device cpu --steps 20
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch smollm-135m-smoke --mesh 2,2 --device cpu --steps 20
 
-Runs on the GPU unless --device says otherwise.  ``--mesh D,M`` with M > 1
-(parameters sharded over a model axis) waits for the port's distribution
-slice.
+Several ranks may share one card over gloo (``--backend gloo``), whose
+CUDA collectives are all-reduces: the sharded step's gathers are then
+all-reduces of zero-filled buffers (``dist/shard_ops.py``).  Runs on the
+GPU unless --device says otherwise.
 """
 from __future__ import annotations
 
@@ -37,12 +42,14 @@ import torch.distributed as dist
 
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.data.pipeline import DataPipeline, markov_batch_fn
+from repro_torch.dist import shard_ops, sharding
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models.registry import get_config
 from repro_torch.nn.module import resolve_device
 from repro_torch.optim import adamw, multistep_lr, sgd
 from repro_torch.train.checkpoint import CheckpointManager
-from repro_torch.train.trainer import init_train_state, make_train_step
+from repro_torch.train.trainer import (init_train_state, make_train_step, meta_state,
+                                      shard_state, state_pspecs)
 
 
 def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None):
@@ -72,13 +79,10 @@ def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None
     args = ap.parse_args(argv)
 
     dm, tp = (int(x) for x in args.mesh.split(","))
-    if tp != 1:
-        raise SystemExit(f"--mesh {args.mesh}: a model axis (tensor parallelism) waits for "
-                         "the port's distribution slice (ROADMAP.md queue 1); use --mesh D,1")
     distributed = meshlib.launched()
-    if dm > 1 and not distributed:
-        raise SystemExit(f"--mesh {args.mesh}: start {dm} ranks with "
-                         f"torchrun --standalone --nproc-per-node {dm} -m repro_torch.launch.train")
+    if dm * tp > 1 and not distributed:
+        raise SystemExit(f"--mesh {args.mesh}: start {dm * tp} ranks with torchrun "
+                         f"--standalone --nproc-per-node {dm * tp} -m repro_torch.launch.train")
     device = resolve_device(args.device)
     mesh, own_group = None, False
     if distributed:
@@ -89,10 +93,14 @@ def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None
         backend = dist.get_backend()
         if args.backend and backend != args.backend:
             raise SystemExit(f"--backend {args.backend}: the group is up on {backend}")
+        if dist.get_world_size() != dm * tp:
+            raise SystemExit(f"--mesh {args.mesh}: the world has {dist.get_world_size()} ranks")
+        mesh = meshlib.make_host_mesh(dm, tp, device)
         if dist.get_rank() == 0:
             print(f"[dist] backend {backend}, world {dist.get_world_size()}, mesh "
-                  f"{args.mesh}", flush=True)
-        mesh = meshlib.make_host_mesh(dm, tp, device)
+                  f"{args.mesh}" + (f", parameters sharded, collectives in the "
+                                    f"{shard_ops.form(mesh, device)} form" if tp > 1 else ""),
+                  flush=True)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
     try:
@@ -110,18 +118,26 @@ def _train(args, device, mesh, on_step):
                  else sgd(momentum=0.9, weight_decay=5e-4))
     schedule = multistep_lr(args.lr, milestones=(args.steps * 2 // 3, args.steps * 5 // 6))
     policy = QuantPolicy.int8_qat() if args.qat else QuantPolicy.float32()
+    # a model axis shards the parameters by the rules; a data mesh keeps them whole
+    rules = sharding.make_axis_rules(mesh) if mesh is not None and \
+        sharding.mesh_shape(mesh)["model"] > 1 else None
     step_fn = make_train_step(model, optimizer, schedule, policy=policy, mesh=mesh,
-                              microbatch_split=args.microbatch)
+                              axis_rules=rules, microbatch_split=args.microbatch)
     pipe = DataPipeline(markov_batch_fn(cfg.vocab, args.batch, args.seq, seed=args.seed))
     state = init_train_state(model, optimizer,
                              torch.Generator(device=device).manual_seed(args.seed), device)
+    layout = {}
+    if rules is not None:
+        state = shard_state(state, mesh, rules)
+        layout = {"specs": state_pspecs(meta_state(model, optimizer), mesh, rules),
+                  "mesh": mesh}
 
     ckpt = None
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir, keep=3)
         latest = ckpt.latest_step()
         if latest is not None:
-            state = ckpt.restore(latest, state)
+            state = ckpt.restore(latest, state, **layout)
             pipe.restore({"step": latest})
             if leader:
                 print(f"[restore] resumed from step {latest}")
@@ -145,11 +161,11 @@ def _train(args, device, mesh, on_step):
                       f"acc {metrics['accuracy']:.3f} lr {metrics['lr']:.2e} "
                       f"{dt * 1e3:.0f}ms")
             if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save_async(step + 1, state)
+                ckpt.save_async(step + 1, state, **layout)
             if on_step is not None:
                 on_step(step, metrics, dt)
         if ckpt:
-            ckpt.save(args.steps, state)
+            ckpt.save(args.steps, state, **layout)
     finally:
         if ckpt:
             ckpt.close()

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import qformat
 from repro_torch.core.policy import Granularity, QMode
+from repro_torch.dist import shard_ops
 from repro_torch.core.qformat import PackedQTensor, QTensor
 from repro_torch.core.quantizers import quantize_activation, quantize_weight, shared_frac_bits
 from repro_torch.nn.module import Context, Params
@@ -74,6 +75,58 @@ def _fq_weight(w: torch.Tensor, ctx: Context, *, channel_axis: Optional[int]) ->
     if w is None or not pol.enabled or pol.mode in (QMode.INTEGER, QMode.CALIB):
         return w
     return quantize_weight(w, pol, channel_axis=channel_axis)
+
+
+# --------------------------------------------------------------------------
+# Sharded weights (a mesh on the context): which dims are cut, gathers,
+# fake-quant exponents of the whole weight
+# --------------------------------------------------------------------------
+
+def _codes(w):
+    return w.q if isinstance(w, (QTensor, PackedQTensor)) else w
+
+
+def mesh_split(local: int, full: int, ctx: Context, logical: str) -> Optional[str]:
+    """The mesh axis over which a weight dim of size ``full`` arrives cut
+    (its local size is smaller), else None.  The rules give the axis: a
+    dim cut otherwise than ``full / local`` ways over it raises."""
+    if local == full:
+        return None
+    axis = ctx.rule(logical)
+    if axis is None or local * shard_ops.axis_size(ctx.mesh, axis) != full:
+        raise ValueError(f"{ctx.path}: a weight dim of {full} arrives as {local} under the "
+                         f"rule {logical!r} -> {axis!r}")
+    return axis
+
+
+def gather_codes(w, dim: int, mesh, axis: str):
+    """A weight's dim gathered over ``axis``: a float leaf with the FSDP
+    backward (reduce-scatter), a QTensor's int8 codes with no gradient."""
+    if isinstance(w, QTensor):
+        return QTensor(shard_ops.all_gather(w.q, dim, mesh, axis), w.n, w.width,
+                       w.channel_axis, w.scale)
+    return shard_ops.gather_fsdp(w, dim, mesh, axis)
+
+
+def fq_weight_mesh(w: torch.Tensor, ctx: Context, split) -> torch.Tensor:
+    """``_fq_weight(w, channel_axis=-1)`` of a weight block whose dims
+    ``split`` ({dim: mesh axis}) are cut: an exponent that reduces over a
+    cut dim takes the max over that axis too, so it is the whole weight's."""
+    pol = ctx.policy
+    if w is None or not pol.enabled or pol.mode in (QMode.INTEGER, QMode.CALIB):
+        return w
+    if not (pol.power_of_two and pol.symmetric):
+        raise NotImplementedError("an affine weight quantizer under a mesh is not executed")
+    per_ch = pol.granularity is Granularity.PER_CHANNEL
+    fixed = pol.granularity is Granularity.PER_NETWORK and pol.network_frac_bits is not None
+    reduced = tuple(a for a in range(w.ndim) if not (per_ch and a == w.ndim - 1))
+    crossing = [ax for d, ax in split.items() if ax is not None and d % w.ndim in reduced]
+    if fixed or not crossing:
+        return quantize_weight(w, pol, channel_axis=-1)
+    m = qformat.max_abs(w.detach(), reduced) if per_ch else qformat.max_abs(w.detach())
+    n = qformat.frac_bits_for(shard_ops.pmax(m.to(torch.float32), ctx.mesh, crossing),
+                              pol.weight_bits)
+    return quantize_weight(w, pol, channel_axis=-1, frozen_n=n)
 
 
 def _nout_for(params: Params, ctx: Context, site: str):
@@ -138,6 +191,14 @@ class Dense:
         ctx = ctx.scope(self.name)
         kernel = params["kernel"]
         bias = params.get("bias")
+        if ctx.mesh is not None:
+            if isinstance(kernel, PackedQTensor):
+                raise NotImplementedError("packed sub-int8 weights under a mesh are not executed")
+            k_in, k_out = _codes(kernel).shape[-2:]
+            rows = mesh_split(k_in, self.in_features, ctx, "fsdp")
+            cols = mesh_split(k_out, self.out_features, ctx, "model")
+            if rows or cols:
+                return self._sharded_apply(kernel, bias, x, ctx, rows, cols)
         if isinstance(kernel, PackedQTensor):
             from repro_torch.kernels import ops
 
@@ -155,6 +216,38 @@ class Dense:
         y = _add_bias(torch.matmul(xq.to(torch.float32), w), _fq_weight(bias, ctx,
                                                                         channel_axis=None))
         return _fq_out(y, ctx, "out")
+
+    def _sharded_apply(self, kernel, bias, x, ctx: Context, rows, cols):
+        """Column-parallel: the kernel gathered over ``data`` (FSDP; int8
+        codes for a QTensor), this rank's block of columns multiplied
+        (``copy_in`` gives the input's gradient its sum over ``model``),
+        the output's columns gathered over ``model``.  Every output column
+        is a whole-K dot product, so the numbers are one device's up to the
+        BLAS blocking.  The bias (replicated) is added to the whole output
+        after its own fake-quant, and the output's range is every column's."""
+        mesh = ctx.mesh
+        if rows:
+            kernel = gather_codes(kernel, -2, mesh, rows)
+        quant = not isinstance(kernel, QTensor) and ctx.policy.enabled \
+            and self.kind not in ctx.policy.skip_kinds
+        if isinstance(kernel, QTensor):
+            if isinstance(x, QTensor):
+                raise NotImplementedError("the integer engine under a mesh is not executed")
+            from repro_torch.kernels import ops
+
+            y = ops.wq_matmul(x.to(torch.float32), kernel)
+        elif quant:
+            xq = _fq_in(x, ctx, "in").to(torch.float32)
+            w = fq_weight_mesh(kernel, ctx, {-1: cols})
+            y = torch.matmul(shard_ops.copy_in(xq, mesh, cols) if cols else xq, w)
+            bias = _fq_weight(bias, ctx, channel_axis=None)
+        else:
+            x = x.to(torch.float32)
+            y = torch.matmul(shard_ops.copy_in(x, mesh, cols) if cols else x, kernel)
+        if cols:
+            y = shard_ops.gather_replicated(y, -1, mesh, cols)
+        y = _add_bias(y, bias)
+        return _fq_out(y, ctx, "out") if quant else y
 
     def _integer_apply(self, params: Params, x: QTensor, ctx: Context) -> QTensor:
         """The paper's engine: int operands, int32 accumulator, shift, saturate."""
@@ -266,8 +359,30 @@ class Embedding:
         return {"table": normal_init(gen, (self.vocab_size, self.features), device,
                                      std=1.0 / math.sqrt(self.features))}
 
+    def _whole(self, table, ctx: Context):
+        """The table gathered whole under a mesh (float, or the int8 codes
+        and per-column exponents): rows over ``data`` with the FSDP
+        backward, columns over ``model`` with this rank's block of the
+        gradient."""
+        if ctx.mesh is None:
+            return table
+        v, d = _codes(table).shape
+        rows = mesh_split(v, self.vocab_size, ctx, "fsdp")
+        cols = mesh_split(d, self.features, ctx, "model")
+        if rows:
+            table = gather_codes(table, 0, ctx.mesh, rows)
+        if cols and isinstance(table, QTensor):
+            n = table.n
+            if n.ndim == 1 and n.shape[0] == d:
+                n = shard_ops.all_gather(n, 0, ctx.mesh, cols)
+            table = QTensor(shard_ops.all_gather(table.q, 1, ctx.mesh, cols), n, table.width,
+                            table.channel_axis)
+        elif cols:
+            table = shard_ops.gather_replicated(table, 1, ctx.mesh, cols)
+        return table
+
     def apply(self, params: Params, ids: torch.Tensor, ctx: Context) -> torch.Tensor:
-        table = params["table"]
+        table = self._whole(params["table"], ctx)
         if isinstance(table, QTensor):
             # gather int8 rows, dequantize only the gathered slice
             return qformat.dequantize(table.q[ids], table.n)
@@ -279,7 +394,7 @@ class Embedding:
 
     def attend(self, params: Params, x: torch.Tensor, ctx: Context) -> torch.Tensor:
         """Tied-embedding logits x @ table.T (always float)."""
-        table = params["table"]
+        table = self._whole(params["table"], ctx)
         if isinstance(table, QTensor):
             from repro_torch.kernels import ops
 

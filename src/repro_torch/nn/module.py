@@ -60,6 +60,53 @@ class Context:
     # a live activation range is the group's (the reference's max over the
     # whole batch under a data mesh).  None on one rank.
     group: Any = None
+    # The sharded execution: a (data, model) DeviceMesh and the axis rules
+    # (``dist.sharding.make_axis_rules``).  Each rank holds its shards of
+    # the parameters and its rows of the batch; activations are replicated
+    # over ``model``.  The reference's ``constrain`` (a layout directive to
+    # its partitioner) has no counterpart: the layers state their
+    # collectives (``dist.shard_ops``) where they use a sharded weight.
+    mesh: Any = None
+    axis_rules: Optional[Dict[str, Any]] = None
+
+    def _axis_size(self, logical: str) -> int:
+        """The mesh size of a logical axis (1 without a mesh or rules); a
+        rule naming an axis the mesh lacks raises ``KeyError``, as the
+        reference's does."""
+        if self.mesh is None or self.axis_rules is None:
+            return 1
+        ax = self.axis_rules.get(logical)
+        if ax is None:
+            return 1
+        from repro_torch.dist.sharding import mesh_shape
+
+        sizes = mesh_shape(self.mesh)
+        size = 1
+        for a in (ax if isinstance(ax, (tuple, list)) else (ax,)):
+            size *= int(sizes[a])
+        return size
+
+    @property
+    def dp_size(self) -> int:
+        """The data-parallel degree (the MoE routing groups)."""
+        return self._axis_size("batch")
+
+    @property
+    def tp_size(self) -> int:
+        """The tensor-parallel degree (the ``model`` rule's size)."""
+        return self._axis_size("model")
+
+    def rule(self, logical: str) -> Optional[str]:
+        """The one mesh axis of a logical axis under a mesh, else None."""
+        if self.mesh is None or self.axis_rules is None:
+            return None
+        ax = self.axis_rules.get(logical)
+        if isinstance(ax, (tuple, list)):
+            if len(ax) != 1:
+                raise NotImplementedError(f"the rule {logical!r} -> {ax}: a weight dim on "
+                                          "composed mesh axes is not executed")
+            ax = ax[0]
+        return ax
 
     def scope(self, name: str) -> "Context":
         """Child context with ``name`` appended to the naming path; it shares

@@ -92,7 +92,16 @@ def enc_kwargs(enc: Optional[torch.Tensor]) -> dict:
     return {} if enc is None else {"enc": enc}
 
 
-def make_prefill_step(model) -> Callable:
+def _step_context(mesh, axis_rules) -> Context:
+    """A serving step's context; under a mesh (``mesh`` and ``axis_rules``
+    together) the params are this rank's shards by ``param_pspecs(...,
+    serve=True)`` and the cache and the tokens this rank's rows."""
+    if (mesh is None) != (axis_rules is None):
+        raise ValueError("a serving step under a mesh takes mesh and axis_rules together")
+    return Context(mesh=mesh, axis_rules=axis_rules)
+
+
+def make_prefill_step(model, *, mesh=None, axis_rules=None) -> Callable:
     """(params, tokens (B, P), cache, embeds=None, logit_pos=None, enc=None)
     -> (logits, cache').
 
@@ -101,11 +110,14 @@ def make_prefill_step(model) -> Callable:
     slot-targeted prefill over a padded prompt bucket passes its true last
     position).  ``embeds`` (B, S_vis, D) is a VLM's vision prefix, written
     into the cache ahead of the prompt; ``enc`` an EncDec model's encoder
-    output.
+    output.  ``mesh``/``axis_rules``: the sharded execution
+    (:func:`_step_context`); each data rank prefills its rows.
     """
+    ctx = _step_context(mesh, axis_rules)
+
     def prefill(params, tokens, cache, embeds: Optional[torch.Tensor] = None,
                 logit_pos: Optional[int] = None, enc: Optional[torch.Tensor] = None):
-        logits, cache = model.apply(params, tokens, Context(), embeds=embeds, cache=cache,
+        logits, cache = model.apply(params, tokens, ctx, embeds=embeds, cache=cache,
                                     decode=True, logit_pos=logit_pos, **enc_kwargs(enc))
         return (logits if logit_pos is not None else logits[:, -1]), cache
 
@@ -124,7 +136,8 @@ def _health(row: torch.Tensor, poison: Optional[torch.Tensor] = None):
     return torch.where(ok[:, None], row, torch.zeros_like(row)), ok
 
 
-def make_decode_step(model, *, temperature: float = 0.0, with_health: bool = False) -> Callable:
+def make_decode_step(model, *, mesh=None, axis_rules=None, temperature: float = 0.0,
+                     with_health: bool = False) -> Callable:
     """(params, token (B, 1), cache, gen) -> (next (B, 1) int32, cache').
 
     ``with_health=True`` (the scheduler's audit mode) takes a trailing
@@ -132,10 +145,15 @@ def make_decode_step(model, *, temperature: float = 0.0, with_health: bool = Fal
     (zeros are an exact no-op, a NaN is the fault plan's injection), and
     returns (next, healthy (B,) bool, cache'): ``healthy[b]`` is False iff
     row b's logits hold a NaN or an Inf.  ``enc`` (B, S_enc, D): an EncDec
-    model's encoder output, one row per slot.
+    model's encoder output, one row per slot.  ``mesh``/``axis_rules``:
+    the sharded execution (:func:`_step_context`): each data rank decodes
+    its rows of the cache (the dense decode's ``qdecode_attn`` on them),
+    and an MoE layer takes the weight-stationary dispatch (``nn/moe.py``).
     """
+    ctx = _step_context(mesh, axis_rules)
+
     def decode(params, token, cache, gen, poison=None, *, enc=None):
-        logits, cache = model.apply(params, token, Context(), cache=cache, decode=True,
+        logits, cache = model.apply(params, token, ctx, cache=cache, decode=True,
                                     **enc_kwargs(enc))
         if not with_health:
             return sample_tokens(logits[:, -1], gen, model.vocab, temperature), cache
@@ -276,8 +294,15 @@ class ServeEngine:
     kv_pool_pages: Optional[int] = None
     own_params: bool = False
     cross_attn_cache: bool = True
+    mesh: Any = None
+    axis_rules: Any = None
 
     def __post_init__(self):
+        if self.mesh is not None or self.axis_rules is not None:
+            raise NotImplementedError(
+                "ServeEngine(mesh=...): the engine and its scheduler's policies under a mesh "
+                "are the next slice (ROADMAP.md queue 1); the sharded prefill and decode "
+                "steps are make_prefill_step / make_decode_step(mesh=, axis_rules=)")
         if self.weight_quant and self.encdec:
             raise ValueError(
                 f"weight_quant={self.weight_quant!r} on an EncDec model: the reference "

@@ -20,6 +20,13 @@ replicated trees) only rank 0 writes, and every rank waits at a barrier
 until the write is committed: after ``save``, and for ``save_async`` in the
 next ``wait`` (which ``save``, ``save_async`` and ``close`` call), so every
 rank must make the same calls.  Every rank reads.
+
+Sharded trees (parameters cut over a mesh, ``dist/sharding.py``): given
+``specs`` (the whole tree's specs) and ``mesh``, ``save`` and
+``save_async`` first gather every cut leaf whole (a collective on every
+rank), and ``restore`` cuts each whole leaf it reads to this rank's block
+of the current mesh, so a checkpoint of ``--mesh 2,2`` resumes under
+``1,1`` or ``1,2``.
 """
 from __future__ import annotations
 
@@ -66,6 +73,18 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
+def _whole(tree, specs, mesh):
+    if specs is None:
+        return tree
+    from repro_torch.dist.sharding import gather_tree
+
+    return gather_tree(tree, specs, mesh)
+
+
+def _leaves(tree) -> list:
+    return list(_flatten(tree).values())
+
+
 class CheckpointManager:
     """Versioned checkpoints of a tree of tensors under ``directory``."""
 
@@ -81,11 +100,13 @@ class CheckpointManager:
         self._unsynced = False   # a save_async whose barrier is still to come
 
     # ---- write -------------------------------------------------------------
-    def save(self, step: int, tree) -> str:
-        """Write ``tree`` as checkpoint ``step`` now; returns its directory."""
+    def save(self, step: int, tree, specs=None, mesh=None) -> str:
+        """Write ``tree`` as checkpoint ``step`` now; returns its directory.
+        ``specs``/``mesh``: the tree is sharded; it is gathered first."""
         # drain an in-flight asynchronous write first: two writers on one
         # step's tmp directory would race
         self.wait()
+        tree = _whole(tree, specs, mesh)
         final = self._final(step)
         if self._writer:
             final = self._write(step, tree_map(_to_host, tree))
@@ -93,9 +114,11 @@ class CheckpointManager:
             dist.barrier()
         return final
 
-    def save_async(self, step: int, tree) -> Future:
-        """Snapshot ``tree`` to the host now and write it on a thread."""
+    def save_async(self, step: int, tree, specs=None, mesh=None) -> Future:
+        """Snapshot ``tree`` to the host now (gathered first, given
+        ``specs``/``mesh``) and write it on a thread."""
         self.wait()
+        tree = _whole(tree, specs, mesh)
         self._unsynced = self._grouped
         if not self._writer:
             done: Future = Future()
@@ -172,10 +195,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target):
+    def restore(self, step: int, target, specs=None, mesh=None):
         """Checkpoint ``step`` in the structure of ``target``, each leaf on
         the target leaf's device (the CPU for a ``meta`` tensor, which
-        stands for a shape and dtype only) and in its dtype."""
+        stands for a shape and dtype only) and in its dtype; given
+        ``specs``/``mesh``, each whole leaf cut to this rank's block."""
+        if specs is not None:
+            from repro_torch.dist.sharding import leaves_with_specs, local_slice
+
+            cut = [s for _, s in leaves_with_specs(target, specs)]
+            whole = self.restore(step, target)
+            return tree_unflatten(target, [local_slice(t, s, mesh).contiguous() if s else t
+                                           for t, s in zip(_leaves(whole), cut)])
         d = os.path.join(self.directory, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)

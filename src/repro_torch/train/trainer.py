@@ -17,13 +17,20 @@ state = {params, opt, step}:
   its slice of the batch and all-reduces the gradients: the numbers are
   those of one device on the whole batch (the loss and gradients weighted
   by each slice's share of the scored tokens, the QAT activation ranges
-  the group's).
+  the group's);
+* with ``axis_rules=`` as well (``dist.sharding.make_axis_rules``) the
+  parameters and the optimizer moments are sharded by ``param_pspecs``
+  over ``data`` (FSDP) and ``model`` (tensor and expert parallel;
+  :func:`shard_state` lays a whole state out): the layers gather what
+  they use (``nn/layers.py``, ``nn/moe.py``), the gradient of a leaf cut
+  over ``data`` arrives summed by the gathers' reduce-scatter, and the
+  others are all-reduced over ``data`` as on a data mesh.  The numbers
+  are still one device's on the whole batch.
 
 ``make_dp_shardmap_train_step`` is the explicit-collective data-parallel
 step of the int8 gradient compression (``dist/compress.py``): each rank's
 loss over its own slice, activation ranges its own, the gradients'
-mean equal-weighted.  Parameters sharded over the mesh (the reference's
-``axis_rules=``) wait for the distribution slice.
+mean equal-weighted.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.policy import QMode, QuantPolicy
-from repro_torch.dist import MODEL_AXIS_LATER, axis_group
+from repro_torch.dist import axis_group, sharding
 from repro_torch.dist.compress import compressed_grad_allreduce, grad_allreduce_mean
 from repro_torch.nn.module import Context, tree_device, tree_leaves, tree_map, tree_unflatten
 
@@ -96,15 +103,103 @@ class _HostStep:
 
 
 def _data_group(mesh, axis_rules, policy: QuantPolicy, where: str):
-    """The data-parallel group of ``mesh`` (None without one)."""
-    if axis_rules is not None:
-        raise NotImplementedError(f"{where}: {MODEL_AXIS_LATER}")
+    """The data-parallel group of ``mesh`` (None without one).  Rules
+    naming an axis the mesh lacks raise ``KeyError``, as the reference's
+    ``Context._axis_size`` does."""
+    if axis_rules is not None and mesh is not None:
+        ctx = Context(mesh=sharding.mesh_shape(mesh), axis_rules=axis_rules)
+        ctx.dp_size, ctx.tp_size        # noqa: B018 -- KeyError for an axis the mesh lacks
     if mesh is None:
         return None
     if policy.enabled and not (policy.power_of_two and policy.symmetric):
-        raise NotImplementedError(f"{where}: an affine policy's live ranges under a data mesh "
-                                  "wait for the port's distribution slice")
+        raise NotImplementedError(f"{where}: an affine policy's live ranges under a mesh "
+                                  "are not executed (ROADMAP.md queue 2)")
     return axis_group(mesh, "data")
+
+
+def _like(a, b) -> bool:
+    """Whether two trees have one structure and one shape per leaf."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_like(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(map(_like, a, b))
+    return not isinstance(b, (dict, list, tuple)) and getattr(a, "shape", None) == \
+        getattr(b, "shape", ())
+
+
+def check_shardable(model, where: str) -> None:
+    """A sharded mesh runs the causal attention family (dense or MoE
+    FFNs), whose every cut weight goes through ``Dense``, ``Embedding`` or
+    ``MoE``; Mamba, RWKV-6, cross-attention and the encoder-decoder use
+    their weights directly and are refused (``ROADMAP.md`` queue 2)."""
+    from repro_torch.models.lm import CausalLM
+
+    blocks = getattr(getattr(model, "stack", None), "blocks", ())
+    if not isinstance(model, CausalLM) or any(
+            b.mixer != "attn" or b.cross or b.ffn == "rwkv" for b in blocks):
+        raise NotImplementedError(f"{where}: parameters sharded over a mesh run the causal "
+                                  "attention family only (ROADMAP.md queue 2)")
+
+
+def state_pspecs(state: TrainState, mesh, axis_rules) -> Dict[str, Any]:
+    """The spec tree of a whole train state: the parameters by
+    ``param_pspecs``, each optimizer moment shaped like them by the same
+    specs, the rest replicated."""
+    pspecs = sharding.param_pspecs(state["params"], mesh, axis_rules)
+    out = {k: tree_map(lambda _: (), v) for k, v in state.items()}
+    out["params"] = pspecs
+    out["opt"] = {k: pspecs if _like(v, state["params"]) else tree_map(lambda _: (), v)
+                  for k, v in state["opt"].items()}
+    return out
+
+
+def meta_state(model, optimizer) -> TrainState:
+    """A train state of ``model`` on the ``meta`` device: the whole shapes,
+    no storage."""
+    params = model.init(torch.Generator(), "meta")
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def shard_state(state: TrainState, mesh, axis_rules) -> TrainState:
+    """A whole train state (every rank the same) cut to this rank's shards."""
+    return sharding.shard_tree(state, state_pspecs(state, mesh, axis_rules), mesh)
+
+
+def gather_data_dims(params, specs, mesh):
+    """Every leaf cut over ``data`` gathered over it, one collective a leaf
+    (a stacked leaf's layers at once), with the FSDP backward (the
+    gradient's reduce-scatter): the step's weight gathers in a few large
+    calls, where a call over gloo costs milliseconds whatever its size.
+    The cost is memory: every layer's whole rows at once (the columns stay
+    cut over ``model``); the layers gather a leaf that arrives cut."""
+    from repro_torch.dist import shard_ops
+
+    def whole_rows(leaf, spec):
+        for d, e in enumerate(spec):
+            if sharding._axes(e) == ("data",) and isinstance(leaf, torch.Tensor):
+                leaf = shard_ops.gather_fsdp(leaf, d, mesh, "data")
+        return leaf
+
+    return tree_unflatten(params, [whole_rows(leaf, spec) for leaf, spec in
+                                   sharding.leaves_with_specs(params, specs)])
+
+
+def _data_sharded(params, specs) -> list:
+    """Per leaf (``tree_leaves`` order): whether its spec names ``data``."""
+    return ["data" in sharding.spec_axes(sp)
+            for _, sp in sharding.leaves_with_specs(params, specs)]
+
+
+def _reduce_grads(grads, cut: list, group):
+    """The data mean of every gradient: a leaf cut over ``data`` arrives
+    summed by the reduce-scatter of its gather, so it is divided by the
+    data degree; the rest are all-reduced over ``data``."""
+    leaves = tree_leaves(grads)
+    world = dist.get_world_size(group)
+    rest = [g for g, c in zip(leaves, cut) if not c]
+    rest = iter(tree_leaves(grad_allreduce_mean(rest, group)) if rest else [])
+    return tree_unflatten(grads, [g / world if c else next(rest) for g, c in zip(leaves, cut)])
 
 
 def _slices(batch: Dict[str, Any], group, split: int = 1):
@@ -174,13 +269,25 @@ def make_train_step(model, optimizer, lr_schedule, *,
     policy = policy or QuantPolicy.float32()
     group = _data_group(mesh, axis_rules, policy, "make_train_step")
     host_step = _HostStep()
+    shard_mesh = mesh if axis_rules is not None else None
+    # per leaf: whether it arrives cut over data (its gradient then summed)
+    pspecs = cut = None
+    if shard_mesh is not None:
+        check_shardable(model, "make_train_step")
+        whole = model.init(torch.Generator(), "meta")
+        pspecs = sharding.param_pspecs(whole, mesh, axis_rules)
+        cut = _data_sharded(whole, pspecs)
 
     def loss_fn(params, batch, rng, weight):
         if int8_weight_gather:
             from repro_torch.core.integerize import fake_int8_weights
 
-            params = fake_int8_weights(params)
-        ctx = Context(policy=policy, train=True, rng=rng, group=group)
+            params = fake_int8_weights(params, mesh=shard_mesh, rules=axis_rules,
+                                       specs=pspecs)
+        elif shard_mesh is not None:
+            params = gather_data_dims(params, pspecs, shard_mesh)
+        ctx = Context(policy=policy, train=True, rng=rng, group=group, mesh=shard_mesh,
+                      axis_rules=axis_rules)
         loss, mets = _weighted(*model.loss(params, batch, ctx), weight)
         return loss * loss_scale, mets
 
@@ -211,7 +318,8 @@ def make_train_step(model, optimizer, lr_schedule, *,
             grads = tree_map(lambda g: g / loss_scale, grads)
             loss = loss / loss_scale
         if group is not None:
-            grads = grad_allreduce_mean(grads, group)
+            grads = (grad_allreduce_mean(grads, group) if cut is None
+                     else _reduce_grads(grads, cut, group))
             mean = _group_mean({"loss": loss, **mets}, group)
             loss, mets = mean.pop("loss"), mean
         lr = lr_schedule(step) if callable(lr_schedule) else lr_schedule
@@ -231,6 +339,10 @@ def make_eval_step(model, *, policy: Optional[QuantPolicy] = None,
     metrics are the whole batch's."""
     policy = policy or QuantPolicy.float32()
     group = _data_group(mesh, axis_rules, policy, "make_eval_step")
+    shard_mesh = mesh if axis_rules is not None else None
+    if shard_mesh is not None:
+        check_shardable(model, "make_eval_step")
+        pspecs = sharding.param_pspecs(model.init(torch.Generator(), "meta"), mesh, axis_rules)
 
     def eval_step(params, batch):
         weight = None
@@ -238,7 +350,10 @@ def make_eval_step(model, *, policy: Optional[QuantPolicy] = None,
             batch, (weight,) = _slices(batch, group)
         batch = to_device(batch, tree_device(params))
         with torch.no_grad():
-            ctx = Context(policy=policy, train=False, qstate=qstate, group=group)
+            if shard_mesh is not None:
+                params = gather_data_dims(params, pspecs, shard_mesh)
+            ctx = Context(policy=policy, train=False, qstate=qstate, group=group,
+                          mesh=shard_mesh, axis_rules=axis_rules)
             loss, mets = _weighted(*model.loss(params, batch, ctx), weight)
         if group is not None:
             return _group_mean({"loss": loss, **mets}, group)

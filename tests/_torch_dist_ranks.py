@@ -236,8 +236,225 @@ def suite_launch(data, rank: int, world: int) -> dict:
     return res
 
 
+def _sharded_steps(model, opt, params, batches, mesh, rules, runs, prefix) -> dict:
+    """Each run of ``runs`` ({name: make_train_step kwargs}) from
+    ``params`` cut by the rules, one step a batch: the losses and this
+    rank's shards after every step."""
+    from repro_torch.train import trainer
+
+    res = {}
+    for name, kw in runs.items():
+        state = trainer.shard_state({"params": params, "opt": opt.init(params),
+                                     "step": torch.zeros((), dtype=torch.int32)}, mesh, rules)
+        step_fn = trainer.make_train_step(model, opt, 0.05, mesh=mesh, axis_rules=rules, **kw)
+        for s, batch in enumerate(batches):
+            state, mets = step_fn(state, batch)
+            res[f"{prefix}{name}/{s}/loss"] = mets["loss"].numpy()
+            res.update(as_numpy(state["params"], f"{prefix}{name}/{s}/params"))
+    return res
+
+
+def _gather_params(params, model, mesh, rules):
+    from repro_torch.dist import sharding
+
+    whole = model.init(torch.Generator(), "meta")
+    return sharding.gather_tree(params, sharding.param_pspecs(whole, mesh, rules), mesh)
+
+
+def suite_shard(data, rank: int, world: int) -> dict:
+    """smollm-135m-smoke from ``params/*`` on a (world / 2, 2) mesh under
+    the sharding rules, SGD 0.9 at lr 0.05 over ``batch/<s>/*``:
+    ``make_train_step(mesh=, axis_rules=)`` float, int8 QAT and
+    ``int8_weight_gather`` (the losses and this rank's shards after every
+    step), and ``fake_int8_weights`` of the cut tree gathered whole.  At
+    world 4 also phi3.5-moe-smoke (two float steps; the port's single
+    process with two routing groups beside it, gathered whole) and
+    ``launch.train.main --mesh 2,2`` for 6 steps checkpointed every 3, whole
+    and preempted after step 3 (copied to ``cut2``); at world 2 the
+    preempted run resumed under ``--mesh 1,2``."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.core.integerize import fake_int8_weights
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data.pipeline import markov_batch_fn
+    from repro_torch.dist import sharding
+    from repro_torch.launch import train as t_launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.optim import sgd
+    from repro_torch.train import trainer
+
+    mesh = make_host_mesh(world // 2, 2, "cpu")
+    rules = sharding.make_axis_rules(mesh)
+    model = get_config("smollm-135m-smoke").build()
+    params = from_flat(data, "params", model.init(torch.Generator().manual_seed(0), "cpu"))
+    steps = sorted({int(k.split("/")[1]) for k in data if k.startswith("batch/")})
+    batches = [{f: data[f"batch/{s}/{f}"] for f in ("tokens", "labels")} for s in steps]
+    opt = sgd(momentum=0.9)
+    res = _sharded_steps(model, opt, params, batches, mesh, rules,
+                         {"float": {}, "qat": {"policy": QuantPolicy.int8_qat()},
+                          "i8": {"int8_weight_gather": True}}, "")
+
+    specs = sharding.param_pspecs(params, mesh, rules)
+    ev = trainer.make_eval_step(model, mesh=mesh, axis_rules=rules)(
+        sharding.shard_tree(params, specs, mesh), batches[0])
+    res.update({f"eval/{k}": v.numpy() for k, v in ev.items()})
+
+    # the int8 codes' gather: dequantized, then the model-cut columns gathered
+    deq = fake_int8_weights(sharding.shard_tree(params, specs, mesh), mesh=mesh, rules=rules,
+                            specs=specs)
+    cols = [tuple("model" if "model" in sharding._axes(e) and t.shape[d] < w.shape[d] else None
+                  for d, e in enumerate(sp))
+            for (w, sp), t in zip(sharding.leaves_with_specs(params, specs), tree_leaves(deq))]
+    it = iter(cols)
+    from repro_torch.nn.module import tree_map
+
+    deq = sharding.gather_tree(deq, tree_map(lambda _: next(it), deq), mesh)
+    res.update(as_numpy(deq, "i8codes"))
+
+    if world == 4:
+        phi = get_config("phi3.5-moe-42b-a6.6b-smoke").build()
+        pp = phi.init(torch.Generator().manual_seed(0), "cpu")
+        bf = markov_batch_fn(get_config("phi3.5-moe-42b-a6.6b-smoke").vocab, 8, 16, seed=3)
+        phi_batches = [bf(s) for s in range(2)]
+        state = trainer.shard_state({"params": pp, "opt": opt.init(pp),
+                                     "step": torch.zeros((), dtype=torch.int32)}, mesh, rules)
+        step_fn = trainer.make_train_step(phi, opt, 0.05, mesh=mesh, axis_rules=rules)
+        real = moe_mod.MoE.apply
+        moe_mod.MoE.apply = lambda self, p, x, ctx, num_groups=None: real(
+            self, p, x, ctx, num_groups=2 if ctx.mesh is None else num_groups)
+        try:
+            one = {"params": pp, "opt": opt.init(pp), "step": torch.zeros((), dtype=torch.int32)}
+            one_fn = trainer.make_train_step(phi, opt, 0.05)
+            for s, batch in enumerate(phi_batches):
+                state, mets = step_fn(state, batch)
+                one, one_mets = one_fn(one, batch)
+                res[f"phi/{s}/loss"] = mets["loss"].numpy()
+                res[f"phi_one/{s}/loss"] = one_mets["loss"].numpy()
+        finally:
+            moe_mod.MoE.apply = real
+        res.update(as_numpy(_gather_params(state["params"], phi, mesh, rules), "phi/params"))
+        res.update(as_numpy(one["params"], "phi_one/params"))
+
+        short = ["--arch", "smollm-135m-smoke", "--device", "cpu", "--mesh", "2,2",
+                 "--optimizer", "sgd", "--lr", "0.05", "--steps", "6", "--batch", "8",
+                 "--seq", "16", "--ckpt-every", "3"]
+        state = t_launch.main(short + ["--ckpt-dir", str(data["whole"])])
+        res.update(as_numpy(_gather_params(state["params"], model, mesh, rules),
+                            "whole/params"))
+
+        def preempt(step, metrics, dt):
+            if step == 3:
+                raise _Preempted
+
+        try:
+            t_launch.main(short + ["--ckpt-dir", str(data["cut"])], on_step=preempt)
+        except _Preempted:
+            res["cut/preempted"] = np.array(True)
+        dist.barrier()
+        if rank == 0:
+            shutil.copytree(str(data["cut"]), str(data["cut2"]))
+        dist.barrier()
+    else:
+        resume = ["--arch", "smollm-135m-smoke", "--device", "cpu", "--mesh", "1,2",
+                  "--optimizer", "sgd", "--lr", "0.05", "--steps", "6", "--batch", "8",
+                  "--seq", "16", "--ckpt-every", "3", "--ckpt-dir", str(data["cut"])]
+        state = t_launch.main(resume)
+        res.update(as_numpy(_gather_params(state["params"], model, mesh, rules),
+                            "resume12/params"))
+    return res
+
+
+def suite_shard_serve(data, rank: int, world: int) -> dict:
+    """phi3.5-moe-smoke from ``params/*`` on a (2, 2) mesh: the reference's
+    one-device prefill of ``toks`` into a float32 cache (recomputed here on
+    one rank's whole batch), then one decode step of ``nxt`` with the
+    parameters cut by ``param_pspecs(serve=True)`` and this rank's rows of
+    the cache: the logits and ``make_decode_step``'s tokens of its rows.
+    The same with int8 weights and an int8 cache against this rank's own
+    one-device decode; and a sharded prefill (each data rank's rows one
+    routing group) against the one-device prefill with two groups."""
+    import copy
+
+    from repro_torch.core.integerize import integerize_weights_only
+    from repro_torch.dist import shard_ops, sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.nn.module import Context
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    mesh = make_host_mesh(world // 2, 2, "cpu")
+    rules = sharding.make_axis_rules(mesh)
+    model = get_config("phi3.5-moe-42b-a6.6b-smoke").build()
+    params = from_flat(data, "params", model.init(torch.Generator().manual_seed(0), "cpu"))
+    toks = torch.from_numpy(data["toks"])
+    nxt = torch.from_numpy(data["nxt"])
+    b = toks.shape[0]
+    rows = slice(shard_ops.axis_index(mesh, "data") * b // (world // 2),
+                 (shard_ops.axis_index(mesh, "data") + 1) * b // (world // 2))
+    res = {}
+    with torch.no_grad():
+        for name, wq in (("float", False), ("int8", True)):
+            p = integerize_weights_only(params) if wq else params
+            cache = model.init_cache(b, 16, quantized_kv=wq, device="cpu")
+            _, cache = model.apply(p, toks, Context(), cache=cache, decode=True)
+            one, _ = model.apply(p, nxt, Context(), cache=copy.deepcopy(cache), decode=True)
+            pp = sharding.shard_tree(p, sharding.param_pspecs(p, mesh, rules, serve=True), mesh)
+            cs = sharding.shard_tree(cache, sharding.cache_rows_pspecs(cache, mesh, rules), mesh)
+            ctx = Context(mesh=mesh, axis_rules=rules)
+            shard_ops.reset_collective_counts()
+            got, _ = model.apply(pp, nxt[rows], ctx, cache=copy.deepcopy(cs), decode=True)
+            counts = shard_ops.collective_counts()
+            step = make_decode_step(model, mesh=mesh, axis_rules=rules)
+            res[f"{name}/next"] = step(pp, nxt[rows], cs, None)[0].numpy()
+            res[f"{name}/logits"] = got.numpy()
+            res[f"{name}/one"] = one[rows].numpy()
+            res[f"{name}/psum_bytes"] = np.array(counts.get(("data", "psum"), (0, 0))[1])
+        # a sharded prefill: each data rank's rows one routing group
+        real = moe_mod.MoE.apply
+        moe_mod.MoE.apply = lambda self, p, x, ctx, num_groups=None: real(
+            self, p, x, ctx, num_groups=world // 2 if ctx.mesh is None else num_groups)
+        try:
+            one, _ = make_prefill_step(model)(params, toks, model.init_cache(
+                b, 16, quantized_kv=False, device="cpu"))
+        finally:
+            moe_mod.MoE.apply = real
+        pp = sharding.shard_tree(params, sharding.param_pspecs(params, mesh, rules), mesh)
+        got, _ = make_prefill_step(model, mesh=mesh, axis_rules=rules)(
+            pp, toks[rows], model.init_cache(b // (world // 2), 16, quantized_kv=False,
+                                             device="cpu"))
+        res["prefill/logits"] = got.numpy()
+        res["prefill/one"] = one[rows].numpy()
+
+    # the all-reduce form (gloo on a card) against the native collectives,
+    # forced on these CPU tensors: float32 with -0.0 and NaN, odd int8 blocks
+    gen = torch.Generator().manual_seed(rank)
+    blocks = {"f32": torch.randn(3, 5, generator=gen),
+              "i8": torch.randint(-128, 128, (3, 3), generator=gen, dtype=torch.int8)}
+    blocks["f32"][0, 0], blocks["f32"][1, 1] = -0.0, float("nan")
+    real = shard_ops._sum_form
+    for form in ("native", "all_reduce"):
+        shard_ops._sum_form = (lambda x, g: True) if form == "all_reduce" else real
+        try:
+            for axis in ("data", "model"):
+                for name, t in blocks.items():
+                    res[f"forms/{form}/{axis}/gather/{name}"] = shard_ops.all_gather(
+                        t, 1, mesh, axis).view(torch.uint8 if name == "i8" else
+                                               torch.int32).numpy()
+                res[f"forms/{form}/{axis}/reduce_scatter"] = shard_ops.reduce_scatter(
+                    torch.arange(24.0).reshape(4, 6) * (rank + 1), 0, mesh, axis).numpy()
+        finally:
+            shard_ops._sum_form = real
+    return res
+
+
 SUITES = {"compress": suite_compress, "dp": suite_dp, "ckpt_write": suite_ckpt_write,
-          "launch": suite_launch}
+          "launch": suite_launch, "shard": suite_shard, "shard_serve": suite_shard_serve}
 
 
 def main() -> None:

@@ -484,10 +484,22 @@ def test_qat_gradient_makes_no_tensor_from_host_data(lm):
 
 
 def test_train_step_refuses_a_mesh(lm):
-    """The sharding rules (``axis_rules=``) wait for the distribution
-    slice; a data mesh runs (``tests/test_torch_dist_train.py``)."""
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        trainer.make_train_step(lm["tm"], sgd(), 0.01, axis_rules=object())
+    """Rules naming an axis the mesh lacks: both packages raise
+    ``KeyError`` (the reference in ``Context._axis_size``).  A mesh whose
+    axes the rules name runs (``tests/test_torch_shard_train.py``)."""
+    from repro.dist import sharding as j_shd
+    from repro.dist.compat import abstract_mesh
+    from repro.nn.module import Context as JContext
+    from repro_torch.dist import sharding as shd
+
+    mesh = {"data": 1, "model": 1}
+    rules = dict(shd.make_axis_rules(mesh), batch=("data", "pod"))
+    with pytest.raises(KeyError, match="pod"):
+        trainer.make_train_step(lm["tm"], sgd(), 0.01, mesh=mesh, axis_rules=rules)
+    j_rules = dict(j_shd.make_axis_rules(abstract_mesh((1, 1), ("data", "model"))),
+                   batch=("data", "pod"))
+    with pytest.raises(KeyError, match="pod"):
+        JContext(mesh=abstract_mesh((1, 1), ("data", "model")), axis_rules=j_rules).dp_size
 
 
 # --------------------------------------------------------------------------
@@ -583,8 +595,14 @@ def test_launch_train_restart_resumes_exactly(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_mesh():
-    """A model axis (``--mesh D,M``, M > 1) waits for the distribution
-    slice; ``--mesh D,1`` runs under torchrun
-    (``tests/test_torch_dist_launch.py``)."""
-    with pytest.raises(SystemExit, match="distribution slice"):
-        _main("--mesh", "1,2")
+    """``--mesh 3,1`` against the ranks there are (this one process, no
+    torchrun): the port exits naming the launch it needs, and the
+    reference's ``make_host_mesh(3, 1)`` cannot lay three devices out of
+    the one it has.  ``--mesh D,M`` runs under torchrun
+    (``tests/test_torch_dist_launch.py``, ``tests/test_torch_shard_train.py``)."""
+    from repro.launch.mesh import make_host_mesh as j_make_host_mesh
+
+    with pytest.raises(SystemExit, match="nproc-per-node 3"):
+        _main("--mesh", "3,1")
+    with pytest.raises(ValueError):
+        j_make_host_mesh(3, 1)
