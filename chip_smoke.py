@@ -188,7 +188,7 @@ Phases, each printed as it completes; any failure exits non-zero:
      on the one card, mesh (2, 2), ranks of this script under ``torchrun``
      (``--shard-rank``; gloo's CUDA gathers made of all-reduces), against
      world 1 in this process: ``launch.train.main --mesh 2,2``
-     (smollm-135m at full width, AdamW, B=8, S=128, float and ``--qat``, 3
+     (smollm-135m at full width, AdamW, B=8, S=128, float and ``--qat``, 2
      steps: step 0's loss at rtol 1e-5, replicated leaves equal on every
      rank), the gradient through one SGD step (float every value at rtol
      1e-4, QAT all but 1e-3), one ``int8_weight_gather`` step, and
@@ -196,9 +196,17 @@ Phases, each printed as it completes; any failure exits non-zero:
      step weight-stationary on each rank's rows of world 1's cache (rtol
      2e-4, argmax equal, ``wq_matmul`` and ``qdecode_attn`` launched);
      step wall and device ms, collective calls, bytes and ms by axis and
-     kind, and peak memory a rank printed.  The kernel phase holds
-     ``wq_matmul`` at the column blocks the decode gives it
-     (``check_shard_kernels``).
+     kind, and peak memory a rank printed.  Then its serving part
+     (``shard_serving``, world 1 in this process and each rank):
+     ``ServeEngine(mesh=)`` with smollm-135m at full width cut to 8 of 30
+     layers (int8 weights and KV, 8 slots, 8 requests of 32 + 16) under
+     ``scheduler``, ``chunked --paged`` (page 16) and ``ragged`` (2
+     lanes), and phi3.5-moe's one layer under ``chunked``: every request
+     ``ok``, every rank's streams world 1's, launches exact on each rank
+     (the chunk kernels on the chunk's owner only); a tick's wall ms and
+     the collective calls and bytes a tick by axis and kind printed.  The
+     kernel phase holds ``wq_matmul`` at the column blocks the decode
+     gives it (``check_shard_kernels``).
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -1961,8 +1969,11 @@ def integer_end_to_end(torch, card):
 
 RESNET_FLOAT_ITERS = 400     # examples/qat_deploy_integer.py's float training: 400 at lr 0.02
 RESNET_QAT_ITERS = 200       # and its int8 QAT fine-tuning: 200 at lr 0.01
-LM_STEPS = 30                # smollm-135m float steps (AdamW, B=8, S=128); restart at half
-LM_QAT_STEPS = 20            # smollm-135m int8 QAT steps
+# smollm-135m float steps (AdamW, B=8, S=128; restart at half) and int8 QAT
+# steps: 30 and 20 until [shard]'s serving part took their place (10 and 10:
+# the loss still falls by over 0.5 between the first and last five steps)
+LM_STEPS = 10
+LM_QAT_STEPS = 10
 QAT_FLIP_SHARE = 1e-3        # the CPU tests' cap on flipped codes (tests/test_torch_train.py)
 
 
@@ -2330,16 +2341,17 @@ def paged_engine(env, pool=None):
                        device="cuda", paged_kv=True, kv_pool_pages=pool)
 
 
-def profile_steps(torch, label, step, state, card, steps: int = 2, grad: bool = False):
+def profile_steps(torch, label, step, state, card, steps: int = 1, grad: bool = False):
     """Where a step's time goes: the host-device synchronizations one step
     makes (``torch.cuda.set_sync_debug_mode``), wall time per step without
     the profiler, then device time per step by kernel under
     ``torch.profiler`` and the device's idle share of the unprofiled wall
     time.  ``step(state)`` returns the next state.  Serving steps run under
     ``torch.inference_mode``; a training step (``grad``) runs outside it.
-    ``steps`` steps are timed and ``steps`` profiled, 2 by default: the
+    ``steps`` steps are timed and ``steps`` profiled, 1 by default: the
     trace's events, not the steps, cost most of a profile's time (the
-    script must stay well inside its 1200 s).
+    script must stay well inside its 1200 s; 2 by default until the
+    serving part of ``[shard]`` needed the time).
     Returns the wall and device busy ms per step and the per-kernel rows, or
     None when the profiler recorded no device time."""
     import contextlib
@@ -5295,7 +5307,8 @@ def dist_end_to_end(torch, card) -> None:
     print(f"[time] dist phase {time.perf_counter() - phase_t0:.1f}s", flush=True)
 
 
-SHARD_STEPS = 3             # steps of each launch.train run under --mesh 2,2
+SHARD_STEPS = 2             # steps of each launch.train run under --mesh 2,2 (3 until
+#                             the serving part of [shard] needed the time)
 SHARD_ARGS = ["--arch", "smollm-135m", "--batch", "8", "--seq", "128", "--steps",
               str(SHARD_STEPS), "--log-every", "100"]
 SHARD_MOE = "phi3.5-moe-42b-a6.6b"
@@ -5303,6 +5316,20 @@ SHARD_MOE_B, SHARD_MOE_PROMPT, SHARD_MOE_MAX = 4, 8, 16
 SHARD_GEMMS = (("phi wq/wo block", 4096, 2048), ("phi wk/wv block", 4096, 512),
                ("phi lm_head block", 4096, 16032))      # N halved over model; M = 2 rows a rank
 SHARD_TIMEOUT = 300         # seconds a launch of the ranks may take
+# the serving part: smollm-135m at full width cut to 8 of its 30 layers, int8
+# weights and KV, 8 slots (4 a data rank), 8 requests of 32 + 16 tokens at
+# tick 0; then phi3.5-moe's one layer (SHARD_MOE) under chunked
+SHARD_SERVE_LAYERS = 8
+SHARD_SERVE_SLOTS, SHARD_SERVE_PROMPT, SHARD_SERVE_NEW = 8, 32, 16
+SHARD_SERVE_CHUNK, SHARD_SERVE_PAGE = 32, 16
+SHARD_SERVE_POLICIES = {
+    "scheduler": ({}, {}),
+    "chunked --paged": ({"paged_kv": True, "page_size": SHARD_SERVE_PAGE},
+                        {"chunk_size": SHARD_SERVE_CHUNK, "prefix_sharing": False}),
+    "ragged": ({}, {"chunk_size": SHARD_SERVE_CHUNK, "ragged": True, "prefill_lanes": 2}),
+}
+SHARD_SERVE_MOE = ("phi3.5-moe chunked", {}, {"chunk_size": SHARD_SERVE_CHUNK})
+SHARD_SERVE_BUDGET = 45.0   # seconds the serving part may add to [shard]
 SHARD_PARAM_RTOL, SHARD_PARAM_ATOL = 1e-4, 1e-6
 SHARD_QAT_FLIP_SHARE = 1e-3  # QAT's codes a sum in another order moves (tests' QAT_FLIP_SHARE)
 
@@ -5437,7 +5464,7 @@ def shard_rank_runs(torch, dist, out: Path) -> dict:
 
             def step(state, batch):
                 # step 1 is the measured one: every collective timed, and on
-                # rank 0 the device's busy time; step 2's wall is clean
+                # rank 0 the device's busy time
                 i = len(got["counts"])
                 shard_ops.reset_collective_counts()
                 shard_ops.time_collectives(i == 1)
@@ -5552,6 +5579,12 @@ def shard_rank_runs(torch, dist, out: Path) -> dict:
                              "expert_shard_bytes": expert_bytes,
                              "peak_bytes": torch.cuda.max_memory_allocated() - held,
                              "seconds": time.perf_counter() - t_run}
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # -- ServeEngine(mesh=) and the scheduler's policies ----------------------
+    res["serve"] = shard_serving(torch, mesh, rules,
+                                 torch.load(out / "phi.pt", mmap=True, weights_only=False))
     return res
 
 
@@ -5573,6 +5606,128 @@ def _expert_shard_bytes(params) -> int:
             total += node.q.numel() * node.q.element_size()
     walk(params, False)
     return total
+
+
+def shard_serving(torch, mesh, rules, phi_params) -> dict:
+    """The serving part of ``[shard]`` at world 1 (``mesh`` None, this
+    process, no group) or on one rank of the (2, 2) mesh: smollm-135m at
+    full width cut to ``SHARD_SERVE_LAYERS`` layers (seed 0 on the card,
+    int8 weights and KV) under each ``SHARD_SERVE_POLICIES`` policy, then
+    phi3.5-moe's one layer (``phi_params``, int8) under ``chunked``: 8
+    slots, 8 requests of 32 + 16 tokens, no warm-up (the kernels are built
+    and bound).  Per run: each request's tokens and status, the ticks, the
+    wall ms a tick, the launches, the collective calls and bytes by (axis,
+    kind), the peak memory above what was held, and at world 1 the slot of
+    each chunk (the owner of its chunk launches on the mesh)."""
+    import numpy as np
+
+    from repro_torch.core.integerize import integerize_weights_only
+    from repro_torch.dist import shard_ops
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import Request, ServeEngine
+
+    def serve(model, params, ekw, skw):
+        prompts = np.random.default_rng(5).integers(
+            1, model.vocab, size=(SHARD_SERVE_SLOTS, SHARD_SERVE_PROMPT)).astype(np.int32)
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=SHARD_SERVE_NEW)
+                for i in range(SHARD_SERVE_SLOTS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = ServeEngine(model, params, max_len=SHARD_SERVE_PROMPT + SHARD_SERVE_NEW,
+                          batch_slots=SHARD_SERVE_SLOTS, quantized_kv=True, weight_quant=True,
+                          device="cuda", mesh=mesh, axis_rules=rules, **ekw)
+        sched = eng.scheduler(**skw)
+        chunks = []
+        if mesh is None and "chunk_size" in skw and not skw.get("ragged"):
+            mixed = sched._mixed
+
+            def recorded(*a, **k):
+                chunks.append(int(a[5]))          # (params, tok, cache, gen, ctok, slot, ...)
+                return mixed(*a, **k)
+            sched._mixed = recorded
+        ops.reset_launch_counts()
+        shard_ops.reset_collective_counts()
+        res, st = sched.run(reqs, warmup=False)
+        torch.cuda.synchronize()
+        return {"tokens": [res[i].tokens for i in range(len(reqs))],
+                "status": [res[i].status for i in range(len(reqs))],
+                "ticks": st.decode_steps, "tick_ms": st.steady_s / st.decode_steps * 1e3,
+                "launches": {k: v for k, v in ops.launch_counts().items() if v},
+                "counts": _keyed(shard_ops.collective_counts()), "chunk_slots": chunks,
+                "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                "layers": model.stack.attention_layers,
+                "seconds": time.perf_counter() - t0}
+
+    t_part = time.perf_counter()
+    runs = {}
+    model = dataclasses.replace(get_config("smollm-135m"), n_layers=SHARD_SERVE_LAYERS).build()
+    params = integerize_weights_only(model.init(torch.Generator(device="cuda").manual_seed(0),
+                                                "cuda"), release=True)
+    with torch.inference_mode():
+        for name, (ekw, skw) in SHARD_SERVE_POLICIES.items():
+            runs[name] = serve(model, params, ekw, skw)
+        del params
+        moe = dataclasses.replace(get_config(SHARD_MOE), n_layers=1).build()
+        name, ekw, skw = SHARD_SERVE_MOE
+        runs[name] = serve(moe, phi_params, ekw, skw)
+    torch.cuda.empty_cache()
+    return {"runs": runs, "seconds": time.perf_counter() - t_part}
+
+
+def shard_serving_checks(ranks, world1, held, card) -> float:
+    """Print and hold the serving part of ``[shard]``: every request ``ok``
+    on every rank, its tokens world 1's, and each rank's launches exact:
+    world 1's for ``wq_matmul`` and the decode and ragged kernels (every
+    data rank runs every forward), and for the chunk kernels one a layer
+    for each chunk whose slot the rank's data index holds.  Prints each
+    run's wall ms a tick (rank 0 and world 1), and the collective calls and
+    bytes a tick by axis and kind (rank 0).  Returns the part's seconds
+    (world 1's and rank 0's)."""
+    per_rank = SHARD_SERVE_SLOTS // 2
+    for name, w in world1["serve"]["runs"].items():
+        rs = [r["serve"]["runs"][name] for r in ranks]
+        r0 = rs[0]
+        by_axis = {}
+        for key, (calls, nbytes) in r0["counts"].items():
+            axis, kind = key.split("/")
+            a = by_axis.setdefault(axis, {"calls": 0, "bytes": 0, "kinds": {}})
+            a["calls"] += calls
+            a["bytes"] += nbytes
+            a["kinds"][kind] = [round(calls / r0["ticks"], 2), round(nbytes / r0["ticks"])]
+        per_tick = {a: {"calls": round(v["calls"] / r0["ticks"], 2),
+                        "bytes": round(v["bytes"] / r0["ticks"]), "by kind": v["kinds"]}
+                    for a, v in by_axis.items()}
+        print(f"[shard] serving {name} (8 slots, 8 requests of {SHARD_SERVE_PROMPT} + "
+              f"{SHARD_SERVE_NEW}, int8 weights and KV, {r0['layers']} layers): {r0['ticks']} "
+              f"ticks (world 1 {w['ticks']}); wall {r0['tick_ms']:.2f} ms a tick on rank 0 "
+              f"(world 1 {w['tick_ms']:.2f}); streams equal world 1's on "
+              f"{sum(r['tokens'] == w['tokens'] for r in rs)} of 4 ranks; launches rank 0 "
+              f"{r0['launches']} (world 1 {w['launches']}); peak memory a rank "
+              f"{max(r['peak_bytes'] for r in rs) / GIB:.3f} GiB (world 1 "
+              f"{w['peak_bytes'] / GIB:.3f}); {r0['seconds']:.1f}s on rank 0; card {card}",
+              flush=True)
+        print(f"[shard] serving {name} collectives a tick (rank 0, calls and bytes handed in): "
+              + json.dumps(per_tick), flush=True)
+        held(all(st == "ok" for st in w["status"]), f"serving {name}: world 1 {w['status']}")
+        for i, r in enumerate(rs):
+            held(all(st == "ok" for st in r["status"]), f"serving {name}: rank {i} {r['status']}")
+            held(r["tokens"] == w["tokens"], f"serving {name}: rank {i}'s streams differ from "
+                                             f"world 1's")
+            want = dict(w["launches"])
+            for k in ("qchunk_attn", "qpaged_chunk_attn"):
+                if k in want:
+                    want[k] = w["layers"] * sum(s // per_rank == i // 2 for s in w["chunk_slots"])
+            want = {k: v for k, v in want.items() if v}
+            held(r["launches"] == want, f"serving {name}: rank {i} launched {r['launches']}, "
+                                        f"expected {want}")
+        held(w["launches"].get("wq_matmul", 0) > 0 and any(
+            w["launches"].get(k, 0) > 0 for k in ("qdecode_attn", "qpaged_decode_attn",
+                                                   "qragged_attn")),
+             f"serving {name}: world 1 launched {w['launches']}")
+    return world1["serve"]["seconds"] + ranks[0]["serve"]["seconds"]
 
 
 def shard_world1(torch, out: Path) -> dict:
@@ -5673,7 +5828,9 @@ def shard_world1(torch, out: Path) -> dict:
     res["decode"] = {"step_ms": walls, "peak_bytes": torch.cuda.max_memory_allocated() - held}
     torch.save({"cache": saved, "nxt": nxt.cpu(), "logits": logits.cpu(), "toks": toks.cpu()},
                out / "phi_io.pt")
-    del params, cache
+    del cache
+    res["serve"] = shard_serving(torch, None, None, params)
+    del params
     torch.cuda.empty_cache()
     return res
 
@@ -5684,9 +5841,9 @@ def shard_end_to_end(torch, card) -> dict:
     :func:`shard_rank`) share the card as a (2, 2) mesh, their gathers
     made of all-reduces (gloo carries no CUDA all-gather): full-width
     smollm-135m through ``launch.train.main --mesh 2,2`` (AdamW, B=8,
-    S=128, float and ``--qat``, 3 steps each), each held to world 1 in
-    this process: step 0's loss at rtol 1e-5, replicated leaves identical
-    on every rank, and the gathered params after 3 steps printed against
+    S=128, float and ``--qat``, ``SHARD_STEPS`` steps each), each held to
+    world 1 in this process: step 0's loss at rtol 1e-5, replicated leaves
+    identical on every rank, and the gathered params after them printed against
     world 1's (AdamW's first update is lr * g / (|g| + eps): a gradient
     near zero takes its sign from the order of its sums, so the params are
     held through the gradient instead: one SGD step at lr 1 from the same
@@ -5814,9 +5971,12 @@ def shard_end_to_end(torch, card) -> dict:
         held(all(d["argmax_equal"] for d in dec), "decode argmax differs from world 1's")
         held(launches.get("wq_matmul", 0) > 0 and launches.get("qdecode_attn", 0) > 0,
              f"the decode did not launch wq_matmul and qdecode_attn: {launches}")
+        serve_s = shard_serving_checks(ranks, world1, held, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"[time] shard phase {time.perf_counter() - phase_t0:.1f}s (budget 90 s)", flush=True)
+    print(f"[time] shard phase {time.perf_counter() - phase_t0:.1f}s (budget 90 s); its serving "
+          f"part {serve_s:.1f}s (world 1 {world1['serve']['seconds']:.1f}s + rank 0 "
+          f"{ranks[0]['serve']['seconds']:.1f}s; budget {SHARD_SERVE_BUDGET:.0f} s)", flush=True)
     check(not failed, f"[shard] {len(failed)} check(s) failed: {failed}")
     return launches
 

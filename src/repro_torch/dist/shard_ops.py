@@ -15,7 +15,9 @@ the sharding rules.  The port runs one process a rank over
   (Megatron's ``f``): a replicated activation that each ``model`` rank
   uses for its own block of columns or experts;
 * :func:`psum`: an all-reduce (sum), whose backward is the identity;
-* :func:`pmax`: an all-reduce (max) of a statistic, no gradient.
+* :func:`pmax`: an all-reduce (max) of a statistic, no gradient;
+* :func:`gather_host`: a serving tick's host-bound values of every data
+  rank, in one call.
 
 Every call is counted by (axis, kind) with the bytes this rank hands the
 collective (:func:`collective_counts`, as ``ops.launch_counts``), backward
@@ -135,6 +137,16 @@ def all_gather(x: torch.Tensor, dim: int, mesh, axis: str, kind: str = "gather")
         with _counted(axis, kind, xt):
             dist.all_gather_into_tensor(out, xt, group=group)
     return out.movedim(0, dim)
+
+
+def gather_host(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
+    """(R, ...) of this rank -> (world, R, ...) of every rank of ``axis``,
+    in rank order, counted as kind ``"host"``: what the serving host reads
+    each tick under a data split (the sampled tokens and a finished chunk's
+    first token, or the logit rows they are drawn from), in one call, so
+    every rank takes the same host decisions.  A gloo call costs
+    milliseconds whatever its size, so a tick makes one."""
+    return all_gather(x[None], 0, mesh, axis, kind="host")
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, mesh, axis: str, kind: str = "reduce_scatter"):

@@ -343,6 +343,50 @@ def gather_tree(tree, specs, mesh):
     return _map_specs(whole, tree, specs)
 
 
+def gather_serving(params, specs, mesh):
+    """A serving step's weights, gathered once a call (``serve/engine.py``):
+    every leaf cut over ``data`` gathered over it (a stacked leaf's layers
+    in one collective; a :class:`QTensor`'s int8 codes as codes), the
+    embedding table gathered whole (it is looked up and, tied, multiplied
+    whole), the expert stacks left as they are (the weight-stationary MoE
+    multiplies its slices of their contracting dims).  The columns cut over
+    ``model`` stay cut: ``Dense`` multiplies its block of them.  ``specs``:
+    the whole tree's, float or QTensor specs (``param_pspecs``).  Each call
+    is counted as kind ``"gather"`` (:func:`repro_torch.dist.shard_ops.
+    collective_counts`); a gloo call costs milliseconds whatever its size,
+    so this makes a step's few large calls of what the layers would gather
+    call by call."""
+    from repro_torch.dist import shard_ops
+
+    def whole(t, spec, axes):
+        for d, e in enumerate(spec):
+            for a in reversed(_axes(e)):
+                if a in axes:
+                    # contiguous: the kernels take a layer's codes as they lie
+                    t = shard_ops.all_gather(t, d, mesh, a).contiguous()
+        return t
+
+    def walk(node, spec, path):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k], f"{path}/{k}" if path else k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, sp, f"{path}/{i}")
+                    for i, (v, sp) in enumerate(zip(node, spec, strict=True))]
+        if "experts" in path.split("/"):
+            return node
+        axes = ("data", "model") if path == "embed/table" else ("data",)
+        if isinstance(node, QTensor):
+            qspec = spec.q if isinstance(spec, QTensor) else spec
+            nspec = _exponent_spec(qspec, node)
+            return QTensor(whole(node.q, qspec, axes), whole(node.n, nspec, axes), node.width,
+                           node.channel_axis, whole(node.scale, nspec, axes))
+        if isinstance(node, torch.Tensor):
+            return whole(node, spec, axes)
+        return node
+
+    return walk(params, specs, "")
+
+
 def sharded(spec) -> bool:
     """Whether a spec (or a QTensor of specs) names any mesh axis."""
     if isinstance(spec, QTensor):

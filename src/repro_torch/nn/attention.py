@@ -500,9 +500,15 @@ class KVChunk:
     ``length`` is the number of valid (non-pad) tokens in the chunk: C for
     every chunk but the last, which may be partial.  All three are Python
     ints, known to the scheduler, so the layers read nothing back.
+
+    Under a data split every data rank runs the chunk (each takes part in
+    the forward's collectives), but one holds the slot: ``slot`` is its
+    local index there and None on the others, whose attention writes and
+    reads no cache row and outputs zeros (their activations are never
+    kept: the weight-stationary MoE takes the owner's, ``Context.rows``).
     """
 
-    slot: int
+    slot: Optional[int]
     start: int
     length: int
 
@@ -833,7 +839,9 @@ class Attention:
             if not per_slot or b != 1:
                 raise NotImplementedError("chunked prefill targets one slot of a per-slot "
                                           "cache (init_cache(per_slot_len=True))")
-            if cache["k"].dtype == torch.int8:
+            if chunk.slot is None:      # another data rank holds the slot
+                out, new_cache = torch.zeros_like(q), dict(cache)
+            elif cache["k"].dtype == torch.int8:
                 from repro_torch.kernels import ops
 
                 if is_paged_cache(cache):

@@ -23,6 +23,22 @@ from repro_torch.core.qformat import PackedQTensor, QTensor
 Params = Dict[str, Any]
 
 
+@dataclasses.dataclass(frozen=True)
+class DataRows:
+    """Where a serving forward's token rows sit in the one-device batch
+    under a data split (``Context.rows``): the forwards whose token set is
+    not each data rank's own rows (a chunk or a one-shot prompt that one
+    data rank's slot owns, a ragged tick's flat batch).  ``select`` (N,)
+    int64: the N one-device tokens, as indices into the tokens of every
+    data rank gathered over ``data`` (data-rank-major); ``take`` (n,)
+    int64: this rank's n tokens, as indices into those N.  The
+    weight-stationary MoE routes the N tokens as the one device does
+    (``nn/moe.py``); the other layers keep this rank's rows."""
+
+    select: torch.Tensor
+    take: torch.Tensor
+
+
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another.  Without a card and without an explicit choice this
@@ -68,6 +84,9 @@ class Context:
     # collectives (``dist.shard_ops``) where they use a sharded weight.
     mesh: Any = None
     axis_rules: Optional[Dict[str, Any]] = None
+    # Under a mesh, a serving forward whose tokens are not this rank's own
+    # rows of the batch (:class:`DataRows`); None: its own rows.
+    rows: Optional[DataRows] = None
 
     def _axis_size(self, logical: str) -> int:
         """The mesh size of a logical axis (1 without a mesh or rules); a

@@ -33,7 +33,11 @@
   ``w_out`` over ``data``): the batch's tokens are gathered over ``data``
   and routed as one group, each rank multiplies its slice of the
   contracting dim, two sums over ``data`` complete the products, and each
-  rank keeps its own rows.
+  rank keeps its own rows.  A serving forward whose tokens one data rank
+  owns or that mixes every rank's (a chunk, a one-shot prompt, a ragged
+  tick: ``Context.rows``) takes the same dispatch over the one device's
+  tokens, picked from the gathered ones, so every rank routes them as the
+  one device does and the sums add slices of the same products.
 
 The softmax is the reference's step for step: ``exp(x - max)`` with XLA's
 CPU exponential (:func:`exp_f32`) over a left-to-right row sum, so the bf16
@@ -269,17 +273,31 @@ class MoE:
 
     def apply(self, params: Params, x: torch.Tensor, ctx: Context, *,
               num_groups: Optional[int] = None) -> torch.Tensor:
-        """x (B, S, D) -> (B, S, D); under a mesh B is this rank's rows."""
+        """x (B, S, D) -> (B, S, D); under a mesh B is this rank's rows.
+
+        Under a mesh a decode step (S = 1) and a forward with
+        ``ctx.rows`` (a chunk, a one-shot prompt or a ragged tick, whose
+        tokens are the one device's batch as :class:`~repro_torch.nn.module.
+        DataRows` says) take the weight-stationary dispatch: every rank
+        routes the one-device tokens (gathered over ``data``, then picked by
+        ``rows.select``) as the one device groups them, and keeps its own
+        rows of the output (its block, or ``rows.take``)."""
         ctx = ctx.scope(self.name)
         b, s, d = x.shape
         e = self.n_experts
-        stationary = s == 1 and ctx.mesh is not None
+        stationary = ctx.mesh is not None and (s == 1 or ctx.rows is not None)
         rows_ax = ctx.rule("batch") if ctx.mesh is not None else None
         dp = shard_ops.axis_size(ctx.mesh, rows_ax) if rows_ax else 1
         x_rows = x
-        if stationary and dp > 1:
-            x = shard_ops.all_gather(x, 0, ctx.mesh, rows_ax)      # the whole batch
-        b_all = x.shape[0] * (1 if stationary else dp)
+        if stationary:
+            x = x.reshape(b * s, d)
+            if dp > 1:
+                x = shard_ops.all_gather(x, 0, ctx.mesh, rows_ax)  # every rank's tokens
+            if ctx.rows is not None:
+                x = x[ctx.rows.select]
+            b_all = 1 if ctx.rows is not None else b * dp          # the one device's rows
+        else:
+            b_all = b * dp
         if num_groups is None:
             num_groups = 1 if stationary else ctx.dp_size
         g = max(1, min(num_groups, b_all))
@@ -288,7 +306,7 @@ class MoE:
         if not stationary and g % dp:
             raise ValueError(f"{g} routing groups over {dp} data ranks")
         g = g if stationary else g // dp                           # this rank's groups
-        t = x.shape[0] // g * s
+        t = x.shape[0] // g if stationary else b // g * s
         xt = x.reshape(g, t, d).to(torch.float32)
         probs = softmax_f32(self._router().apply(params["router"], xt, ctx))      # (g, t, E)
         probs_sel = probs.to(torch.bfloat16)
@@ -313,9 +331,12 @@ class MoE:
         # combine: each token's gate-weighted outputs added back to its row
         rows = (sel_idx + t * torch.arange(g, device=x.device)[:, None, None]).reshape(-1)
         out = torch.zeros(g * t, d, dtype=ye.dtype, device=x.device).index_add(
-            0, rows, ye.reshape(-1, d)).reshape(x.shape)
-        if stationary and dp > 1:
+            0, rows, ye.reshape(-1, d))
+        if stationary and ctx.rows is not None:
+            out = out[ctx.rows.take]
+        elif stationary and dp > 1:
             out = shard_ops.own_block(out, 0, ctx.mesh, rows_ax)
+        out = out.reshape(x_rows.shape)
         if self.n_shared_experts:
             out = out + self._shared().apply(params["shared"], x_rows, ctx)
         return out

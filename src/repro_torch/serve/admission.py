@@ -95,13 +95,15 @@ class AdmissionPlanner:
         return row
 
     def plan(self, r, plen: int, alloc: PageAllocator, index: Optional[PrefixIndex],
-             keys: Optional[List[bytes]] = None):
+             keys: Optional[List[bytes]] = None, block: Optional[int] = None):
         """Page plan for admitting ``r``: match, share, allocate, COW — or
         None when the pool cannot serve the fresh-page balance (page stall).
 
         With sharing, the request maps the longest resident chain of full
         prompt pages and prefills from the divergence point.  ``keys`` are
-        the request's cached prompt digests.  When the whole prompt is
+        the request's cached prompt digests; ``block``: the allocator's
+        block the fresh pages come from (under a mesh, the slot's data
+        rank's).  When the whole prompt is
         resident, the last token is re-run for its first-token logits, so the
         final matched page is privatized up front (copy-on-write).
 
@@ -141,7 +143,8 @@ class AdmissionPlanner:
         first_write_page = next_start // ps
         n_share = min(len(matched), first_write_page)
         copies_src = matched[n_share:]          # divergence page(s) to COW
-        got = alloc.alloc(total - n_share)
+        got = alloc.alloc(total - n_share) if block is None \
+            else alloc.alloc(total - n_share, block)
         if got is None:
             return None
         alloc.share(matched[:n_share])

@@ -23,6 +23,30 @@ A model with MoE layers serves with int8 weights: each stacked expert
 weight is a ``QTensor`` that ``nn/moe.py`` dequantizes whole every forward,
 as the reference does.  Packed int4/int2 weights are refused at
 construction: the reference packs the expert stacks and then fails on them.
+
+Under a mesh (``mesh``, a (data, model) ``DeviceMesh`` of one process a
+rank, with ``axis_rules``) the engine holds this rank's shards of the
+params (``param_pspecs(..., serve=True)``) and this data rank's B / D slots
+of the cache, and every step takes them:
+
+* each call gathers its weights once (``sharding.gather_serving``: the rows
+  cut over ``data`` in a few large collectives, the table whole; the
+  columns stay cut over ``model`` and the expert stacks as they are);
+* a step's sampled rows reach every rank's host in one gather over
+  ``data`` (``shard_ops.gather_host``): the argmax tokens at temperature 0,
+  above it the logit rows, which every rank then samples whole from one
+  generator (the one device's draws), so every rank takes the same host
+  decisions and each step returns the whole batch's tokens;
+* the work one data rank's slot owns (the mixed step's chunk, a one-shot
+  prompt) runs on every data rank on the same tokens: the owner writes its
+  slot, the others nothing (``KVChunk(slot=None)``), and the MoE routes the
+  owner's tokens (``Context.rows``); a ragged tick's flat batch is each
+  rank's decode rows and the lanes it owns, and its MoE routes the one
+  device's flat batch.
+
+Recurrent, hybrid and EncDec models, VLM prefixes, packed sub-int8 weights
+and the scheduler's audit, fault, preemption and prefix-sharing modes are
+refused under a mesh (``ROADMAP.md`` queue 1, item 3b.7).
 """
 from __future__ import annotations
 
@@ -33,8 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.integerize import integerize_weights_only
+from repro_torch.dist import shard_ops, sharding
 from repro_torch.nn.attention import KVChunk, RaggedBatch
-from repro_torch.nn.module import Context, resolve_device, tree_to
+from repro_torch.nn.module import Context, DataRows, resolve_device, tree_to
 
 # Default page size of a paged cache on the card.  qpaged_decode_attn walks
 # positions, not pages, so the page size barely moves it: chip_smoke.py's
@@ -92,6 +117,15 @@ def enc_kwargs(enc: Optional[torch.Tensor]) -> dict:
     return {} if enc is None else {"enc": enc}
 
 
+#: Where the features a mesh does not serve yet are queued.
+MESH_NEXT = "ROADMAP.md queue 1, item 3b.7"
+
+
+def mesh_refusal(what: str) -> NotImplementedError:
+    """The error for a feature not served under a mesh yet."""
+    return NotImplementedError(f"{what} under a mesh is not served yet ({MESH_NEXT})")
+
+
 def _step_context(mesh, axis_rules) -> Context:
     """A serving step's context; under a mesh (``mesh`` and ``axis_rules``
     together) the params are this rank's shards by ``param_pspecs(...,
@@ -99,6 +133,60 @@ def _step_context(mesh, axis_rules) -> Context:
     if (mesh is None) != (axis_rules is None):
         raise ValueError("a serving step under a mesh takes mesh and axis_rules together")
     return Context(mesh=mesh, axis_rules=axis_rules)
+
+
+def _step_weights(model, mesh, axis_rules) -> Callable:
+    """``params -> the weights of one call``: under a mesh the rows cut
+    over ``data`` gathered once (``sharding.gather_serving``), by the specs
+    of the model's whole shapes (a ``meta`` init); the identity without."""
+    if mesh is None:
+        return lambda params: params
+    specs = sharding.param_pspecs(model.init(torch.Generator(), "meta"), mesh, axis_rules,
+                                  serve=True)
+    return lambda params: sharding.gather_serving(params, specs, mesh)
+
+
+def owner_rows(owner: int, n: int, device) -> DataRows:
+    """The :class:`DataRows` of a forward whose n tokens are the same on
+    every data rank and belong to data rank ``owner``'s slot (a chunk, a
+    one-shot prompt): the one device's tokens are the owner's, and every
+    rank keeps all n."""
+    take = torch.arange(n, device=device)
+    return DataRows(select=take + owner * n, take=take)
+
+
+def sample_over_data(rows: torch.Tensor, n_dec: int, extra_from, gen, vocab: int,
+                     temperature: float, mesh, axis: str, *, joint: bool = False):
+    """A step's sampled rows under a data split, the same on every rank.
+
+    ``rows`` (n_dec + E, V): this rank's logit rows, its n_dec decode rows
+    then E extra rows (a chunk's or the lanes' first-token rows), of which
+    the real one of extra e is data rank ``extra_from`` 's (an int for
+    every extra, or an (E,) tensor).  One gather over ``axis``
+    (:func:`shard_ops.gather_host`): at temperature 0 this rank's argmax
+    tokens; above it the logit rows, which every rank then samples, the
+    decode rows of every rank in rank order (the one device's slot order)
+    and the extras after them (``joint``: in one draw, as the ragged step
+    draws; else two), from ``gen``.  Returns (the whole batch's decode
+    tokens (D * n_dec, 1), the extras (E, 1)), int32."""
+    extra = rows.shape[0] - n_dec
+
+    def split(g):
+        dec = g[:, :n_dec].reshape((-1,) + tuple(g.shape[2:]))
+        if isinstance(extra_from, int):
+            return dec, g[extra_from, n_dec:]
+        return dec, g[extra_from, n_dec + torch.arange(extra, device=g.device)]
+
+    if temperature > 0.0:
+        dec, ext = split(shard_ops.gather_host(rows, mesh, axis))
+        if joint:
+            both = sample_tokens(torch.cat([dec, ext]), gen, vocab, temperature)
+            return both[:dec.shape[0]], both[dec.shape[0]:]
+        dec = sample_tokens(dec, gen, vocab, temperature)
+        return dec, (sample_tokens(ext, gen, vocab, temperature) if extra else dec[:0])
+    dec, ext = split(shard_ops.gather_host(sample_tokens(rows, None, vocab, 0.0)[:, 0], mesh,
+                                           axis))
+    return dec[:, None], ext[:, None]
 
 
 def make_prefill_step(model, *, mesh=None, axis_rules=None) -> Callable:
@@ -111,13 +199,25 @@ def make_prefill_step(model, *, mesh=None, axis_rules=None) -> Callable:
     position).  ``embeds`` (B, S_vis, D) is a VLM's vision prefix, written
     into the cache ahead of the prompt; ``enc`` an EncDec model's encoder
     output.  ``mesh``/``axis_rules``: the sharded execution
-    (:func:`_step_context`); each data rank prefills its rows.
+    (:func:`_step_context`); each data rank prefills its rows, or with
+    ``owner`` (a data rank) every data rank prefills the same prompt (the
+    one-shot slot prefill's batch-1 prompt, owner's slot), its MoE routing
+    the owner's tokens.
     """
     ctx = _step_context(mesh, axis_rules)
+    weights = _step_weights(model, mesh, axis_rules)
 
     def prefill(params, tokens, cache, embeds: Optional[torch.Tensor] = None,
-                logit_pos: Optional[int] = None, enc: Optional[torch.Tensor] = None):
-        logits, cache = model.apply(params, tokens, ctx, embeds=embeds, cache=cache,
+                logit_pos: Optional[int] = None, enc: Optional[torch.Tensor] = None, *,
+                owner: Optional[int] = None):
+        c = ctx
+        if mesh is not None:
+            if embeds is not None:
+                raise mesh_refusal("a VLM prefix (embeds)")
+            if owner is not None:
+                c = dataclasses.replace(ctx, rows=owner_rows(owner, tokens.numel(),
+                                                             tokens.device))
+        logits, cache = model.apply(weights(params), tokens, c, embeds=embeds, cache=cache,
                                     decode=True, logit_pos=logit_pos, **enc_kwargs(enc))
         return (logits if logit_pos is not None else logits[:, -1]), cache
 
@@ -148,13 +248,23 @@ def make_decode_step(model, *, mesh=None, axis_rules=None, temperature: float = 
     model's encoder output, one row per slot.  ``mesh``/``axis_rules``:
     the sharded execution (:func:`_step_context`): each data rank decodes
     its rows of the cache (the dense decode's ``qdecode_attn`` on them),
-    and an MoE layer takes the weight-stationary dispatch (``nn/moe.py``).
+    an MoE layer takes the weight-stationary dispatch (``nn/moe.py``), and
+    ``next`` is the whole batch's (D * B, 1) tokens on every rank
+    (:func:`sample_over_data`).
     """
     ctx = _step_context(mesh, axis_rules)
+    weights = _step_weights(model, mesh, axis_rules)
+    if mesh is not None and with_health:
+        raise mesh_refusal("audit mode (with_health)")
+    axis = ctx.rule("batch")
 
     def decode(params, token, cache, gen, poison=None, *, enc=None):
-        logits, cache = model.apply(params, token, ctx, cache=cache, decode=True,
+        logits, cache = model.apply(weights(params), token, ctx, cache=cache, decode=True,
                                     **enc_kwargs(enc))
+        if mesh is not None:
+            nxt, _ = sample_over_data(logits[:, -1], token.shape[0], 0, gen, model.vocab,
+                                      temperature, mesh, axis)
+            return nxt, cache
         if not with_health:
             return sample_tokens(logits[:, -1], gen, model.vocab, temperature), cache
         row, ok = _health(logits[:, -1], poison)
@@ -163,8 +273,8 @@ def make_decode_step(model, *, mesh=None, axis_rules=None, temperature: float = 
     return decode
 
 
-def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = False,
-                    merge: Optional[Callable] = None) -> Callable:
+def make_mixed_step(model, *, mesh=None, axis_rules=None, temperature: float = 0.0,
+                    with_health: bool = False, merge: Optional[Callable] = None) -> Callable:
     """The chunked-prefill tick: every slot decodes one token, then one
     C-token prompt chunk is written in place into its slot's KV rows (or
     into its recurrent state row).
@@ -193,7 +303,16 @@ def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = Fals
     ``enc`` (EncDec serving): the per-slot encoder outputs (B, S_enc, D).
     The decode half cross-attends each slot to its own row; the batch-1
     chunk half takes the target slot's row.
+
+    ``mesh``/``axis_rules``: the sharded execution; ``tok`` and the cache
+    are this data rank's B / D slots and ``slot`` is global.  Every data
+    rank runs both halves on the same chunk: the slot's owner writes it
+    into its local slot, the others write nothing, and an MoE routes the
+    owner's chunk tokens.  ``next`` (B, 1) and ``first`` (1, 1, the
+    owner's) come to every rank in one gather (:func:`sample_over_data`).
     """
+    if mesh is not None:
+        return _mesh_mixed_step(model, mesh, axis_rules, temperature, with_health, merge)
     decode = make_decode_step(model, temperature=temperature, with_health=with_health)
 
     def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int,
@@ -218,7 +337,40 @@ def make_mixed_step(model, *, temperature: float = 0.0, with_health: bool = Fals
     return mixed
 
 
-def make_ragged_step(model, *, temperature: float = 0.0, with_health: bool = False) -> Callable:
+def _mesh_mixed_step(model, mesh, axis_rules, temperature: float, with_health: bool,
+                     merge: Optional[Callable]) -> Callable:
+    """:func:`make_mixed_step` under a mesh (a causal attention model)."""
+    ctx = _step_context(mesh, axis_rules)
+    weights = _step_weights(model, mesh, axis_rules)
+    if with_health:
+        raise mesh_refusal("audit mode (with_health)")
+    if merge is not None:
+        raise mesh_refusal("a recurrent-state model")
+    axis = ctx.rule("batch")
+    rank = shard_ops.axis_index(mesh, axis)
+
+    def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int,
+              poison=None, active=None, enc=None):
+        if enc is not None:
+            raise mesh_refusal("an EncDec model")
+        w = weights(params)
+        logits, cache = model.apply(w, tok, ctx, cache=cache, decode=True)
+        owner, local = divmod(slot, tok.shape[0])
+        rows = owner_rows(owner, chunk_tok.shape[1], tok.device)
+        first, cache = model.apply(w, chunk_tok, dataclasses.replace(ctx, rows=rows),
+                                   cache=cache, decode=True,
+                                   chunk=KVChunk(slot=local if owner == rank else None,
+                                                 start=start, length=length),
+                                   logit_pos=length - 1)
+        nxt, first = sample_over_data(torch.cat([logits[:, -1], first[:, 0]]), tok.shape[0],
+                                      owner, gen, model.vocab, temperature, mesh, axis)
+        return nxt, first, cache
+
+    return mixed
+
+
+def make_ragged_step(model, *, mesh=None, axis_rules=None, temperature: float = 0.0,
+                     with_health: bool = False) -> Callable:
     """One ragged forward per tick: the decode tokens of every slot and the
     prompt-chunk tokens of up to L admission lanes flatten into one (1, T)
     token batch, T = B + L*C, so each layer runs one GEMM per projection and
@@ -238,13 +390,36 @@ def make_ragged_step(model, *, temperature: float = 0.0, with_health: bool = Fal
     the sampled rows and returns (next (R, 1), healthy (R,), cache').
     ``enc`` (EncDec serving): the per-slot encoder outputs (B, S_enc, D);
     each token cross-attends its own slot's (``nn/transformer.py``).
+
+    ``mesh``/``axis_rules``: the sharded execution.  ``tok``, the cache and
+    the addressing are this data rank's: its slots' decode rows and the
+    lanes whose slot it owns, the other lanes inert (``serve/lanes.py``
+    ``localize_ragged_tick``); the step then takes ``rows`` (the tick's
+    :class:`DataRows`: the one device's flat batch, which an MoE routes)
+    and ``owners`` ((L,) the data rank that owns each lane), and returns
+    the whole batch's (D * B + L, 1) rows on every rank, the lanes' from
+    their owners (:func:`sample_over_data`).
     """
+    ctx = _step_context(mesh, axis_rules)
+    weights = _step_weights(model, mesh, axis_rules)
+    if mesh is not None and with_health:
+        raise mesh_refusal("audit mode (with_health)")
+    axis = ctx.rule("batch")
+
     def ragged_step(params, tok, cache, gen, chunk_tok, slot_ids, positions, logit_rows,
-                    poison=None, enc=None):
+                    poison=None, enc=None, *, rows: Optional[DataRows] = None,
+                    owners: Optional[torch.Tensor] = None):
+        if mesh is not None and enc is not None:
+            raise mesh_refusal("an EncDec model")
         flat = torch.cat([tok[:, 0], chunk_tok.reshape(-1)])[None, :]
-        logits, cache = model.apply(params, flat, Context(), cache=cache, decode=True,
+        logits, cache = model.apply(weights(params), flat, dataclasses.replace(ctx, rows=rows),
+                                    cache=cache, decode=True,
                                     ragged=RaggedBatch(slots=slot_ids, positions=positions),
                                     logit_rows=logit_rows, **enc_kwargs(enc))
+        if mesh is not None:
+            nxt, firsts = sample_over_data(logits[0], tok.shape[0], owners, gen, model.vocab,
+                                           temperature, mesh, axis, joint=True)
+            return torch.cat([nxt, firsts]), cache
         if not with_health:
             return sample_tokens(logits[0], gen, model.vocab, temperature), cache
         rows, ok = _health(logits[0], poison)
@@ -278,6 +453,16 @@ class ServeEngine:
     ``cross_attn_cache`` (EncDec models): the scheduler's cache carries each
     slot's projected cross-attention K/V, written once per admission; False
     re-projects the encoder output every step.
+
+    ``mesh``/``axis_rules`` (a (data, model) ``DeviceMesh`` and its rules,
+    every rank building the engine alike): the params are integerized
+    (``weight_quant``) where the caller made them, cut to this rank's
+    shards by ``param_pspecs(..., serve=True)`` and only then moved to
+    ``device``; the caches hold this data rank's ``batch_slots / D`` slots
+    (and a paged pool its block of ``kv_num_pages / D`` pages: its slots'
+    pages, by local id); ``generate()``, the steps and every scheduler
+    policy but the refused modes run the sharded execution (module
+    docstring).  ``batch_slots`` and ``kv_num_pages`` count the whole mesh.
     """
 
     model: Any
@@ -299,10 +484,7 @@ class ServeEngine:
 
     def __post_init__(self):
         if self.mesh is not None or self.axis_rules is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=...): the engine and its scheduler's policies under a mesh "
-                "are the next slice (ROADMAP.md queue 1); the sharded prefill and decode "
-                "steps are make_prefill_step / make_decode_step(mesh=, axis_rules=)")
+            self._check_mesh()
         if self.weight_quant and self.encdec:
             raise ValueError(
                 f"weight_quant={self.weight_quant!r} on an EncDec model: the reference "
@@ -328,9 +510,68 @@ class ServeEngine:
             # the caller's tree is converted in place where its leaves lie, so
             # each float leaf is freed as its codes appear
             self.params = integerize_weights_only(self.params, release=True, **kw)
+        if self.mesh is not None:
+            if self.paged_kv and self.kv_num_pages % self.data_size:
+                raise ValueError(f"kv_num_pages {self.kv_num_pages} does not divide over "
+                                 f"{self.data_size} data ranks (each holds its slots' block "
+                                 f"of the pool)")
+            # integerized where the caller made them, then cut, then moved:
+            # a rank's device holds its shards alone
+            if kw is not None and not self.own_params:
+                self.params = integerize_weights_only(self.params, **kw)
+            self.params = sharding.shard_tree(self.params, sharding.param_pspecs(
+                self.params, self.mesh, self.axis_rules, serve=True), self.mesh)
+            self.params = tree_to(self.params, self.device)
+            return
         self.params = tree_to(self.params, self.device)
         if kw is not None and not self.own_params:
             self.params = integerize_weights_only(self.params, **kw)
+
+    def _check_mesh(self) -> None:
+        """The mesh, its rules and this engine's geometry: refuse what a
+        mesh does not serve yet (:data:`MESH_NEXT`) and what cannot be cut."""
+        if self.mesh is None or self.axis_rules is None:
+            raise ValueError("ServeEngine under a mesh takes mesh and axis_rules together")
+        from repro_torch.models.lm import CausalLM
+
+        blocks = getattr(getattr(self.model, "stack", None), "blocks", ())
+        if self.encdec or not isinstance(self.model, CausalLM):
+            raise mesh_refusal("an EncDec model")
+        if any(b.mixer != "attn" or b.ffn == "rwkv" for b in blocks):
+            raise mesh_refusal("a recurrent or hybrid model (Mamba, RWKV-6, jamba)")
+        if self.weight_quant and _weight_quant_kwargs(self.weight_quant, self.weight_block):
+            raise mesh_refusal(f"packed sub-int8 weights (weight_quant={self.weight_quant!r})")
+        if not hasattr(self.mesh, "get_group"):
+            raise ValueError("ServeEngine(mesh=...) executes over a DeviceMesh "
+                             "(launch.mesh.make_host_mesh); a mapping of axis sizes has no "
+                             "process group")
+        rule = self.axis_rules.get("batch")
+        if rule not in ("data", ("data",)):
+            raise ValueError(f"ServeEngine under a mesh splits its slots over the data axis: "
+                             f"the batch rule is {rule!r}")
+        if self.batch_slots % self.data_size:
+            raise ValueError(f"batch_slots {self.batch_slots} does not divide over "
+                             f"{self.data_size} data ranks")
+
+    @property
+    def data_size(self) -> int:
+        """The data ranks the slots are split over (1 without a mesh)."""
+        return shard_ops.axis_size(self.mesh, "data")
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's data index (0 without a mesh)."""
+        return shard_ops.axis_index(self.mesh, "data")
+
+    @property
+    def local_slots(self) -> int:
+        """The slots this data rank holds: ``batch_slots / D``."""
+        return self.batch_slots // self.data_size
+
+    @property
+    def local_pages(self) -> int:
+        """The pool pages this data rank holds: ``kv_num_pages / D``."""
+        return self.kv_num_pages // self.data_size
 
     @property
     def vocab(self) -> int:
@@ -357,7 +598,7 @@ class ServeEngine:
     def _cache_kw(self, per_slot: bool) -> dict:
         kw = {"cross_attn_cache": self.cross_attn_cache} if self.encdec else {}
         if self.paged_kv and per_slot:
-            kw.update(page_size=self.page_size, num_pages=self.kv_num_pages)
+            kw.update(page_size=self.page_size, num_pages=self.local_pages)
         return kw
 
     def new_cache(self, *, per_slot: bool = False, batch: Optional[int] = None):
@@ -365,9 +606,10 @@ class ServeEngine:
 
         ``per_slot=True`` is the scheduler's cache (a (B,) ``len``; paged when
         ``paged_kv``); the default is the lockstep ``generate()`` cache.
-        ``batch`` overrides ``batch_slots`` (slot-targeted prefills).
+        ``batch`` overrides ``batch_slots`` (slot-targeted prefills).  Under
+        a mesh, this data rank's slots and pool block.
         """
-        return self.model.init_cache(batch or self.batch_slots, self.max_len,
+        return self.model.init_cache(batch or self.local_slots, self.max_len,
                                      quantized_kv=self.quantized_kv, device=self.device,
                                      per_slot_len=per_slot, **self._cache_kw(per_slot))
 
@@ -376,18 +618,19 @@ class ServeEngine:
         the K/V slabs or pools (without the pools' spare rows) plus, per
         attention layer, an int32 for each exponent, the length (one per
         slot for the scheduler's ``per_slot`` cache) and, paged, the page
-        table; and every recurrent and cross-attention leaf whole."""
+        table; and every recurrent and cross-attention leaf whole.  Under a
+        mesh, one rank's: its slots and its block of the pool."""
         from repro_torch.serve.slot_state import (_bytes_where, _is_kv, _is_recurrent,
                                                   _is_xkv)
 
-        shapes = self.model.init_cache(self.batch_slots, self.max_len,
+        slots = self.local_slots
+        shapes = self.model.init_cache(slots, self.max_len,
                                        quantized_kv=self.quantized_kv, device="meta",
                                        per_slot_len=per_slot, **self._cache_kw(per_slot))
         kv = _bytes_where(shapes, _is_kv, keys=("k", "v"))
-        per_layer_ints = (2 if self.quantized_kv else 0) \
-            + (self.batch_slots if per_slot else 1)
+        per_layer_ints = (2 if self.quantized_kv else 0) + (slots if per_slot else 1)
         if self.paged_kv and per_slot:
-            per_layer_ints += self.batch_slots * self.kv_max_pages
+            per_layer_ints += slots * self.kv_max_pages
         stack = self.model.decoder if self.encdec else self.model.stack
         return (kv + 4 * per_layer_ints * stack.attention_layers
                 + _bytes_where(shapes, _is_recurrent)
@@ -401,17 +644,26 @@ class ServeEngine:
 
     def prefill(self, prompts: torch.Tensor, cache, enc: Optional[torch.Tensor] = None):
         """Prompt (B, P) into ``cache`` -> (last-position logits (B, V), cache);
-        ``enc`` (B, S_enc, D) for an EncDec model."""
-        logits, cache = self.model.apply(self.params, prompts, Context(), cache=cache,
+        ``enc`` (B, S_enc, D) for an EncDec model.  Under a mesh, this data
+        rank's rows (the layers gather the weights they use)."""
+        logits, cache = self.model.apply(self.params, prompts, self._context(), cache=cache,
                                          decode=True, logit_pos=prompts.shape[1] - 1,
                                          **enc_kwargs(enc))
         return logits[:, 0], cache
 
     def decode(self, token: torch.Tensor, cache, enc: Optional[torch.Tensor] = None):
-        """One token (B, 1) per slot -> (logits (B, V), cache)."""
-        logits, cache = self.model.apply(self.params, token, Context(), cache=cache,
+        """One token (B, 1) per slot -> (logits (B, V), cache); under a mesh
+        this data rank's rows."""
+        logits, cache = self.model.apply(self.params, token, self._context(), cache=cache,
                                          decode=True, **enc_kwargs(enc))
         return logits[:, -1], cache
+
+    def _context(self) -> Context:
+        return Context(mesh=self.mesh, axis_rules=self.axis_rules)
+
+    def data_rows(self) -> slice:
+        """This data rank's rows of a whole (``batch_slots``, ...) batch."""
+        return slice(self.data_rank * self.local_slots, (self.data_rank + 1) * self.local_slots)
 
     @torch.inference_mode()
     def generate(self, prompts, max_new_tokens: int, *, seed: int = 0,
@@ -431,11 +683,33 @@ class ServeEngine:
         gen = None
         if self.temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.mesh is not None:
+            return self._generate_mesh(prompts, max_new_tokens, gen)
         logits, cache = self.prefill(prompts, self.new_cache(), enc)
         tok = sample_tokens(logits, gen, self.vocab, self.temperature)
         out = [tok]
         for _ in range(max_new_tokens - 1):
             logits, cache = self.decode(tok, cache, enc)
             tok = sample_tokens(logits, gen, self.vocab, self.temperature)
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+    def _generate_mesh(self, prompts: torch.Tensor, max_new_tokens: int,
+                       gen: Optional[torch.Generator]) -> torch.Tensor:
+        """``generate()`` under a mesh: each data rank prefills and decodes
+        its rows through the sharded steps, whose sampled tokens reach
+        every rank each step (one gather over ``data``); every rank returns
+        the whole batch's.  An MoE prefill routes each data rank's rows as
+        one group, the reference's rule under a mesh."""
+        rows = self.data_rows()
+        prefill = make_prefill_step(self.model, mesh=self.mesh, axis_rules=self.axis_rules)
+        decode = make_decode_step(self.model, mesh=self.mesh, axis_rules=self.axis_rules,
+                                  temperature=self.temperature)
+        logits, cache = prefill(self.params, prompts[rows], self.new_cache())
+        tok, _ = sample_over_data(logits, self.local_slots, 0, gen, self.vocab,
+                                  self.temperature, self.mesh, "data")
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            tok, cache = decode(self.params, tok[rows], cache, gen)
             out.append(tok)
         return torch.cat(out, dim=1)

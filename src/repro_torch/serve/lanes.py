@@ -17,6 +17,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.serve.admission import PrefillLane
+from repro_torch.serve.slot_state import SlotShard
 
 
 @dataclasses.dataclass
@@ -97,3 +98,61 @@ def assemble_ragged_tick(slots: Sequence, lanes: Sequence[PrefillLane], *,
         ran.append((li, clen))
     return RaggedTick(sids=sids, poss=poss, ctok=ctok, lrows=lrows,
                       ran=ran, stalled=stalled)
+
+
+@dataclasses.dataclass
+class LocalTick:
+    """One data rank's share of a ragged tick under a mesh (host numpy).
+
+    ``meta`` addresses this rank's flat batch of n + L*C tokens: its n
+    slots' decode rows (local slot ids) and every lane's C rows, live for
+    the lanes whose slot it holds and inert for the rest, so every rank's
+    batch has one shape.  ``select`` (B + L*C,) picks the one device's flat
+    batch out of every rank's gathered over ``data`` (decode rows in slot
+    order, each lane's rows from its owner, an empty lane's from rank 0's
+    inert rows); ``take`` (n + L*C,) maps this rank's rows back into it;
+    ``owners`` (L,) is the data rank that holds each lane's slot (0 for an
+    empty lane).  ``meta.lrows`` keeps each lane's sampled row at its
+    offset in the lane, and an empty lane's at row 0, as the one device's
+    tick does (``nn/module.py`` ``DataRows``; ``serve/engine.py``
+    ``make_ragged_step``)."""
+
+    meta: RaggedTick
+    select: np.ndarray
+    take: np.ndarray
+    owners: np.ndarray
+
+
+def localize_ragged_tick(rt: RaggedTick, lane_slots: Sequence[int], shard: SlotShard, *,
+                         nslots: int, n_lanes: int, chunk: int, pad_id: int) -> LocalTick:
+    """:class:`LocalTick` of ``shard.rank`` from the whole tick ``rt``
+    (:func:`assemble_ragged_tick`) and the slots of its lanes, in order."""
+    B, L, C = nslots, n_lanes, chunk
+    n, d = shard.per_rank, shard.rank
+    lo, t_l = d * n, n + L * C
+    sids = np.zeros(t_l, np.int32)
+    poss = np.full(t_l, -1, np.int32)
+    ctok = np.full((L, C), pad_id, np.int32)
+    lrows = np.zeros(n + L, np.int32)
+    lrows[:n] = np.arange(n)
+    dec = rt.poss[lo:lo + n]
+    sids[:n] = np.where(dec >= 0, rt.sids[lo:lo + n] - lo, 0)
+    poss[:n] = dec
+    owners = np.zeros(L, np.int32)
+    for li, slot in enumerate(lane_slots):
+        base_g, base_l = B + li * C, n + li * C
+        lrows[n + li] = base_l + rt.lrows[B + li] - base_g
+        owners[li] = shard.owner(slot)
+        if owners[li] == d:
+            seg = rt.poss[base_g:base_g + C]
+            sids[base_l:base_l + C] = np.where(seg >= 0, rt.sids[base_g:base_g + C] - lo, 0)
+            poss[base_l:base_l + C] = seg
+            ctok[li] = rt.ctok[li]
+    lane_rows = np.arange(C)
+    select = np.concatenate(
+        [r * t_l + np.arange(n) for r in range(B // n)]
+        + [owners[li] * t_l + n + li * C + lane_rows for li in range(L)]).astype(np.int32)
+    take = np.concatenate([lo + np.arange(n), B + np.arange(L * C)]).astype(np.int32)
+    return LocalTick(meta=RaggedTick(sids=sids, poss=poss, ctok=ctok, lrows=lrows, ran=rt.ran,
+                                     stalled=rt.stalled),
+                     select=select, take=take, owners=owners)

@@ -40,40 +40,52 @@ class PageAllocator:
     decrements, and a page re-enters the free list only at refcount zero.
     Freeing a page more times than it was alloc'd/shared raises — better a
     loud ValueError than silent page aliasing between two live requests.
+
+    ``blocks`` > 1 (a pool split over the data ranks of a mesh, rank d
+    holding pages [d * P / blocks, (d + 1) * P / blocks)) keeps a free list
+    per block: ``alloc(n, block=d)`` takes its pages from block d alone, so
+    a slot's pages lie on the rank that holds the slot.
     """
 
-    def __init__(self, num_pages: int):
+    def __init__(self, num_pages: int, blocks: int = 1):
         """Create an allocator with all ``num_pages`` pages free."""
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+        if blocks < 1 or num_pages % blocks:
+            raise ValueError(f"{num_pages} pages do not split into {blocks} blocks")
         self.num_pages = num_pages
-        # LIFO free list: freshly freed pages are reused first, which keeps
+        self.block_pages = num_pages // blocks
+        # LIFO free lists: freshly freed pages are reused first, which keeps
         # the working set of pool pages small (cache-friendlier on device).
-        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._frees: List[List[int]] = [
+            list(range((b + 1) * self.block_pages - 1, b * self.block_pages - 1, -1))
+            for b in range(blocks)]
         self._ref: Dict[int, int] = {}
         self.peak_in_use = 0
 
     @property
     def free_pages(self) -> int:
         """Pages currently available to alloc()."""
-        return len(self._free)
+        return sum(len(f) for f in self._frees)
 
     @property
     def pages_in_use(self) -> int:
         """Pages currently held (refcount > 0) by live requests."""
-        return self.num_pages - len(self._free)
+        return self.num_pages - self.free_pages
 
     @property
     def free_list(self) -> Sequence[int]:
-        """The free list (LIFO order), read-only — the auditor's view."""
-        return tuple(self._free)
+        """The free list (LIFO order, block after block), read-only — the
+        auditor's view."""
+        return tuple(p for f in self._frees for p in f)
 
     def refcount(self, page: int) -> int:
         """How many slots currently map ``page`` (0 = free)."""
         return self._ref.get(page, 0)
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """Take ``n`` pages off the free list; None if fewer than n remain.
+    def alloc(self, n: int, block: int = 0) -> Optional[List[int]]:
+        """Take ``n`` pages off the free list (of ``block``); None if fewer
+        than n remain.
 
         All-or-nothing: on None the free list is untouched, so the caller
         can simply retry at the next tick (admission deferral).  Each
@@ -81,9 +93,10 @@ class PageAllocator:
         """
         if n < 0:
             raise ValueError(f"alloc({n})")
-        if n > len(self._free):
+        free = self._frees[block]
+        if n > len(free):
             return None
-        pages = [self._free.pop() for _ in range(n)]
+        pages = [free.pop() for _ in range(n)]
         for p in pages:
             self._ref[p] = 1
         self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
@@ -116,7 +129,7 @@ class PageAllocator:
             self._ref[p] -= 1
             if self._ref[p] == 0:
                 del self._ref[p]
-                self._free.append(p)
+                self._frees[p // self.block_pages].append(p)
                 released.append(p)
         return released
 

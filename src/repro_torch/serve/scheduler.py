@@ -76,6 +76,15 @@ into the slot's rows (``EncDecLM.write_cross_kv``), and the audited tick
 reads every layer's ``xlen`` back with the health flags
 (``audit.check_cross_len_rows``).
 
+Under a mesh (``ServeEngine(mesh=...)``, every rank running the same
+``run()`` on the same requests) each data rank holds B / D of the slots
+and, paged, their block of the pool (``SlotShard``; the allocator's free
+list per block), and the steps return the whole batch's tokens to every
+rank in one gather a tick, so every rank takes the same host decisions
+and returns the same results.  Audit, fault plans, oversubscription and
+preemption, and prefix sharing are refused there (``ROADMAP.md`` queue 1,
+item 3b.7).
+
 One deliberate difference: when a one-shot admission finishes at once
 (first token EOS, or ``max_new == 1``), the freed slot is refilled in the
 same tick.  The reference keeps a stale free list there and fails the next
@@ -93,21 +102,23 @@ import numpy as np
 import torch
 
 from repro_torch.nn.attention import host_tensor
-from repro_torch.nn.module import Context
+from repro_torch.nn.module import Context, DataRows
 from repro_torch.serve.admission import (AdmissionPlanner, Preempted, PrefillLane,
                                          pick_preemption_victim)
 from repro_torch.serve.audit import (check_allocator, check_cross_len_rows, check_page_tables,
                                      check_recurrent_row_max, check_swap)
 from repro_torch.serve.engine import (enc_kwargs, make_decode_step, make_mixed_step,
-                                      make_prefill_step, make_ragged_step, sample_tokens)
+                                      make_prefill_step, make_ragged_step, mesh_refusal,
+                                      sample_tokens)
 from repro_torch.serve.faults import FaultPlan
-from repro_torch.serve.lanes import RaggedTick, assemble_ragged_tick
+from repro_torch.serve.lanes import RaggedTick, assemble_ragged_tick, localize_ragged_tick
 from repro_torch.serve.paging import PageAllocator, PrefixIndex, SwapArea, _tree_bytes
 from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, cross_lens,
                                           evict_cache_slot, find_paged_kv, gather_cache_pages,
                                           merge_inactive, recurrent_row_max,
                                           scatter_cache_pages, set_cache_page_entry,
-                                          set_cache_page_row, set_cache_slot_len, state_kinds)
+                                          set_cache_page_row, set_cache_slot_len, state_kinds,
+                                          SlotShard)
 
 
 @dataclasses.dataclass
@@ -428,6 +439,16 @@ class Scheduler:
             raise ValueError(f"prefill_lanes={prefill_lanes} requires ragged=True: the mixed "
                              f"step carries exactly one chunk per tick — only the ragged "
                              f"forward flattens several lanes into one batch")
+        self._shard = None
+        if engine.mesh is not None:
+            if audit:
+                raise mesh_refusal("audit mode (audit=True)")
+            if oversubscribe:
+                raise mesh_refusal("oversubscription and preemption (oversubscribe=True)")
+            if self.paged and prefix_sharing:
+                raise mesh_refusal("prefix sharing (pass prefix_sharing=False)")
+            self._shard = SlotShard(engine.data_rank, engine.local_slots,
+                                    engine.local_pages if self.paged else 0)
         self.engine = engine
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
@@ -450,16 +471,17 @@ class Scheduler:
             page_size=engine.page_size, max_pages=engine.kv_max_pages, chunk_size=chunk_size,
             oversubscribe=self.oversubscribe) if self.paged else None
         model, health = engine.model, self.audit
+        mk = {"mesh": engine.mesh, "axis_rules": engine.axis_rules}
         self._decode = make_decode_step(model, temperature=engine.temperature,
-                                        with_health=health)
+                                        with_health=health, **mk)
         # recurrent state: the inactive slots' rows are put back after each
         # batched step (between the mixed step's decode and chunk halves)
         self._merge = merge_inactive if self._has_recurrent else None
         self._mixed = make_mixed_step(model, temperature=engine.temperature,
-                                      with_health=health, merge=self._merge)
+                                      with_health=health, merge=self._merge, **mk)
         self._ragged = make_ragged_step(model, temperature=engine.temperature,
-                                        with_health=health)
-        self._prefill = make_prefill_step(model)
+                                        with_health=health, **mk)
+        self._prefill = make_prefill_step(model, **mk)
 
     def cancel(self, rid: int) -> None:
         """Ask the running ``run()`` to cancel ``rid``: it drains the request
@@ -474,8 +496,20 @@ class Scheduler:
     def _poison(self, poison) -> tuple:
         return (poison,) if self.audit else ()
 
+    def _at_slot(self, event, cache, *args):
+        """``event(cache, *args)``, a slot-state event (``slot_state``);
+        under a mesh on the owner's local slot only (``shard=``)."""
+        if self._shard is None:
+            return event(cache, *args)
+        return event(cache, *args, shard=self._shard)
+
+    def _mine(self, tok):
+        """This data rank's rows of the whole batch's (B, 1) tokens (all of
+        them without a mesh): what its steps take."""
+        return tok if self._shard is None else tok[self.engine.data_rows()]
+
     def _masked_decode(self, tok, cache, gen, active, poison=None, enc=None):
-        out = self._decode(self.engine.params, tok, cache, gen, *self._poison(poison),
+        out = self._decode(self.engine.params, self._mine(tok), cache, gen, *self._poison(poison),
                            **enc_kwargs(enc))
         flags = out[1] if self.audit else None
         new = out[-1] if self._merge is None else self._merge(cache, out[-1], active)
@@ -485,26 +519,41 @@ class Scheduler:
                       poison=None, enc=None):
         """(tokens (B, 1), masked; first (1, 1); flags (B + 1,), the decode
         rows' then the first token's; cache)."""
-        out = self._mixed(self.engine.params, tok, cache, gen, chunk_tok, slot, start, length,
-                          *self._poison(poison), active=active, **enc_kwargs(enc))
+        out = self._mixed(self.engine.params, self._mine(tok), cache, gen, chunk_tok, slot, start,
+                          length, *self._poison(poison), active=active, **enc_kwargs(enc))
         flags = torch.cat([out[2], out[3]]) if self.audit else None
         return torch.where(active[:, None], out[0], self.pad_id), out[1], flags, out[-1]
 
     def _masked_ragged(self, tok, cache, gen, active, meta: RaggedTick, poison=None,
-                       enc=None):
+                       enc=None, lane_slots: Sequence[int] = ()):
         """One ragged tick from its host metadata, sent up as one int32 array
         through pinned memory without blocking.  Returns (the slots' decode
         tokens (B, 1), masked; the lanes' first tokens (L, 1); flags (B + L,);
-        cache)."""
+        cache).  Under a mesh the tick is cut to this data rank's share
+        first (``lanes.localize_ragged_tick``; ``lane_slots``: the slots of
+        the lanes, in order)."""
         nslots = tok.shape[0]
         lanes, c = meta.ctok.shape
+        extra, kw = [], {}
+        if self._shard is not None:
+            loc = localize_ragged_tick(meta, lane_slots, self._shard, nslots=nslots,
+                                       n_lanes=lanes, chunk=c, pad_id=self.pad_id)
+            meta, extra = loc.meta, [loc.select, loc.take, loc.owners]
+        n = meta.lrows.shape[0] - lanes
         t = meta.sids.shape[0]
         dev = host_tensor(np.concatenate([meta.sids, meta.poss, meta.lrows,
-                                          meta.ctok.reshape(-1)]), tok.device)
+                                          meta.ctok.reshape(-1)] + extra), tok.device)
         sids, poss = dev[:t], dev[t:2 * t]
-        lrows, ctok = dev[2 * t:2 * t + nslots + lanes], dev[2 * t + nslots + lanes:]
-        out = self._ragged(self.engine.params, tok, cache, gen, ctok.view(lanes, c), sids,
-                           poss, lrows, *self._poison(poison), **enc_kwargs(enc))
+        lrows = dev[2 * t:2 * t + n + lanes]
+        at = 2 * t + n + lanes + lanes * c
+        ctok = dev[at - lanes * c:at]
+        if extra:
+            sel, take = extra[0].shape[0], extra[1].shape[0]
+            kw = {"rows": DataRows(select=dev[at:at + sel].long(),
+                                   take=dev[at + sel:at + sel + take].long()),
+                  "owners": dev[at + sel + take:].long()}
+        out = self._ragged(self.engine.params, self._mine(tok), cache, gen, ctok.view(lanes, c),
+                           sids, poss, lrows, *self._poison(poison), **enc_kwargs(enc), **kw)
         flags = out[1] if self.audit else None
         return (torch.where(active[:, None], out[0][:nslots], self.pad_id), out[0][nslots:],
                 flags, out[-1])
@@ -545,12 +594,15 @@ class Scheduler:
                                  f"enc_len or shorten the encoder output")
         return enc_of
 
-    def _slot_prefill(self, tokens, plen: int, gen):
-        """(1, P) prompt -> (first token (1, 1), batch-1 cache), the LM head
-        over the true last position only."""
+    def _slot_prefill(self, tokens, plen: int, gen, slot: int):
+        """(1, P) prompt for ``slot`` -> (first token (1, 1), batch-1 cache),
+        the LM head over the true last position only.  Under a mesh every
+        data rank prefills the prompt alike (the slot's owner then admits
+        it): the logits, and so the token, are the same on every rank."""
         eng = self.engine
+        kw = {} if self._shard is None else {"owner": self._shard.owner(slot)}
         logits, small = self._prefill(eng.params, tokens, eng.new_cache(batch=1),
-                                      logit_pos=plen - 1)
+                                      logit_pos=plen - 1, **kw)
         return sample_tokens(logits[:, 0], gen, eng.vocab, eng.temperature), small
 
     @staticmethod
@@ -614,11 +666,11 @@ class Scheduler:
                     cache = self._write_xkv(cache, enc[:1], 0)
             if self.chunk_size is not None:
                 if self.paged:
-                    n = min(self._admission.pages_needed(self.chunk_size, 1), eng.kv_num_pages)
-                    cache = set_cache_page_row(cache, 0,
-                                               self._admission.page_row(list(range(n))))
-                    cache = set_cache_page_entry(cache, 0, n - 1, n - 1)
-                    cache = set_cache_slot_len(cache, 0, 0)
+                    n = min(self._admission.pages_needed(self.chunk_size, 1), eng.local_pages)
+                    cache = self._at_slot(set_cache_page_row, cache, 0,
+                                          self._admission.page_row(list(range(n))))
+                    cache = self._at_slot(set_cache_page_entry, cache, 0, n - 1, n - 1)
+                    cache = self._at_slot(set_cache_slot_len, cache, 0, 0)
                     if self.prefix_sharing:
                         cache = copy_cache_page(cache, 0, n - 1)
                 if self.ragged:
@@ -630,7 +682,7 @@ class Scheduler:
                     tok, firsts, _, cache = self._masked_ragged(tok, cache, gen, active, meta,
                                                                 pz, enc)
                     tok = self._set_tok(tok, firsts[:1], 0)
-                    cache = evict_cache_slot(cache, 0)
+                    cache = self._at_slot(evict_cache_slot, cache, 0)
                     _sync(eng.device)
                     return time.perf_counter() - t0
                 ctok = torch.full((1, self.chunk_size), self.pad_id, dtype=torch.int32,
@@ -642,11 +694,11 @@ class Scheduler:
                 for p in sorted({self._bucket(int(p)) for p in prompt_lens}):
                     toks = torch.full((1, p), self.pad_id, dtype=torch.int32,
                                       device=eng.device)
-                    first, small = self._slot_prefill(toks, p, gen)
-                    cache = admit_cache_slot(cache, small, 0, p)
+                    first, small = self._slot_prefill(toks, p, gen, 0)
+                    cache = self._at_slot(admit_cache_slot, cache, small, 0, p)
                     tok = self._set_tok(tok, first, 0)
             tok, _, cache = self._masked_decode(tok, cache, gen, active, pz, enc)
-            cache = evict_cache_slot(cache, 0)
+            cache = self._at_slot(evict_cache_slot, cache, 0)
         _sync(eng.device)
         return time.perf_counter() - t0
 
@@ -675,6 +727,11 @@ class Scheduler:
         request's wall-clock latency (summary p50/p99_latency_ms).
         """
         nslots = self.engine.batch_slots
+        if self._shard is not None:
+            if fault_plan is not None:
+                raise mesh_refusal("a fault plan (fault_plan=)")
+            if preempts:
+                raise mesh_refusal("forced preemption (preempts=)")
         if fault_plan is not None:
             if fault_plan.nan and not self.audit:
                 raise ValueError("FaultPlan.nan requires Scheduler(audit=True): the NaN/Inf "
@@ -736,11 +793,13 @@ class Scheduler:
                 raise ValueError(f"request {r.rid}: prompt {plen} (+bucket) + max_new "
                                  f"{r.max_new} exceeds cache max_len {eng.max_len}")
             if self.paged:
+                # under a mesh a slot's pages come from its data rank's block
                 need = self._admission.pages_needed(plen, r.max_new)
-                if need > eng.kv_num_pages:
-                    raise ValueError(f"request {r.rid}: needs {need} pages but the pool holds "
-                                     f"{eng.kv_num_pages} — it could never be admitted (raise "
-                                     f"kv_pool_pages or shrink the request)")
+                if need > eng.local_pages:
+                    where = "" if self._shard is None else " block of a data rank"
+                    raise ValueError(f"request {r.rid}: needs {need} pages but the pool{where} "
+                                     f"holds {eng.local_pages} — it could never be admitted "
+                                     f"(raise kv_pool_pages or shrink the request)")
             plen_of[r.rid] = plen
             checked.append(r)
         return checked, plen_of
@@ -784,7 +843,7 @@ class Scheduler:
         active_host, active_dev = None, None
         zero_poison = torch.zeros(nslots + (self.prefill_lanes if self.ragged else 0),
                                   dtype=torch.float32, device=dev) if self.audit else None
-        alloc = PageAllocator(eng.kv_num_pages) if self.paged else None
+        alloc = PageAllocator(eng.kv_num_pages, blocks=eng.data_size) if self.paged else None
         index = PrefixIndex(ps) if self.prefix_sharing else None
         planner = self._admission
         slot_pages: Dict[int, List[int]] = {}
@@ -843,7 +902,7 @@ class Scheduler:
             bump(status)
             # the row is unmapped (in stream order) before its pages re-enter
             # the free list: the next admission may be handed them at once
-            cache = evict_cache_slot(cache, j)
+            cache = self._at_slot(evict_cache_slot, cache, j)
             if alloc is not None and j in slot_pages:
                 release(slot_pages.pop(j))
             slots[j] = None
@@ -890,7 +949,7 @@ class Scheduler:
             """Tear down reserved slot j (unmapped before its pages are freed,
             as in ``finish``) and end its request."""
             nonlocal cache
-            cache = evict_cache_slot(cache, j)
+            cache = self._at_slot(evict_cache_slot, cache, j)
             if alloc is not None and j in slot_pages:
                 release(slot_pages.pop(j))
             terminal_queued(r, status)
@@ -1074,7 +1133,9 @@ class Scheduler:
                     stats.page_stalls += 1
                     fault_hold = True
                     return False
-                plan = planner.plan(r, plen_of[r.rid], alloc, index, keys=digests_of(r))
+                plan = planner.plan(r, plen_of[r.rid], alloc, index, keys=digests_of(r),
+                                    block=None if self._shard is None
+                                    else self._shard.owner(free[0]))
                 if plan is None:
                     # head-of-queue blocking: skipping ahead would starve a
                     # large request behind a stream of small ones
@@ -1091,9 +1152,10 @@ class Scheduler:
                 # the decode half's junk append lands in a private page
                 for src, dst in copies:
                     cache = copy_cache_page(cache, src, dst)
-                cache = set_cache_page_row(cache, free[0], planner.page_row(row_pages))
+                cache = self._at_slot(set_cache_page_row, cache, free[0],
+                                      planner.page_row(row_pages))
                 if start0:
-                    cache = set_cache_slot_len(cache, free[0], start0)
+                    cache = self._at_slot(set_cache_slot_len, cache, free[0], start0)
                 stats.peak_pages_in_use = alloc.peak_in_use
             queue.popleft()
             install_enc(free[0], r.rid)
@@ -1276,8 +1338,8 @@ class Scheduler:
                     if any(s is not None for s in slots):
                         stats.admission_stalls += 1
                     padded, plen = self._pad_prompt(r.prompt)
-                    first, small = self._slot_prefill(padded, plen, gen)
-                    cache = admit_cache_slot(cache, small, j, plen)
+                    first, small = self._slot_prefill(padded, plen, gen, j)
+                    cache = self._at_slot(admit_cache_slot, cache, small, j, plen)
                     tok = self._set_tok(tok, first, j)
                     admit_live(j, r, first)
             else:
@@ -1349,7 +1411,8 @@ class Scheduler:
                         if alloc is not None else None))
                 stats.stalled_chunks += rt.stalled  # decode never waits
                 tok, firsts, flags, cache = self._masked_ragged(tok, cache, gen, active_dev,
-                                                                rt, poison, enc_buf)
+                                                                rt, poison, enc_buf,
+                                                                [p.slot for p in lanes])
                 ran = rt.ran
             elif chunk_job is not None:
                 start = chunk_job.next_start

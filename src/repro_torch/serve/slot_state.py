@@ -23,8 +23,10 @@ by.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.nn.attention import (copy_kv_page, gather_pool_pages, reset_kv_slot,
@@ -37,6 +39,36 @@ from repro_torch.nn.attention import (copy_kv_page, gather_pool_pages, reset_kv_
 #: axis in front and its slot axis is axis 1.
 REC_BASE_RANK: Dict[str, int] = {"h": 3, "conv": 3, "s": 4, "shift": 3}
 
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotShard:
+    """The slots and pool pages one data rank holds under a mesh: slot j
+    of the scheduler's B lives on data rank ``j // per_rank`` as its local
+    slot ``j % per_rank``, and its pool pages in that rank's block of
+    ``pages`` (pool page p is local page ``p % pages`` of rank ``p //
+    pages``).  The slot events below take ``shard=`` and act on the owner's
+    local slot, and nowhere else; without one, on ``slot`` itself."""
+
+    rank: int
+    per_rank: int
+    pages: int = 0
+
+    def owner(self, slot: int) -> int:
+        return slot // self.per_rank
+
+    def local(self, slot: int) -> Optional[int]:
+        """``slot``'s local index here, or None where another rank holds it."""
+        return slot % self.per_rank if self.owner(slot) == self.rank else None
+
+    def local_pages(self, row) -> np.ndarray:
+        """A page-table row (pool ids, -1 unmapped) in this rank's local ids."""
+        row = np.asarray(row, np.int32)
+        return np.where(row >= 0, row - self.rank * self.pages, row).astype(np.int32)
+
+
+def _at(shard: Optional[SlotShard], slot: int) -> Optional[int]:
+    return slot if shard is None else shard.local(slot)
 
 
 def _is_kv(node) -> bool:
@@ -139,11 +171,17 @@ def find_paged_kv(cache):
     return None
 
 
-def admit_cache_slot(big_cache, small_cache, slot: int, length: int):
+def admit_cache_slot(big_cache, small_cache, slot: int, length: int, *,
+                     shard: Optional[SlotShard] = None):
     """Copy a batch-1 prefilled cache into ``slot`` of the per-slot cache
     (one-shot admission): KV nodes copy their rows and set the slot's live
     length to ``length``; recurrent nodes take the batch-1 row (the whole
-    recurrence fits it, so ``length`` does not apply)."""
+    recurrence fits it, so ``length`` does not apply).  Under a mesh
+    (``shard``) the owner writes its local slot; elsewhere a no-op."""
+    slot = _at(shard, slot)
+    if slot is None:
+        return big_cache
+
     def op(b, s):
         if "page_table" in b:
             raise ValueError("one-shot admission copies a dense batch-1 cache; paged "
@@ -153,12 +191,16 @@ def admit_cache_slot(big_cache, small_cache, slot: int, length: int):
                  lambda b, s: _scatter_recurrent_slot(b, s, slot))
 
 
-def evict_cache_slot(cache, slot: int):
+def evict_cache_slot(cache, slot: int, *, shard: Optional[SlotShard] = None):
     """Eviction of ``slot`` across every state kind: a KV slot's live length
     goes to 0 and its rows stay (a paged slot's table row is unmapped); a
     recurrent slot's rows are zeroed (a recurrence has no length to hide
     stale rows behind, and the next occupant must start from zeros); a
-    cross-attention slot's ``xlen`` goes to 0."""
+    cross-attention slot's ``xlen`` goes to 0.  ``shard``: the owner's
+    local slot only."""
+    slot = _at(shard, slot)
+    if slot is None:
+        return cache
     return _walk(cache, None, lambda kv, _: reset_kv_slot(kv, slot),
                  lambda st, _: _zero_recurrent_slot(st, slot),
                  lambda node: _reset_xkv_slot(node, slot))
@@ -249,14 +291,27 @@ def recurrent_row_max(cache) -> Tuple[List[str], Optional[torch.Tensor]]:
     return keys, (torch.stack(rows).to(torch.float32) if rows else None)
 
 
-def set_cache_page_row(cache, slot: int, row):
-    """Install ``slot``'s page-table row (host ints) in every paged node."""
-    return _walk_paged(cache, lambda kv: set_page_row(kv, slot, row))
+def set_cache_page_row(cache, slot: int, row, *, shard: Optional[SlotShard] = None):
+    """Install ``slot``'s page-table row (host ints) in every paged node;
+    ``shard``: the owner's local slot, in its local page ids."""
+    local = _at(shard, slot)
+    if local is None:
+        return cache
+    if shard is not None:
+        row = shard.local_pages(row)
+    return _walk_paged(cache, lambda kv: set_page_row(kv, local, row))
 
 
-def set_cache_page_entry(cache, slot: int, idx: int, page: int):
-    """``page_table[slot, idx] = page`` in every paged node (lazy growth)."""
-    return _walk_paged(cache, lambda kv: set_page_entry(kv, slot, idx, page))
+def set_cache_page_entry(cache, slot: int, idx: int, page: int, *,
+                         shard: Optional[SlotShard] = None):
+    """``page_table[slot, idx] = page`` in every paged node (lazy growth);
+    ``shard``: the owner's local slot and page id."""
+    local = _at(shard, slot)
+    if local is None:
+        return cache
+    if shard is not None:
+        page = int(shard.local_pages([page])[0])
+    return _walk_paged(cache, lambda kv: set_page_entry(kv, local, idx, page))
 
 
 def copy_cache_page(cache, src: int, dst: int):
@@ -286,10 +341,14 @@ def scatter_cache_pages(cache, pages, data):
     return _walk_paged(cache, lambda kv: scatter_pool_pages(kv, pages, next(it)))
 
 
-def set_cache_slot_len(cache, slot: int, length: int):
+def set_cache_slot_len(cache, slot: int, length: int, *, shard: Optional[SlotShard] = None):
     """``len[slot] = length`` in every KV node.  Prefix-sharing admission
     starts a slot at its shared-prefix length, so the decode half's junk
-    append for the still-prefilling slot lands in its private pages."""
+    append for the still-prefilling slot lands in its private pages.
+    ``shard``: the owner's local slot only."""
+    slot = _at(shard, slot)
+    if slot is None:
+        return cache
     return _walk(cache, None,
                  lambda kv, _: dict(kv, len=set_kv_slot_len(kv["len"], slot, length)))
 

@@ -414,6 +414,7 @@ def suite_shard_serve(data, rank: int, world: int) -> dict:
             res[f"{name}/next"] = step(pp, nxt[rows], cs, None)[0].numpy()
             res[f"{name}/logits"] = got.numpy()
             res[f"{name}/one"] = one[rows].numpy()
+            res[f"{name}/one_next"] = one[:, -1].argmax(-1).numpy()
             res[f"{name}/psum_bytes"] = np.array(counts.get(("data", "psum"), (0, 0))[1])
         # a sharded prefill: each data rank's rows one routing group
         real = moe_mod.MoE.apply
@@ -453,8 +454,223 @@ def suite_shard_serve(data, rank: int, world: int) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# Serving under a mesh: the scheduler's policies, generate() and restarts
+# --------------------------------------------------------------------------
+
+#: name -> (ServeEngine keywords, Scheduler keywords) of the served policies
+#: (page size 4, chunk 4, two ragged lanes); the reference takes them as they are
+MESH_POLICIES = {
+    "scheduler": ({}, {}),
+    "chunked": ({}, {"chunk_size": 4}),
+    "chunked_paged": ({"paged_kv": True, "page_size": 4},
+                      {"chunk_size": 4, "prefix_sharing": False}),
+    "ragged": ({}, {"chunk_size": 4, "ragged": True, "prefill_lanes": 2}),
+    "ragged_paged": ({"paged_kv": True, "page_size": 4},
+                     {"chunk_size": 4, "ragged": True, "prefill_lanes": 2,
+                      "prefix_sharing": False}),
+}
+MESH_SLOTS, MESH_MAX_LEN = 4, 32
+
+
+def mesh_requests(data, prefix: str):
+    """The (rid, prompt, max_new, arrival) tuples stored under ``prefix``."""
+    return [(int(r), data[f"{prefix}/prompts"][i, :data[f"{prefix}/plens"][i]].astype(np.int32),
+             int(data[f"{prefix}/max_new"][i]), int(data[f"{prefix}/arrival"][i]))
+            for i, r in enumerate(data[f"{prefix}/rids"])]
+
+
+def stream_array(results, rids, width: int) -> np.ndarray:
+    """Each rid's tokens as a row padded with -1, then its status as a code
+    (0 ok) in the last column."""
+    from repro_torch.serve.scheduler import STATUSES
+
+    out = np.full((len(rids), width + 1), -1, np.int64)
+    for i, rid in enumerate(rids):
+        toks = results[rid].tokens
+        out[i, :len(toks)] = toks
+        out[i, -1] = STATUSES.index(results[rid].status)
+    return out
+
+
+def _mesh_run(model, params, reqs, policy, mesh, rules, *, weight_quant, temperature=0.0,
+              seed=0, record=None, eos_id=None):
+    """One scheduler run of ``policy`` (no warm-up; ``mesh`` None: the
+    port's one device); (results, stats, the collective counts by (axis,
+    kind))."""
+    from repro_torch.dist import shard_ops
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import Request
+
+    eng_kw, sched_kw = MESH_POLICIES[policy]
+    eng = ServeEngine(model, params, max_len=MESH_MAX_LEN, batch_slots=MESH_SLOTS,
+                      quantized_kv=True, weight_quant=weight_quant, temperature=temperature,
+                      device="cpu", mesh=mesh, axis_rules=rules, **eng_kw)
+    if record is not None:
+        record["local_pages"] = eng.local_pages
+    shard_ops.reset_collective_counts()
+    res, stats = eng.scheduler(eos_id=eos_id, **sched_kw).run(
+        [Request(rid=r, prompt=p, max_new=m, arrival=a) for r, p, m, a in reqs], seed=seed,
+        warmup=False)
+    return res, stats, shard_ops.collective_counts()
+
+
+def _page_recorder(record: dict):
+    """Wrap the scheduler's page-row installs: each (global slot, global
+    row, local row) this rank writes goes to ``record["installs"]``."""
+    from repro_torch.serve import scheduler as sched_mod
+
+    real = sched_mod.set_cache_page_row
+
+    def installed(cache, slot, row, *, shard=None):
+        if shard is not None and shard.local(slot) is not None:
+            record.setdefault("installs", []).append(
+                (slot, np.asarray(row, np.int64), shard.local_pages(row).astype(np.int64)))
+        return real(cache, slot, row, shard=shard)
+
+    sched_mod.set_cache_page_row = installed
+    return lambda: setattr(sched_mod, "set_cache_page_row", real)
+
+
+def suite_mesh_serve(data, rank: int, world: int) -> dict:
+    """smollm-135m-smoke from ``params/*`` on a (2, 2) mesh, int8 KV, float
+    and int8 weights: every policy of :data:`MESH_POLICIES` over the
+    requests ``req/*``, ``run_restart_batching`` over ``rreq/*`` and
+    ``generate()`` of ``lock/prompts``; each run's streams (``stream_array``),
+    its ticks and the collective calls by (axis, kind), and for the paged
+    policies every page-table row this rank installed (global and local
+    ids).  Then the scheduler's refused modes: each one's message."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.scheduler import Request, run_restart_batching
+
+    mesh = make_host_mesh(world // 2, 2, "cpu")
+    rules = sharding.make_axis_rules(mesh)
+    model = get_config("smollm-135m-smoke").build()
+    params = from_flat(data, "params", model.init(torch.Generator().manual_seed(0), "cpu"))
+    reqs, rreqs = mesh_requests(data, "req"), mesh_requests(data, "rreq")
+    new = max(m for _, _, m, _ in reqs)
+    res = {"data_rank": np.array(rank // 2)}
+    for label, wq in (("float", False), ("int8", True)):
+        for policy in MESH_POLICIES:
+            record = {}
+            undo = _page_recorder(record)
+            try:
+                out, stats, counts = _mesh_run(model, params, reqs, policy, mesh, rules,
+                                               weight_quant=wq, record=record)
+            finally:
+                undo()
+            key = f"{label}/{policy}"
+            res[f"{key}/streams"] = stream_array(out, [r for r, *_ in reqs], new)
+            res[f"{key}/ticks"] = np.array(stats.decode_steps)
+            for (axis, kind), (calls, nbytes) in counts.items():
+                res[f"{key}/calls/{axis}/{kind}"] = np.array([calls, nbytes])
+            if "installs" in record:
+                res[f"{key}/local_pages"] = np.array(record["local_pages"])
+                res[f"{key}/page_slots"] = np.array([i[0] for i in record["installs"]])
+                res[f"{key}/page_rows"] = np.stack([i[1] for i in record["installs"]])
+                res[f"{key}/page_local"] = np.stack([i[2] for i in record["installs"]])
+        eng = ServeEngine(model, params, max_len=MESH_MAX_LEN, batch_slots=MESH_SLOTS,
+                          quantized_kv=True, weight_quant=wq, device="cpu", mesh=mesh,
+                          axis_rules=rules)
+        out, _ = run_restart_batching(
+            eng, [Request(rid=r, prompt=p, max_new=m, arrival=a) for r, p, m, a in rreqs],
+            warmup=False)
+        res[f"{label}/restart/streams"] = stream_array(
+            out, [r for r, *_ in rreqs], max(m for _, _, m, _ in rreqs))
+        res[f"{label}/lockstep/tokens"] = eng.generate(data["lock/prompts"],
+                                                       int(data["lock/new"])).numpy()
+        res[f"{label}/cache_bytes"] = np.array([eng.cache_bytes(), eng.cache_bytes(per_slot=True)])
+
+    # the scheduler's modes a mesh does not serve yet
+    paged = ServeEngine(model, params, max_len=MESH_MAX_LEN, batch_slots=MESH_SLOTS,
+                        quantized_kv=True, device="cpu", paged_kv=True, page_size=4,
+                        mesh=mesh, axis_rules=rules)
+    refused = {
+        "audit": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False, audit=True),
+        "oversubscribe": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False,
+                                                 oversubscribe=True),
+        "prefix_sharing": lambda: paged.scheduler(chunk_size=4),
+        "fault_plan": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False).run(
+            [], fault_plan=FaultPlan()),
+        "preempts": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False).run(
+            [], preempts={0: 1}),
+    }
+    for name, fn in refused.items():
+        try:
+            fn()
+            res[f"refused/{name}"] = np.array("")
+        except NotImplementedError as e:
+            res[f"refused/{name}"] = np.array(str(e))
+    return res
+
+
+def suite_mesh_moe(data, rank: int, world: int) -> dict:
+    """The MoE archs on a (2, 2) mesh, int8 weights and KV, over the
+    requests ``req/*``: ``arch/<a>`` (a registry id) under each policy of
+    ``policies/<a>`` (a comma-joined list of :data:`MESH_POLICIES`), the
+    streams of the mesh and of the port's one device (no group) side by
+    side; then smollm-135m-smoke at temperature 0.7 under ``sampled``'s
+    policies and ``generate()`` (``seed`` 3), and greedy under them with an
+    ``eos_id`` its streams emit, the mesh's and the one device's."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import ServeEngine
+
+    mesh = make_host_mesh(world // 2, 2, "cpu")
+    rules = sharding.make_axis_rules(mesh)
+    reqs = mesh_requests(data, "req")
+    rids = [r for r, *_ in reqs]
+    new = max(m for _, _, m, _ in reqs)
+    res = {}
+    for arch in sorted(k.split("/", 1)[1] for k in data if k.startswith("arch/")):
+        model = get_config(str(data[f"arch/{arch}"])).build()
+        for policy in str(data[f"policies/{arch}"]).split(","):
+            for where, m, r in (("mesh", mesh, rules), ("one", None, None)):
+                params = model.init(torch.Generator().manual_seed(0), "cpu")
+                out, stats, counts = _mesh_run(model, params, reqs, policy, m, r,
+                                               weight_quant=True)
+                res[f"{arch}/{policy}/{where}"] = stream_array(out, rids, new)
+                if m is not None:
+                    res[f"{arch}/{policy}/ticks"] = np.array(stats.decode_steps)
+                    for (axis, kind), (calls, nbytes) in counts.items():
+                        res[f"{arch}/{policy}/calls/{axis}/{kind}"] = np.array([calls, nbytes])
+    model = get_config("smollm-135m-smoke").build()
+    for policy in str(data["sampled"]).split(","):
+        for where, m, r in (("mesh", mesh, rules), ("one", None, None)):
+            params = model.init(torch.Generator().manual_seed(0), "cpu")
+            out, _, _ = _mesh_run(model, params, reqs, policy, m, r, weight_quant=True,
+                                  temperature=0.7, seed=3)
+            res[f"sampled/{policy}/{where}"] = stream_array(out, rids, new)
+    # an EOS id the greedy streams emit mid-stream: the hosts evict on the
+    # gathered tokens and refill the slots
+    one, _, _ = _mesh_run(model, model.init(torch.Generator().manual_seed(0), "cpu"), reqs,
+                          "chunked", None, None, weight_quant=True)
+    eos = one[rids[0]].tokens[2]
+    res["eos/id"] = np.array(eos)
+    for policy in str(data["sampled"]).split(","):
+        for where, m, r in (("mesh", mesh, rules), ("one", None, None)):
+            out, _, _ = _mesh_run(model, model.init(torch.Generator().manual_seed(0), "cpu"),
+                                  reqs, policy, m, r, weight_quant=True, eos_id=eos)
+            res[f"eos/{policy}/{where}"] = stream_array(out, rids, new)
+            res[f"eos/{policy}/{where}/flags"] = np.array([out[i].eos for i in rids])
+    for where, m, r in (("mesh", mesh, rules), ("one", None, None)):
+        eng = ServeEngine(model, model.init(torch.Generator().manual_seed(0), "cpu"),
+                          max_len=MESH_MAX_LEN, batch_slots=MESH_SLOTS, quantized_kv=True,
+                          weight_quant=True, temperature=0.7, device="cpu", mesh=m,
+                          axis_rules=r)
+        res[f"sampled/lockstep/{where}"] = eng.generate(data["req/prompts"][:MESH_SLOTS, :5],
+                                                        6, seed=3).numpy()
+    return res
+
+
 SUITES = {"compress": suite_compress, "dp": suite_dp, "ckpt_write": suite_ckpt_write,
-          "launch": suite_launch, "shard": suite_shard, "shard_serve": suite_shard_serve}
+          "launch": suite_launch, "shard": suite_shard, "shard_serve": suite_shard_serve,
+          "mesh_serve": suite_mesh_serve, "mesh_moe": suite_mesh_moe}
 
 
 def main() -> None:
