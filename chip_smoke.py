@@ -207,6 +207,27 @@ Phases, each printed as it completes; any failure exits non-zero:
      the collective calls and bytes a tick by axis and kind printed.  The
      kernel phase holds ``wq_matmul`` at the column blocks the decode
      gives it (``check_shard_kernels``).
+  17. ``[account]`` (``account_end_to_end``): the dry-run account
+     (``launch/dryrun.py``) held to the card.  smollm-135m ``decode_32k
+     --wq --qkv`` at mesh 1 x 1 and full width: the account's argument
+     bytes on ``meta``, then the same int8 parameters, the (128, 1) tokens
+     and the 48.3 GB int8 cache allocated on the card, whose allocator's
+     requested bytes must grow by exactly the account's; one decode step
+     at kv_len 32768 with its launches exact, its CUDA-event time beside
+     the account's roofline terms (FLOPs over the bf16 peak, argument bytes
+     over HBM) and its peak memory beside the arguments; ``qdecode_attn``
+     alone at S = 32768 (B = 128, and B = 8 held to its plain version, with
+     sdpa on dequantized K/V beside it) and the ranks ``split_ranks``
+     picks.  smollm-135m ``train_4k``: the f32 parameters, SGD momentum and
+     the (256, 4096) batch allocated against the account, then the first 2
+     micro-batches of ``microbatch_split`` 64 under ``remat="off"`` and
+     ``"none"`` with their peak memory (none's must be lower).  Every arch
+     x shape's argument bytes at 1 x 1 on ``meta`` (f32, and int8 weights
+     and KV for serving) against the card's memory, and smollm-135m's
+     ``train_4k`` and ``decode_32k --wq --qkv`` at the 16 x 16 production
+     mesh over a fake process group, collectives on both axes: these run
+     on the host's cores in a process of their own (``--account-cells``,
+     no card visible), started after the build, and the phase reads them.
 After each phase that runs a weight-only GEMM, each GEMM library's count
 of shared-memory grants must be at most 3 (``[grants]``).
 Each phase prints its seconds (``[time]``).
@@ -4864,7 +4885,8 @@ def moe_end_to_end(torch, card, softmax):
 # [dist]: the data axis over torch.distributed (world 1 here, world 2 under torchrun)
 # --------------------------------------------------------------------------
 
-DIST_STEPS = 4              # steps of each configuration
+DIST_STEPS = 3              # steps of each configuration (4 until the remat of
+                            # launch.train and [account] needed the time)
 DIST_PROFILED = 2           # the step profiled on rank 0 (kept out of the wall median)
 DIST_ARGS = ["--arch", "smollm-135m", "--batch", "8", "--seq", "128", "--steps",
              str(DIST_STEPS), "--log-every", "100"]
@@ -5287,7 +5309,7 @@ def dist_end_to_end(torch, card) -> None:
                 busy = ("not measured" if row["device_busy_ms"] is None
                         else f"{row['device_busy_ms']:.3f} ms")
                 print(f"[dist] {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step wall "
-                      f"{wall:.2f} ms (median of steps 1 and 3), device busy {busy} "
+                      f"{wall:.2f} ms (median of the steps but 0 and {DIST_PROFILED}), device busy {busy} "
                       f"(step {DIST_PROFILED} profiled on rank 0, {row['allreduces_a_step']:.0f} "
                       f"all-reduce calls); gradient all-reduce alone {row['allreduce_ms']:.2f} ms, "
                       f"{row['payload_bytes']} payload bytes a rank a step; peak memory "
@@ -5981,6 +6003,338 @@ def shard_end_to_end(torch, card) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# [account]: the one-card dry-run account against the card's own allocation
+# --------------------------------------------------------------------------
+
+ACCOUNT_S = 32768          # decode_32k's cache length
+ACCOUNT_PLAIN_B = 8        # qdecode_attn's plain version at S = 32768 (0.4 GB dequantized)
+ACCOUNT_MB_ROWS = 4        # train_4k rows a micro-batch: microbatch_split 64 of 256 rows
+ACCOUNT_MB_RUN = 2         # the micro-batches run of that split
+
+
+def allocator_bytes(torch):
+    """(requested, allocated) bytes the caching allocator holds now."""
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    return stats["requested_bytes.all.current"], stats["allocated_bytes.all.current"]
+
+
+def held_to_account(torch, label, card, before, trees, account: int) -> None:
+    """The card's allocation since ``before`` against the account's bytes:
+    the bytes requested equal it exactly, and the bytes allocated exceed it
+    by the caching allocator's rounding alone, under 2 MiB a tensor (a block
+    is its request rounded up to 512 bytes, and a fresh segment's tail under
+    1 MiB stays in the block)."""
+    from repro_torch.launch import analysis
+
+    req, alloc = allocator_bytes(torch)
+    d_req, d_alloc = req - before[0], alloc - before[1]
+    tensors = analysis._tensors(trees)
+    storages = {t.untyped_storage().data_ptr() for t in tensors}
+    check(len(storages) == len(tensors), f"[account] {label}: tensors share storage")
+    check(d_req == account, f"[account] {label}: the card's requested bytes grew by {d_req:,}, "
+                            f"the account says {account:,}")
+    check(0 <= d_alloc - d_req < len(tensors) * (2 << 20),
+          f"[account] {label}: allocated {d_alloc:,} against requested {d_req:,} over "
+          f"{len(tensors)} tensors")
+    print(f"[account] {label}: the card allocated {d_req:,} requested bytes == the account's "
+          f"{account:,} ({len(tensors)} tensors; {d_alloc:,} allocated, the allocator's "
+          f"rounding {d_alloc - d_req:,}) | {card}", flush=True)
+
+
+def account_decode(torch, card, launches) -> dict:
+    """smollm-135m ``decode_32k --wq --qkv`` at mesh 1 x 1: the cell
+    allocated on the card against the account, one decode step beside its
+    roofline terms and peak memory, ``qdecode_attn`` alone at S = 32768."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import qdecode_attn as qd_mod
+    from repro_torch.kernels.qdecode_attn import qdecode_attn_cuda
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.mesh import HW
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import make_decode_step
+
+    cfg = get_config("smollm-135m")
+    opts = dryrun.parse_args(["--mesh", "1,1", "--wq", "--qkv"])
+    t0 = time.perf_counter()
+    rec = dryrun.build_cell("smollm-135m", "decode_32k", None, opts)
+    mem, flops = rec["memory"], rec["cost"]["flops"]
+    print(f"[account] smollm-135m decode_32k --wq --qkv (mesh 1 x 1, meta): arguments "
+          f"{mem['argument_size_in_bytes']:,} bytes ({mem['arguments']}), outputs "
+          f"{mem['output_size_in_bytes']:,} (aliased {mem['alias_size_in_bytes']:,}), FLOPs "
+          f"{flops:.4g} ({rec['cost']['flops_by_op']}); {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    sh = dryrun.SHAPES["decode_32k"]
+    # a warm-up: the int8 path's persistent tables on the card come first
+    small = get_config("smollm-135m-smoke").build()
+    ServeEngine(small, small.init(torch.Generator(device="cuda").manual_seed(0), "cuda"),
+                max_len=16, batch_slots=1, quantized_kv=True, weight_quant=True, device="cuda")
+    before = allocator_bytes(torch)
+    model = cfg.build()
+    engine = ServeEngine(model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda"),
+                         max_len=sh.seq_len, batch_slots=sh.global_batch, quantized_kv=True,
+                         weight_quant=True, device="cuda", own_params=True)
+    cache = engine.new_cache()
+    token = torch.randint(0, cfg.vocab, (sh.global_batch, 1), dtype=torch.int32, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    held_to_account(torch, "smollm-135m decode_32k --wq --qkv", card, before,
+                    [engine.params, token, cache], mem["argument_size_in_bytes"])
+
+    # one decode step over the whole cache: the last position of S
+    for node in cache["body"]:
+        node["kv"]["len"] = sh.seq_len - 1
+    step = make_decode_step(model)
+    ops.reset_launch_counts()
+    nxt, _ = step(engine.params, token, cache, None)
+    torch.cuda.synchronize()
+    want = lockstep_counts(cfg, cfg.n_layers, 1, 1)
+    check(ops.launch_counts() == want, f"[account] decode step launches {ops.launch_counts()} "
+                                       f"!= {want}")
+    for k, v in ops.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    check(tuple(nxt.shape) == (sh.global_batch, 1) and bool(((nxt >= 0) & (nxt < cfg.vocab))
+                                                             .all()),
+          "[account] the decode step's tokens are not (B, 1) ids of the vocab")
+    held = allocator_bytes(torch)[1]
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        step(engine.params, token, cache, None)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / iters
+    peak = torch.cuda.max_memory_allocated() - held
+    t_flops = flops / HW["peak_bf16_flops"] * 1e3
+    t_bytes = mem["argument_size_in_bytes"] / HW["hbm_bytes_per_s"] * 1e3
+    print(f"[account] decode step at kv_len {sh.seq_len} (B={sh.global_batch}): {step_ms:.3f} ms "
+          f"(CUDA events, {iters} steps) | roofline terms: FLOPs / bf16 peak {t_flops:.4f} ms, "
+          f"argument bytes / HBM {t_bytes:.3f} ms | its peak memory above the arguments "
+          f"{peak:,} bytes beside the arguments' {mem['argument_size_in_bytes']:,} | launches "
+          f"{want['wq_matmul']} wq_matmul + {want['qdecode_attn']} qdecode_attn | {card}",
+          flush=True)
+
+    # qdecode_attn alone at S = 32768, on layer 0 of the cache
+    b, hkv, d, g = sh.global_batch, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    hq = hkv * g
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    k0, v0 = cache["body"][0]["kv"]["k"][0], cache["body"][0]["kv"]["v"][0]
+    pb = ACCOUNT_PLAIN_B
+    for c in (k0, v0):
+        c[:pb].copy_(int_codes(torch, gen, (pb, sh.seq_len, hkv, d), torch.int8))
+    q = torch.randn(b, hq, d, generator=gen, device="cuda")
+    s = sh.seq_len
+    got = qdecode_attn_cuda(q[:pb], k0[:pb], v0[:pb], 3, 3, s)
+    want_o = ref.qdecode_attn_ref(q[:pb], k0[:pb], v0[:pb], 3, 3, s)
+    err = max_err(got, want_o)
+    check(err <= ATTN_ATOL, f"[account] qdecode_attn S={s} B={pb}: max err {err} > {ATTN_ATOL}")
+    rows = {}
+    for bb in (pb, b):
+        live = bb * s
+        b_ms, b_by = bound(2 * 4 * bb * hq * d + 2 * live * hkv * d + 4 * bb, 4.0 * live * hq * d)
+        ms = graph_ms(torch, [lambda bb=bb: qdecode_attn_cuda(q[:bb], k0[:bb], v0[:bb], 3, 3, s)],
+                      10)
+        rows[bb] = dict(b=bb, s=s, ranks=qd_mod.plan(bb, s, hkv, d).ranks, ms=ms, bound_ms=b_ms,
+                        bound_by=b_by)
+    small_row = rows[pb]
+    small_row["plain_ms"] = graph_ms(
+        torch, [lambda: ref.qdecode_attn_ref(q[:pb], k0[:pb], v0[:pb], 3, 3, s)], 4)
+    deq = [c[:pb].to(torch.float32).mul(0.125).repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+           .contiguous() for c in (k0, v0)]
+    small_row["library_ms"] = graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+        q[:pb, :, None, :], deq[0], deq[1])], 4)
+    del deq
+    small_row["err"] = err
+    for r in rows.values():
+        print(f"[kernel] qdecode_attn S={s} B={r['b']} Hq={hq} Hkv={hkv} D={d} (the decode_32k "
+              f"cell's layer): kernel {r['ms'] * 1e3:.2f} us"
+              + (f" | plain {r['plain_ms'] * 1e3:.2f} us | sdpa on dequantized "
+                 f"{r['library_ms'] * 1e3:.2f} us | max_abs_err {err:.3e}" if r is small_row
+                 else "")
+              + f" | bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); split_ranks picks "
+                f"R={r['ranks']} | {card}", flush=True)
+    del engine, cache, token, k0, v0
+    torch.cuda.empty_cache()
+    return {"decode_ms": step_ms, "rows": list(rows.values())}
+
+
+def account_train(torch, card) -> None:
+    """smollm-135m ``train_4k`` at mesh 1 x 1: the state and batch allocated
+    on the card against the account, then the first micro-batches of a
+    ``microbatch_split`` the card holds, under ``remat="off"`` and
+    ``"none"``, with their peak memory."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config("smollm-135m")
+    rec = dryrun.build_cell("smollm-135m", "train_4k", None,
+                            dryrun.parse_args(["--mesh", "1,1"]), run=False)
+    sh = dryrun.SHAPES["train_4k"]
+    before = allocator_bytes(torch)
+    opt = sgd(momentum=0.9, weight_decay=5e-4)
+    params = cfg.build().init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab, (sh.global_batch, sh.seq_len), dtype=torch.int32,
+                              device="cuda", generator=gen) for k in ("tokens", "labels")}
+    held_to_account(torch, "smollm-135m train_4k (f32 parameters, SGD momentum, the "
+                           f"({sh.global_batch}, {sh.seq_len}) batch)", card, before,
+                    [state, batch], rec["memory"]["argument_size_in_bytes"])
+    split = sh.global_batch // ACCOUNT_MB_ROWS
+    part = {k: v[:ACCOUNT_MB_ROWS * ACCOUNT_MB_RUN] for k, v in batch.items()}
+    # a warm-up of the step's kernels, one row a micro-batch
+    make_train_step(cfg.build(remat="off"), opt, 0.01, microbatch_split=ACCOUNT_MB_RUN)(
+        state, {k: v[:ACCOUNT_MB_RUN] for k, v in part.items()})
+    peaks = {}
+    for remat in ("off", "none"):
+        step = make_train_step(cfg.build(remat=remat), opt, 0.01, microbatch_split=ACCOUNT_MB_RUN)
+        torch.cuda.synchronize()
+        held = allocator_bytes(torch)[1]
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        new, mets = step(state, part)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        peaks[remat] = torch.cuda.max_memory_allocated() - held
+        check(bool(torch.isfinite(mets["loss"])), f"[account] train_4k remat={remat}: loss "
+                                                  f"{mets['loss'].item()}")
+        print(f"[account] smollm-135m train_4k, remat={remat}: the first {ACCOUNT_MB_RUN} of "
+              f"microbatch_split {split} ({ACCOUNT_MB_ROWS} x {sh.seq_len} tokens each) in "
+              f"{ms:.1f} ms (the whole step about {ms / ACCOUNT_MB_RUN * split / 1e3:.1f} s), "
+              f"loss {mets['loss'].item():.4f}, peak memory above the state and batch "
+              f"{peaks[remat]:,} bytes | {card}", flush=True)
+        del new, mets, step
+    check(peaks["none"] < peaks["off"], f"[account] remat none's peak {peaks['none']:,} is not "
+                                        f"below off's {peaks['off']:,}")
+    del state, batch, params, part
+    torch.cuda.empty_cache()
+
+
+ACCOUNT_CELLS_TIMEOUT = 600  # seconds the meta cells may take after the build
+
+
+def account_cells(out: str) -> int:
+    """The program of ``--account-cells``, started by
+    :func:`account_cells_start` with no card visible: every arch x shape's
+    argument bytes at mesh 1 x 1 on meta (f32 weights and KV; int8 weights
+    and KV for serving), then smollm-135m's ``train_4k`` and ``decode_32k
+    --wq --qkv`` run at the 16 x 16 production mesh over a fake group;
+    writes ``out`` (JSON)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cells = []
+    for flags in ([], ["--wq", "--qkv"]):
+        opts = dryrun.parse_args(["--mesh", "1,1", *flags])
+        for arch, shape in dryrun.all_cells():
+            if flags and dryrun.SHAPES[shape].kind == "train":
+                continue
+            rec = dryrun.build_cell(arch, shape, None, opts, run=False)
+            cells.append({"arch": arch, "shape": shape, "variant": rec["variant"],
+                          "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+                          **({"refused": rec["refused"][:60]} if "refused" in rec else {})})
+    t1 = time.perf_counter()
+    mesh16 = []
+    for shape, flags in (("train_4k", []), ("decode_32k", ["--wq", "--qkv"])):
+        rec = dryrun.run_cell("smollm-135m", shape, dryrun.parse_args(flags))
+        mesh16.append({"shape": shape, "flags": flags, "refused": rec.get("refused"),
+                       "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+                       "flops": rec["cost"].get("flops"),
+                       "wire_bytes": rec["collective_wire_bytes"],
+                       "by_axis": rec["collectives_by_axis"]})
+    Path(out).write_text(json.dumps({"cells": cells, "mesh16": mesh16,
+                                     "seconds": [t1 - t0, time.perf_counter() - t1]}))
+    return 0
+
+
+def account_cells_start():
+    """Start :func:`account_cells` in a process of its own, on the host's
+    cores while the card works (the cells allocate nothing, on ``meta``);
+    :func:`account_fits` reads it.  The process is killed at exit if it
+    still runs."""
+    import atexit
+    import os
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_account_"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(tmp / "log", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--account-cells",
+                             str(tmp / "cells.json")], env=env, stdout=log,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    log.close()
+    atexit.register(dist_kill, proc)
+    return proc, tmp, time.perf_counter()
+
+
+def account_fits(torch, card, started) -> None:
+    """:func:`account_cells`' result against the card's memory: which
+    cells' arguments fit one card, and smollm-135m's collectives on both
+    axes of the 16 x 16 mesh."""
+    import shutil
+
+    proc, tmp, t0 = started
+    wait_t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, ACCOUNT_CELLS_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        dist_kill(proc)
+        rc = "killed at its time limit"
+    waited = time.perf_counter() - wait_t0
+    if rc != 0:
+        print((tmp / "log").read_text()[-6000:], flush=True)
+        fail(f"[account] the cells on meta exited {rc}")
+    res = json.loads((tmp / "cells.json").read_text())
+    shutil.rmtree(tmp, ignore_errors=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells = [dict(c, fits=c["argument_bytes"] <= total) for c in res["cells"]]
+    fit = [f"{c['arch']} {c['shape']} {c['variant']}"
+           + (" (refused)" if "refused" in c else "") for c in cells if c["fits"]]
+    print(f"[account] {len(fit)} of {len(cells)} cells' arguments fit one card's "
+          f"{total:,} bytes: {'; '.join(fit)} | {card}", flush=True)
+    print("[account] " + json.dumps({"fits": cells}), flush=True)
+    for rec in res["mesh16"]:
+        by_axis = rec["by_axis"]
+        check(rec["refused"] is None and all(by_axis.get(a) for a in ("data", "model")),
+              f"[account] smollm-135m {rec['shape']} at 16 x 16: refused {rec['refused']}, "
+              f"collectives {by_axis}")
+        print(f"[account] smollm-135m {rec['shape']} {' '.join(rec['flags'])} at the 16 x 16 "
+              f"production mesh (fake group, meta): arguments {rec['argument_bytes']:,} bytes "
+              f"a device, FLOPs {rec['flops']:.4g}, wire bytes {rec['wire_bytes']:.4g} "
+              f"({json.dumps(by_axis)})", flush=True)
+    print(f"[account] the cells on meta ran beside the other phases: 1 x 1 "
+          f"{res['seconds'][0]:.1f}s, 16 x 16 {res['seconds'][1]:.1f}s; the phase waited "
+          f"{waited:.1f}s for them", flush=True)
+
+
+def account_end_to_end(torch, card, cells) -> dict:
+    """``[account]``: the dry-run account (``launch/dryrun.py``) held to
+    the card; ``cells`` is :func:`account_cells_start`'s process."""
+    phase_t0 = time.perf_counter()
+    launches = {}
+    t0 = time.perf_counter()
+    decode = account_decode(torch, card, launches)
+    t1 = time.perf_counter()
+    account_train(torch, card)
+    t2 = time.perf_counter()
+    account_fits(torch, card, cells)
+    t3 = time.perf_counter()
+    print(f"[time] account phase {t3 - phase_t0:.1f}s (decode {t1 - t0:.1f}s, train "
+          f"{t2 - t1:.1f}s, the cells on meta {t3 - t2:.1f}s of it)", flush=True)
+    return {"launches": launches, **decode}
+
+
 def main() -> int:
     try:
         import torch
@@ -6049,6 +6403,8 @@ def main() -> int:
         check(dp4a == 0, f"{name}: {dp4a} dp4a (IDP) instructions in its machine code")
         print(f"[build] {name}: {found} {op} (tensor-core) instructions and no dp4a in its "
               f"machine code", flush=True)
+    # [account]'s cells on meta run on the host's cores beside the phases
+    cells = account_cells_start()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t1 = time.perf_counter()
@@ -6127,14 +6483,18 @@ def main() -> int:
     shard_launches = shard_end_to_end(torch, card)
     check_grants("the shard phase", ran=("wq_matmul",))
     t11 = time.perf_counter()
+    account = account_end_to_end(torch, card, cells)
+    check_grants("the account phase", ran=("wq_matmul",))
+    t12 = time.perf_counter()
     print(f"[time] build {t1 - t0:.1f}s | kernel checks {t2 - t1:.1f}s | serving "
           f"{t3 - t2:.1f}s | integer engine {t4 - t3:.1f}s | training {t5 - t4:.1f}s | archs "
           f"{t6 - t5:.1f}s | recurrent {t7 - t6:.1f}s | encdec {t8 - t7:.1f}s | moe "
-          f"{t9 - t8:.1f}s | dist {t10 - t9:.1f}s | shard {t11 - t10:.1f}s | all "
-          f"{t11 - t0:.1f}s", flush=True)
+          f"{t9 - t8:.1f}s | dist {t10 - t9:.1f}s | shard {t11 - t10:.1f}s | account "
+          f"{t12 - t11:.1f}s | all {t12 - t0:.1f}s", flush=True)
     launches = {k: sum(part.get(k, 0) for part in (launches, int_launches, train_launches,
                                                    arch_launches, rec_launches, enc_launches,
-                                                   moe_launches, shard_launches))
+                                                   moe_launches, shard_launches,
+                                                   account["launches"]))
                 for k in int_launches}
 
     wq_main = wq_layers[8]
@@ -6161,7 +6521,8 @@ def main() -> int:
          "ranks": qd_main["ranks"],
          "beside": [{k: r[k] for k in ("s", "lens", "d", "g", "codes", "ranks", "ms",
                                        "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                    for r in qd_rows if r is not qd_main]},
+                    for r in qd_rows if r is not qd_main],
+         "decode_32k": account["rows"]},
         {"name": "qchunk_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qchunk_attn.cu",
          "replaces": "src/repro/kernels/qchunk_attn.py:107",
@@ -6298,4 +6659,6 @@ if __name__ == "__main__":
         sys.exit(dist_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--shard-rank"]:
         sys.exit(shard_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--account-cells"]:
+        sys.exit(account_cells(sys.argv[2]))
     sys.exit(main())

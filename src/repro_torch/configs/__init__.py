@@ -1,1 +1,3 @@
-"""Architecture configs ported so far (``repro/configs``)."""
+"""Architecture configs (``repro/configs``)."""
+from repro_torch.configs.base import (LONG_CONTEXT_FAMILIES, SHAPES, ArchConfig,  # noqa: F401
+                                      ShapeSpec)

@@ -16,18 +16,50 @@ with i = o (mod k) (phi3.5-moe every layer, jamba every other one over its
 layers (kimi-k2, with its own ``d_ff_dense``) form the stack's unstacked
 ``prelude``.  ``smoke()`` derives the same reduced config as the reference,
 so converted JAX parameters fit it.
+
+``SHAPES`` are the reference's four cells (``train_4k``, ``prefill_32k``,
+``decode_32k``, ``long_500k``); :meth:`ArchConfig.supports` says which an
+arch runs and :meth:`ArchConfig.input_specs` gives the cell's inputs as
+``meta`` tensors (no storage), the port's dtypes: float32 embeddings and a
+float32 decode cache, where the reference's dry run takes bf16.
+``build(remat=)`` takes the reference's activation rematerialization
+policies (``nn/transformer.py`` ``REMAT_POLICIES``; ``"full"`` by default).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Dict
+
+import torch
 
 from repro_torch.models.lm import CausalLM, EncDecLM
 from repro_torch.nn.transformer import Block, Stack
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# the reference's cells: every LM arch is paired with these four
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# families with sub-quadratic decode state run long_500k; pure
+# full-attention archs skip it
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
 # the decoder's learned position table: the reference sizes it by
 # SHAPES["decode_32k"].seq_len
-MAX_TARGET_LEN = 32768
+MAX_TARGET_LEN = SHAPES["decode_32k"].seq_len
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -74,6 +106,13 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
+    def supports(self, shape_name: str) -> bool:
+        """Whether this arch runs the cell: ``long_500k`` only for the
+        sub-quadratic families."""
+        if shape_name == "long_500k":
+            return self.family in LONG_CONTEXT_FAMILIES
+        return shape_name in SHAPES
+
     def _is_moe(self, layer_idx: int) -> bool:
         return (self.moe_every > 0 and layer_idx >= self.first_k_dense
                 and layer_idx % self.moe_every == self.moe_offset)
@@ -93,33 +132,37 @@ class ArchConfig:
                      ffn="moe" if moe else self.ffn_kind, n_experts=self.n_experts,
                      top_k=self.top_k, n_shared_experts=self.n_shared_experts)
 
-    def build(self):
+    def build(self, *, remat: str = "full"):
         """The float32 model of this config: an ``EncDecLM`` when it has
-        ``enc_layers``, else a ``CausalLM``."""
+        ``enc_layers``, else a ``CausalLM``; its stacks' layers
+        rematerialized under ``remat`` (``off``, ``none``, ``dots`` or
+        ``full``) in a backward."""
         if self.norm not in ("rms", "ln"):
             raise ValueError(f"{self.arch_id}: norm {self.norm!r}")
         if self.is_encdec:
-            return self._build_encdec()
+            return self._build_encdec(remat)
         return CausalLM(vocab=self.vocab, vocab_padded=self.vocab_padded,
-                        d_model=self.d_model, stack=self._stack(),
+                        d_model=self.d_model, stack=self._stack(remat),
                         norm=self.norm, tie_embeddings=self.tie_embeddings)
 
-    def _stack(self) -> Stack:
+    def _stack(self, remat: str) -> Stack:
         """The ``first_k_dense`` prelude blocks, then the layout's period
-        repeated over the remaining layers (``repro/configs/base.py``)."""
+        repeated over the remaining layers (``repro/configs/base.py``); the
+        prelude runs without rematerialization, as the reference's does."""
         period = len(self.layout)
         if (self.n_layers - self.first_k_dense) % period:
             raise ValueError(f"{self.arch_id}: {self.n_layers - self.first_k_dense} layers "
                              f"do not repeat the {period}-layer period {self.layout!r}")
         prelude = Stack(body=tuple(self._block(i, self.layout[i % period])
                                    for i in range(self.first_k_dense)),
-                        n_periods=1, layer_scope="pre") if self.first_k_dense else None
+                        n_periods=1, layer_scope="pre", remat="off") \
+            if self.first_k_dense else None
         body = tuple(self._block(self.first_k_dense + p, self.layout[p])
                      for p in range(period))
         return Stack(body=body, n_periods=(self.n_layers - self.first_k_dense) // period,
-                     prelude=prelude)
+                     prelude=prelude, remat=remat)
 
-    def _build_encdec(self) -> EncDecLM:
+    def _build_encdec(self, remat: str) -> EncDecLM:
         """Whisper's pair of stacks: a non-causal encoder block and a causal
         decoder block with cross-attention, RoPE off and the GELU MLP in
         both (``repro/configs/base.py`` ``build``)."""
@@ -129,9 +172,9 @@ class ArchConfig:
         return EncDecLM(vocab=self.vocab, vocab_padded=self.vocab_padded,
                         d_model=self.d_model,
                         encoder=Stack(body=(Block(causal=False, **kw),),
-                                      n_periods=self.enc_layers),
+                                      n_periods=self.enc_layers, remat=remat),
                         decoder=Stack(body=(Block(causal=True, cross=True, **kw),),
-                                      n_periods=self.n_layers),
+                                      n_periods=self.n_layers, remat=remat),
                         max_target_len=MAX_TARGET_LEN, norm=self.norm, enc_len=self.enc_seq)
 
     def smoke(self) -> "ArchConfig":
@@ -186,6 +229,51 @@ class ArchConfig:
         moe_layers = sum(self._is_moe(i) for i in range(self.n_layers))
         return self.param_count() - moe_layers * (self.n_experts - self.top_k) * 3 \
             * self.d_model * self.d_ff
+
+    def input_specs(self, shape_name: str) -> Dict[str, Any]:
+        """The cell's model inputs as ``meta`` tensors (the reference's
+        ``ShapeDtypeStruct`` stand-ins, in the port's dtypes).
+
+        train:   tokens/labels (B, S) int32 (+ a float32 embeds stub for
+                 audio and vlm, whose prefix shortens a vlm's tokens)
+        prefill: tokens (B, S) (+ the embeds stub)
+        decode:  tokens (B, 1) + the float32 KV/state cache sized for S
+                 (+ the encoder output ``enc`` of an EncDec arch)
+        """
+        sh = SHAPES[shape_name]
+        if not self.supports(shape_name):
+            raise ValueError(f"{self.arch_id} skips {shape_name}")
+        b, s = sh.global_batch, sh.seq_len
+
+        def ints(*shape):
+            return torch.empty(shape, dtype=torch.int32, device="meta")
+
+        def floats(*shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+
+        if sh.kind == "train":
+            if self.is_encdec:
+                return {"embeds": floats(b, self.enc_seq, self.d_model),
+                        "tokens": ints(b, s), "labels": ints(b, s)}
+            if self.vis_seq:
+                return {"embeds": floats(b, self.vis_seq, self.d_model),
+                        "tokens": ints(b, s - self.vis_seq),
+                        "labels": ints(b, s - self.vis_seq)}
+            return {"tokens": ints(b, s), "labels": ints(b, s)}
+        if sh.kind == "prefill":
+            out = {"tokens": ints(b, s)}
+            if self.is_encdec:
+                out["embeds"] = floats(b, self.enc_seq, self.d_model)
+            if self.vis_seq:
+                out["embeds"] = floats(b, self.vis_seq, self.d_model)
+                out["tokens"] = ints(b, s - self.vis_seq)
+            return out
+        # decode: one new token against an S-token cache
+        out = {"tokens": ints(b, 1),
+               "cache": self.build().init_cache(b, s, quantized_kv=False, device="meta")}
+        if self.is_encdec:
+            out["enc"] = floats(b, self.enc_seq, self.d_model)
+        return out
 
 
 _MIXERS = {"a": "attn", "m": "mamba", "r": "rwkv"}

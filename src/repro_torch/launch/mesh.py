@@ -7,13 +7,25 @@ One process a rank: ``torchrun`` starts them and sets ``RANK``,
 explicit backend, and :func:`make_host_mesh` lays the group out as a
 ``(data, model)`` :class:`~torch.distributed.device_mesh.DeviceMesh`, rank
 (d, m) at ``d * model + m``: the ``model`` ranks of one data index are
-neighbours.  The reference's production mesh and its hardware table describe a TPU
-pod and have no counterpart on the card.
+neighbours.
+
+:func:`make_production_mesh` gives the reference's two production meshes,
+(16, 16) ``(data, model)`` and (2, 16, 16) ``(pod, data, model)``, as a
+``DeviceMesh`` over a ``"fake"`` process group in one process (its
+collectives return at once and move nothing): the dry-run account
+(``launch/dryrun.py``) runs rank 0's step on ``meta`` tensors there.
+:data:`HW` is the H100 SXM's data-sheet table for the account's roofline
+terms; :func:`hw_table` adds what the card itself reports when one is
+present.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
 import os
-from typing import Optional
+import subprocess
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -70,3 +82,68 @@ def make_host_mesh(data: int = 1, model: int = 1, device=None):
     return DeviceMesh(resolve_device(device).type, torch.arange(world).reshape(data, model),
                       mesh_dim_names=("data", "model"))
 
+
+# the reference's production meshes: one pod, and two pods
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+# H100 SXM 80GB, per card, from NVIDIA's data sheet (dense rates)
+HW: Dict[str, float | str] = {
+    "name": "h100-sxm",
+    "peak_bf16_flops": 989e12,     # FLOP/s, tensor cores
+    "peak_int8_ops": 1979e12,      # OP/s, tensor cores
+    "peak_f32_flops": 67e12,       # FLOP/s outside the tensor cores
+    "hbm_bytes_per_s": 3.35e12,
+    "nvlink_bytes_per_s_per_link": 50e9,   # 900 GB/s over 18 links, both directions
+    "nvlink_links": 18,
+    "hbm_bytes": 80e9,
+}
+
+
+def hw_table() -> Dict[str, float | str]:
+    """:data:`HW`, plus the card's own name, memory and power limit when
+    a card is visible (``torch.cuda`` and ``nvidia-smi``, read once a
+    process)."""
+    return dict(_hw_table())
+
+
+@functools.lru_cache(maxsize=1)
+def _hw_table() -> Dict[str, float | str]:
+    out = dict(HW)
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(0)
+        out["card"] = props.name
+        out["card_memory_bytes"] = int(props.total_memory)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+        out["card_power_limit"] = smi.stdout.strip().splitlines()[0].split(",")[-1].strip()
+    return out
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], axes: Sequence[str]) -> Iterator:
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over a ``"fake"`` group
+    of prod(shape) ranks in this process, as rank 0; the group is destroyed
+    on exit.  Its collectives move nothing: the account reads their calls
+    and bytes (``dist.shard_ops.collective_counts``).  A group that is
+    already up is refused, and a fake group that does not form raises."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already up in this process")
+    world = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield DeviceMesh("cpu", torch.arange(world).reshape(tuple(shape)),
+                         mesh_dim_names=tuple(axes))
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh as a context manager over a fake
+    group (:func:`fake_mesh`): one pod (data=16, model=16), or two (pod=2,
+    data=16, model=16)."""
+    return fake_mesh(*PRODUCTION_MESHES[multi_pod])

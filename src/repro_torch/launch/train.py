@@ -113,7 +113,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict, float], None]] = None
 def _train(args, device, mesh, on_step):
     leader = not dist.is_initialized() or dist.get_rank() == 0
     cfg = get_config(args.arch)
-    model = cfg.build()
+    # every layer recomputed in the backward, as the reference's launch.train builds
+    model = cfg.build(remat="none")
     optimizer = (adamw(weight_decay=0.01) if args.optimizer == "adamw"
                  else sgd(momentum=0.9, weight_decay=5e-4))
     schedule = multistep_lr(args.lr, milestones=(args.steps * 2 // 3, args.steps * 5 // 6))

@@ -223,11 +223,18 @@ class Dense:
         (``copy_in`` gives the input's gradient its sum over ``model``),
         the output's columns gathered over ``model``.  Every output column
         is a whole-K dot product, so the numbers are one device's up to the
-        BLAS blocking.  The bias (replicated) is added to the whole output
-        after its own fake-quant, and the output's range is every column's."""
+        BLAS blocking.  The bias is added to the whole output after its own
+        fake-quant, and the output's range is every column's.  A stacked
+        bias (L, N) is cut as a (D_in, D_out) matrix, by the reference's
+        rules: its layer's columns arrive cut over ``model`` and are
+        gathered here."""
         mesh = ctx.mesh
         if rows:
             kernel = gather_codes(kernel, -2, mesh, rows)
+        if bias is not None:
+            bcols = mesh_split(bias.shape[-1], self.out_features, ctx, "model")
+            if bcols:
+                bias = shard_ops.gather_replicated(bias, -1, mesh, bcols)
         quant = not isinstance(kernel, QTensor) and ctx.policy.enabled \
             and self.kind not in ctx.policy.skip_kinds
         if isinstance(kernel, QTensor):

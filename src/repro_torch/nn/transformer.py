@@ -19,6 +19,19 @@ dense first layer) is a stack of one period run before the body, each of
 its layers with its own unstacked parameters and cache node
 (``params["prelude"][i]``, ``cache["prelude"][i]``).
 
+``Stack(remat=)`` rematerializes each layer's activations in a backward,
+the reference's ``REMAT_POLICIES``: ``"off"`` saves them; ``"none"`` and
+``"full"`` save only the layer's inputs and recompute the rest
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` also saves the
+outputs of the non-batched matmuls (``aten.mm``/``aten.addmm``, the
+counterpart of ``dots_with_no_batch_dims_saveable``).  It applies where a
+layer's input requires grad (a training step); a serving forward runs the
+layers as they are.  The layer's range statistics and auxiliary losses
+leave the checkpointed region as outputs, merged once into the caller's
+context as the reference's ``merge_scanned`` does, so a recompute adds no
+second loss; a dropout mask comes from ``Context.fold_rng`` (a generator
+seeded from the scoped name) and is drawn again equal.
+
 A block's cache node holds ``"kv"`` (attention: written in place, only its
 ``len`` comes back new) or the recurrent state, ``"ssm"`` (the mixer's) and
 with the channel-mix ``"cm"`` (its token shift).  Recurrent leaves of a
@@ -29,6 +42,7 @@ old ones as they were.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -43,6 +57,33 @@ from repro_torch.nn.ssm import Mamba, RWKV6ChannelMix, RWKV6TimeMix
 
 # block cache keys of recurrent state: the mixer's and the channel-mix's
 RECURRENT_KEYS = ("ssm", "cm")
+
+# the reference's activation rematerialization policies (``off`` = none taken)
+REMAT_POLICIES = ("off", "none", "dots", "full")
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of the non-batched matmuls,
+    recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` run under ``torch.utils.checkpoint`` by ``policy``.  The
+    port draws no number from torch's global generators in a forward, so
+    their states are not stashed."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_saveable)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                             **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,7 +281,12 @@ class Stack:
     n_periods: int
     prelude: Optional["Stack"] = None
     layer_scope: str = "l"
+    remat: str = "full"            # off | none | dots | full
     name: str = "stack"
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={self.remat!r}: one of {REMAT_POLICIES}")
 
     @property
     def blocks(self) -> Tuple[Block, ...]:
@@ -325,8 +371,12 @@ class Stack:
                     if c is not None:
                         c = _layer_cache(c, period)
                 bctx = ctx.scope(f"p{pos}" if self.stacked else f"{self.layer_scope}{pos}")
-                x, nc = blk.apply(p, x, bctx, cache=c, enc=enc, decode=decode, chunk=chunk,
-                                  ragged=ragged)
+                if self.remat != "off" and x.requires_grad and torch.is_grad_enabled():
+                    x, nc = self._remat_layer(blk, p, x, bctx, cache=c, enc=enc, decode=decode,
+                                              chunk=chunk, ragged=ragged)
+                else:
+                    x, nc = blk.apply(p, x, bctx, cache=c, enc=enc, decode=decode, chunk=chunk,
+                                      ragged=ragged)
                 if nc is not None:
                     if "kv" in nc:
                         lens[pos] = nc["kv"]["len"]
@@ -356,6 +406,22 @@ class Stack:
         if self.prelude:
             new["prelude"] = pre["body"]
         return x, new
+
+    def _remat_layer(self, blk: Block, p, x, ctx: Context, **kw):
+        """One layer under :func:`_remat`: it records into a context of its
+        own, whose statistics and losses come out as outputs and are merged
+        here (statistics by max, losses added in layer order)."""
+        def layer(p, x):
+            own = dataclasses.replace(ctx, stats={}, losses={})
+            y, nc = blk.apply(p, x, own, **kw)
+            return y, nc, own.stats, own.losses
+
+        x, nc, stats, losses = _remat(layer, self.remat)(p, x)
+        for k, v in stats.items():
+            ctx.stats[k] = torch.maximum(ctx.stats[k], v) if k in ctx.stats else v
+        for k, v in losses.items():
+            ctx.add_loss(k, v)
+        return x, nc
 
 
 def _layer_cache(node: Dict[str, Any], i: int) -> Dict[str, Any]:

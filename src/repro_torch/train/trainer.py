@@ -95,11 +95,19 @@ class _HostStep:
 
     def value(self, step: torch.Tensor) -> int:
         if step is not self._tensor:
-            self._value = int(step)
+            # a meta step (the dry run's account) holds no value: it counts from 0
+            self._value = 0 if step.is_meta else int(step)
         return self._value
 
     def advance(self, new_step: torch.Tensor) -> None:
         self._tensor, self._value = new_step, self._value + 1
+
+
+def _step_generator(step: torch.Tensor, seed: int) -> torch.Generator:
+    """The step's generator, on the step's device (the CPU's for a meta
+    step, which draws nothing)."""
+    device = "cpu" if step.is_meta else step.device
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _data_group(mesh, axis_rules, policy: QuantPolicy, where: str):
@@ -297,7 +305,7 @@ def make_train_step(model, optimizer, lr_schedule, *,
         if group is not None:
             batch, weights = _slices(batch, group, microbatch_split)
         batch = to_device(batch, step.device)
-        rng = torch.Generator(device=step.device).manual_seed(host_step.value(step))
+        rng = _step_generator(step, host_step.value(step))
         if microbatch_split > 1:
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
@@ -418,7 +426,7 @@ def make_dp_shardmap_train_step(model, optimizer, lr_schedule, mesh, *,
         params, opt, step = state["params"], state["opt"], state["step"]
         batch, _ = _slices(batch, group)
         batch = to_device(batch, step.device)
-        rng = torch.Generator(device=step.device).manual_seed(host_step.value(step))
+        rng = _step_generator(step, host_step.value(step))
         (loss, mets), grads = value_and_grad(loss_fn, params, batch, rng)
         new_err = None
         if compress_bits:

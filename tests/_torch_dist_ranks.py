@@ -668,9 +668,59 @@ def suite_mesh_moe(data, rank: int, world: int) -> dict:
     return res
 
 
+def biased_model():
+    """glm4-9b-smoke (QKV biases) and its parameters from seed 0, each bias
+    drawn N(0, 0.1^2) from seed 1 (the init's are zeros)."""
+    from repro_torch.models.registry import get_config
+
+    model = get_config("glm4-9b-smoke").build()
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+
+    def fill(node):
+        for k, v in (node.items() if isinstance(node, dict) else enumerate(node)):
+            if isinstance(v, (dict, list)):
+                fill(v)
+            elif k == "bias":
+                node[k] = 0.1 * torch.randn(v.shape, generator=gen)
+    fill(params)
+    return model, params
+
+
+def suite_bias(data, rank: int, world: int) -> dict:
+    """glm4-9b-smoke with nonzero QKV biases on a (world / 2, 2) mesh: a
+    stacked bias (L, N) is cut like a (D_in, D_out) kernel, its layers over
+    ``data`` and its columns over ``model``.  Two float SGD steps over
+    ``tokens``/``labels`` (the losses and the parameters gathered whole),
+    then ``ServeEngine(mesh=).generate`` of ``prompts`` (int8 weights and
+    KV)."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import trainer
+
+    mesh = make_host_mesh(world // 2, 2, "cpu")
+    rules = sharding.make_axis_rules(mesh)
+    model, params = biased_model()
+    opt = sgd(momentum=0.9)
+    state = trainer.shard_state({"params": params, "opt": opt.init(params),
+                                 "step": torch.zeros((), dtype=torch.int32)}, mesh, rules)
+    step_fn = trainer.make_train_step(model, opt, 0.05, mesh=mesh, axis_rules=rules)
+    res = {}
+    for s in range(len(data["tokens"])):
+        state, mets = step_fn(state, {"tokens": data["tokens"][s], "labels": data["labels"][s]})
+        res[f"loss/{s}"] = mets["loss"].numpy()
+    res.update(as_numpy(_gather_params(state["params"], model, mesh, rules), "params"))
+    engine = ServeEngine(model, biased_model()[1], max_len=24, batch_slots=4, device="cpu",
+                         quantized_kv=True, weight_quant=True, mesh=mesh, axis_rules=rules)
+    res["generate"] = engine.generate(torch.from_numpy(data["prompts"]), 6).numpy()
+    return res
+
+
 SUITES = {"compress": suite_compress, "dp": suite_dp, "ckpt_write": suite_ckpt_write,
           "launch": suite_launch, "shard": suite_shard, "shard_serve": suite_shard_serve,
-          "mesh_serve": suite_mesh_serve, "mesh_moe": suite_mesh_moe}
+          "mesh_serve": suite_mesh_serve, "mesh_moe": suite_mesh_moe, "bias": suite_bias}
 
 
 def main() -> None:

@@ -32,7 +32,12 @@ the port from those parameters, cut by ``param_pspecs``:
   one group) at rtol 1e-5;
 * elastic: ``launch.train.main --mesh 2,2`` checkpointed at step 3 resumes
   under ``--mesh 1,2`` (two ranks) and ``--mesh 1,1`` (this process) and
-  ends within rtol 1e-5 of the uninterrupted run.
+  ends within rtol 1e-5 of the uninterrupted run;
+* glm4-9b-smoke with nonzero QKV biases at (2, 2) (a stacked bias is cut
+  over ``data`` and ``model`` like a kernel, and ``Dense`` gathers its
+  columns): two float steps against the port's single process at rtol
+  1e-5, and ``ServeEngine(mesh=).generate`` (int8 weights and KV) giving
+  the single process's tokens.
 """
 import os
 import subprocess
@@ -43,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist_ranks import flatten, from_flat, launch
+from _torch_dist_ranks import biased_model, flatten, from_flat, launch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 4
@@ -287,3 +292,35 @@ def test_a_2x2_checkpoint_resumes_under_another_mesh(runs, resume):
         got = {k: v.numpy() for k, v in flatten(state["params"]).items()}
     misses, total = _misses(got, whole)
     assert misses == 0, f"{misses} of {total} parameters differ"
+
+
+def test_qkv_biases_train_and_serve_under_a_model_axis(tmp_path):
+    from repro_torch.optim import sgd
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import trainer
+
+    rng = np.random.default_rng(5)
+    model, params = biased_model()
+    vocab = 503
+    toks = rng.integers(0, vocab, (2, 8, 16)).astype(np.int32)
+    inputs = {"tokens": toks, "labels": np.roll(toks, -1, axis=2),
+              "prompts": rng.integers(0, vocab, (4, 8)).astype(np.int32)}
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    ranks = launch(4, "bias", tmp_path / "inputs.npz", tmp_path)
+    opt = sgd(momentum=0.9)
+    state = {"params": params, "opt": opt.init(params), "step": torch.zeros((), dtype=torch.int32)}
+    step_fn = trainer.make_train_step(model, opt, 0.05)
+    for s in range(2):
+        state, mets = step_fn(state, {"tokens": toks[s], "labels": inputs["labels"][s]})
+        for r in ranks:
+            np.testing.assert_allclose(r[f"loss/{s}"], mets["loss"].numpy(), rtol=1e-5)
+    want = flatten(state["params"])
+    for r in ranks:
+        got = {k[len("params/"):]: v for k, v in r.items() if k.startswith("params/")}
+        misses, total = _misses(got, {k: v.numpy() for k, v in want.items()})
+        assert misses == 0, f"{misses} of {total}"
+    engine = ServeEngine(model, biased_model()[1], max_len=24, batch_slots=4, device="cpu",
+                         quantized_kv=True, weight_quant=True)
+    tokens = engine.generate(torch.from_numpy(inputs["prompts"]), 6).numpy()
+    for r in ranks:
+        np.testing.assert_array_equal(r["generate"], tokens)
