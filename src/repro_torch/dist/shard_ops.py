@@ -17,13 +17,16 @@ the sharding rules.  The port runs one process a rank over
 * :func:`psum`: an all-reduce (sum), whose backward is the identity;
 * :func:`pmax`: an all-reduce (max) of a statistic, no gradient;
 * :func:`gather_host`: a serving tick's host-bound values of every data
-  rank, in one call.
+  rank, in one call;
+* :func:`broadcast`: one rank's tensor onto every rank of an axis, in
+  place (the serving pool's page-0 mirror).
 
 Every call is counted by (axis, kind) with the bytes this rank hands the
 collective (:func:`collective_counts`, as ``ops.launch_counts``), backward
-calls included.  :func:`time_collectives` also times each call on the
-host's clock between two device synchronizations (:func:`collective_ms`):
-a measurement that stalls the stream, off by default.
+calls included.  :func:`time_collectives` also times each call (or each
+of some kinds) on the host's clock between two device synchronizations
+(:func:`collective_ms`): a measurement that stalls the stream, off by
+default.
 
 Two forms: NCCL, and gloo on the CPU, run ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor``.  gloo carries only ``broadcast`` and
@@ -41,13 +44,13 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 _COUNTS: Dict[Tuple[str, str], list] = {}
-_TIMED = False
+_TIMED: Optional[Tuple[str, ...]] = None      # the kinds timed; () every kind
 
 
 def collective_counts() -> Dict[Tuple[str, str], Tuple[int, int]]:
@@ -65,10 +68,11 @@ def reset_collective_counts() -> None:
     _COUNTS.clear()
 
 
-def time_collectives(on: bool) -> None:
-    """Time every collective (two device synchronizations each) or not."""
+def time_collectives(on: bool, kinds: Optional[Sequence[str]] = None) -> None:
+    """Time every collective (two device synchronizations each), or only
+    those of ``kinds``, or none."""
     global _TIMED
-    _TIMED = bool(on)
+    _TIMED = (tuple(kinds) if kinds else ()) if on else None
 
 
 @contextlib.contextmanager
@@ -76,7 +80,7 @@ def _counted(axis: str, kind: str, t: torch.Tensor):
     c = _COUNTS.setdefault((axis, kind), [0, 0, 0.0])
     c[0] += 1
     c[1] += t.numel() * t.element_size()
-    if not _TIMED:
+    if _TIMED is None or (_TIMED and kind not in _TIMED):
         yield
         return
     if t.is_cuda:
@@ -147,6 +151,20 @@ def gather_host(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
     every rank takes the same host decisions.  A gloo call costs
     milliseconds whatever its size, so a tick makes one."""
     return all_gather(x[None], 0, mesh, axis, kind="host")
+
+
+def broadcast(x: torch.Tensor, mesh, axis: str, kind: str = "broadcast"):
+    """``x`` of the first rank along ``axis`` written into ``x`` of every
+    rank of it (no gradient), as int32 words where its bytes allow (every
+    bit pattern arrives as it was); returns ``x``."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    group = mesh.get_group(axis)
+    words = x.view(-1).view(torch.int32) \
+        if x.is_contiguous() and x.numel() * x.element_size() % 4 == 0 else x
+    with _counted(axis, kind, words):
+        dist.broadcast(words, src=dist.get_global_rank(group, 0), group=group)
+    return x
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, mesh, axis: str, kind: str = "reduce_scatter"):

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import qformat
+from repro_torch.dist import shard_ops
 from repro_torch.kernels.ref import check_chunk_target
 from repro_torch.nn.layers import Dense
 from repro_torch.nn.module import Context, Params
@@ -325,14 +326,60 @@ def gather_kv_pages(cache: Dict[str, Any], slot: int) -> Tuple[torch.Tensor, tor
     return cache["k"][idx].reshape(sh), cache["v"][idx].reshape(sh)
 
 
-def paged_decode_attention(q: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
+@dataclasses.dataclass
+class PageZero:
+    """Where a data rank's decode reads the one device's pool page 0, under
+    a mesh whose data ranks each hold one block of a paged pool.
+
+    On one device a decode row reads pool page 0 through every unmapped
+    (-1) entry below its live length: an idle slot's row (its ``len``
+    keeps ticking) and a lane's slot past its reserved pages.  Those rows'
+    outputs are never sampled, but an MoE routes them with the rest, so
+    they compete for expert capacity.  Page 0 lies in data rank 0's block:
+    every other rank keeps a mirror of it as one more page of its pool,
+    ``page``, and reads its unmapped entries there.  ``refresh`` (the
+    scheduler's call: page 0 was written since the last refresh, or may be
+    in this step): each layer's decode broadcasts data rank 0's page 0,
+    after that layer's appends, into every rank's mirror over ``axis``.
+    """
+
+    mesh: Any
+    axis: str
+    page: int
+    refresh: bool
+    _read: Optional[torch.Tensor] = None
+
+    def read_table(self, cache: Dict[str, Any]) -> torch.Tensor:
+        """One layer's (after its appends) table to read through."""
+        rank = shard_ops.axis_index(self.mesh, self.axis)
+        if self.refresh:
+            pages = torch.stack([cache["k"][0], cache["v"][0]]) if rank == 0 else \
+                torch.empty((2,) + tuple(cache["k"].shape[1:]), dtype=cache["k"].dtype,
+                            device=cache["k"].device)
+            shard_ops.broadcast(pages, self.mesh, self.axis, kind="page0")
+            if rank != 0:
+                cache["k"][self.page].copy_(pages[0])
+                cache["v"][self.page].copy_(pages[1])
+        if rank == 0:
+            return cache["page_table"]
+        if self._read is None:      # one table serves every layer of the step
+            table = cache["page_table"]
+            self._read = torch.where(table >= 0, table, torch.full_like(table, self.page))
+        return self._read
+
+
+def paged_decode_attention(q: torch.Tensor, cache: Dict[str, Any],
+                           page_zero: Optional[PageZero] = None) -> torch.Tensor:
     """Single-token decode over a paged cache; q (B, 1, Hq, D).
 
     int8 pools go to the ``qpaged_decode_attn`` kernel (plain version on
     CPU), which reads through the table; float pools are densified through
-    the table and take the einsum path.
+    the table and take the einsum path.  ``page_zero``: under a mesh, read
+    the unmapped entries where the one device's page 0 is
+    (:class:`PageZero`).
     """
-    table, ln = cache["page_table"], cache["len"]
+    ln = cache["len"]
+    table = cache["page_table"] if page_zero is None else page_zero.read_table(cache)
     if cache["k"].dtype == torch.int8:
         from repro_torch.kernels import ops
 
@@ -861,7 +908,7 @@ class Attention:
         elif decode and s == 1:
             new_cache = update_kv_cache(cache, k, v)
             if is_paged_cache(cache):
-                out = paged_decode_attention(q, new_cache)
+                out = paged_decode_attention(q, new_cache, ctx.page_zero)
             else:
                 out = decode_attention(q, new_cache["k"], new_cache["v"], new_cache["len"],
                                        k_n=new_cache.get("k_n"), v_n=new_cache.get("v_n"))

@@ -87,6 +87,10 @@ class Context:
     # Under a mesh, a serving forward whose tokens are not this rank's own
     # rows of the batch (:class:`DataRows`); None: its own rows.
     rows: Optional[DataRows] = None
+    # Under a mesh, a decode over a paged pool split into one block a data
+    # rank: where this rank reads the one device's pool page 0
+    # (``nn/attention.py`` ``PageZero``); None: its own page 0.
+    page_zero: Any = None
 
     def _axis_size(self, logical: str) -> int:
         """The mesh size of a logical axis (1 without a mesh or rules); a

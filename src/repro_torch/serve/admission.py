@@ -43,6 +43,9 @@ class Preempted:
     pad: int                     # padded page-vector length of ``data``
     live_len: int                # cache len at preemption (rows written)
     last_tok: Any                # (1, 1) device token feeding the next step
+    home: int = 0                # under a mesh, the data rank whose block holds
+    #                              ``kept`` and whose host holds ``data``: the
+    #                              request resumes into one of its slots
 
 
 def pick_preemption_victim(candidates: Sequence[Tuple[int, int, int, int]],
@@ -102,8 +105,9 @@ class AdmissionPlanner:
         With sharing, the request maps the longest resident chain of full
         prompt pages and prefills from the divergence point.  ``keys`` are
         the request's cached prompt digests; ``block``: the allocator's
-        block the fresh pages come from (under a mesh, the slot's data
-        rank's).  When the whole prompt is
+        block the fresh pages come from and the index's block the prefix
+        is matched in (under a mesh, the slot's data rank's: its attention
+        reads no other rank's pages).  When the whole prompt is
         resident, the last token is re-run for its first-token logits, so the
         final matched page is privatized up front (copy-on-write).
 
@@ -119,10 +123,10 @@ class AdmissionPlanner:
         C = self.chunk_size
         if index is None:
             matched = []
-        elif keys is not None:
-            matched = index.match_keys(keys)
         else:
-            matched = index.match(r.prompt)
+            if keys is None:
+                keys = index.digests(r.prompt)
+            matched = index.match_keys(keys, block or 0)
         s0 = len(matched) * ps
         # always prefill >= 1 token: the last chunk's logits sample the first
         next_start = min(s0, plen - 1)

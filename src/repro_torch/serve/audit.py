@@ -36,6 +36,12 @@ Invariants:
 
 The NaN/Inf logit sentinel is the scheduler's half (the steps return
 per-row health flags under ``audit=True``).
+
+Under a mesh each data rank checks its own block of the pool, its own
+slots' table rows (read in its local page ids, checked in pool ids) and
+its swap area (the bytes it parks, and the bookings of those another rank
+parks); :func:`agree_over_data` then makes the tick's verdict every
+rank's, so every rank raises in the same tick.
 """
 from __future__ import annotations
 
@@ -51,27 +57,32 @@ class AuditError(RuntimeError):
     """A serving-state invariant was breached (see the module doc)."""
 
 
-def check_allocator(alloc: PageAllocator, holders: Mapping[Any, Sequence[int]]) -> None:
+def check_allocator(alloc: PageAllocator, holders: Mapping[Any, Sequence[int]], *,
+                    block: Optional[int] = None) -> None:
     """Refcount conservation between ``alloc`` and its ``holders``.
 
     ``holders`` maps a holder key (a live slot, a parked request) to the pool
     pages it maps.  Every page's refcount must equal the number of holder
     entries naming it, the free list must hold exactly the unreferenced
-    pages, and no page may be on the free list twice.
+    pages, and no page may be on the free list twice.  ``block`` (under a
+    mesh, a data rank's block of the pool): the pages of that block alone.
     """
+    lo, hi = (0, alloc.num_pages) if block is None else \
+        (block * alloc.block_pages, (block + 1) * alloc.block_pages)
     counts: Counter = Counter()
     for key, pages in holders.items():
         for p in pages:
             if not 0 <= p < alloc.num_pages:
                 raise AuditError(f"holder {key!r} maps page {p} outside the pool "
                                  f"[0, {alloc.num_pages})")
-            counts[p] += 1
-    free = list(alloc.free_list)
+            if lo <= p < hi:
+                counts[p] += 1
+    free = [p for p in alloc.free_list if lo <= p < hi]
     if len(free) != len(set(free)):
         dup = [p for p, c in Counter(free).items() if c > 1]
         raise AuditError(f"free list holds duplicate page(s) {sorted(dup)}")
     free_set = set(free)
-    for p in range(alloc.num_pages):
+    for p in range(lo, hi):
         rc = alloc.refcount(p)
         held = counts.get(p, 0)
         if rc != held:
@@ -88,7 +99,7 @@ def check_page_tables(table: np.ndarray, lens: np.ndarray,
                       slot_rows: Mapping[int, Sequence[int]], refcount_of, *,
                       exact_lens: Optional[Mapping[int, int]] = None,
                       min_lens: Optional[Mapping[int, int]] = None,
-                      page_size: int = 1) -> None:
+                      page_size: int = 1, slots: Optional[Sequence[int]] = None) -> None:
     """Device page table and lens against the scheduler's host slot state.
 
     ``table`` is the (slots, max_pages) int32 table (every layer shares it),
@@ -98,11 +109,12 @@ def check_page_tables(table: np.ndarray, lens: np.ndarray,
     (mid-prefill slots, whose ``len`` may run ahead over masked junk rows of
     the mixed step) bounds it from below.  ``refcount_of`` is asked about
     pages mapped by more than one row, which must be shared (refcount > 1).
+    ``slots``: the slot of each row of ``table`` and ``lens`` (under a mesh,
+    a data rank's slots, its table in pool ids); by default row j is slot j.
     """
-    nslots = table.shape[0]
     mapped_by: Dict[int, List[int]] = {}
-    for j in range(nslots):
-        row = table[j]
+    for i, j in enumerate(range(table.shape[0]) if slots is None else slots):
+        row = table[i]
         pages = slot_rows.get(j)
         if pages is None:
             if (row != -1).any():
@@ -119,15 +131,15 @@ def check_page_tables(table: np.ndarray, lens: np.ndarray,
         for p in pages:
             mapped_by.setdefault(int(p), []).append(j)
         if exact_lens is not None and j in exact_lens:
-            if int(lens[j]) != exact_lens[j]:
-                raise AuditError(f"slot {j}: device len {int(lens[j])} != expected "
+            if int(lens[i]) != exact_lens[j]:
+                raise AuditError(f"slot {j}: device len {int(lens[i])} != expected "
                                  f"write frontier {exact_lens[j]}")
             if exact_lens[j] > n * page_size:
                 raise AuditError(f"slot {j}: live frontier {exact_lens[j]} exceeds its "
                                  f"mapped extent ({n} pages x {page_size})")
         elif min_lens is not None and j in min_lens:
-            if int(lens[j]) < min_lens[j]:
-                raise AuditError(f"slot {j}: device len {int(lens[j])} fell behind its "
+            if int(lens[i]) < min_lens[j]:
+                raise AuditError(f"slot {j}: device len {int(lens[i])} fell behind its "
                                  f"prefill cursor {min_lens[j]}")
     for p, rows in mapped_by.items():
         if len(rows) > 1 and refcount_of(p) <= 1:
@@ -219,3 +231,25 @@ def check_cross_len_rows(counts: Sequence[int], rows: np.ndarray,
             if int(got) != exp:
                 raise AuditError(f"slot {j}: cached cross-attention xlen {int(got)} != "
                                  f"expected {exp} ({'live' if j in want else 'dead'} slot)")
+
+
+def agree_over_data(err: Optional[AuditError], mesh, device, tick: int) -> None:
+    """Under a mesh, one tick's audit verdict of every data rank, agreed in
+    one all-reduce over ``data`` (counted ``("data", "audit")``): raises
+    ``err`` on the rank that found it and, on every other rank, an
+    :class:`AuditError` naming the data ranks that failed, so no rank goes
+    on to a collective the others never reach."""
+    import torch
+
+    from repro_torch.dist import shard_ops
+
+    world = shard_ops.axis_size(mesh, "data")
+    flags = torch.zeros(world, dtype=torch.int32, device=device)
+    flags[shard_ops.axis_index(mesh, "data")] = int(err is not None)
+    failed = np.flatnonzero(shard_ops.all_reduce(flags, mesh, "data", kind="audit").cpu()
+                            .numpy()).tolist()
+    if err is not None:
+        raise err
+    if failed:
+        raise AuditError(f"tick {tick}: the audit failed on data rank(s) {failed} (each "
+                         f"raises its own breach)")

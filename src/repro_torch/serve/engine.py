@@ -44,9 +44,17 @@ of the cache, and every step takes them:
   rank's decode rows and the lanes it owns, and its MoE routes the one
   device's flat batch.
 
-Recurrent, hybrid and EncDec models, VLM prefixes, packed sub-int8 weights
-and the scheduler's audit, fault, preemption and prefix-sharing modes are
-refused under a mesh (``ROADMAP.md`` queue 1, item 3b.7).
+* audit mode (``with_health=True``): the health flags of every row travel
+  in the same gather, beside the sampled tokens (above temperature 0 every
+  rank flags the gathered logit rows itself); a poison vector is this
+  rank's rows;
+* over a paged pool (one block a data rank), a decode row that reads
+  through an unmapped entry reads the one device's pool page 0: data rank
+  0's, mirrored on the other ranks (``nn/attention.py`` ``PageZero``;
+  the steps' ``page_zero=``).
+
+Recurrent, hybrid and EncDec models, VLM prefixes and packed sub-int8
+weights are refused under a mesh (``ROADMAP.md`` queue 1, item 3b.7).
 """
 from __future__ import annotations
 
@@ -156,7 +164,8 @@ def owner_rows(owner: int, n: int, device) -> DataRows:
 
 
 def sample_over_data(rows: torch.Tensor, n_dec: int, extra_from, gen, vocab: int,
-                     temperature: float, mesh, axis: str, *, joint: bool = False):
+                     temperature: float, mesh, axis: str, *, joint: bool = False,
+                     health: bool = False, poison: Optional[torch.Tensor] = None):
     """A step's sampled rows under a data split, the same on every rank.
 
     ``rows`` (n_dec + E, V): this rank's logit rows, its n_dec decode rows
@@ -168,8 +177,17 @@ def sample_over_data(rows: torch.Tensor, n_dec: int, extra_from, gen, vocab: int
     decode rows of every rank in rank order (the one device's slot order)
     and the extras after them (``joint``: in one draw, as the ragged step
     draws; else two), from ``gen``.  Returns (the whole batch's decode
-    tokens (D * n_dec, 1), the extras (E, 1)), int32."""
+    tokens (D * n_dec, 1), the extras (E, 1)), int32.
+
+    ``health`` (audit mode): ``poison`` (this rank's first P rows, P =
+    n_dec or n_dec + E) is added to the rows first, and every row is
+    flagged finite or not as :func:`_health` flags it on one device: at
+    temperature 0 the flags travel in the gather beside the tokens, above
+    it every rank flags the gathered rows.  Returns then (decode tokens,
+    extras, decode flags (D * n_dec,), extras' flags (E,))."""
     extra = rows.shape[0] - n_dec
+    if poison is not None:
+        rows = torch.cat([rows[:poison.shape[0]] + poison[:, None], rows[poison.shape[0]:]])
 
     def split(g):
         dec = g[:, :n_dec].reshape((-1,) + tuple(g.shape[2:]))
@@ -179,14 +197,24 @@ def sample_over_data(rows: torch.Tensor, n_dec: int, extra_from, gen, vocab: int
 
     if temperature > 0.0:
         dec, ext = split(shard_ops.gather_host(rows, mesh, axis))
+        if health:
+            (dec, dec_ok), (ext, ext_ok) = _health(dec), _health(ext)
         if joint:
             both = sample_tokens(torch.cat([dec, ext]), gen, vocab, temperature)
-            return both[:dec.shape[0]], both[dec.shape[0]:]
-        dec = sample_tokens(dec, gen, vocab, temperature)
-        return dec, (sample_tokens(ext, gen, vocab, temperature) if extra else dec[:0])
-    dec, ext = split(shard_ops.gather_host(sample_tokens(rows, None, vocab, 0.0)[:, 0], mesh,
-                                           axis))
-    return dec[:, None], ext[:, None]
+            out = both[:dec.shape[0]], both[dec.shape[0]:]
+        else:
+            dec = sample_tokens(dec, gen, vocab, temperature)
+            out = dec, (sample_tokens(ext, gen, vocab, temperature) if extra else dec[:0])
+        return out + (dec_ok, ext_ok) if health else out
+    if not health:
+        dec, ext = split(shard_ops.gather_host(sample_tokens(rows, None, vocab, 0.0)[:, 0],
+                                               mesh, axis))
+        return dec[:, None], ext[:, None]
+    rows, ok = _health(rows)
+    dec, ext = split(shard_ops.gather_host(
+        torch.stack([sample_tokens(rows, None, vocab, 0.0)[:, 0], ok.to(torch.int32)], -1),
+        mesh, axis))
+    return dec[:, :1], ext[:, :1], dec[:, 1] != 0, ext[:, 1] != 0
 
 
 def make_prefill_step(model, *, mesh=None, axis_rules=None) -> Callable:
@@ -249,22 +277,22 @@ def make_decode_step(model, *, mesh=None, axis_rules=None, temperature: float = 
     the sharded execution (:func:`_step_context`): each data rank decodes
     its rows of the cache (the dense decode's ``qdecode_attn`` on them),
     an MoE layer takes the weight-stationary dispatch (``nn/moe.py``), and
-    ``next`` is the whole batch's (D * B, 1) tokens on every rank
-    (:func:`sample_over_data`).
+    ``next`` (and ``healthy``) are the whole batch's (D * B,) rows on every
+    rank (:func:`sample_over_data`); ``poison`` is this rank's B rows, and
+    ``page_zero`` (a ``PageZero``) where a paged read finds page 0.
     """
     ctx = _step_context(mesh, axis_rules)
     weights = _step_weights(model, mesh, axis_rules)
-    if mesh is not None and with_health:
-        raise mesh_refusal("audit mode (with_health)")
     axis = ctx.rule("batch")
 
-    def decode(params, token, cache, gen, poison=None, *, enc=None):
-        logits, cache = model.apply(weights(params), token, ctx, cache=cache, decode=True,
+    def decode(params, token, cache, gen, poison=None, *, enc=None, page_zero=None):
+        c = ctx if page_zero is None else dataclasses.replace(ctx, page_zero=page_zero)
+        logits, cache = model.apply(weights(params), token, c, cache=cache, decode=True,
                                     **enc_kwargs(enc))
         if mesh is not None:
-            nxt, _ = sample_over_data(logits[:, -1], token.shape[0], 0, gen, model.vocab,
-                                      temperature, mesh, axis)
-            return nxt, cache
+            out = sample_over_data(logits[:, -1], token.shape[0], 0, gen, model.vocab,
+                                   temperature, mesh, axis, health=with_health, poison=poison)
+            return (out[0], out[2], cache) if with_health else (out[0], cache)
         if not with_health:
             return sample_tokens(logits[:, -1], gen, model.vocab, temperature), cache
         row, ok = _health(logits[:, -1], poison)
@@ -339,22 +367,23 @@ def make_mixed_step(model, *, mesh=None, axis_rules=None, temperature: float = 0
 
 def _mesh_mixed_step(model, mesh, axis_rules, temperature: float, with_health: bool,
                      merge: Optional[Callable]) -> Callable:
-    """:func:`make_mixed_step` under a mesh (a causal attention model)."""
+    """:func:`make_mixed_step` under a mesh (a causal attention model);
+    ``poison`` is this rank's decode rows and ``page_zero`` (a
+    ``PageZero``) where the decode half's paged reads find page 0."""
     ctx = _step_context(mesh, axis_rules)
     weights = _step_weights(model, mesh, axis_rules)
-    if with_health:
-        raise mesh_refusal("audit mode (with_health)")
     if merge is not None:
         raise mesh_refusal("a recurrent-state model")
     axis = ctx.rule("batch")
     rank = shard_ops.axis_index(mesh, axis)
 
     def mixed(params, tok, cache, gen, chunk_tok, slot: int, start: int, length: int,
-              poison=None, active=None, enc=None):
+              poison=None, active=None, enc=None, *, page_zero=None):
         if enc is not None:
             raise mesh_refusal("an EncDec model")
         w = weights(params)
-        logits, cache = model.apply(w, tok, ctx, cache=cache, decode=True)
+        logits, cache = model.apply(w, tok, dataclasses.replace(ctx, page_zero=page_zero),
+                                    cache=cache, decode=True)
         owner, local = divmod(slot, tok.shape[0])
         rows = owner_rows(owner, chunk_tok.shape[1], tok.device)
         first, cache = model.apply(w, chunk_tok, dataclasses.replace(ctx, rows=rows),
@@ -362,9 +391,10 @@ def _mesh_mixed_step(model, mesh, axis_rules, temperature: float, with_health: b
                                    chunk=KVChunk(slot=local if owner == rank else None,
                                                  start=start, length=length),
                                    logit_pos=length - 1)
-        nxt, first = sample_over_data(torch.cat([logits[:, -1], first[:, 0]]), tok.shape[0],
-                                      owner, gen, model.vocab, temperature, mesh, axis)
-        return nxt, first, cache
+        out = sample_over_data(torch.cat([logits[:, -1], first[:, 0]]), tok.shape[0], owner,
+                               gen, model.vocab, temperature, mesh, axis, health=with_health,
+                               poison=poison)
+        return out + (cache,)
 
     return mixed
 
@@ -397,13 +427,12 @@ def make_ragged_step(model, *, mesh=None, axis_rules=None, temperature: float = 
     ``localize_ragged_tick``); the step then takes ``rows`` (the tick's
     :class:`DataRows`: the one device's flat batch, which an MoE routes)
     and ``owners`` ((L,) the data rank that owns each lane), and returns
-    the whole batch's (D * B + L, 1) rows on every rank, the lanes' from
-    their owners (:func:`sample_over_data`).
+    the whole batch's (D * B + L, 1) rows (and healthy flags) on every
+    rank, the lanes' from their owners (:func:`sample_over_data`);
+    ``poison`` is this rank's sampled rows (``LocalTick.sampled``).
     """
     ctx = _step_context(mesh, axis_rules)
     weights = _step_weights(model, mesh, axis_rules)
-    if mesh is not None and with_health:
-        raise mesh_refusal("audit mode (with_health)")
     axis = ctx.rule("batch")
 
     def ragged_step(params, tok, cache, gen, chunk_tok, slot_ids, positions, logit_rows,
@@ -417,9 +446,11 @@ def make_ragged_step(model, *, mesh=None, axis_rules=None, temperature: float = 
                                     ragged=RaggedBatch(slots=slot_ids, positions=positions),
                                     logit_rows=logit_rows, **enc_kwargs(enc))
         if mesh is not None:
-            nxt, firsts = sample_over_data(logits[0], tok.shape[0], owners, gen, model.vocab,
-                                           temperature, mesh, axis, joint=True)
-            return torch.cat([nxt, firsts]), cache
+            out = sample_over_data(logits[0], tok.shape[0], owners, gen, model.vocab,
+                                   temperature, mesh, axis, joint=True, health=with_health,
+                                   poison=poison)
+            nxt = torch.cat(out[:2])
+            return (nxt, torch.cat(out[2:]), cache) if with_health else (nxt, cache)
         if not with_health:
             return sample_tokens(logits[0], gen, model.vocab, temperature), cache
         rows, ok = _health(logits[0], poison)
@@ -460,8 +491,9 @@ class ServeEngine:
     shards by ``param_pspecs(..., serve=True)`` and only then moved to
     ``device``; the caches hold this data rank's ``batch_slots / D`` slots
     (and a paged pool its block of ``kv_num_pages / D`` pages: its slots'
-    pages, by local id); ``generate()``, the steps and every scheduler
-    policy but the refused modes run the sharded execution (module
+    pages, by local id, then one page that mirrors the one device's page
+    0, :attr:`page_zero_mirror`); ``generate()``, the steps and every
+    scheduler policy and mode run the sharded execution (module
     docstring).  ``batch_slots`` and ``kv_num_pages`` count the whole mesh.
     """
 
@@ -574,6 +606,15 @@ class ServeEngine:
         return self.kv_num_pages // self.data_size
 
     @property
+    def page_zero_mirror(self) -> Optional[int]:
+        """Under a mesh of several data ranks over a paged pool, the index
+        of the page each rank's pool adds past its block to mirror the one
+        device's pool page 0 (``nn/attention.py`` ``PageZero``); else None."""
+        if self.mesh is None or not self.paged_kv or self.data_size == 1:
+            return None
+        return self.local_pages
+
+    @property
     def vocab(self) -> int:
         """True vocab size for tail masking."""
         return self.model.vocab
@@ -598,7 +639,8 @@ class ServeEngine:
     def _cache_kw(self, per_slot: bool) -> dict:
         kw = {"cross_attn_cache": self.cross_attn_cache} if self.encdec else {}
         if self.paged_kv and per_slot:
-            kw.update(page_size=self.page_size, num_pages=self.local_pages)
+            kw.update(page_size=self.page_size,
+                      num_pages=self.local_pages + (self.page_zero_mirror is not None))
         return kw
 
     def new_cache(self, *, per_slot: bool = False, batch: Optional[int] = None):
@@ -619,7 +661,8 @@ class ServeEngine:
         attention layer, an int32 for each exponent, the length (one per
         slot for the scheduler's ``per_slot`` cache) and, paged, the page
         table; and every recurrent and cross-attention leaf whole.  Under a
-        mesh, one rank's: its slots and its block of the pool."""
+        mesh, one rank's: its slots and its block of the pool, with the
+        page-0 mirror."""
         from repro_torch.serve.slot_state import (_bytes_where, _is_kv, _is_recurrent,
                                                   _is_xkv)
 

@@ -26,7 +26,10 @@ The seams (``serve/scheduler.py`` ``run``):
   a stream of garbage.
 
 Fault ticks are virtual time (scheduler ticks), like arrivals and
-deadlines, so a plan means the same on every machine.
+deadlines, so a plan means the same on every machine.  Under a mesh every
+data rank runs the same host loop, so each seam denies on the same ticks
+everywhere; a NaN poisons its slot's row on the data rank that holds the
+slot (:func:`poison_vector`).
 """
 from __future__ import annotations
 
@@ -42,6 +45,15 @@ def _tickset(ticks: Iterable[int]) -> FrozenSet[int]:
     if any(t < 0 for t in out):
         raise ValueError(f"fault ticks must be >= 0, got {sorted(out)}")
     return out
+
+
+def poison_vector(rows: int, slot: int) -> np.ndarray:
+    """A step's (rows,) float32 poison over its sampled rows: NaN at row
+    ``slot`` (a decode slot's row), zeros (an exact no-op) elsewhere.
+    Under a mesh each data rank's step takes its own rows of it."""
+    vec = np.zeros(rows, np.float32)
+    vec[slot] = np.nan
+    return vec
 
 
 @dataclasses.dataclass(frozen=True)

@@ -115,12 +115,17 @@ class LocalTick:
     empty lane).  ``meta.lrows`` keeps each lane's sampled row at its
     offset in the lane, and an empty lane's at row 0, as the one device's
     tick does (``nn/module.py`` ``DataRows``; ``serve/engine.py``
-    ``make_ragged_step``)."""
+    ``make_ragged_step``).  ``sampled`` (n + L,) are this rank's sampled
+    rows (its slots' decode rows, then every lane's) among the whole
+    tick's B + L: the rows of the audit's poison vector it takes (a NaN on
+    another rank's slot is nothing here); their health flags come back
+    whole with the tick's gather."""
 
     meta: RaggedTick
     select: np.ndarray
     take: np.ndarray
     owners: np.ndarray
+    sampled: np.ndarray
 
 
 def localize_ragged_tick(rt: RaggedTick, lane_slots: Sequence[int], shard: SlotShard, *,
@@ -155,4 +160,6 @@ def localize_ragged_tick(rt: RaggedTick, lane_slots: Sequence[int], shard: SlotS
     take = np.concatenate([lo + np.arange(n), B + np.arange(L * C)]).astype(np.int32)
     return LocalTick(meta=RaggedTick(sids=sids, poss=poss, ctok=ctok, lrows=lrows, ran=rt.ran,
                                      stalled=rt.stalled),
-                     select=select, take=take, owners=owners)
+                     select=select, take=take, owners=owners,
+                     sampled=np.concatenate([lo + np.arange(n),
+                                             B + np.arange(L)]).astype(np.int32))

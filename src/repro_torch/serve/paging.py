@@ -20,10 +20,18 @@ one :class:`SwapArea`) per ``run()``:
   refcount zero, so a prefix another live request maps survives its owner;
 * under oversubscription the swap policy copies a victim's private pages
   into a :class:`SwapArea` until they can be restored.
+
+Under a mesh the pool is split into one block a data rank and every rank
+runs the same host policy: the allocator keeps a free list a block, the
+prefix index matches a prompt only against the pages of the admitting
+slot's block (a prefix held on another rank is a miss), and the swap area
+of every rank books the same bytes while the rank that held the pages
+keeps them (:class:`SwapBooking` stands in for them elsewhere).
 """
 from __future__ import annotations
 
 import hashlib
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -150,15 +158,26 @@ class PrefixIndex:
     allocator reports their page released (refcount zero) — while *any*
     sharer is live the entry stays valid, because the page still holds
     exactly the hashed tokens' K/V.
+
+    ``block_pages`` (a pool split over the data ranks of a mesh into blocks
+    of that many pages) keeps one index a block: a page is registered in
+    its own block, and :meth:`match_keys` looks in the block it is given
+    alone, since a slot's attention reads only its own rank's pages.
     """
 
-    def __init__(self, page_size: int):
+    def __init__(self, page_size: int, block_pages: Optional[int] = None):
         """Index prompts at ``page_size``-token page granularity."""
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.page_size = page_size
-        self._page_of: Dict[bytes, int] = {}    # cumulative hash -> pool page
-        self._key_of: Dict[int, bytes] = {}     # pool page -> its index key
+        self.block_pages = block_pages
+        # cumulative hash -> pool page, and pool page -> its index key; a
+        # key is (block, hash) when the pool is split into blocks
+        self._page_of: Dict[Any, int] = {}
+        self._key_of: Dict[int, Any] = {}
+
+    def _key(self, block: int, digest: bytes):
+        return digest if self.block_pages is None else (block, digest)
 
     def digests(self, prompt) -> List[bytes]:
         """Cumulative sha1 digests, one per *full* prompt page.
@@ -177,11 +196,12 @@ class PrefixIndex:
             out.append(h.digest())
         return out
 
-    def match_keys(self, keys: Sequence[bytes]) -> List[int]:
-        """Longest resident page chain for precomputed :meth:`digests`."""
+    def match_keys(self, keys: Sequence[bytes], block: int = 0) -> List[int]:
+        """Longest resident page chain for precomputed :meth:`digests`
+        (among the pages of ``block``)."""
         pages: List[int] = []
         for key in keys:
-            page = self._page_of.get(key)
+            page = self._page_of.get(self._key(block, key))
             if page is None:
                 break
             pages.append(page)
@@ -198,11 +218,13 @@ class PrefixIndex:
 
     def insert_keys(self, keys: Sequence[bytes],
                     pages: Sequence[int]) -> None:
-        """Register precomputed :meth:`digests` against their pool pages."""
+        """Register precomputed :meth:`digests` against their pool pages
+        (in each page's block)."""
         for key, page in zip(keys, pages):
-            if key not in self._page_of:
-                self._page_of[key] = page
-                self._key_of[page] = key
+            bk = self._key(page // self.block_pages if self.block_pages else 0, key)
+            if bk not in self._page_of:
+                self._page_of[bk] = page
+                self._key_of[page] = bk
 
     def insert(self, prompt, pages: Sequence[int]) -> None:
         """Register ``prompt``'s full prompt pages (after its prefill).
@@ -231,6 +253,16 @@ def _tree_bytes(data: Any) -> int:
     if isinstance(data, (list, tuple)):
         return sum(_tree_bytes(v) for v in data)
     return int(getattr(data, "nbytes", 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class SwapBooking:
+    """What a data rank books for a request whose swapped pages another
+    rank holds (the pages lie in that rank's block): their byte count, read
+    as a parked tree's (:func:`_tree_bytes`), so every rank's
+    :class:`SwapArea` counts the same bytes."""
+
+    nbytes: int
 
 
 class SwapArea:

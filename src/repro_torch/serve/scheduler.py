@@ -79,11 +79,30 @@ reads every layer's ``xlen`` back with the health flags
 Under a mesh (``ServeEngine(mesh=...)``, every rank running the same
 ``run()`` on the same requests) each data rank holds B / D of the slots
 and, paged, their block of the pool (``SlotShard``; the allocator's free
-list per block), and the steps return the whole batch's tokens to every
-rank in one gather a tick, so every rank takes the same host decisions
-and returns the same results.  Audit, fault plans, oversubscription and
-preemption, and prefix sharing are refused there (``ROADMAP.md`` queue 1,
-item 3b.7).
+list per block), and the steps return the whole batch's tokens (and under
+``audit`` their health flags) to every rank in one gather a tick, so every
+rank takes the same host decisions and returns the same results and
+stats.  Every mode serves there, each slot event acting on the rank that
+holds the slot or the pages:
+
+* a slot's pages, grown ones too, come from its rank's block; admission
+  takes the lowest free slot whose block can serve the request's plan; a
+  dry block preempts a victim among that rank's live slots, and a parked
+  request resumes into a slot of the rank that parked it (its kept prefix
+  pages and its swapped bytes are there; the other ranks book the same
+  bytes);
+* the prefix index matches a prompt in the admitting slot's block only;
+* the audit checks each rank's block, table rows and swap area, and the
+  tick's verdict is agreed over ``data`` in one all-reduce, so every rank
+  raises in the same tick; a fault plan's NaN poisons its slot's row on
+  the rank that holds it;
+* a decode read through an unmapped entry finds the one device's pool
+  page 0, mirrored on every rank and refreshed, layer by layer, only on
+  the ticks that may have written it (``nn/attention.py`` ``PageZero``).
+
+A per-rank block can change, against one device, the counters that
+depend on where pages are (page stalls, preemptions, resumes, swapped
+pages, prefix hits and shared pages): ``ROADMAP.md`` pins them.
 
 One deliberate difference: when a one-shot admission finishes at once
 (first token EOS, or ``max_new == 1``), the freed slot is refilled in the
@@ -101,24 +120,25 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.nn.attention import host_tensor
+from repro_torch.nn.attention import PageZero, host_tensor
 from repro_torch.nn.module import Context, DataRows
 from repro_torch.serve.admission import (AdmissionPlanner, Preempted, PrefillLane,
                                          pick_preemption_victim)
-from repro_torch.serve.audit import (check_allocator, check_cross_len_rows, check_page_tables,
+from repro_torch.serve.audit import (AuditError, agree_over_data, check_allocator,
+                                     check_cross_len_rows, check_page_tables,
                                      check_recurrent_row_max, check_swap)
 from repro_torch.serve.engine import (enc_kwargs, make_decode_step, make_mixed_step,
-                                      make_prefill_step, make_ragged_step, mesh_refusal,
-                                      sample_tokens)
-from repro_torch.serve.faults import FaultPlan
+                                      make_prefill_step, make_ragged_step, sample_tokens)
+from repro_torch.serve.faults import FaultPlan, poison_vector
 from repro_torch.serve.lanes import RaggedTick, assemble_ragged_tick, localize_ragged_tick
-from repro_torch.serve.paging import PageAllocator, PrefixIndex, SwapArea, _tree_bytes
+from repro_torch.serve.paging import (PageAllocator, PrefixIndex, SwapArea, SwapBooking,
+                                      _tree_bytes)
 from repro_torch.serve.slot_state import (admit_cache_slot, copy_cache_page, cross_lens,
                                           evict_cache_slot, find_paged_kv, gather_cache_pages,
                                           merge_inactive, recurrent_row_max,
                                           scatter_cache_pages, set_cache_page_entry,
                                           set_cache_page_row, set_cache_slot_len, state_kinds,
-                                          SlotShard)
+                                          swap_bytes_of, SlotShard)
 
 
 @dataclasses.dataclass
@@ -441,12 +461,6 @@ class Scheduler:
                              f"forward flattens several lanes into one batch")
         self._shard = None
         if engine.mesh is not None:
-            if audit:
-                raise mesh_refusal("audit mode (audit=True)")
-            if oversubscribe:
-                raise mesh_refusal("oversubscription and preemption (oversubscribe=True)")
-            if self.paged and prefix_sharing:
-                raise mesh_refusal("prefix sharing (pass prefix_sharing=False)")
             self._shard = SlotShard(engine.data_rank, engine.local_slots,
                                     engine.local_pages if self.paged else 0)
         self.engine = engine
@@ -508,19 +522,29 @@ class Scheduler:
         them without a mesh): what its steps take."""
         return tok if self._shard is None else tok[self.engine.data_rows()]
 
-    def _masked_decode(self, tok, cache, gen, active, poison=None, enc=None):
-        out = self._decode(self.engine.params, self._mine(tok), cache, gen, *self._poison(poison),
-                           **enc_kwargs(enc))
+    @staticmethod
+    def _at_page_zero(page_zero) -> dict:
+        return {} if page_zero is None else {"page_zero": page_zero}
+
+    def _masked_decode(self, tok, cache, gen, active, poison=None, enc=None, page_zero=None):
+        """(tokens (B, 1), masked; flags (B,); cache).  Under a mesh the
+        step takes this rank's rows of ``tok`` and ``poison`` and returns
+        the whole batch's; ``page_zero``: where its paged reads find the
+        one device's page 0."""
+        out = self._decode(self.engine.params, self._mine(tok), cache, gen,
+                           *self._poison(None if poison is None else self._mine(poison)),
+                           **enc_kwargs(enc), **self._at_page_zero(page_zero))
         flags = out[1] if self.audit else None
         new = out[-1] if self._merge is None else self._merge(cache, out[-1], active)
         return torch.where(active[:, None], out[0], self.pad_id), flags, new
 
     def _masked_mixed(self, tok, cache, gen, active, chunk_tok, slot, start, length,
-                      poison=None, enc=None):
+                      poison=None, enc=None, page_zero=None):
         """(tokens (B, 1), masked; first (1, 1); flags (B + 1,), the decode
         rows' then the first token's; cache)."""
         out = self._mixed(self.engine.params, self._mine(tok), cache, gen, chunk_tok, slot, start,
-                          length, *self._poison(poison), active=active, **enc_kwargs(enc))
+                          length, *self._poison(None if poison is None else self._mine(poison)),
+                          active=active, **enc_kwargs(enc), **self._at_page_zero(page_zero))
         flags = torch.cat([out[2], out[3]]) if self.audit else None
         return torch.where(active[:, None], out[0], self.pad_id), out[1], flags, out[-1]
 
@@ -531,14 +555,14 @@ class Scheduler:
         tokens (B, 1), masked; the lanes' first tokens (L, 1); flags (B + L,);
         cache).  Under a mesh the tick is cut to this data rank's share
         first (``lanes.localize_ragged_tick``; ``lane_slots``: the slots of
-        the lanes, in order)."""
+        the lanes, in order), and takes this rank's rows of ``poison``."""
         nslots = tok.shape[0]
         lanes, c = meta.ctok.shape
         extra, kw = [], {}
         if self._shard is not None:
             loc = localize_ragged_tick(meta, lane_slots, self._shard, nslots=nslots,
                                        n_lanes=lanes, chunk=c, pad_id=self.pad_id)
-            meta, extra = loc.meta, [loc.select, loc.take, loc.owners]
+            meta, extra = loc.meta, [loc.select, loc.take, loc.owners, loc.sampled]
         n = meta.lrows.shape[0] - lanes
         t = meta.sids.shape[0]
         dev = host_tensor(np.concatenate([meta.sids, meta.poss, meta.lrows,
@@ -549,9 +573,12 @@ class Scheduler:
         ctok = dev[at - lanes * c:at]
         if extra:
             sel, take = extra[0].shape[0], extra[1].shape[0]
+            at_s = at + sel + take + lanes
             kw = {"rows": DataRows(select=dev[at:at + sel].long(),
                                    take=dev[at + sel:at + sel + take].long()),
-                  "owners": dev[at + sel + take:].long()}
+                  "owners": dev[at + sel + take:at_s].long()}
+            if poison is not None:
+                poison = poison[dev[at_s:].long()]
         out = self._ragged(self.engine.params, self._mine(tok), cache, gen, ctok.view(lanes, c),
                            sids, poss, lrows, *self._poison(poison), **enc_kwargs(enc), **kw)
         flags = out[1] if self.audit else None
@@ -659,6 +686,9 @@ class Scheduler:
         lanes = self.prefill_lanes if self.ragged else 0
         pz = torch.zeros(eng.batch_slots + lanes, dtype=torch.float32, device=eng.device) \
             if self.audit else None
+        # under a mesh of several data ranks over a paged pool, the decode
+        # reads find page 0 in the mirror, refreshed (the collective built)
+        pz0 = self._page_zero(True)
         with torch.inference_mode():
             if enc is not None:
                 enc = torch.zeros_like(enc)
@@ -688,7 +718,7 @@ class Scheduler:
                 ctok = torch.full((1, self.chunk_size), self.pad_id, dtype=torch.int32,
                                   device=eng.device)
                 tok, first, _, cache = self._masked_mixed(tok, cache, gen, active, ctok, 0, 0,
-                                                          self.chunk_size, pz, enc)
+                                                          self.chunk_size, pz, enc, pz0)
                 tok = self._set_tok(tok, first, 0)
             else:
                 for p in sorted({self._bucket(int(p)) for p in prompt_lens}):
@@ -697,10 +727,20 @@ class Scheduler:
                     first, small = self._slot_prefill(toks, p, gen, 0)
                     cache = self._at_slot(admit_cache_slot, cache, small, 0, p)
                     tok = self._set_tok(tok, first, 0)
-            tok, _, cache = self._masked_decode(tok, cache, gen, active, pz, enc)
+            tok, _, cache = self._masked_decode(tok, cache, gen, active, pz, enc, pz0)
             cache = self._at_slot(evict_cache_slot, cache, 0)
         _sync(eng.device)
         return time.perf_counter() - t0
+
+    def _page_zero(self, refresh: bool) -> Optional[PageZero]:
+        """A step's :class:`PageZero` (``refresh``: the step broadcasts data
+        rank 0's page 0 into the mirrors, layer by layer), or None where the
+        engine keeps no mirror (one device, one data rank, a dense cache)
+        and for the ragged tick, whose reads see no unmapped entry."""
+        page = self.engine.page_zero_mirror
+        if page is None or self.ragged:
+            return None
+        return PageZero(mesh=self.engine.mesh, axis="data", page=page, refresh=refresh)
 
     # ---- the serving loop --------------------------------------------------------
     def run(self, requests: Sequence[Request], *, seed: int = 0, warmup: bool = True,
@@ -727,11 +767,6 @@ class Scheduler:
         request's wall-clock latency (summary p50/p99_latency_ms).
         """
         nslots = self.engine.batch_slots
-        if self._shard is not None:
-            if fault_plan is not None:
-                raise mesh_refusal("a fault plan (fault_plan=)")
-            if preempts:
-                raise mesh_refusal("forced preemption (preempts=)")
         if fault_plan is not None:
             if fault_plan.nan and not self.audit:
                 raise ValueError("FaultPlan.nan requires Scheduler(audit=True): the NaN/Inf "
@@ -843,8 +878,10 @@ class Scheduler:
         active_host, active_dev = None, None
         zero_poison = torch.zeros(nslots + (self.prefill_lanes if self.ragged else 0),
                                   dtype=torch.float32, device=dev) if self.audit else None
+        shard = self._shard
         alloc = PageAllocator(eng.kv_num_pages, blocks=eng.data_size) if self.paged else None
-        index = PrefixIndex(ps) if self.prefix_sharing else None
+        index = (PrefixIndex(ps) if shard is None else PrefixIndex(ps, eng.local_pages)) \
+            if self.prefix_sharing else None
         planner = self._admission
         slot_pages: Dict[int, List[int]] = {}
         prompt_keys: Dict[int, List[bytes]] = {}   # rid -> cached prompt digests
@@ -977,15 +1014,19 @@ class Scheduler:
                 return "timeout"
             return None
 
-        def pool_alloc(n: int) -> Optional[List[int]]:
+        def home(j: int) -> int:
+            """The data rank that holds slot j (0 without a mesh)."""
+            return 0 if shard is None else shard.owner(j)
+
+        def pool_alloc(n: int, block: int = 0) -> Optional[List[int]]:
             """``alloc.alloc`` through the fault seam: a ``deny_alloc`` tick
-            answers None whatever is free."""
+            answers None whatever is free.  Under a mesh from ``block``."""
             nonlocal fault_hold
             if fault is not None and fault.deny_alloc(t):
                 stats.fault_events += 1
                 fault_hold = True
                 return None
-            return alloc.alloc(n)
+            return alloc.alloc(n) if shard is None else alloc.alloc(n, block)
 
         def harvest_slot_tokens(slot: _Slot) -> List[int]:
             """Tokens this leg emitted so far (one device read in no-EOS mode)."""
@@ -999,7 +1040,9 @@ class Scheduler:
             ``recompute`` (and any preemption on a dense engine) re-queues it
             as prompt + tokens so far; ``swap`` parks its private pages on the
             host (shared prefix pages stay resident under the refcount it
-            keeps), or recomputes when the swap seam or area refuses."""
+            keeps), or recomputes when the swap seam or area refuses.  Under
+            a mesh the rank that holds the slot parks the bytes and every
+            other rank books as many (``SwapBooking``)."""
             nonlocal cache
             slot = slots[j]
             rid = slot.req.rid
@@ -1027,8 +1070,9 @@ class Scheduler:
                         pad *= 2
                     idx = priv + [priv[0]] * (pad - len(priv))
                     # the host copy completes before the pages re-enter the free list
-                    data = [{k: x.cpu().numpy() for k, x in node.items()}
-                            for node in gather_cache_pages(cache, idx)]
+                    nodes = self._at_slot(gather_cache_pages, cache, idx)
+                    data = SwapBooking(swap_bytes_of(cache, pad)) if nodes is None else \
+                        [{k: x.cpu().numpy() for k, x in node.items()} for node in nodes]
                 if not swap.fits(_tree_bytes(data)):
                     stats.swap_refusals += 1
                     park = False
@@ -1038,8 +1082,8 @@ class Scheduler:
                 stats.swap_peak_bytes = swap.peak_bytes
                 preempted.append(Preempted(slot=slot, kept=kept, n_priv=len(priv), data=data,
                                            pad=pad, live_len=slot.plen + slot.emitted - 1,
-                                           last_tok=tok[j:j + 1]))
-                cache = evict_cache_slot(cache, j)
+                                           last_tok=tok[j:j + 1], home=home(j)))
+                cache = self._at_slot(evict_cache_slot, cache, j)
                 release(priv)                  # kept pages: references retained
             else:
                 toks = harvest_slot_tokens(slot)
@@ -1048,7 +1092,7 @@ class Scheduler:
                                               np.asarray(toks, np.int32)])
                 plen_of[rid] = int(cont_prompt.shape[0])
                 prompt_keys.pop(rid, None)     # the digests are stale now
-                cache = evict_cache_slot(cache, j)
+                cache = self._at_slot(evict_cache_slot, cache, j)
                 if alloc is not None:
                     release(pages)
                 requeue(dataclasses.replace(slot.req, prompt=cont_prompt,
@@ -1056,13 +1100,15 @@ class Scheduler:
             slots[j] = None
 
         def try_resume() -> None:
-            """Restore parked (swap-policy) requests, oldest first, while room lasts."""
-            nonlocal cache, tok
+            """Restore parked (swap-policy) requests, oldest first, while room
+            lasts; under a mesh into a slot of the rank that parked it."""
+            nonlocal cache, tok, zero_dirty
             while preempted:
                 p = preempted[0]
                 free = [j for j in range(nslots)
-                        if slots[j] is None and all(ln.slot != j for ln in lanes)]
-                got = pool_alloc(p.n_priv) if free else None
+                        if slots[j] is None and all(ln.slot != j for ln in lanes)
+                        and home(j) == p.home]
+                got = pool_alloc(p.n_priv, p.home) if free else None
                 if got is None:
                     stats.resume_stalls += 1
                     return
@@ -1070,11 +1116,13 @@ class Scheduler:
                 data = swap.pop(rid)
                 if p.n_priv:
                     # the duplicate pad indices rewrite one page with its own rows
-                    cache = scatter_cache_pages(cache, got + [got[0]] * (p.pad - p.n_priv), data)
+                    cache = self._at_slot(scatter_cache_pages, cache,
+                                          got + [got[0]] * (p.pad - p.n_priv), data)
+                    zero_dirty = zero_dirty or 0 in got
                 row = p.kept + got
                 slot_pages[j] = row
-                cache = set_cache_page_row(cache, j, planner.page_row(row))
-                cache = set_cache_slot_len(cache, j, p.live_len)
+                cache = self._at_slot(set_cache_page_row, cache, j, planner.page_row(row))
+                cache = self._at_slot(set_cache_slot_len, cache, j, p.live_len)
                 tok = self._set_tok(tok, p.last_tok, j)
                 install_enc(j, rid)
                 if index is not None and rid in prompt_keys:
@@ -1086,7 +1134,9 @@ class Scheduler:
 
         def ensure_growth() -> None:
             """Lazy decode growth: give each live slot about to cross a page
-            boundary its next page; preempt a victim when the pool is dry."""
+            boundary its next page; preempt a victim when the pool is dry
+            (under a mesh: the slot's block, and a victim among the slots
+            that block serves)."""
             nonlocal cache
             for j in range(nslots):
                 slot = slots[j]
@@ -1098,15 +1148,16 @@ class Scheduler:
                         raise RuntimeError(f"slot {j} (rid {slot.req.rid}) needs row "
                                            f"{need_rows} past its page table "
                                            f"({eng.kv_max_pages} pages)")
-                    got = pool_alloc(1)
+                    got = pool_alloc(1, home(j))
                     if got is not None:
-                        cache = set_cache_page_entry(cache, j, len(slot_pages[j]), got[0])
+                        cache = self._at_slot(set_cache_page_entry, cache, j, len(slot_pages[j]),
+                                              got[0])
                         slot_pages[j].append(got[0])
                         stats.grown_pages += 1
                         stats.peak_pages_in_use = alloc.peak_in_use
                         continue
                     cands = [(i, s.req.rid, s.emitted, s.admitted_at)
-                             for i, s in enumerate(slots) if s is not None]
+                             for i, s in enumerate(slots) if s is not None and home(i) == home(j)]
                     preempt(pick_preemption_victim(cands, stats.preempted_rids,
                                                    self.preempt_aging))
 
@@ -1114,7 +1165,8 @@ class Scheduler:
             """Reserve a free slot (and, paged, the request's pages) for the
             oldest arrival; its chunks ride the mixed or ragged step.  False
             when an injected stall holds admission, no slot is free or the
-            pool stalls the request."""
+            pool stalls the request (under a mesh: every block that has a
+            free slot)."""
             nonlocal cache, fault_hold
             if fault is not None and fault.deny_admission(t):
                 stats.fault_events += 1
@@ -1124,7 +1176,7 @@ class Scheduler:
                     if slots[j] is None and all(ln.slot != j for ln in lanes)]
             if not free:
                 return False
-            r = queue[0]
+            r, j = queue[0], free[0]
             start0 = 0
             if alloc is not None:
                 if fault is not None and fault.deny_alloc(t):
@@ -1133,16 +1185,24 @@ class Scheduler:
                     stats.page_stalls += 1
                     fault_hold = True
                     return False
-                plan = planner.plan(r, plen_of[r.rid], alloc, index, keys=digests_of(r),
-                                    block=None if self._shard is None
-                                    else self._shard.owner(free[0]))
+                # the lowest free slot whose block can serve the plan: under
+                # a mesh a dry block spills the request to another rank's
+                plan, tried = None, set()
+                for cand in free:
+                    if home(cand) not in tried:
+                        tried.add(home(cand))
+                        plan = planner.plan(r, plen_of[r.rid], alloc, index, keys=digests_of(r),
+                                            block=None if shard is None else home(cand))
+                        if plan is not None:
+                            j = cand
+                            break
                 if plan is None:
                     # head-of-queue blocking: skipping ahead would starve a
                     # large request behind a stream of small ones
                     stats.page_stalls += 1
                     return False
                 row_pages, copies, n_share, start0 = plan
-                slot_pages[free[0]] = list(row_pages)
+                slot_pages[j] = list(row_pages)
                 if n_share or copies:
                     stats.prefix_hits += 1
                     stats.shared_pages_mapped += n_share
@@ -1151,15 +1211,15 @@ class Scheduler:
                 # at the copies; park len at the shared-prefix boundary so
                 # the decode half's junk append lands in a private page
                 for src, dst in copies:
-                    cache = copy_cache_page(cache, src, dst)
-                cache = self._at_slot(set_cache_page_row, cache, free[0],
+                    cache = self._at_slot(copy_cache_page, cache, src, dst)
+                cache = self._at_slot(set_cache_page_row, cache, j,
                                       planner.page_row(row_pages))
                 if start0:
-                    cache = self._at_slot(set_cache_slot_len, cache, free[0], start0)
+                    cache = self._at_slot(set_cache_slot_len, cache, j, start0)
                 stats.peak_pages_in_use = alloc.peak_in_use
             queue.popleft()
-            install_enc(free[0], r.rid)
-            lanes.append(PrefillLane(req=r, slot=free[0],
+            install_enc(j, r.rid)
+            lanes.append(PrefillLane(req=r, slot=j,
                                      prompt=np.asarray(r.prompt, np.int32).reshape(-1),
                                      next_start=start0))
             return True
@@ -1201,27 +1261,49 @@ class Scheduler:
 
         def audit_tick() -> None:
             """The invariant auditor at the end of a tick: the allocator, the
-            device table and lens (read back now) and the swap area."""
+            device table and lens (read back now) and the swap area.  Under a
+            mesh each data rank checks its block, its slots' rows and its
+            swap area, and the verdict is every rank's (``agree_over_data``)."""
+            if shard is None:
+                audit_checks()
+            else:
+                err = None
+                try:
+                    audit_checks()
+                except AuditError as e:
+                    err = e
+                agree_over_data(err, eng.mesh, dev, t - 1)
+            stats.audited_ticks += 1
+
+        def audit_checks() -> None:
             holders: Dict[Any, List[int]] = {("slot", j_): pgs for j_, pgs in slot_pages.items()}
             for p_ in preempted:
                 holders[("parked", p_.slot.req.rid)] = p_.kept
             if alloc is not None:
-                check_allocator(alloc, holders)
+                check_allocator(alloc, holders, **({} if shard is None else {"block": shard.rank}))
                 kv = find_paged_kv(cache)
                 if kv is not None:
                     shape = tuple(kv["page_table"].shape)
                     host = torch.cat([kv["page_table"].reshape(-1), kv["len"]]).cpu().numpy()
                     stats.audit_reads += 1
                     n = shape[0] * shape[1]
+                    table, lens = host[:n].reshape(shape), host[n:n + shape[0]]
                     # live decode slots pin their len (plen + emitted - 1 rows
                     # written); a lane only bounds it from below: the mixed
                     # step's masked junk appends may run it past the cursor
                     exact = {j_: s_.plen + s_.emitted - 1 for j_, s_ in enumerate(slots)
                              if s_ is not None}
                     mins = {p_.slot: p_.next_start for p_ in lanes}
-                    check_page_tables(host[:n].reshape(shape), host[n:n + shape[0]], slot_pages,
-                                      alloc.refcount, exact_lens=exact, min_lens=mins,
-                                      page_size=ps)
+                    if shard is None:
+                        check_page_tables(table, lens, slot_pages, alloc.refcount,
+                                          exact_lens=exact, min_lens=mins, page_size=ps)
+                    else:
+                        # this rank's rows, in pool ids
+                        mine = range(shard.rank * shard.per_rank, (shard.rank + 1) * shard.per_rank)
+                        check_page_tables(shard.global_pages(table), lens,
+                                          {j_: pgs for j_, pgs in slot_pages.items() if j_ in mine},
+                                          alloc.refcount, exact_lens=exact, min_lens=mins,
+                                          page_size=ps, slots=mine)
             check_swap(swap, [(p_.slot.req.rid, p_.data) for p_ in preempted])
             if rec_read:
                 # dead slots' recurrent rows must be zero.  The rows were read
@@ -1239,10 +1321,30 @@ class Scheduler:
                 # an eviction since then sets xlen to 0 in every layer
                 check_cross_len_rows(cross_read["counts"], cross_read["rows"],
                                      cross_read["want"])
-            stats.audited_ticks += 1
+
+        def on_page_zero(j: int, lo: int, hi: int) -> bool:
+            """Whether rows [lo, hi) of slot j lie on pool page 0."""
+            return 0 in slot_pages.get(j, [])[lo // ps:(hi - 1) // ps + 1]
+
+        def page_zero_of_tick() -> Optional[PageZero]:
+            """This tick's :class:`PageZero` (None without a mirror): a
+            refresh where page 0 changed since the last one (``zero_dirty``)
+            or may change in this step's decode appends, which come before
+            its reads: a live slot's next row on it, or a lane's slot that
+            maps it (its masked append lands at a length the host does not
+            track)."""
+            if not mirrored:
+                return None
+            return self._page_zero(
+                zero_dirty or any(0 in slot_pages.get(p_.slot, []) for p_ in lanes)
+                or any(s_ is not None and on_page_zero(j_, s_.plen + s_.emitted - 1,
+                                                       s_.plen + s_.emitted)
+                       for j_, s_ in enumerate(slots)))
 
         rec_read: Dict[str, Any] = {}       # audit: this tick's recurrent row maxima
         cross_read: Dict[str, Any] = {}     # audit: this tick's cross-attention lengths
+        mirrored = self._page_zero(False) is not None
+        zero_dirty = False                  # page 0 written since the mirrors' refresh
         t0 = time.perf_counter()
         while pending or queue or lanes or preempted or any(s is not None for s in slots):
             if on_tick is not None:
@@ -1396,9 +1498,7 @@ class Scheduler:
                 # key at which the slot is live; zeros are an exact no-op
                 _, sj = poison_plan.popleft()
                 stats.fault_events += 1
-                vec = np.zeros(zero_poison.shape[0], np.float32)
-                vec[sj] = np.nan
-                poison = host_tensor(vec, dev)
+                poison = host_tensor(poison_vector(zero_poison.shape[0], sj), dev)
             if self.ragged:
                 # one forward: B decode rows + L lanes x C chunk rows; idle
                 # slots and lane tails are inert rows
@@ -1423,14 +1523,19 @@ class Scheduler:
                     # the chunk writes C (padded) rows: none through a shared page
                     planner.assert_private_write(slot_pages[chunk_job.slot], start, start + C,
                                                  alloc)
+                page_zero = page_zero_of_tick()
                 tok, first, flags, cache = self._masked_mixed(
                     tok, cache, gen, active_dev, torch.from_numpy(ctok).to(dev), chunk_job.slot,
-                    start, clen, poison, enc_buf)
+                    start, clen, poison, enc_buf, page_zero)
+                # the chunk half writes after the decode half's reads
+                zero_dirty = mirrored and on_page_zero(chunk_job.slot, start, start + C)
                 # lane 0 and flag row B: the ragged tick's layout with one lane
                 ran, firsts = [(0, clen)], first
             else:
+                page_zero = page_zero_of_tick()
                 tok, flags, cache = self._masked_decode(tok, cache, gen, active_dev, poison,
-                                                        enc_buf)
+                                                        enc_buf, page_zero)
+                zero_dirty = False
                 ran = []
             if self.audit:
                 tok_host, ok_host = read_back(flags)

@@ -24,7 +24,7 @@ by.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +65,21 @@ class SlotShard:
         """A page-table row (pool ids, -1 unmapped) in this rank's local ids."""
         row = np.asarray(row, np.int32)
         return np.where(row >= 0, row - self.rank * self.pages, row).astype(np.int32)
+
+    def global_pages(self, row) -> np.ndarray:
+        """A row of this rank's local page ids (-1 unmapped) in pool ids."""
+        row = np.asarray(row)
+        return np.where(row >= 0, row + self.rank * self.pages, row)
+
+    def here(self, pages: Sequence[int]) -> Optional[List[int]]:
+        """Pool pages that lie in one block, in this rank's local ids, or
+        None where another rank's block holds them."""
+        blocks = {int(p) // self.pages for p in pages}
+        if len(blocks) > 1:
+            raise ValueError(f"pages {list(pages)} span the blocks {sorted(blocks)}")
+        if blocks != {self.rank}:
+            return None
+        return [int(p) - self.rank * self.pages for p in pages]
 
 
 def _at(shard: Optional[SlotShard], slot: int) -> Optional[int]:
@@ -314,16 +329,28 @@ def set_cache_page_entry(cache, slot: int, idx: int, page: int, *,
     return _walk_paged(cache, lambda kv: set_page_entry(kv, local, idx, page))
 
 
-def copy_cache_page(cache, src: int, dst: int):
+def copy_cache_page(cache, src: int, dst: int, *, shard: Optional[SlotShard] = None):
     """Copy pool page ``src`` onto ``dst`` in every paged node and layer —
-    the device half of copy-on-write."""
+    the device half of copy-on-write.  ``shard``: on the rank whose block
+    holds both pages, in its local ids; elsewhere a no-op."""
+    if shard is not None:
+        both = shard.here([src, dst])
+        if both is None:
+            return cache
+        src, dst = both
     return _walk_paged(cache, lambda kv: copy_kv_page(kv, src, dst))
 
 
-def gather_cache_pages(cache, pages):
+def gather_cache_pages(cache, pages, *, shard: Optional[SlotShard] = None):
     """Swap-out gather: pool pages ``pages`` of every paged node, as a list of
     ``{"k", "v"}`` device tensors in the tree's traversal order (what
-    :func:`scatter_cache_pages` consumes).  The cache is not modified."""
+    :func:`scatter_cache_pages` consumes).  The cache is not modified.
+    ``shard``: on the rank whose block holds the pages, in its local ids;
+    None elsewhere."""
+    if shard is not None:
+        pages = shard.here(pages)
+        if pages is None:
+            return None
     out = []
 
     def op(kv):
@@ -334,11 +361,35 @@ def gather_cache_pages(cache, pages):
     return out
 
 
-def scatter_cache_pages(cache, pages, data):
+def scatter_cache_pages(cache, pages, data, *, shard: Optional[SlotShard] = None):
     """Swap-in restore: write :func:`gather_cache_pages` data (device tensors
-    or host numpy arrays) into pool pages ``pages``, same traversal order."""
+    or host numpy arrays) into pool pages ``pages``, same traversal order.
+    ``shard``: on the rank whose block holds the pages, in its local ids;
+    elsewhere a no-op."""
+    if shard is not None:
+        pages = shard.here(pages)
+        if pages is None:
+            return cache
     it = iter(data)
     return _walk_paged(cache, lambda kv: scatter_pool_pages(kv, pages, next(it)))
+
+
+def swap_bytes_of(cache, n: int) -> int:
+    """Host bytes of :func:`gather_cache_pages` of ``n`` pages of ``cache``
+    (K and V of every paged node), from the shapes alone: what a data rank
+    books for pages another rank parks (``paging.SwapBooking``)."""
+    total = 0
+
+    def op(kv):
+        nonlocal total
+        ax = kv["k"].ndim - 4
+        for name in ("k", "v"):
+            x = kv[name]
+            total += x.numel() // x.shape[ax] * n * x.element_size()
+        return kv
+
+    _walk_paged(cache, op)
+    return total
 
 
 def set_cache_slot_len(cache, slot: int, length: int, *, shard: Optional[SlotShard] = None):

@@ -493,43 +493,79 @@ def stream_array(results, rids, width: int) -> np.ndarray:
     return out
 
 
-def _mesh_run(model, params, reqs, policy, mesh, rules, *, weight_quant, temperature=0.0,
-              seed=0, record=None, eos_id=None):
-    """One scheduler run of ``policy`` (no warm-up; ``mesh`` None: the
-    port's one device); (results, stats, the collective counts by (axis,
-    kind))."""
+def _serve(model, params, reqs, eng_kw, sched_kw, mesh, rules, *, weight_quant, run_kw=None,
+           temperature=0.0, seed=0, eos_id=None, wrap=None, record=None):
+    """One scheduler run (no warm-up; ``mesh`` None: the port's one
+    device) of ``ServeEngine(**eng_kw).scheduler(**sched_kw)`` over
+    ``reqs`` with ``run(**run_kw)`` (:func:`run_kwargs`); ``wrap(sched,
+    eng)`` may patch the scheduler first.  (results, stats, the collective
+    counts by (axis, kind))."""
     from repro_torch.dist import shard_ops
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import Request
 
-    eng_kw, sched_kw = MESH_POLICIES[policy]
     eng = ServeEngine(model, params, max_len=MESH_MAX_LEN, batch_slots=MESH_SLOTS,
                       quantized_kv=True, weight_quant=weight_quant, temperature=temperature,
                       device="cpu", mesh=mesh, axis_rules=rules, **eng_kw)
     if record is not None:
         record["local_pages"] = eng.local_pages
+    sched = eng.scheduler(eos_id=eos_id, **sched_kw)
+    if wrap is not None:
+        wrap(sched, eng)
     shard_ops.reset_collective_counts()
-    res, stats = eng.scheduler(eos_id=eos_id, **sched_kw).run(
+    res, stats = sched.run(
         [Request(rid=r, prompt=p, max_new=m, arrival=a) for r, p, m, a in reqs], seed=seed,
-        warmup=False)
+        warmup=False, **run_kwargs(run_kw or {}))
     return res, stats, shard_ops.collective_counts()
 
 
+def _mesh_run(model, params, reqs, policy, mesh, rules, *, weight_quant, temperature=0.0,
+              seed=0, record=None, eos_id=None):
+    """One scheduler run of ``policy`` (no warm-up; ``mesh`` None: the
+    port's one device); (results, stats, the collective counts by (axis,
+    kind))."""
+    eng_kw, sched_kw = MESH_POLICIES[policy]
+    return _serve(model, params, reqs, eng_kw, sched_kw, mesh, rules, weight_quant=weight_quant,
+                  temperature=temperature, seed=seed, eos_id=eos_id, record=record)
+
+
 def _page_recorder(record: dict):
-    """Wrap the scheduler's page-row installs: each (global slot, global
-    row, local row) this rank writes goes to ``record["installs"]``."""
+    """Wrap the scheduler's page-table writes: each (global slot, global
+    row, local row) this rank installs goes to ``record["installs"]``, each
+    (global slot, global page, local page) a lazy growth maps to
+    ``record["grown"]``, and each block an allocation found dry to
+    ``record["dry"]``."""
     from repro_torch.serve import scheduler as sched_mod
 
-    real = sched_mod.set_cache_page_row
+    from repro_torch.serve.paging import PageAllocator
+
+    real_row, real_entry = sched_mod.set_cache_page_row, sched_mod.set_cache_page_entry
+    real_alloc = PageAllocator.alloc
+
+    def alloc(self, n, block=0):
+        got = real_alloc(self, n, block)
+        if got is None:
+            record.setdefault("dry", set()).add(block)
+        return got
 
     def installed(cache, slot, row, *, shard=None):
         if shard is not None and shard.local(slot) is not None:
             record.setdefault("installs", []).append(
                 (slot, np.asarray(row, np.int64), shard.local_pages(row).astype(np.int64)))
-        return real(cache, slot, row, shard=shard)
+        return real_row(cache, slot, row, shard=shard)
 
-    sched_mod.set_cache_page_row = installed
-    return lambda: setattr(sched_mod, "set_cache_page_row", real)
+    def grown(cache, slot, idx, page, *, shard=None):
+        if shard is not None and shard.local(slot) is not None:
+            record.setdefault("grown", []).append((slot, page, int(shard.local_pages([page])[0])))
+        return real_entry(cache, slot, idx, page, shard=shard)
+
+    sched_mod.set_cache_page_row, sched_mod.set_cache_page_entry = installed, grown
+    PageAllocator.alloc = alloc
+
+    def undo():
+        sched_mod.set_cache_page_row, sched_mod.set_cache_page_entry = real_row, real_entry
+        PageAllocator.alloc = real_alloc
+    return undo
 
 
 def suite_mesh_serve(data, rank: int, world: int) -> dict:
@@ -539,12 +575,11 @@ def suite_mesh_serve(data, rank: int, world: int) -> dict:
     ``generate()`` of ``lock/prompts``; each run's streams (``stream_array``),
     its ticks and the collective calls by (axis, kind), and for the paged
     policies every page-table row this rank installed (global and local
-    ids).  Then the scheduler's refused modes: each one's message."""
+    ids).  Then what a mesh does not serve yet: each refusal's message."""
     from repro_torch.dist import sharding
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.registry import get_config
-    from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.engine import ServeEngine, make_prefill_step
     from repro_torch.serve.scheduler import Request, run_restart_batching
 
     mesh = make_host_mesh(world // 2, 2, "cpu")
@@ -585,20 +620,22 @@ def suite_mesh_serve(data, rank: int, world: int) -> dict:
                                                        int(data["lock/new"])).numpy()
         res[f"{label}/cache_bytes"] = np.array([eng.cache_bytes(), eng.cache_bytes(per_slot=True)])
 
-    # the scheduler's modes a mesh does not serve yet
-    paged = ServeEngine(model, params, max_len=MESH_MAX_LEN, batch_slots=MESH_SLOTS,
-                        quantized_kv=True, device="cpu", paged_kv=True, page_size=4,
-                        mesh=mesh, axis_rules=rules)
-    refused = {
-        "audit": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False, audit=True),
-        "oversubscribe": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False,
-                                                 oversubscribe=True),
-        "prefix_sharing": lambda: paged.scheduler(chunk_size=4),
-        "fault_plan": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False).run(
-            [], fault_plan=FaultPlan()),
-        "preempts": lambda: paged.scheduler(chunk_size=4, prefix_sharing=False).run(
-            [], preempts={0: 1}),
-    }
+    # what a mesh does not serve yet: the archs, a VLM prefix, packed weights
+    def engine(arch, **kw):
+        return lambda: ServeEngine(get_config(arch).build(), None, max_len=MESH_MAX_LEN,
+                                   batch_slots=MESH_SLOTS, device="cpu", mesh=mesh,
+                                   axis_rules=rules, **kw)
+
+    def vlm_prefix():
+        prefill = make_prefill_step(model, mesh=mesh, axis_rules=rules)
+        prefill(params, torch.zeros((1, 4), dtype=torch.int32), None,
+                embeds=torch.zeros((1, 2, 8)))
+
+    refused = {"recurrent": engine("mamba-130m-smoke"), "jamba": engine("jamba-v0.1-52b-smoke"),
+               "whisper": engine("whisper-tiny-smoke"), "embeds": vlm_prefix,
+               "int4": lambda: ServeEngine(model, params, max_len=MESH_MAX_LEN,
+                                           batch_slots=MESH_SLOTS, weight_quant="int4",
+                                           device="cpu", mesh=mesh, axis_rules=rules)}
     for name, fn in refused.items():
         try:
             fn()
@@ -608,11 +645,34 @@ def suite_mesh_serve(data, rank: int, world: int) -> dict:
     return res
 
 
+def _decode_rows(record: list, mesh):
+    """Patch the engine's sampling so that each decode step's logit rows
+    go to ``record``: under a mesh this rank's (``sample_over_data``'s
+    decode rows), on one device every slot's (the first rows of a
+    ``sample_tokens`` call of at least (slots, V): a decode step's, a
+    ragged tick's).  Returns the undo."""
+    from repro_torch.serve import engine as eng_mod
+
+    name = "sample_tokens" if mesh is None else "sample_over_data"
+    real = getattr(eng_mod, name)
+
+    def recorded(rows, *a, **k):
+        if mesh is not None:
+            record.append(rows[:a[0]].clone())
+        elif rows.ndim == 2 and rows.shape[0] >= MESH_SLOTS:
+            record.append(rows[:MESH_SLOTS].clone())
+        return real(rows, *a, **k)
+
+    setattr(eng_mod, name, recorded)
+    return lambda: setattr(eng_mod, name, real)
+
+
 def suite_mesh_moe(data, rank: int, world: int) -> dict:
     """The MoE archs on a (2, 2) mesh, int8 weights and KV, over the
     requests ``req/*``: ``arch/<a>`` (a registry id) under each policy of
     ``policies/<a>`` (a comma-joined list of :data:`MESH_POLICIES`), the
-    streams of the mesh and of the port's one device (no group) side by
+    streams and every decode step's logit rows (this rank's, and every
+    slot's) of the mesh and of the port's one device (no group) side by
     side; then smollm-135m-smoke at temperature 0.7 under ``sampled``'s
     policies and ``generate()`` (``seed`` 3), and greedy under them with an
     ``eos_id`` its streams emit, the mesh's and the one device's."""
@@ -632,9 +692,15 @@ def suite_mesh_moe(data, rank: int, world: int) -> dict:
         for policy in str(data[f"policies/{arch}"]).split(","):
             for where, m, r in (("mesh", mesh, rules), ("one", None, None)):
                 params = model.init(torch.Generator().manual_seed(0), "cpu")
-                out, stats, counts = _mesh_run(model, params, reqs, policy, m, r,
-                                               weight_quant=True)
+                rows = []
+                undo = _decode_rows(rows, m)
+                try:
+                    out, stats, counts = _mesh_run(model, params, reqs, policy, m, r,
+                                                   weight_quant=True)
+                finally:
+                    undo()
                 res[f"{arch}/{policy}/{where}"] = stream_array(out, rids, new)
+                res[f"{arch}/{policy}/{where}/rows"] = torch.stack(rows).numpy()
                 if m is not None:
                     res[f"{arch}/{policy}/ticks"] = np.array(stats.decode_steps)
                     for (axis, kind), (calls, nbytes) in counts.items():
@@ -665,6 +731,211 @@ def suite_mesh_moe(data, rank: int, world: int) -> dict:
                           axis_rules=r)
         res[f"sampled/lockstep/{where}"] = eng.generate(data["req/prompts"][:MESH_SLOTS, :5],
                                                         6, seed=3).numpy()
+    return res
+
+
+# --------------------------------------------------------------------------
+# The page pool's features and hardened serving under a mesh
+# --------------------------------------------------------------------------
+
+#: a paged engine (page size 4): the dense-parity pool (4 slots x 8 pages)
+#: and half of it, 8 pages a data rank's block
+POOL_FULL = {"paged_kv": True, "page_size": 4}
+POOL_HALF = {"paged_kv": True, "page_size": 4, "kv_pool_pages": 16}
+CHUNKED = {"chunk_size": 4, "prefix_sharing": False}
+RAGGED = {"chunk_size": 4, "ragged": True, "prefill_lanes": 2, "prefix_sharing": False}
+
+
+def oversub(policy: str) -> dict:
+    return {"oversubscribe": True, "preempt_policy": policy}
+
+
+#: name -> (requests, weight_quant, ServeEngine keywords, Scheduler keywords,
+#: run keywords as JSON: ``preempts`` [[rid, tick], ...], ``fault_plan`` a
+#: ``FaultPlan.to_json``); the reference takes them as they are
+#: (``run_kwargs``).  ``grow``'s requests run each data rank's block dry;
+#: ``light``'s fit every block; ``split``'s sharers of a 2-page prefix land
+#: on both data ranks, ``local``'s on the prefix's rank alone.
+POOL_CASES = {
+    "oversub/chunked/recompute": ("grow", True, POOL_HALF, {**CHUNKED, **oversub("recompute")},
+                                  {}),
+    "oversub/chunked/swap": ("grow", False, POOL_HALF, {**CHUNKED, **oversub("swap")}, {}),
+    "oversub/ragged/recompute": ("grow", False, POOL_HALF, {**RAGGED, **oversub("recompute")},
+                                 {}),
+    "oversub/ragged/swap": ("grow", True, POOL_HALF, {**RAGGED, **oversub("swap")}, {}),
+    "oversub/light": ("light", True, POOL_HALF, {**CHUNKED, **oversub("swap")}, {}),
+    "preempts/recompute": ("base", True, POOL_FULL, {**CHUNKED, **oversub("recompute")},
+                           {"preempts": [[0, 6], [2, 9]]}),
+    "preempts/swap": ("base", False, POOL_FULL, {**CHUNKED, **oversub("swap")},
+                      {"preempts": [[0, 6], [2, 9]]}),
+    "prefix/split": ("split", True, POOL_FULL, {"chunk_size": 4}, {}),
+    "prefix/local": ("local", False, POOL_FULL, {"chunk_size": 4}, {}),
+}
+
+#: the audited runs (int8 weights): name -> (ServeEngine kw, Scheduler kw)
+AUDIT_CASES = {"dense": ({}, {"chunk_size": 4}), "paged": (POOL_FULL, CHUNKED),
+               "ragged": (POOL_FULL, RAGGED)}
+#: the fault drill: an oversubscribed swap run at half the pool, audited,
+#: its plan denying allocations and swaps and poisoning slot 2 (data rank 1)
+FAULT_CASE = (POOL_HALF, {**CHUNKED, **oversub("swap"), "audit": True},
+              {"fault_plan": {"alloc_fail": [8], "swap_fail": [8], "nan": [[12, 2]]}})
+BREACH_TICK = 7         # the tick whose step corrupts a table row of data rank 1
+
+#: the summary fields that are no wall time (every rank's must be equal)
+COUNTERS = ("decode_steps", "tokens_out", "occupancy", "p50_latency_steps", "p99_latency_steps",
+            "peak_cache_bytes", "prefill_chunks", "stalled_chunks", "admission_stalls",
+            "page_stalls", "peak_pages_in_use", "peak_live_slots", "page_occupancy",
+            "prefix_hits", "shared_pages_mapped", "cow_copies", "grown_pages", "preemptions",
+            "resumes", "swapped_pages", "swap_peak_bytes", "resume_stalls", "swap_refusals",
+            "truncations", "p50_ttft_steps", "p99_ttft_steps", "completed", "rejections",
+            "timeouts", "cancellations", "failed", "completion_rate", "deadlock_failures",
+            "nan_evictions", "fault_events", "audited_ticks", "audit_reads")
+
+
+def run_kwargs(kw: dict) -> dict:
+    """``run()`` keywords from their JSON form (:data:`POOL_CASES`)."""
+    from repro_torch.serve.faults import FaultPlan
+
+    out = {}
+    if "preempts" in kw:
+        out["preempts"] = {int(r): int(t) for r, t in kw["preempts"]}
+    if "fault_plan" in kw:
+        out["fault_plan"] = FaultPlan.from_json(kw["fault_plan"])
+    return out
+
+
+def counters(stats) -> np.ndarray:
+    """The :data:`COUNTERS` of a run's summary, in order."""
+    summary = stats.summary()
+    return np.array([float(summary[k]) for k in COUNTERS])
+
+
+def _record_run(res: dict, key: str, out, stats, counts, rids, width) -> None:
+    res[f"{key}/streams"] = stream_array(out, rids, width)
+    res[f"{key}/counters"] = counters(stats)
+    for (axis, kind), (calls, nbytes) in counts.items():
+        res[f"{key}/calls/{axis}/{kind}"] = np.array([calls, nbytes])
+
+
+def _record_pages(res: dict, key: str, record: dict) -> None:
+    """The page-table writes :func:`_page_recorder` saw, as arrays."""
+    res[f"{key}/local_pages"] = np.array(record["local_pages"])
+    rows = record.get("installs", [])
+    grown = record.get("grown", [])
+    res[f"{key}/page_slots"] = np.array([i[0] for i in rows] + [g[0] for g in grown], np.int64)
+    width = MESH_MAX_LEN // POOL_FULL["page_size"]
+    res[f"{key}/page_rows"] = np.stack(
+        [i[1] for i in rows] + [np.r_[g[1], np.full(width - 1, -1)] for g in grown])
+    res[f"{key}/page_local"] = np.stack(
+        [i[2] for i in rows] + [np.r_[g[2], np.full(width - 1, -1)] for g in grown])
+    res[f"{key}/dry_blocks"] = np.array(sorted(record.get("dry", ())), np.int64)
+
+
+def _smoke(data):
+    """smollm-135m-smoke with the reference's params (``params/*``)."""
+    from repro_torch.models.registry import get_config
+
+    model = get_config("smollm-135m-smoke").build()
+    return model, from_flat(data, "params", model.init(torch.Generator().manual_seed(0), "cpu"))
+
+
+def suite_mesh_pool(data, rank: int, world: int) -> dict:
+    """smollm-135m-smoke on a (2, 2) mesh, int8 KV, every case of
+    :data:`POOL_CASES` over the requests ``<requests>/*``: each run's
+    streams and statuses, its counters, its collective calls by (axis,
+    kind) and every page-table write this rank made (global and local
+    ids)."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(world // 2, 2, "cpu")
+    rules = sharding.make_axis_rules(mesh)
+    model, params = _smoke(data)
+    res = {"data_rank": np.array(rank // 2), "layers": np.array(model.stack.attention_layers)}
+    for name, (rq, wq, eng_kw, sched_kw, run_kw) in POOL_CASES.items():
+        reqs = mesh_requests(data, rq)
+        record = {}
+        undo = _page_recorder(record)
+        try:
+            out, stats, counts = _serve(model, params, reqs, eng_kw, sched_kw, mesh, rules,
+                                        weight_quant=wq, run_kw=run_kw, record=record)
+        finally:
+            undo()
+        _record_run(res, name, out, stats, counts, [r for r, *_ in reqs],
+                    max(m for _, _, m, _ in reqs))
+        _record_pages(res, name, record)
+    return res
+
+
+def _breach(box: dict):
+    """A ``wrap`` that corrupts, on data rank 1 only, its first live
+    slot's table entry 0 (moved one local page on) in the step of tick
+    :data:`BREACH_TICK`, and records the ticks in ``box``."""
+    from repro_torch.serve.slot_state import find_paged_kv
+
+    def wrap(sched, eng):
+        def corrupting(step):
+            def wrapped(*a, **k):
+                out = step(*a, **k)
+                if eng.data_rank == 1 and not box.get("done") and box["t"] >= BREACH_TICK:
+                    table = find_paged_kv(out[-1])["page_table"]
+                    live = int((table[:, 0] >= 0).nonzero()[0, 0])
+                    table[live, 0] = (table[live, 0] + 1) % eng.local_pages
+                    box["done"] = True
+                return out
+            return wrapped
+        for name in ("_masked_decode", "_masked_mixed"):
+            setattr(sched, name, corrupting(getattr(sched, name)))
+        real = sched.run
+
+        def run(*a, **k):
+            return real(*a, on_tick=lambda t: box.__setitem__("t", t), **k)
+        sched.run = run
+    return wrap
+
+
+def suite_mesh_hardened(data, rank: int, world: int) -> dict:
+    """smollm-135m-smoke on a (2, 2) mesh, int8 weights and KV, over the
+    requests ``base/*``: each :data:`AUDIT_CASES` run audited and not;
+    :data:`FAULT_CASE` greedy and at temperature 0.7 (seed 3), the latter
+    beside the port's one device; and the audited paged run whose step
+    corrupts a table row of data rank 1 at :data:`BREACH_TICK` (the tick
+    and message of the ``AuditError`` each rank raised)."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.audit import AuditError
+
+    mesh = make_host_mesh(world // 2, 2, "cpu")
+    rules = sharding.make_axis_rules(mesh)
+    model, params = _smoke(data)
+    reqs = mesh_requests(data, "base")
+    rids, width = [r for r, *_ in reqs], max(m for _, _, m, _ in reqs)
+    res = {"data_rank": np.array(rank // 2)}
+    for name, (eng_kw, sched_kw) in AUDIT_CASES.items():
+        for audited in (True, False):
+            out, stats, counts = _serve(model, params, reqs, eng_kw,
+                                        {**sched_kw, "audit": audited}, mesh, rules,
+                                        weight_quant=True)
+            _record_run(res, f"{name}/{'audit' if audited else 'plain'}", out, stats, counts,
+                        rids, width)
+    eng_kw, sched_kw, run_kw = FAULT_CASE
+    out, stats, counts = _serve(model, params, reqs, eng_kw, sched_kw, mesh, rules,
+                                weight_quant=True, run_kw=run_kw)
+    _record_run(res, "fault", out, stats, counts, rids, width)
+    for where, m, r in (("mesh", mesh, rules), ("one", None, None)):
+        out, stats, counts = _serve(model, params, reqs, eng_kw, sched_kw, m, r,
+                                    weight_quant=True, run_kw=run_kw, temperature=0.7, seed=3)
+        _record_run(res, f"sampled/{where}", out, stats, counts, rids, width)
+    box = {"t": -1}
+    try:
+        _serve(model, params, reqs, *AUDIT_CASES["paged"][:1],
+               {**AUDIT_CASES["paged"][1], "audit": True}, mesh, rules, weight_quant=True,
+               wrap=_breach(box))
+        res["breach/message"] = np.array("")
+    except AuditError as e:
+        res["breach/message"] = np.array(str(e))
+    res["breach/tick"] = np.array(box["t"])
+    res["breach/corrupted"] = np.array(bool(box.get("done")))
     return res
 
 
@@ -720,7 +991,8 @@ def suite_bias(data, rank: int, world: int) -> dict:
 
 SUITES = {"compress": suite_compress, "dp": suite_dp, "ckpt_write": suite_ckpt_write,
           "launch": suite_launch, "shard": suite_shard, "shard_serve": suite_shard_serve,
-          "mesh_serve": suite_mesh_serve, "mesh_moe": suite_mesh_moe, "bias": suite_bias}
+          "mesh_serve": suite_mesh_serve, "mesh_moe": suite_mesh_moe, "bias": suite_bias,
+          "mesh_pool": suite_mesh_pool, "mesh_hardened": suite_mesh_hardened}
 
 
 def main() -> None:

@@ -9,7 +9,7 @@ params, saved for the ranks), then one ``torchrun`` launch of
 on every rank.  Every rank's greedy token streams must equal the
 reference's, request for request; each tick reads the host's values in one
 gather over ``data``; a paged slot's pages lie in its data rank's block,
-by local id in its table; and the modes a mesh does not serve yet raise.
+by local id in its table; and what a mesh does not serve yet raises.
 """
 import json
 import os
@@ -187,9 +187,11 @@ def test_cache_bytes_count_one_ranks_slots(runs, variant):
         assert per_slot > lock
 
 
-@pytest.mark.parametrize("mode", ["audit", "oversubscribe", "prefix_sharing", "fault_plan",
-                                  "preempts"])
+@pytest.mark.parametrize("mode", ["recurrent", "jamba", "whisper", "embeds", "int4"])
 def test_the_refused_modes_name_the_next_item(runs, mode):
+    """What a mesh does not serve yet (a recurrent model, the hybrid
+    jamba, the EncDec whisper, a VLM prefix, packed int4 weights) raises,
+    naming the item that queues it."""
     _, ranks = runs
     for r in ranks:
         assert "ROADMAP.md queue 1, item 3b.7" in str(r[f"refused/{mode}"])

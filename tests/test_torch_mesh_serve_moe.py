@@ -7,11 +7,13 @@ compete for an expert's capacity, so the mesh's MoE routes the one
 device's tokens as the one device does (the weight-stationary dispatch
 over ``Context.rows``): greedy streams under ``chunked`` and ``ragged``
 (dense and paged) equal the port's one-device run, request for request.
-Under ``chunked_paged`` an idle slot's decode row reads its own data
-rank's pool page 0 where the one device reads the pool's page 0, and that
-row competes for capacity too, so only agreement between the ranks is
-held there.  At temperature 0.7 every rank draws every row from one
-generator over the gathered logit rows: the ranks' streams are identical
+Under ``chunked_paged`` an idle slot's decode row reads pool page 0
+through its unmapped entries, and that row competes for capacity too: the
+ranks read the one device's page 0 (data rank 0's, mirrored on the
+others: ``nn/attention.py`` ``PageZero``), so those streams equal the one
+device's as well, and the ranks agree.  At temperature 0.7 every rank
+draws every row from one generator over the gathered logit rows: the
+ranks' streams are identical
 (the scheduler's policies and ``generate()``), every request ends
 ``ok``, and the draws are the port's one device's.
 """
@@ -21,9 +23,10 @@ import pytest
 from _torch_dist_ranks import launch
 
 RANKS = range(4)
-ARCHS = {"phi": ("phi3.5-moe-42b-a6.6b-smoke", ["scheduler", "chunked", "ragged",
-                                                "ragged_paged"]),
+ARCHS = {"phi": ("phi3.5-moe-42b-a6.6b-smoke", ["scheduler", "chunked", "chunked_paged",
+                                                "ragged", "ragged_paged"]),
          "kimi": ("kimi-k2-1t-a32b-smoke", ["chunked", "ragged"])}
+#: the cases the ranks are also held equal to each other on
 AGREE_ONLY = {"phi": ["chunked_paged"]}
 SAMPLED = ["scheduler", "chunked", "ragged_paged"]
 
@@ -41,7 +44,8 @@ def runs(tmp_path_factory):
               "req/arrival": np.array([0, 0, 1, 1, 3, 4]), "sampled": np.array(",".join(SAMPLED))}
     for name, (arch, policies) in ARCHS.items():
         inputs[f"arch/{name}"] = np.array(arch)
-        inputs[f"policies/{name}"] = np.array(",".join(policies + AGREE_ONLY.get(name, [])))
+        inputs[f"policies/{name}"] = np.array(",".join(dict.fromkeys(
+            policies + AGREE_ONLY.get(name, []))))
     np.savez(d / "inputs.npz", **inputs)
     return launch(4, "mesh_moe", d / "inputs.npz", d)
 
@@ -55,6 +59,22 @@ def test_moe_streams_equal_the_ports_one_device(runs, arch, policy, rank):
     got = runs[rank][f"{arch}/{policy}/mesh"]
     np.testing.assert_array_equal(got, runs[rank][f"{arch}/{policy}/one"])
     assert (got[:, -1] == 0).all()
+
+
+@pytest.mark.parametrize("rank", RANKS)
+@pytest.mark.parametrize("arch,policy", CASES)
+def test_every_decode_row_is_the_one_devices(runs, arch, policy, rank):
+    """Every decode step's logit rows, the idle slots' too, are the one
+    device's rows of this rank's slots.  An idle row is never sampled, but
+    it competes for expert capacity; under ``chunked_paged`` it reads pool
+    page 0 through its unmapped entries, which the mirror makes the one
+    device's page on every rank.  The sums over ``data`` add the experts'
+    partial products in another order, hence the tolerance."""
+    r = runs[rank]
+    got, one = r[f"{arch}/{policy}/mesh/rows"], r[f"{arch}/{policy}/one/rows"]
+    n = one.shape[1] // 2
+    d = rank // 2
+    np.testing.assert_allclose(got, one[:, d * n:(d + 1) * n], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch,policy", [(a, p) for a, ps in AGREE_ONLY.items() for p in ps])

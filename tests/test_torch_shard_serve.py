@@ -135,18 +135,20 @@ def test_the_all_reduce_form_equals_the_native_collectives(runs, rank):
 
 @pytest.mark.parametrize("refused", ["whisper-tiny-smoke", "mamba-130m-smoke", "rwkv6-7b-smoke",
                                      "jamba-v0.1-52b-smoke", "int4", "int2-block", "embeds",
-                                     "with_health"])
+                                     "merge"])
 def test_the_engine_under_a_mesh_is_the_next_slice(refused):
     """``ServeEngine(mesh=...)`` serves the causal attention family (the
     ``mesh_serve`` suites); what it does not serve yet raises, naming the
     next item: recurrent, hybrid and EncDec archs, packed sub-int8
-    weights, a VLM prefix and audit mode's health flags (the scheduler's
-    refused modes are held by ``test_torch_mesh_serve.py``)."""
+    weights, a VLM prefix, and a mixed step's recurrent-state merge (audit
+    mode's health flags serve there since the page pool's slice:
+    ``test_torch_mesh_serve_hardened.py``)."""
     import torch
 
     from repro_torch.dist.sharding import make_axis_rules
     from repro_torch.models.registry import get_config
-    from repro_torch.serve.engine import ServeEngine, make_decode_step, make_prefill_step
+    from repro_torch.serve.engine import ServeEngine, make_mixed_step, make_prefill_step
+    from repro_torch.serve.slot_state import merge_inactive
 
     mesh = {"data": 2, "model": 2}
     rules = make_axis_rules(mesh)
@@ -156,8 +158,8 @@ def test_the_engine_under_a_mesh_is_the_next_slice(refused):
         if refused == "embeds":
             make_prefill_step(model, mesh=mesh, axis_rules=rules)(
                 {}, torch.zeros(1, 2, dtype=torch.int32), None, embeds=torch.zeros(1, 1, 64))
-        elif refused == "with_health":
-            make_decode_step(model, mesh=mesh, axis_rules=rules, with_health=True)
+        elif refused == "merge":
+            make_mixed_step(model, mesh=mesh, axis_rules=rules, merge=merge_inactive)
         else:
             ServeEngine(model, {}, max_len=16, batch_slots=2, device="cpu", mesh=mesh,
                         axis_rules=rules, weight_quant=False if arch == refused else refused)
